@@ -1,9 +1,15 @@
-"""ReCXL core of the port: the protocol simulator and its engine tiers.
+"""ReCXL core of the port: the protocol simulator and its engine tiers,
+and the replication / recovery mechanism.
 
 * :mod:`repro_torch.core.simulator`  -- host trace synthesis, the
   columnar trace bank, and the banked scan on a torch device.
 * :mod:`repro_torch.core.engine`     -- the one-device streaming tier.
-* :mod:`repro_torch.core.scenarios`  -- the paper's sweep grids.
+* :mod:`repro_torch.core.scenarios`  -- the paper's sweep grids, the
+  SS VII-E recovery sweeps and the Fig. 9 fault scenarios.
+* :mod:`repro_torch.core.replication` / :mod:`~repro_torch.core.recovery`
+  -- REPL replication into per-node log rings, Algorithms 1-2 and the
+  downtime model.
+* :mod:`repro_torch.core.logging_unit` -- the Logging Unit state machine.
 * :mod:`repro_torch.core.contention` / :mod:`~repro_torch.core.directory`
   -- the contention and queueing-coupled directory axes.
 
