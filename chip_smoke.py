@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's two paths at full width through the entry points a
-user calls -- the paper's evaluation, and the ReCXL mechanism
-(replication into per-node log rings, Algorithms 1-2 recovery, the
-log-dump compressor) -- and holds each hand-written CUDA kernel against
-its plain PyTorch version:
+Drives the port's three paths at full width through the entry points a
+user calls -- the paper's evaluation, the ReCXL mechanism (replication
+into per-node log rings, Algorithms 1-2 recovery, the log-dump
+compressor), and serving hymba-1.5b (prefill + greedy decode) -- and
+holds each hand-written CUDA kernel against its plain PyTorch version:
 
-1. build ``bank_scan.cu`` and ``log_compress.cu`` from
-   ``src/repro_torch/csrc``, one nvcc each, started together;
+1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu`` and
+   ``ssd_scan.cu`` from ``src/repro_torch/csrc``, one nvcc each, started
+   together;
 2. kernel against the plain version on the card, ``==`` on all three
    outputs, over real banks at sb in {1, 7, 24, 48, 72, 200, 500}, a
    ragged n, n = 1, padded lanes and the ``[0]`` view of a sub-bank stack;
@@ -32,7 +33,28 @@ its plain PyTorch version:
    log ring, 10 steps of YCSB updates (the ring wraps at 8), node 5 fails
    at step 6 and node 11 at step 8, both recover ``==`` their truth; then
    one compress and one decompress of the 500 MB state against its base
-   at 8 and 4 bits, ``==`` the plain version on the card.
+   at 8 and 4 bits, ``==`` the plain version on the card;
+8. ``flash_attention`` and ``ssd_scan`` kernels against their plain
+   versions (``_blockwise_attention``, ``ssd_chunked``) and oracles
+   (``attention_ref``, ``ssd_ref``) on the card, with TF32 off: every
+   case of ``tests/test_kernels.py``, hymba-1.5b's per-layer shapes, an
+   SSD initial state and a decay strong enough to overflow exp above the
+   diagonal, at the JAX tests' tolerances; at hymba's shapes each query
+   row of attention against its own scale and the SSD state against its
+   own, each with a planted fault that must land above the limit; each
+   kernel's time against its bound, its plain version and (attention)
+   ``scaled_dot_product_attention``;
+9. ``repro_torch.launch.serve.serve`` of hymba-1.5b at full width (32
+   layers, d_model 1600, seeded random weights): 4 prompts of 4 096
+   tokens, 32 greedy tokens each; each kernel launched once per layer in
+   the prefill; tokens in range and logits finite; the prefill's logits
+   through the kernels against the plain versions on the card, and decode
+   steps 1 and 31 against a fresh prefill of the prompt plus the tokens
+   generated so far; then the same comparisons on an f32 copy of the
+   weights; in both, faults planted on purpose (a wrong GQA head map, an
+   SSD state not carried across chunks, a zeroed SSD state or a short kv
+   length handed to decode) must land above the limit, save those the
+   bf16 comparison cannot see.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -656,6 +678,551 @@ def block_max(lc, err):
     return rows.amax(dim=1)
 
 
+#: tests/test_kernels.py's cases: (b, sq, skv, h, kh, d, causal, dtype) and
+#: (b, l, h, p, n, chunk, dtype), plus hymba-1.5b's per-layer shapes.
+ATTN_CASES = [
+    (2, 256, 256, 4, 2, 64, True, "float32"),
+    (1, 128, 128, 8, 8, 32, True, "float32"),      # MHA
+    (1, 128, 128, 8, 1, 64, True, "float32"),      # MQA
+    (2, 192, 192, 6, 2, 64, True, "bfloat16"),     # bf16 + unaligned
+    (1, 64, 320, 4, 2, 64, True, "float32"),       # kv longer (decode-ish)
+    (1, 256, 256, 4, 4, 128, False, "float32"),    # non-causal
+]
+SSD_CASES = [
+    (2, 128, 4, 16, 32, 32, "float32"),
+    (1, 96, 2, 64, 128, 32, "float32"),            # unaligned l
+    (2, 64, 3, 32, 16, 64, "float32"),
+    (1, 128, 2, 32, 32, 32, "bfloat16"),
+]
+SERVE_ARCH = "hymba-1.5b"
+SERVE_REDUCED = False            # the published config, full width
+SERVE_BATCH = 4                  # the JAX launcher's --batch
+SERVE_PROMPT = 4096              # the JAX package's BLOCKWISE_THRESHOLD
+SERVE_GEN = 32                   # the JAX launcher's --gen
+#: decode steps whose logits are held against a fresh prefill
+CONSISTENCY_STEPS = (1, SERVE_GEN - 1)
+H100_BF16_OPS_PER_S = 989e12     # dense bf16 tensor-core rate
+ATTN_TOLERANCE = ("tests/test_kernels.py's: allclose atol = rtol = 2e-2 in "
+                  "bf16, 2e-5 in f32 (summation order, bf16 rounding of p)")
+#: at hymba's shape a row's output is ~sqrt(1/n) small, below the absolute
+#: 2e-2 above; each query row is also held to its own largest |value|:
+#: against an f32 oracle at 2^-6 of it (2 to 4 bf16 ulps of the row's top
+#: binade), against the plain version, which rounds its scores to bf16
+#: before the softmax, at 2^-5
+ATTN_ROW_TOLERANCE = {"f32 oracle": 2.0 ** -6, "plain": 2.0 ** -5}
+ATTN_TOLERANCE = ("tests/test_kernels.py's: allclose atol = rtol = 2e-2 in "
+                  "bf16, 2e-5 in f32 (summation order, bf16 rounding of p); "
+                  "at hymba's shape also max|err| of each query row within "
+                  "2^-6 of that row's max|value| against an f32 oracle, "
+                  "2^-5 against the plain version (bf16 scores)")
+SSD_TOLERANCE = ("tests/test_kernels.py's: max|y - y_plain| < 3e-2 (bf16) / "
+                 "1e-5 (f32) of max|y_plain|; the state held to its own scale "
+                 "at the same limit, max|s - s_plain| < 3e-2 / 1e-5 of "
+                 "max|s_plain| (the JAX test's absolute 10x limit exceeds a "
+                 "bf16 state's whole scale) (cumsum order; the plain version "
+                 "rounds att, x*w and C*exp(seg) to the input type, the "
+                 "kernel keeps f32)")
+#: bf16 logits of two computation orders over 32 layers, each rounding its
+#: branch outputs to bf16 (ulp 2^-8 of the value), held to a share of the
+#: largest |logit|: sound comparisons read 1.5-1.9% on the H100, the gated
+#: planted faults of phase 9 6.2% and more
+LOGIT_TOLERANCE = 3e-2
+#: the same comparisons on an f32 copy of the served weights, where two
+#: computation orders differ only by f32 rounding: sound comparisons read
+#: 2.9e-6 on the H100, the planted faults 2.9e-3 and more
+F32_LOGIT_TOLERANCE = 1e-4
+#: the faults phase 9 plants, read through the same comparisons
+FAULT_GQA = "attention: query head h reads kv head h % K"
+FAULT_CHUNK = "ssd: state not carried from chunk to chunk"
+FAULT_ZERO_STATE = "decode: the prefill's ssd state zeroed"
+FAULT_KV_SHORT = "decode: kv cache length one short"
+#: planted faults the bf16 comparisons read but do not gate, and why
+BF16_UNGATED_FAULTS = {
+    f: "in bf16 it reads within the rounding of 32 layers; the f32 copy "
+       "gates it" for f in (FAULT_CHUNK, FAULT_ZERO_STATE)}
+
+
+def rate_for(torch, dtype) -> float:
+    return H100_BF16_OPS_PER_S if dtype == torch.bfloat16 \
+        else H100_F32_OPS_PER_S
+
+
+def bound(nbytes: float, ops: float, ops_per_s: float) -> tuple:
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attn_bound_ms(torch, q, k, causal: bool) -> tuple:
+    """q, k, v read once and out written once, against the exact causal
+    work: 4 D operations (q.k and p.v) per allowed (query, key) pair."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    if causal:
+        off = skv - sq
+        pairs = sum(min(i + off + 1, skv) for i in range(sq))
+    else:
+        pairs = sq * skv
+    return bound(nbytes, 4.0 * d * pairs * b * h, rate_for(torch, q.dtype))
+
+
+def ssd_bound_ms(torch, x, B, chunk: int) -> tuple:
+    """x, dt, A, B, C read once, y and the state written once, against the
+    chunked algorithm's products: C.B^T on the causal half of each chunk,
+    att.x on that half, C.state and the chunk summary."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    chunk = min(chunk, l)
+    nc = -(-l // chunk)
+    tri = chunk * (chunk + 1) / 2
+    es = x.element_size()
+    nbytes = (2 * x.numel() * es + b * l * h * 4 + h * 4
+              + 2 * B.numel() * es + b * h * p * n * es)
+    ops = b * nc * (2 * tri * n + h * (2 * tri * p + 4 * chunk * n * p))
+    return bound(nbytes, ops, rate_for(torch, x.dtype))
+
+
+def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
+    print("phase 8: flash_attn and ssd_scan kernels against their plain "
+          "versions on the card (TF32 off: "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32})")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype="float32", scale=1.0):
+        t = torch.randn(shape, generator=gen, device=dev) * scale
+        return t.to(getattr(torch, dtype))
+
+    out = {"attn_err": 0.0, "ssd_err": 0.0}
+    hymba_attn = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 25, 5, 64, True,
+                  "bfloat16")
+    for case in ATTN_CASES + [hymba_attn]:
+        b, sq, skv, h, kh, d, causal, dt = case
+        q = randn(b, sq, h, d, dtype=dt)
+        k, v = randn(b, skv, kh, d, dtype=dt), randn(b, skv, kh, d, dtype=dt)
+        tol = 2e-2 if dt == "bfloat16" else 2e-5
+        got = fa.ops.flash_attention(q, k, v, causal=causal)
+        plain = attn._blockwise_attention(q, k, v, causal)
+        wants = {"plain": plain}
+        if case != hymba_attn:
+            wants["attention_ref"] = fa.attention_ref(q, k, v, causal)
+        torch.cuda.synchronize()
+        for name, want in wants.items():
+            err = float((got.float() - want.float()).abs().max())
+            ok = bool(torch.allclose(got.float(), want.float(), atol=tol,
+                                     rtol=tol))
+            out["attn_err"] = max(out["attn_err"], err)
+            check(ok, f"flash_attn {case}: kernel vs {name} max_abs_err "
+                  f"{err:.3g} (tol {tol})")
+        if case == hymba_attn:
+            out["attn_rows"] = check_attn_rows(torch, fa, attn, q, k, v, got,
+                                               plain)
+    # hymba's per-layer shape: times against the bound, plain and SDPA
+    out["attn_ms"] = cuda_ms(lambda: fa.ops.flash_attention(q, k, v), 10)
+    out["attn_plain_ms"] = cuda_ms(
+        lambda: attn._blockwise_attention(q, k, v, True), 3)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out["attn_library_ms"] = cuda_ms(
+        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
+    lib_err = float((sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+                     .transpose(1, 2).float() - got.float()).abs().max())
+    out["attn_bound_ms"], out["attn_bound_by"] = attn_bound_ms(torch, q, k,
+                                                               True)
+    print(f"  flash_attn at {hymba_attn}: kernel {out['attn_ms']:.4f} ms "
+          f"(CUDA events, mean of 10); plain {out['attn_plain_ms']:.4f} ms "
+          f"(mean of 3); SDPA {out['attn_library_ms']:.4f} ms (max_abs_err "
+          f"vs the kernel {lib_err:.3g}); bound {out['attn_bound_ms']:.5f} "
+          f"ms ({out['attn_bound_by']})")
+    del q, k, v, qt, kt, vt, got, plain, wants
+
+    hymba_ssd = (SERVE_BATCH, SERVE_PROMPT, 50, 64, 16, 256, "bfloat16")
+    cases = [(c, None, None) for c in SSD_CASES + [hymba_ssd]]
+    cases.append(((2, 200, 4, 64, 16, 64, "float32"), "init-state", None))
+    cases.append(((1, 256, 2, 32, 16, 256, "float32"), None, "strong-decay"))
+    for case, init, decay in cases:
+        b, l, h, p, n, chunk, dt = case
+        x = randn(b, l, h, p, dtype=dt, scale=0.5)
+        dtt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 0.001
+        A = -(torch.rand((h,), generator=gen, device=dev) * 1.5 + 0.5)
+        if case == hymba_ssd:                  # hymba's A = -exp(A_log)
+            A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+        if decay:                              # exp(seg_i - seg_j) overflows
+            A = torch.tensor([-50.0, -1.0], device=dev)
+            dtt = torch.full_like(dtt, 0.1)
+        B, C = randn(b, l, n, dtype=dt, scale=0.3), randn(b, l, n, dtype=dt,
+                                                          scale=0.3)
+        s0 = randn(b, h, p, n, scale=0.1) if init else None
+        tol = 3e-2 if dt == "bfloat16" else 1e-5
+        y, s = ssd.ops.ssd_scan(x, dtt, A, B, C, chunk=chunk, init_state=s0)
+        wants = {"plain": ssm_mod.ssd_chunked(x, dtt, A, B, C, chunk, s0),
+                 "ssd_ref": ssd.ssd_ref(x, dtt, A, B, C, s0)}
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y.float()).all()
+                   and torch.isfinite(s.float()).all()),
+              f"ssd_scan {case} {init or decay or ''}: finite y and state")
+        for name, (yw, sw) in wants.items():
+            err = float((y.float() - yw.float()).abs().max())
+            yrel, srel = max_rel(y.float(), yw.float()), max_rel(
+                s.float(), sw.float())
+            out["ssd_err"] = max(out["ssd_err"], err)
+            out["ssd_state_rel"] = max(out.get("ssd_state_rel", 0.0), srel)
+            check(yrel < tol and srel < tol,
+                  f"ssd_scan {case} {init or decay or ''}: kernel vs {name} "
+                  f"y err {yrel:.3g} of max|y|, state err {srel:.3g} of "
+                  f"max|state| (tol {tol})")
+        if case == hymba_ssd:
+            hx = (x, dtt, A, B, C, chunk)
+            out["ssd_planted_state_rel"] = check_ssd_state_planted(
+                torch, ssd, hx, wants["plain"][1], tol)
+    x, dtt, A, B, C, chunk = hx
+    out["ssd_ms"] = cuda_ms(lambda: ssd.ops.ssd_scan(x, dtt, A, B, C,
+                                                     chunk=chunk), 10)
+    out["ssd_plain_ms"] = cuda_ms(
+        lambda: ssm_mod.ssd_chunked(x, dtt, A, B, C, chunk), 3)
+    out["ssd_bound_ms"], out["ssd_bound_by"] = ssd_bound_ms(torch, x, B,
+                                                            chunk)
+    print(f"  ssd_scan at {hymba_ssd}: kernel {out['ssd_ms']:.4f} ms (CUDA "
+          f"events, mean of 10); plain {out['ssd_plain_ms']:.4f} ms (mean "
+          f"of 3); no single PyTorch call computes the scan; bound "
+          f"{out['ssd_bound_ms']:.5f} ms ({out['ssd_bound_by']})")
+    return out
+
+
+def row_rel(got, want) -> float:
+    """The largest, over query rows, of a row's max|got - want| over that
+    row's max|want|."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs().amax(-1)
+                  / w.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+def check_attn_rows(torch, fa, attn, q, k, v, got, plain) -> dict:
+    """At the serving shape, each query row against its own scale: vs the
+    plain version, and vs an f32 oracle for the first and the last kv group
+    of request 0. A planted fault -- the last q tile without its last kv
+    tile, the one that holds the diagonal -- must land above the limit."""
+    r = {"vs_plain": row_rel(got, plain)}
+    g = q.shape[2] // k.shape[2]
+    for name, kv in (("first", 0), ("last", k.shape[2] - 1)):
+        hs = slice(kv * g, (kv + 1) * g)
+        want = fa.attention_ref(q[:1, :, hs].float(),
+                                k[:1, :, kv:kv + 1].float(),
+                                v[:1, :, kv:kv + 1].float(), True)
+        r[f"vs_f32_{name}_group"] = row_rel(got[:1, :, hs], want)
+        del want
+    t = 64
+    bad = attn._blockwise_attention(q[:, -t:], k[:, :-t], v[:, :-t], False)
+    r["planted"] = row_rel(bad, got[:, -t:])
+    r["planted_abs"] = float((bad.float() - got[:, -t:].float()).abs().max())
+    print(f"  flash_attn at the serving shape, row errors over the row's "
+          f"max|value|: {r}")
+    oracle_tol = ATTN_ROW_TOLERANCE["f32 oracle"]
+    for name, limit in (("vs_plain", ATTN_ROW_TOLERANCE["plain"]),
+                        ("vs_f32_first_group", oracle_tol),
+                        ("vs_f32_last_group", oracle_tol)):
+        check(r[name] <= limit,
+              f"flash_attn at the serving shape, kernel {name}: largest "
+              f"row error {r[name]:.4g} of the row's max|value| (tol "
+              f"{limit:.4g})")
+    check(r["planted"] > max(ATTN_ROW_TOLERANCE.values()),
+          f"planted fault (the last q tile without its last kv tile) reads "
+          f"{r['planted']:.4g} of the row's max|value|, above the row limits "
+          f"(its max_abs_err {r['planted_abs']:.3g}, against the absolute "
+          f"2e-2)")
+    return r
+
+
+def check_ssd_state_planted(torch, ssd, hx, s_plain, tol) -> float:
+    """A planted fault at the serving shape: the final state of a scan that
+    skips the last chunk's update must land above the state limit."""
+    x, dtt, A, B, C, chunk = hx
+    _, s_bad = ssd.ops.ssd_scan(*(t[:, :-chunk].contiguous()
+                                  for t in (x, dtt)), A,
+                                *(t[:, :-chunk].contiguous() for t in (B, C)),
+                                chunk=chunk)
+    rel = max_rel(s_bad.float(), s_plain.float())
+    check(rel > tol, f"planted fault (the state without the last chunk's "
+          f"update) reads {rel:.4g} of max|state|, above the limit {tol}")
+    return rel
+
+
+def plain_attention(attn):
+    return (lambda q, k, v, causal=True, **kw:
+            attn._blockwise_attention(q, k, v, causal))
+
+
+def plain_ssd(ssm_mod):
+    return (lambda x, dt, A, B, C, chunk=256, init_state=None:
+            ssm_mod.ssd_chunked(x, dt, A, B, C, chunk, init_state))
+
+
+def gqa_tiled_attention(attn):
+    """A planted fault: query head h reads kv head h % K (the kv heads
+    tiled, where the model repeats each)."""
+    def fn(q, k, v, causal=True, **kw):
+        g = q.shape[2] // k.shape[2]
+        return attn._blockwise_attention(q, k.repeat(1, 1, g, 1),
+                                         v.repeat(1, 1, g, 1), causal)
+    return fn
+
+
+def chunk_local_ssd(torch, ssm_mod):
+    """A planted fault: the state is not carried from chunk to chunk."""
+    def fn(x, dt, A, B, C, chunk=256, init_state=None):
+        ys = []
+        for c in range(0, x.shape[1], chunk):
+            y, s = ssm_mod.ssd_chunked(x[:, c:c + chunk], dt[:, c:c + chunk],
+                                       A, B[:, c:c + chunk],
+                                       C[:, c:c + chunk], chunk, None)
+            ys.append(y)
+        return torch.cat(ys, dim=1), s
+    return fn
+
+
+def last_logits_with(model, params, prompts, fa_ops, ssd_ops, attn_fn,
+                     ssd_fn):
+    """The prefill's last-position logits with the two kernel ops swapped
+    for ``attn_fn`` / ``ssd_fn``, on the same card tensors."""
+    saved = (fa_ops.flash_attention, ssd_ops.ssd_scan)
+    fa_ops.flash_attention, ssd_ops.ssd_scan = attn_fn, ssd_fn
+    try:
+        logits, _ = model.prefill(params, {"tokens": prompts})
+    finally:
+        fa_ops.flash_attention, ssd_ops.ssd_scan = saved
+    return logits[:, -1].float()
+
+
+def max_rel(got, want) -> float:
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def profile_split(torch, fn) -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` and split the device
+    time by kernel: the attention and SSD kernels, GEMMs (cuBLAS / CUTLASS,
+    the projections, MLP and unembedding), and everything else
+    (normalisations, RoPE, convolution, elementwise, copies, the decode
+    path's plain attention). ``busy`` is the kernels' sum over the wall of
+    the window (host clock, ending in a synchronise); the profiler's own
+    cost is inside that wall. All ms; ``None`` where the profiler reports
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    split = {"flash_attn": 0.0, "ssd_scan": 0.0, "gemm": 0.0, "other": 0.0}
+    launches, rows = 0, []
+    for evt in prof.key_averages():
+        # kernel rows only: a CPU op's row repeats its kernels' time
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = evt.device_time_total
+        name = evt.key.lower()
+        key = ("flash_attn" if "flash_attn_kernel" in name else
+               "ssd_scan" if "ssd_scan_kernel" in name else
+               "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
+                                                 "cublas", "nvjet", "sm90_"))
+               else "other")
+        split[key] += us / 1e3
+        launches += evt.count
+        rows.append((us / 1e3, evt.count, evt.key[:70]))
+    total = sum(split.values())
+    if total == 0.0:
+        return {"wall_ms": wall_ms, "device_ms": None}
+    return {"wall_ms": wall_ms, "device_ms": total, "split_ms": split,
+            "busy": total / wall_ms, "kernel_launches": launches,
+            "top": sorted(rows, reverse=True)[:12]}
+
+
+def to_f32(torch, tree):
+    """A copy of a parameter tree with every floating tensor in f32."""
+    if isinstance(tree, dict):
+        return {k: to_f32(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_f32(torch, v) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def logit_checks(torch, model, params, prompts, gen_toks, first, cache, fa,
+                 ssd, attn, ssm_mod, tol, ungated) -> dict:
+    """Hold the served logits, ``first`` (the last position of a prefill
+    that left ``cache``), with the share ``tol`` of max|logit|: request 0
+    through the kernels against the plain versions, and decode steps
+    CONSISTENCY_STEPS against fresh prefills. Then plant faults and read
+    them through the same two comparisons: each must land above ``tol``,
+    except those in ``ungated``, which are only printed, with the reason
+    the comparison cannot see them."""
+    out = {}
+    check(bool(torch.isfinite(first).all()), "prefill logits finite (no NaN)")
+    plain = last_logits_with(model, params, prompts[:1], fa.ops, ssd.ops,
+                             plain_attention(attn), plain_ssd(ssm_mod))
+    out["kernel_vs_plain_rel"] = max_rel(first[:1], plain)
+    check(out["kernel_vs_plain_rel"] <= tol,
+          f"request 0's last-position logits through the kernels vs the "
+          f"plain versions on the card: max|diff| "
+          f"{out['kernel_vs_plain_rel']:.4g} of max|logit| (tol {tol})")
+    decode_logits = {}
+    for t in range(1, max(CONSISTENCY_STEPS) + 1):
+        step, cache = model.decode_step(params, cache, gen_toks[:, t - 1])
+        if t in CONSISTENCY_STEPS:
+            decode_logits[t] = step.float()
+            check(bool(torch.isfinite(decode_logits[t]).all()),
+                  f"decode step {t}: finite logits")
+    del cache
+    out["consistency"], fresh_logits = {}, {}
+    for t, dec in decode_logits.items():
+        toks = torch.cat([prompts, gen_toks[:, :t]], dim=1)
+        fresh, _ = model.prefill(params, {"tokens": toks})
+        fresh_logits[t] = fresh = fresh[:, -1].float()
+        rel = max_rel(dec, fresh)
+        agree = float((dec.argmax(-1) == fresh.argmax(-1)).float().mean())
+        out["consistency"][t] = {"rel": rel, "argmax_agree": agree}
+        check(rel <= tol,
+              f"decode step {t} vs a fresh prefill of {SERVE_PROMPT + t} "
+              f"tokens, last position: max|diff| {rel:.4g} of max|logit| "
+              f"(tol {tol}); argmax agrees for {agree:.2f} of the requests")
+
+    readings = {}
+
+    def kernel_fault(name, attn_fn, ssd_fn):
+        bad = last_logits_with(model, params, prompts[:1], fa.ops, ssd.ops,
+                               attn_fn, ssd_fn)
+        readings[name] = max_rel(bad, plain)
+
+    def decode_fault(name, fault):
+        _, cache = model.prefill(params, {"tokens": prompts},
+                                 max_len=SERVE_PROMPT + SERVE_GEN)
+        fault(cache)
+        step, _ = model.decode_step(params, cache, gen_toks[:, 0])
+        readings[name] = max_rel(step.float(), fresh_logits[1])
+
+    kernel_fault(FAULT_GQA, gqa_tiled_attention(attn), plain_ssd(ssm_mod))
+    kernel_fault(FAULT_CHUNK, plain_attention(attn),
+                 chunk_local_ssd(torch, ssm_mod))
+    decode_fault(FAULT_ZERO_STATE, lambda c: c["ssd"].zero_())
+    decode_fault(FAULT_KV_SHORT, lambda c: c.update(length=c["length"] - 1))
+    out["planted"] = readings
+    for name, rel in readings.items():
+        print(f"  planted fault, {name}: max|diff| {rel:.4g} of max|logit|"
+              + (f"; not gated: {ungated[name]}" if name in ungated else ""))
+    for name, rel in readings.items():
+        if name not in ungated:
+            check(rel > tol, f"planted fault, {name}: {rel:.4g} of "
+                  f"max|logit|, above the limit {tol}")
+    return out
+
+
+def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
+    print(f"phase 9: serve {SERVE_ARCH} at full width -- {SERVE_BATCH} "
+          f"prompts of {SERVE_PROMPT} tokens, {SERVE_GEN} greedy tokens each")
+    from repro_torch.models import build_model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.ops.flash_attention.launches = 0
+    ssd.ops.ssd_scan.launches = 0
+    t0 = time.perf_counter()
+    res = serve_mod.serve(SERVE_ARCH, reduced=SERVE_REDUCED,
+                          batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                          gen=SERVE_GEN, seed=SEED)
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attn": fa.ops.flash_attention.launches,
+                "ssd_scan": ssd.ops.ssd_scan.launches}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = res.cfg
+    out = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+           "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
+           "decode_tok_per_s": res.decode_tok_per_s, "launches": launches,
+           "peak_bytes": peak, "wall_s": wall_s,
+           "params": cfg.param_count(), "tokens_seq0": res.tokens[0].tolist()}
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count()} parameters ({cfg.dtype}); prefill "
+          f"{res.prefill_s * 1e3:.1f} ms wall; {res.decode_steps} decode "
+          f"steps {out['decode_ms_per_step']:.3f} ms each "
+          f"({res.decode_tok_per_s:.1f} tok/s); peak device memory {peak} "
+          f"bytes; serve() {wall_s:.1f} s with init")
+    print(f"  sample generation (seq 0): {res.tokens[0].tolist()}")
+    check(launches == {"flash_attn": cfg.n_layers, "ssd_scan": cfg.n_layers},
+          f"the prefill launched flash_attn {launches['flash_attn']} and "
+          f"ssd_scan {launches['ssd_scan']} times ({cfg.n_layers} layers)")
+    check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_GEN)
+          and int(res.tokens.min()) >= 0
+          and int(res.tokens.max()) < cfg.vocab_size,
+          f"{SERVE_BATCH} x {SERVE_GEN} tokens, all in [0, {cfg.vocab_size})")
+
+    model = build_model(cfg)
+    params, prompts = res.params, res.prompts
+    gen_toks = res.tokens.to(prompts.device)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      max_len=SERVE_PROMPT + SERVE_GEN)
+        torch.cuda.synchronize()
+        out["warm_prefill_s"] = time.perf_counter() - t0
+        print(f"  a second (warm) prefill: {out['warm_prefill_s'] * 1e3:.1f} "
+              f"ms wall")
+        first = logits[:, -1].float()
+        check(torch.equal(first.argmax(-1).to(torch.int32).cpu(),
+                          res.tokens[:, 0]),
+              "a second prefill gives serve()'s first tokens")
+        del logits
+        out["bf16"] = logit_checks(torch, model, params, prompts, gen_toks,
+                                   first, cache, fa, ssd, attn, ssm_mod,
+                                   LOGIT_TOLERANCE, BF16_UNGATED_FAULTS)
+        del cache, first
+        print(f"  the same weights in f32, request 0 ({cfg.name} with dtype "
+              f"float32, the kernels' f32 instantiations):")
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        model32, params32 = build_model(cfg32), to_f32(torch, params)
+        logits, cache = model32.prefill(params32, {"tokens": prompts[:1]},
+                                        max_len=SERVE_PROMPT + SERVE_GEN)
+        first = logits[:, -1].float()
+        del logits
+        out["f32"] = logit_checks(torch, model32, params32, prompts[:1],
+                                  gen_toks[:1], first, cache, fa, ssd, attn,
+                                  ssm_mod, F32_LOGIT_TOLERANCE, {})
+        del cache, first, params32
+        torch.cuda.empty_cache()
+
+        # where the time goes: one prefill and 8 decode steps, profiled
+        def prefill_once():
+            nonlocal cache
+            _, cache = model.prefill(params, {"tokens": prompts},
+                                     max_len=SERVE_PROMPT + SERVE_GEN)
+
+        def decode_8():
+            nonlocal cache
+            for t in range(8):
+                _, cache = model.decode_step(params, cache, gen_toks[:, t])
+
+        cache = None
+        out["prefill_profile"] = profile_split(torch, prefill_once)
+        out["decode_profile"] = profile_split(torch, decode_8)
+        del cache
+    for what, prof in (("prefill", out["prefill_profile"]),
+                       ("8 decode steps", out["decode_profile"])):
+        if prof["device_ms"] is None:
+            print(f"  {what} under torch.profiler: {prof['wall_ms']:.1f} ms "
+                  f"wall; device time not measured (the profiler reported "
+                  f"none)")
+            continue
+        parts = ", ".join(f"{k} {v:.1f}" for k, v in prof["split_ms"].items())
+        print(f"  {what} under torch.profiler: {prof['wall_ms']:.1f} ms "
+              f"wall, kernels {prof['device_ms']:.1f} ms ({parts}); device "
+              f"busy {prof['busy']:.3f}, {prof['kernel_launches']} kernel "
+              f"launches")
+        for ms, count, name in prof["top"]:
+            print(f"    {ms:9.3f} ms {count:6d}x  {name}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measured numbers "
@@ -676,7 +1243,15 @@ def main(argv=None) -> int:
     from repro_torch.kernels.bank_scan import kernel, ops, ref
     from repro_torch.kernels.log_compress import kernel as lc_kernel
     from repro_torch.kernels.log_compress import ref as lc_ref
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm as ssm_mod
 
+    # plain f32 products in full f32 on the card, never TF32 (both knobs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card}")
@@ -687,9 +1262,14 @@ def main(argv=None) -> int:
           "bank_scan_pallas; compress / decompress (CUDA C++, "
           "src/repro_torch/csrc/log_compress.cu) replace "
           "src/repro/kernels/log_compress/kernel.py:41 compress_pallas / "
-          ":67 decompress_pallas")
+          ":67 decompress_pallas; flash_attn (CUDA C++, "
+          "src/repro_torch/csrc/flash_attn.cu) replaces "
+          "src/repro/kernels/flash_attn/kernel.py:82 flash_attention_pallas; "
+          "ssd_scan (CUDA C++, src/repro_torch/csrc/ssd_scan.cu) replaces "
+          "src/repro/kernels/ssd_scan/kernel.py:79 ssd_scan_pallas")
     t_start = time.perf_counter()
-    build = phase_build([kernel.LIBRARY, lc_kernel.LIBRARY])
+    build = phase_build([kernel.LIBRARY, lc_kernel.LIBRARY,
+                         fa.kernel.LIBRARY, ssd.kernel.LIBRARY])
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
@@ -699,6 +1279,10 @@ def main(argv=None) -> int:
     err5 = phase_compress_vs_plain(torch, lc, lc_ref)
     faults = phase_fault_scenarios(Sc)
     paper = phase_paper_width(torch, lc, lc_ref)
+    torch.cuda.empty_cache()
+    model_k = phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod)
+    torch.cuda.empty_cache()
+    served = phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod)
 
     entry = {
         "name": "bank_scan", "route": "cuda",
@@ -732,7 +1316,21 @@ def main(argv=None) -> int:
         "op_ms": paper[f"{op}_op_ms"],
         "tolerance": LC_TOLERANCE,
     } for i, (op, line) in enumerate((("compress", 41), ("decompress", 67)))]
-    kernels = [entry] + lc_entries
+    model_entries = [{
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{name}.cu",
+        "replaces": f"src/repro/kernels/{name}/kernel.py:{line}",
+        "launches": served["launches"][name],
+        "max_abs_err": model_k[f"{key}_err"],
+        "ms": model_k[f"{key}_ms"], "plain_ms": model_k[f"{key}_plain_ms"],
+        "bound_ms": model_k[f"{key}_bound_ms"],
+        "bound_by": model_k[f"{key}_bound_by"],
+        "library_ms": model_k.get(f"{key}_library_ms"),
+        "tolerance": tol,
+    } for name, key, line, tol in (
+        ("flash_attn", "attn", 82, ATTN_TOLERANCE),
+        ("ssd_scan", "ssd", 79, SSD_TOLERANCE))]
+    kernels = [entry] + lc_entries + model_entries
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
@@ -741,7 +1339,8 @@ def main(argv=None) -> int:
             json.dump({"card": card, "torch": torch.__version__,
                        "cuda": torch.version.cuda, "build": build,
                        "fig10": fig10, "mega": mega, "faults": faults,
-                       "paper_width": paper, "kernels": kernels},
+                       "paper_width": paper, "model_kernels": model_k,
+                       "serve": served, "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,12 @@
+"""Tensor helpers shared by the kernels' launch wrappers."""
+
+from __future__ import annotations
+
+import torch
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernels' vector loads
+    need it (a copy only when the storage offset breaks the alignment)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.log_compress import kernel
 from repro_torch.kernels.log_compress.ref import compress_ref, decompress_ref
+from repro_torch.kernels._tensor import aligned16
 
 BLOCK = 256
 TILE_ROWS = 8                   # the JAX package's padding granule (rows)
@@ -29,12 +30,6 @@ def _route(t: torch.Tensor, name: str) -> str:
         raise ValueError(f"{name} runs on CUDA or CPU tensors, got "
                          f"{t.device}")
     return t.device.type
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned, as the kernels load it."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _pad_to_blocks(flat: torch.Tensor, block: int) -> Tuple[torch.Tensor,
@@ -68,7 +63,7 @@ def compress(values: torch.Tensor, base: torch.Tensor, bits: int = 8
     b2d, _ = _pad_to_blocks(base.reshape(-1).float(), BLOCK)
     if route == "cpu":
         return compress_ref(v2d, b2d, block=BLOCK, bits=bits)
-    out = kernel.launch_compress(_aligned(v2d), _aligned(b2d), bits)
+    out = kernel.launch_compress(aligned16(v2d), aligned16(b2d), bits)
     compress.launches += 1
     return out
 
@@ -95,8 +90,8 @@ def decompress(codes: torch.Tensor, scales: torch.Tensor,
     if route == "cpu":
         out = decompress_ref(codes, scales, b2d)
     else:
-        out = kernel.launch_decompress(_aligned(codes), scales.contiguous(),
-                                       _aligned(b2d))
+        out = kernel.launch_decompress(aligned16(codes), scales.contiguous(),
+                                       aligned16(b2d))
         decompress.launches += 1
     return out.reshape(-1)[:n]
 

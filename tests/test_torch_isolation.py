@@ -31,6 +31,16 @@ from repro_torch.distributed.context import P, make_context
 from repro_torch.kernels import log_compress as TLC
 from repro_torch.kernels.log_compress import kernel as TLC_kernel
 from repro_torch.kernels.log_compress import ops as TLC_ops
+from repro_torch.config import ShapeConfig, get_reduced_config
+from repro_torch.kernels.flash_attn import kernel as FA_kernel
+from repro_torch.kernels.flash_attn import ops as FA_ops
+from repro_torch.kernels.ssd_scan import kernel as SSD_kernel
+from repro_torch.kernels.ssd_scan import ops as SSD_ops
+from repro_torch.launch import serve as TServe
+from repro_torch.models import attention as TA
+from repro_torch.models import build_model
+from repro_torch.models import model_zoo as TMZ
+from repro_torch.models import ssm as TSSM
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 SRC = os.path.join(ROOT, "src")
@@ -44,6 +54,7 @@ MODULES = [
     "repro_torch.kernels", "repro_torch.kernels.bank_scan",
     "repro_torch.kernels.bank_scan.ref", "repro_torch.kernels.bank_scan.kernel",
     "repro_torch.kernels.bank_scan.ops", "repro_torch.kernels.nvcc",
+    "repro_torch.kernels._tensor",
     "repro_torch.config", "repro_torch.core.protocol",
     "repro_torch.core.failures", "repro_torch.core.replication",
     "repro_torch.core.recovery", "repro_torch.core.logging_unit",
@@ -51,9 +62,21 @@ MODULES = [
     "repro_torch.distributed.elastic", "repro_torch.kernels.log_compress",
     "repro_torch.kernels.log_compress.ref",
     "repro_torch.kernels.log_compress.kernel",
-    "repro_torch.kernels.log_compress.ops", "chip_smoke",
+    "repro_torch.kernels.log_compress.ops", "repro_torch.configs.hymba_1_5b",
+    "repro_torch.configs.qwen3_0_6b", "repro_torch.configs.mamba2_2_7b",
+    "repro_torch.models", "repro_torch.models.layers",
+    "repro_torch.models.attention", "repro_torch.models.ssm",
+    "repro_torch.models.transformer", "repro_torch.models.model_zoo",
+    "repro_torch.kernels.flash_attn", "repro_torch.kernels.flash_attn.ref",
+    "repro_torch.kernels.flash_attn.kernel",
+    "repro_torch.kernels.flash_attn.ops", "repro_torch.kernels.ssd_scan",
+    "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.kernel",
+    "repro_torch.kernels.ssd_scan.ops", "repro_torch.training",
+    "repro_torch.training.steps", "repro_torch.launch",
+    "repro_torch.launch.serve", "chip_smoke",
 ]
 SPECS = TSc.sweep_grid(workloads=("ycsb",), configs=("wb", "proactive"))
+HYMBA = get_reduced_config("hymba-1.5b")
 
 
 def _env():
@@ -111,10 +134,16 @@ def no_cuda():
     lambda: TSc.recovery_sweep(workloads=("ycsb",)),
     lambda: TR.recovery_time_batch(1.0, 1.0, 1.0),
     lambda: TLU.init_state(4, 4, 2),
+    lambda: build_model(HYMBA).init(0),
+    lambda: build_model(HYMBA).init_cache(2, 8),
+    lambda: TMZ.make_batch(HYMBA, ShapeConfig("s", 8, 2, "prefill")),
+    lambda: TMZ.params_from_jax(HYMBA, {}),
+    lambda: TServe.serve("hymba-1.5b", reduced=True, prompt_len=8, gen=2),
 ], ids=["simulate_batch", "slowdown_table", "run_grid", "simulate_grid",
         "run_sweep", "device_args", "sub_device_args", "run_fault_scenario",
         "ReplicationEngine", "recovery_sweep", "recovery_time_batch",
-        "logging_unit.init_state"])
+        "logging_unit.init_state", "build_model.init", "init_cache",
+        "make_batch", "params_from_jax", "serve"])
 def test_entry_points_default_to_cuda_and_raise(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
@@ -145,6 +174,55 @@ def test_kernel_ops_take_the_tensors_device(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         TLC.decompress(codes, scales, torch.zeros_like(v), 600)
     assert (TLC.compress.launches, TLC.decompress.launches) == before
+
+
+def test_model_kernel_ops_never_fall_back(monkeypatch):
+    """``flash_attention`` and ``ssd_scan`` on the CUDA route launch the
+    kernel or raise: with the build failing they raise, count no launch,
+    and never call their plain versions. On CPU tensors they run the
+    plain version and count nothing."""
+    q = torch.randn(1, 16, 2, 32)
+    x, dt = torch.randn(1, 16, 2, 32), torch.rand(1, 16, 2) * 0.1
+    A, B = -torch.ones(2), torch.randn(1, 16, 8)
+    before = (FA_ops.flash_attention.launches, SSD_ops.ssd_scan.launches)
+    FA_ops.flash_attention(q, q, q)
+    SSD_ops.ssd_scan(x, dt, A, B, B, chunk=8)
+    assert (FA_ops.flash_attention.launches,
+            SSD_ops.ssd_scan.launches) == before
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("the CUDA route called the plain version")
+
+    monkeypatch.setattr(FA_ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(SSD_ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(FA_kernel, "load", no_nvcc)
+    monkeypatch.setattr(SSD_kernel, "load", no_nvcc)
+    monkeypatch.setattr(TA, "_blockwise_attention", plain_called)
+    monkeypatch.setattr(TA, "_full_attention", plain_called)
+    monkeypatch.setattr(TSSM, "ssd_chunked", plain_called)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        FA_ops.flash_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        SSD_ops.ssd_scan(x, dt, A, B, B, chunk=8)
+    assert (FA_ops.flash_attention.launches,
+            SSD_ops.ssd_scan.launches) == before
+
+
+def test_models_take_the_plain_paths_on_the_cpu(monkeypatch):
+    """On CPU tensors the model's causal self-attention takes the JAX
+    package's threshold path and never the kernel op (on the card,
+    ``chip_smoke.py`` counts the kernel's launches per prefill)."""
+    calls = []
+    monkeypatch.setattr(FA_ops, "flash_attention",
+                        lambda *a, **k: calls.append("flash") or a[0])
+    q = torch.randn(1, 8, 2, 16)
+    for blockwise in (False, True):
+        out = TA._causal_self_attention(q, q, q, use_blockwise=blockwise)
+        assert out.shape == q.shape
+    assert calls == []
 
 
 def _run_chip_smoke(script, cwd):

@@ -1,0 +1,190 @@
+"""The port's SSD-scan kernel op against the JAX package's.
+
+The same numpy inputs go through the JAX ``ssd_scan`` (the Pallas kernel
+in interpret mode and the ``jnp`` route, as ``tests/test_kernels.py``
+runs them on the CPU), its ``ssd_ref`` oracle and ``ssd_chunked``, and
+through the port's ``ssd_scan`` on CPU tensors (the plain version, the
+port's ``ssd_chunked``) and the port's ``ssd_ref``. Tolerances are the
+JAX test's: y within 1e-5 (f32) / 3e-2 (bf16) of max |y|, the state
+within ten times that. The CUDA kernel runs only on the card: its test
+skips here, and ``chip_smoke.py`` holds it against the plain version
+there.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
+from repro.models.ssm import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels.ssd_scan import kernel, ssd_ref, ssd_scan
+from repro_torch.models.ssm import ssd_chunked
+
+# (b, l, h, p, n, chunk, dtype): tests/test_kernels.py's SSD_CASES
+SSD_CASES = [
+    (2, 128, 4, 16, 32, 32, "float32"),
+    (1, 96, 2, 64, 128, 32, "float32"),   # unaligned l
+    (2, 64, 3, 32, 16, 64, "float32"),
+    (1, 128, 2, 32, 32, 32, "bfloat16"),
+]
+IDS = ["f32", "unaligned-l", "one-chunk", "bf16"]
+
+
+def _inputs(case, seed):
+    b, l, h, p, n, chunk, dt = case
+    rng = np.random.default_rng(seed)
+    arrs = {
+        "x": (rng.standard_normal((b, l, h, p)) * 0.5).astype(np.float32),
+        "dt": rng.uniform(0.001, 0.1, (b, l, h)).astype(np.float32),
+        "A": -rng.uniform(0.5, 2.0, (h,)).astype(np.float32),
+        "B": (rng.standard_normal((b, l, n)) * 0.3).astype(np.float32),
+        "C": (rng.standard_normal((b, l, n)) * 0.3).astype(np.float32),
+    }
+    typed = ("x", "B", "C")
+    jx = {k: jnp.asarray(a, dt if k in typed else jnp.float32)
+          for k, a in arrs.items()}
+    tx = {k: torch.from_numpy(a).to(getattr(torch, dt) if k in typed
+                                    else torch.float32)
+          for k, a in arrs.items()}
+    return jx, tx, chunk, (3e-2 if dt == "bfloat16" else 1e-5)
+
+
+def _np(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t.astype(jnp.float32))
+
+
+def _close(y, s, y_ref, s_ref, tol, what):
+    scale = float(np.max(np.abs(_np(y_ref)))) + 1e-9
+    assert np.max(np.abs(_np(y) - _np(y_ref))) / scale < tol, what
+    assert np.max(np.abs(_np(s) - _np(s_ref))) < tol * 10, what
+    # the JAX test's absolute state limit exceeds a bf16 state's whole
+    # scale; hold the state to its own scale as y is held
+    s_scale = float(np.max(np.abs(_np(s_ref)))) + 1e-9
+    assert np.max(np.abs(_np(s) - _np(s_ref))) / s_scale < tol, what
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_plain_version_matches_jax_paths(case):
+    jx, tx, chunk, tol = _inputs(case, seed=21)
+    before = ssd_scan.launches
+    y, s = ssd_scan(tx["x"], tx["dt"], tx["A"], tx["B"], tx["C"], chunk=chunk)
+    assert ssd_scan.launches == before
+    assert y.dtype == s.dtype == tx["x"].dtype
+    j = (jx["x"], jx["dt"], jx["A"], jx["B"], jx["C"])
+    y_ref, s_ref = jax_ssd_ref(*j)
+    _close(y, s, y_ref, s_ref, tol, "jax ssd_ref")
+    for path in ("pallas_interpret", "jnp"):
+        jy, js = jax_ssd_scan(*j, chunk=chunk, force=path)
+        _close(y, s, jy, js, tol, path)
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_oracle_matches_jax_oracle(case):
+    jx, tx, _, tol = _inputs(case, seed=22)
+    y, s = ssd_ref(tx["x"], tx["dt"], tx["A"], tx["B"], tx["C"])
+    jy, js = jax_ssd_ref(jx["x"], jx["dt"], jx["A"], jx["B"], jx["C"])
+    _close(y, s, jy, js, tol, "ssd_ref")
+
+
+@pytest.mark.parametrize("split", [32, 48])
+def test_init_state_continuation(split):
+    """Two calls with the state carried equal one call (the
+    prefill -> decode contract), and match the JAX ssd_chunked given
+    the same initial state."""
+    jx, tx, _, _ = _inputs((1, 96, 2, 16, 16, 32, "float32"), seed=23)
+    t = {k: v for k, v in tx.items()}
+    y_full, s_full = ssd_scan(t["x"], t["dt"], t["A"], t["B"], t["C"], 16)
+    cut = lambda d, a, b: {k: (v if k == "A" else v[:, a:b])  # noqa: E731
+                           for k, v in d.items()}
+    p1, p2 = cut(t, 0, split), cut(t, split, None)
+    y1, s1 = ssd_scan(p1["x"], p1["dt"], p1["A"], p1["B"], p1["C"], 16)
+    y2, s2 = ssd_scan(p2["x"], p2["dt"], p2["A"], p2["B"], p2["C"], 16,
+                      init_state=s1)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y_full.numpy(),
+                               atol=3e-5, rtol=3e-4)
+    np.testing.assert_allclose(s2.numpy(), s_full.numpy(), atol=3e-5,
+                               rtol=3e-4)
+    j2 = cut(jx, split, None)
+    jy2, js2 = jax_ssd_chunked(j2["x"], j2["dt"], j2["A"], j2["B"], j2["C"],
+                               16, init_state=jnp.asarray(s1.numpy()))
+    r2, rs2 = ssd_ref(p2["x"], p2["dt"], p2["A"], p2["B"], p2["C"],
+                      init_state=s1)
+    _close(y2, s2, jy2, js2, 1e-5, "jax ssd_chunked with init_state")
+    _close(y2, s2, r2, rs2, 1e-5, "port ssd_ref with init_state")
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 96])
+def test_ssd_chunked_matches_jax_at_every_chunk(chunk):
+    jx, tx, _, _ = _inputs((2, 96, 2, 16, 24, 0, "float32"), seed=24)
+    y, s = ssd_chunked(tx["x"], tx["dt"], tx["A"], tx["B"], tx["C"], chunk)
+    jy, js = jax_ssd_chunked(jx["x"], jx["dt"], jx["A"], jx["B"], jx["C"],
+                             chunk)
+    np.testing.assert_allclose(y.numpy(), _np(jy), atol=2e-5, rtol=2e-4)
+    np.testing.assert_allclose(s.numpy(), _np(js), atol=2e-5, rtol=2e-4)
+
+
+def test_strong_decay_gives_no_nan():
+    """A = -50 makes exp(seg_i - seg_j) overflow above the diagonal; the
+    mask is a select, so no NaN reaches y (hymba's last head)."""
+    _, tx, _, _ = _inputs((1, 256, 2, 16, 16, 256, "float32"), seed=25)
+    A = torch.tensor([-50.0, -1.0])
+    dt = torch.full_like(tx["dt"], 0.1)
+    y, s = ssd_scan(tx["x"], dt, A, tx["B"], tx["C"], chunk=256)
+    assert torch.isfinite(y).all() and torch.isfinite(s).all()
+    y_ref, s_ref = ssd_ref(tx["x"], dt, A, tx["B"], tx["C"])
+    _close(y, s, y_ref, s_ref, 1e-5, "strong decay")
+
+
+@pytest.mark.parametrize("case", ["rank", "dt-shape", "A-shape", "BC-shape",
+                                  "dtype-mix", "dtype", "head-dim",
+                                  "state-size", "init-shape", "chunk"])
+def test_kernel_wrapper_rejects_bad_inputs(case):
+    """What the CUDA kernel does not take raises before any launch."""
+    x = torch.zeros(1, 32, 2, 64)
+    dt, A = torch.zeros(1, 32, 2), torch.zeros(2)
+    B = torch.zeros(1, 32, 16)
+    a = dict(x=x, dt=dt, A=A, B=B, C=B, chunk=16, init_state=None)
+    a.update({
+        "rank": dict(x=x[0]), "dt-shape": dict(dt=dt[:, :8]),
+        "A-shape": dict(A=torch.zeros(3)),
+        "BC-shape": dict(C=torch.zeros(1, 32, 8)),
+        "dtype-mix": dict(B=B.bfloat16(), C=B.bfloat16()),
+        "dtype": dict(x=x.half(), B=B.half(), C=B.half()),
+        "head-dim": dict(x=torch.zeros(1, 32, 2, 48)),
+        "state-size": dict(B=torch.zeros(1, 32, 200),
+                           C=torch.zeros(1, 32, 200)),
+        "init-shape": dict(init_state=torch.zeros(1, 2, 64, 8)),
+        "chunk": dict(chunk=0),
+    }[case])
+    err = TypeError if case.startswith("dtype") else ValueError
+    with pytest.raises(err):
+        kernel.check_inputs(**a)
+
+
+def test_other_devices_raise():
+    x = torch.zeros(1, 8, 2, 32, device="meta")
+    with pytest.raises(ValueError):
+        ssd_scan(x, x[..., 0], x[0, 0, :, 0], x[:, :, 0], x[:, :, 0])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode "
+                    "(chip_smoke.py runs it against the plain version)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_cuda_kernel_matches_plain(case, cuda_device):
+    _, tx, chunk, tol = _inputs(case, seed=26)
+    before = ssd_scan.launches
+    y, s = ssd_scan(*(tx[k].to(cuda_device) for k in "x dt A B C".split()),
+                    chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    y_ref, s_ref = ssd_ref(tx["x"], tx["dt"], tx["A"], tx["B"], tx["C"])
+    _close(y.cpu(), s.cpu(), y_ref, s_ref, tol, "kernel vs ssd_ref")
