@@ -12,11 +12,14 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
    together;
 2. kernel against the plain version on the card, ``==`` on all three
    outputs, over real banks at sb in {1, 7, 24, 48, 72, 200, 500}, a
-   ragged n, n = 1, padded lanes and the ``[0]`` view of a sub-bank stack;
+   ragged n, n = 1, padded lanes and the ``[0]`` view of a sub-bank stack,
+   with the ring instantiation (register, shared, scratch) each sb ran
+   on: sb 48 and 72 on the register ring;
 3. ``run_sweep(fig10_grid(), n_stores=50_000)`` on the blocked tier: one
    launch, every cell ``==`` the plain version on CPU tensors, three
    cells ``==`` the serial per-store oracle, geomeans inside the paper's
-   bands and ``==`` the JAX package's values at this size;
+   bands and ``==`` the JAX package's values at this size; the kernel's
+   time beside its bound and the serial chain's floor;
 4. ``run_sweep(mega_grid(), n_stores=50_000)`` on the stream tier: 27 +
    1 298 bank rows, 2 700 lanes, one launch per tile, 64 sampled lanes
    ``==`` the plain version on CPU;
@@ -37,17 +40,22 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
 8. ``flash_attention`` and ``ssd_scan`` kernels against their plain
    versions (``_blockwise_attention``, ``ssd_chunked``) and oracles
    (``attention_ref``, ``ssd_ref``) on the card, with TF32 off: every
-   case of ``tests/test_kernels.py``, hymba-1.5b's per-layer shapes, an
-   SSD initial state and a decay strong enough to overflow exp above the
-   diagonal, at the JAX tests' tolerances; at hymba's shapes each query
-   row of attention against its own scale and the SSD state against its
-   own, each with a planted fault that must land above the limit; each
-   kernel's time against its bound, its plain version and (attention)
-   ``scaled_dot_product_attention``;
+   case of ``tests/test_kernels.py`` and a bf16 twin of each f32 attention
+   case (bf16 through the tensor-core kernel, f32 through the CUDA-core
+   one), hymba-1.5b's per-layer shapes, an SSD initial state and a decay
+   strong enough to overflow exp above the diagonal, at the JAX tests'
+   tolerances; at hymba's shapes each query row of attention against its
+   own scale and the SSD state against its own, each with a planted fault
+   that must land above the limit; each kernel's time against its bound,
+   its plain version and (attention, at hymba's and qwen3-0.6b's per-layer
+   shapes, in turns) ``scaled_dot_product_attention`` and the CUDA-core
+   kernel run on bf16;
 9. ``repro_torch.launch.serve.serve`` of hymba-1.5b at full width (32
    layers, d_model 1600, seeded random weights): 4 prompts of 4 096
    tokens, 32 greedy tokens each; each kernel launched once per layer in
-   the prefill; tokens in range and logits finite; the prefill's logits
+   the prefill, attention on the tensor-core kernel (bf16) and, for the
+   f32 copy below, on the CUDA-core one; tokens in range and logits
+   finite; the prefill's logits
    through the kernels against the plain versions on the card, and decode
    steps 1 and 31 against a fresh prefill of the prompt plus the tokens
    generated so far; then the same comparisons on an f32 copy of the
@@ -99,6 +107,10 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 OPS_PER_LANE_STORE = 6           # 2 max, 2 add, 2 compares per store
+#: the serial chain of the scan: c_i needs c_{i-1} through one f32 add and
+#: one max, each ~4 cycles of dependent-issue latency on Hopper's f32 pipe
+CHAIN_OPS_PER_STORE = 2
+CHAIN_OP_CYCLES = 4
 #: geomean_slowdowns(slowdown_table(n_stores=50_000)) of the JAX package
 #: on the CPU: the port must give these exact values.
 JAX_GEOMEANS_50K = {"wt": 7.800868352151868,
@@ -155,6 +167,39 @@ def scan_bound_ms(n_stores: int, trace_idx, wv_idx) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sm_clock_mhz(torch, fn) -> float:
+    """The SM clock (MHz) that ``nvidia-smi --query-gpu=clocks.sm`` reads
+    while ``fn()`` runs back to back on the card."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    t0 = time.perf_counter()
+    while proc.poll() is None and time.perf_counter() - t0 < 60:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    out, err = proc.communicate(timeout=60)
+    if proc.returncode != 0:
+        raise SmokeFailure(f"nvidia-smi clocks.sm failed: {err.strip()}")
+    return float(out.strip().splitlines()[0])
+
+
+def chain_floor_ms(n_stores: int, sm_mhz: float) -> float:
+    """Least time of the scan's serial chain: n_stores x 2 dependent f32
+    operations (add, max) x their latency, at the measured SM clock."""
+    return n_stores * CHAIN_OPS_PER_STORE * CHAIN_OP_CYCLES / sm_mhz * 1e-3
+
+
+def rings_used(ops, fn):
+    """Run ``fn()`` and return the ring instantiations whose launch count
+    moved."""
+    before = dict(ops.bank_scan.launches_by_ring)
+    out = fn()
+    return out, sorted(r for r, n in ops.bank_scan.launches_by_ring.items()
+                       if n != before[r])
+
+
 def jax_fault_checks(name: str) -> tuple:
     """The JAX package's (newest_ts, downtime_ns) checks of one
     enumerated fault scenario."""
@@ -196,10 +241,13 @@ def phase_build(libraries) -> dict:
     for lib in libraries:
         path, nvcc_s, log = lib.last_build
         print(f"build: {path.name} (nvcc {nvcc_s:.3f} s)")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas: {line.strip()}")
+        ptxas = [line.strip() for line in log.splitlines()
+                 if "Compiling entry" in line or "registers" in line
+                 or "spill" in line or "smem" in line]
+        for line in ptxas:
+            print(f"  ptxas: {line}")
         out[f"nvcc_s/{lib.name}"] = nvcc_s
+        out[f"ptxas/{lib.name}"] = ptxas
     print(f"  all built and loaded in {secs:.3f} s")
     return out
 
@@ -223,14 +271,19 @@ def phase_kernel_vs_plain(torch, S, Sc, ops, ref) -> float:
         sub_view = (sub[0], sub[1][0], sub[2][0], sub[3][0])
         for sb in (1, 7, 24, 48, 72, 200, 500):
             for name, banks in (("columns", cols), ("sub[0]", sub_view)):
-                got = ops.bank_scan(*banks, tr, wv, chunk=sb, sb=sb)
+                got, rings = rings_used(ops, lambda: ops.bank_scan(
+                    *banks, tr, wv, chunk=sb, sb=sb))
                 want = ref.bank_scan_ref(*banks, tr, wv, chunk=sb, sb=sb)
                 torch.cuda.synchronize()
                 same = all(torch.equal(g, w) for g, w in zip(got, want))
                 err = float((got[0] - want[0]).abs().max())
                 max_err = max(max_err, err)
-                check(same, f"n={n} sb={sb} {name} lanes={len(rows)}: "
-                      f"kernel == plain (max_abs_err {err})")
+                check(same, f"n={n} sb={sb} {name} lanes={len(rows)}, "
+                      f"{'/'.join(rings)} ring: kernel == plain "
+                      f"(max_abs_err {err})")
+                if sb in (48, 72):
+                    check(rings == ["register"], f"sb={sb} ran on the "
+                          f"register ring")
     check_bad_index(torch, ops, cols)
     return max_err
 
@@ -310,21 +363,29 @@ def phase_fig10(torch, S, E, Sc, C, ops, ref) -> dict:
     check(all(gm[c] == v for c, v in JAX_GEOMEANS_50K.items()),
           "geomeans == the JAX package's at 50 000 stores")
 
-    kernel_ms = cuda_ms(lambda: ops.bank_scan(*dev_cols, tr_d, wv_d,
-                                              chunk=chunk, sb=sb), 10)
+    def launch():
+        return ops.bank_scan(*dev_cols, tr_d, wv_d, chunk=chunk, sb=sb)
+
+    kernel_ms = cuda_ms(launch, 10)
+    sm_mhz = sm_clock_mhz(torch, launch)
     t0 = time.perf_counter()
     ref.bank_scan_ref(*dev_cols, tr_d, wv_d, chunk=chunk, sb=sb)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     bound_ms, bound_by = scan_bound_ms(N_STORES, tr, wv)
+    floor_ms = chain_floor_ms(N_STORES, sm_mhz)
     print(f"  wall: cold {cold_s:.3f} s, warm {warm_s:.3f} s")
     print(f"  kernel {kernel_ms:.4f} ms for {len(tr)} lanes (CUDA events, "
           f"mean of 10); plain version on the card {plain_ms:.1f} ms; "
-          f"bound {bound_ms:.5f} ms ({bound_by})")
+          f"bound {bound_ms:.5f} ms ({bound_by}); chain floor "
+          f"{floor_ms:.4f} ms ({N_STORES} stores x {CHAIN_OPS_PER_STORE} "
+          f"dependent f32 ops x {CHAIN_OP_CYCLES} cycles at clocks.sm "
+          f"{sm_mhz:.0f} MHz, read during the launches)")
     return {"launches": launches, "cold_s": cold_s, "warm_s": warm_s,
             "lanes": len(tr), "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
-            "geomeans": gm}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "chain_floor_ms": floor_ms, "sm_mhz": sm_mhz,
+            "max_abs_err": err, "geomeans": gm}
 
 
 def phase_mega(torch, S, E, Sc, T, ops, ref) -> dict:
@@ -416,11 +477,16 @@ def phase_mega(torch, S, E, Sc, T, ops, ref) -> dict:
     kernel_total = sum(t[0] for t in per_tile)
     ms_mean = kernel_total / len(per_tile)
     bound_mean = sum(t[1] for t in per_tile) / len(per_tile)
+    sm_mhz = sm_clock_mhz(torch, lambda: ops.bank_scan(
+        *sub_view, tr_d, wv_d, chunk=tile.sig.chunk,
+        sb=tile.sig.sb_uniform))
+    floor_ms = chain_floor_ms(N_STORES, sm_mhz)
     print(f"  per tile: kernel {ms_mean:.4f} ms mean (min "
           f"{min(t[0] for t in per_tile):.4f}, max "
           f"{max(t[0] for t in per_tile):.4f}), bound {bound_mean:.5f} ms "
-          f"({per_tile[0][2]}); kernel total {kernel_total:.2f} ms of "
-          f"{wall_s * 1e3:.1f} ms wall")
+          f"({per_tile[0][2]}), chain floor {floor_ms:.4f} ms (clocks.sm "
+          f"{sm_mhz:.0f} MHz during the launches); kernel total "
+          f"{kernel_total:.2f} ms of {wall_s * 1e3:.1f} ms wall")
     t0 = time.perf_counter()
     ref.bank_scan_ref(*sub_view, tr_d, wv_d, chunk=tile.sig.chunk,
                       sb=tile.sig.sb_uniform)
@@ -431,8 +497,8 @@ def phase_mega(torch, S, E, Sc, T, ops, ref) -> dict:
             "telemetry_ms": split, "tile_kernel_ms": [t[0] for t in per_tile],
             "tile_bound_ms": [t[1] for t in per_tile], "kernel_ms": ms_mean,
             "kernel_total_ms": kernel_total, "bound_ms": bound_mean,
-            "bound_by": per_tile[0][2], "plain_ms": plain_ms,
-            "max_abs_err": max_err}
+            "bound_by": per_tile[0][2], "chain_floor_ms": floor_ms,
+            "sm_mhz": sm_mhz, "plain_ms": plain_ms, "max_abs_err": max_err}
 
 
 def phase_compress_vs_plain(torch, lc, lc_ref) -> float:
@@ -679,7 +745,8 @@ def block_max(lc, err):
 
 
 #: tests/test_kernels.py's cases: (b, sq, skv, h, kh, d, causal, dtype) and
-#: (b, l, h, p, n, chunk, dtype), plus hymba-1.5b's per-layer shapes.
+#: (b, l, h, p, n, chunk, dtype), plus hymba-1.5b's per-layer shapes; each
+#: f32 attention case also in bf16 (the tensor-core kernel), and head dim 16.
 ATTN_CASES = [
     (2, 256, 256, 4, 2, 64, True, "float32"),
     (1, 128, 128, 8, 8, 32, True, "float32"),      # MHA
@@ -688,6 +755,12 @@ ATTN_CASES = [
     (1, 64, 320, 4, 2, 64, True, "float32"),       # kv longer (decode-ish)
     (1, 256, 256, 4, 4, 128, False, "float32"),    # non-causal
 ]
+ATTN_CASES += [c[:7] + ("bfloat16",) for c in ATTN_CASES
+               if c[7] == "float32"]
+ATTN_CASES.append((1, 128, 128, 4, 2, 16, True, "bfloat16"))   # head dim 16
+#: per-layer attention shapes timed against SDPA: (name, B, S, H, K, D)
+ATTN_TIMED = [("hymba-1.5b", 4, 4096, 25, 5, 64),
+              ("qwen3-0.6b", 4, 4096, 16, 8, 128)]
 SSD_CASES = [
     (2, 128, 4, 16, 32, 32, "float32"),
     (1, 96, 2, 64, 128, 32, "float32"),            # unaligned l
@@ -803,7 +876,14 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
         q = randn(b, sq, h, d, dtype=dt)
         k, v = randn(b, skv, kh, d, dtype=dt), randn(b, skv, kh, d, dtype=dt)
         tol = 2e-2 if dt == "bfloat16" else 2e-5
+        before = dict(fa.ops.flash_attention.launches_by_kernel)
         got = fa.ops.flash_attention(q, k, v, causal=causal)
+        which = "mma" if dt == "bfloat16" else "simt"
+        moved = {n: c - before[n] for n, c in
+                 fa.ops.flash_attention.launches_by_kernel.items()}
+        check(moved == {"mma": int(which == "mma"),
+                        "simt": int(which == "simt")},
+              f"flash_attn {case}: one launch of the {which} kernel")
         plain = attn._blockwise_attention(q, k, v, causal)
         wants = {"plain": plain}
         if case != hymba_attn:
@@ -819,24 +899,15 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
         if case == hymba_attn:
             out["attn_rows"] = check_attn_rows(torch, fa, attn, q, k, v, got,
                                                plain)
-    # hymba's per-layer shape: times against the bound, plain and SDPA
-    out["attn_ms"] = cuda_ms(lambda: fa.ops.flash_attention(q, k, v), 10)
+    # hymba's per-layer shape: the plain version's time
     out["attn_plain_ms"] = cuda_ms(
         lambda: attn._blockwise_attention(q, k, v, True), 3)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    out["attn_library_ms"] = cuda_ms(
-        lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), 10)
-    lib_err = float((sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-                     .transpose(1, 2).float() - got.float()).abs().max())
-    out["attn_bound_ms"], out["attn_bound_by"] = attn_bound_ms(torch, q, k,
-                                                               True)
-    print(f"  flash_attn at {hymba_attn}: kernel {out['attn_ms']:.4f} ms "
-          f"(CUDA events, mean of 10); plain {out['attn_plain_ms']:.4f} ms "
-          f"(mean of 3); SDPA {out['attn_library_ms']:.4f} ms (max_abs_err "
-          f"vs the kernel {lib_err:.3g}); bound {out['attn_bound_ms']:.5f} "
-          f"ms ({out['attn_bound_by']})")
-    del q, k, v, qt, kt, vt, got, plain, wants
+    del q, k, v, got, plain, wants
+    out["attn_timed"] = [time_attention(torch, fa, randn, shape)
+                         for shape in ATTN_TIMED]
+    hymba = out["attn_timed"][0]
+    for key in ("ms", "library_ms", "simt_ms", "bound_ms", "bound_by"):
+        out[f"attn_{key}"] = hymba[key]
 
     hymba_ssd = (SERVE_BATCH, SERVE_PROMPT, 50, 64, 16, 256, "bfloat16")
     cases = [(c, None, None) for c in SSD_CASES + [hymba_ssd]]
@@ -888,6 +959,43 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
           f"events, mean of 10); plain {out['ssd_plain_ms']:.4f} ms (mean "
           f"of 3); no single PyTorch call computes the scan; bound "
           f"{out['ssd_bound_ms']:.5f} ms ({out['ssd_bound_by']})")
+    return out
+
+
+def time_attention(torch, fa, randn, shape) -> dict:
+    """At one per-layer shape (bf16, causal): the tensor-core kernel, SDPA
+    and the CUDA-core kernel run on bf16, timed in turns (kernel, SDPA,
+    CUDA cores, then the reverse; CUDA events, mean of 10 launches, 3 for
+    the CUDA-core kernel), against the bound."""
+    name, b, s, h, kh, d = shape
+    q = randn(b, s, h, d, dtype="bfloat16")
+    k, v = (randn(b, s, kh, d, dtype="bfloat16") for _ in range(2))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    runs = {
+        "ms": (lambda: fa.kernel.launch(q, k, v, True, "mma"), 10),
+        "library_ms": (lambda: sdpa(qt, kt, vt, is_causal=True,
+                                    enable_gqa=True), 10),
+        "simt_ms": (lambda: fa.kernel.launch(q, k, v, True, "simt"), 3)}
+    times = {key: [] for key in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            fn, reps = runs[key]
+            times[key].append(cuda_ms(fn, reps))
+    out = {key: sum(ts) / len(ts) for key, ts in times.items()}
+    out["turns"] = times
+    lib_err = float((sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+                     .transpose(1, 2).float()
+                     - fa.kernel.launch(q, k, v, True, "mma").float())
+                    .abs().max())
+    out["bound_ms"], out["bound_by"] = attn_bound_ms(torch, q, k, True)
+    out["shape"] = shape
+    print(f"  flash_attn at {name}'s per-layer shape (B {b}, S {s}, H {h}, "
+          f"K {kh}, D {d}, bf16, causal): tensor-core kernel "
+          f"{out['ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms (max_abs_err "
+          f"vs the kernel {lib_err:.3g}), CUDA-core kernel "
+          f"{out['simt_ms']:.4f} ms (in turns: {json.dumps(times)}); bound "
+          f"{out['bound_ms']:.5f} ms ({out['bound_by']})")
     return out
 
 
@@ -1025,7 +1133,7 @@ def profile_split(torch, fn) -> dict:
             continue
         us = evt.device_time_total
         name = evt.key.lower()
-        key = ("flash_attn" if "flash_attn_kernel" in name else
+        key = ("flash_attn" if "flash_attn" in name else
                "ssd_scan" if "ssd_scan_kernel" in name else
                "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
                                                  "cublas", "nvjet", "sm90_"))
@@ -1125,7 +1233,7 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
     from repro_torch.models import build_model
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    fa.ops.flash_attention.launches = 0
+    fa.ops.reset_counts()
     ssd.ops.ssd_scan.launches = 0
     t0 = time.perf_counter()
     res = serve_mod.serve(SERVE_ARCH, reduced=SERVE_REDUCED,
@@ -1134,11 +1242,13 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
     wall_s = time.perf_counter() - t0
     launches = {"flash_attn": fa.ops.flash_attention.launches,
                 "ssd_scan": ssd.ops.ssd_scan.launches}
+    by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated()
     cfg = res.cfg
     out = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
            "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
            "decode_tok_per_s": res.decode_tok_per_s, "launches": launches,
+           "attn_launches_by_kernel": by_kernel,
            "peak_bytes": peak, "wall_s": wall_s,
            "params": cfg.param_count(), "tokens_seq0": res.tokens[0].tolist()}
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -1151,6 +1261,9 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
     check(launches == {"flash_attn": cfg.n_layers, "ssd_scan": cfg.n_layers},
           f"the prefill launched flash_attn {launches['flash_attn']} and "
           f"ssd_scan {launches['ssd_scan']} times ({cfg.n_layers} layers)")
+    check(by_kernel == {"mma": cfg.n_layers, "simt": 0},
+          f"all {cfg.n_layers} attention launches of the bf16 prefill went "
+          f"through the tensor-core kernel ({by_kernel})")
     check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_GEN)
           and int(res.tokens.min()) >= 0
           and int(res.tokens.max()) < cfg.vocab_size,
@@ -1181,8 +1294,13 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
               f"float32, the kernels' f32 instantiations):")
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         model32, params32 = build_model(cfg32), to_f32(torch, params)
+        fa.ops.reset_counts()
         logits, cache = model32.prefill(params32, {"tokens": prompts[:1]},
                                         max_len=SERVE_PROMPT + SERVE_GEN)
+        by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
+        check(by_kernel == {"mma": 0, "simt": cfg.n_layers},
+              f"all {cfg.n_layers} attention launches of the f32 prefill "
+              f"went through the CUDA-core kernel ({by_kernel})")
         first = logits[:, -1].float()
         del logits
         out["f32"] = logit_checks(torch, model32, params32, prompts[:1],
@@ -1262,7 +1380,8 @@ def main(argv=None) -> int:
           "bank_scan_pallas; compress / decompress (CUDA C++, "
           "src/repro_torch/csrc/log_compress.cu) replace "
           "src/repro/kernels/log_compress/kernel.py:41 compress_pallas / "
-          ":67 decompress_pallas; flash_attn (CUDA C++, "
+          ":67 decompress_pallas; flash_attn (CUDA C++, bf16 on the "
+          "tensor cores and f32 on the CUDA cores, "
           "src/repro_torch/csrc/flash_attn.cu) replaces "
           "src/repro/kernels/flash_attn/kernel.py:82 flash_attention_pallas; "
           "ssd_scan (CUDA C++, src/repro_torch/csrc/ssd_scan.cu) replaces "
@@ -1292,16 +1411,18 @@ def main(argv=None) -> int:
         "max_abs_err": max(err2, fig10["max_abs_err"], mega["max_abs_err"]),
         "ms": mega["kernel_ms"], "plain_ms": mega["plain_ms"],
         "bound_ms": mega["bound_ms"], "bound_by": mega["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "chain_floor_ms": mega["chain_floor_ms"],
         "tolerance": TOLERANCE,
         "paths": [
             {"path": "fig10 blocked", "lanes": fig10["lanes"],
              "launches": fig10["launches"], "ms": fig10["kernel_ms"],
-             "plain_ms": fig10["plain_ms"], "bound_ms": fig10["bound_ms"]},
+             "plain_ms": fig10["plain_ms"], "bound_ms": fig10["bound_ms"],
+             "chain_floor_ms": fig10["chain_floor_ms"]},
             {"path": "mega-grid stream, per tile",
              "lanes": -(-E._default_tile_cells(N_STORES) // 8) * 8,
              "launches": mega["launches"], "ms": mega["kernel_ms"],
-             "plain_ms": mega["plain_ms"], "bound_ms": mega["bound_ms"]},
+             "plain_ms": mega["plain_ms"], "bound_ms": mega["bound_ms"],
+             "chain_floor_ms": mega["chain_floor_ms"]},
         ],
     }
     lc_entries = [{
@@ -1330,6 +1451,12 @@ def main(argv=None) -> int:
     } for name, key, line, tol in (
         ("flash_attn", "attn", 82, ATTN_TOLERANCE),
         ("ssd_scan", "ssd", 79, SSD_TOLERANCE))]
+    attn_entry = model_entries[0]
+    attn_entry["simt_ms"] = model_k["attn_simt_ms"]
+    attn_entry["shapes"] = [
+        {k: t[k] for k in ("shape", "ms", "library_ms", "simt_ms",
+                           "bound_ms", "bound_by")}
+        for t in model_k["attn_timed"]]
     kernels = [entry] + lc_entries + model_entries
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if args.report:

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -10,3 +13,11 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     need it (a copy only when the storage offset breaks the alignment)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@contextlib.contextmanager
+def on_card(dev: torch.device) -> Iterator[int]:
+    """Make ``dev`` the current CUDA device and yield the handle of its
+    current stream, the one a kernel is launched on."""
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream

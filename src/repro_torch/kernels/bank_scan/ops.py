@@ -4,7 +4,8 @@ A CUDA tensor launches the hand-written kernel (``kernel.py``) or
 raises; a CPU tensor runs the plain torch version (``ref.py``). There is
 no override that sends a CUDA tensor to the plain version.
 ``bank_scan.launches`` counts kernel launches, so a run can show that
-its scans went through the kernel.
+its scans went through the kernel, and ``bank_scan.launches_by_ring``
+splits them by ring instantiation ("register", "shared", "scratch").
 """
 
 from __future__ import annotations
@@ -15,6 +16,13 @@ import torch
 
 from repro_torch.kernels.bank_scan import kernel
 from repro_torch.kernels.bank_scan.ref import bank_scan_ref
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bank_scan runs on CUDA or CPU tensors, got "
+                         f"{t.device}")
+    return t.device.type
 
 
 def _check(a_bank: torch.Tensor, w_bank: torch.Tensor, v_bank: torch.Tensor,
@@ -67,17 +75,17 @@ def bank_scan(a_bank: torch.Tensor, w_bank: torch.Tensor,
     :func:`bank_scan_ref`; other devices raise.
     """
     _check(a_bank, w_bank, v_bank, p_bank, trace_idx, wv_idx, sb)
-    if a_bank.device.type == "cpu":
+    if _route(a_bank) == "cpu":
         return bank_scan_ref(a_bank, w_bank, v_bank, p_bank, trace_idx,
                              wv_idx, chunk=chunk, sb=sb)
-    if a_bank.device.type != "cuda":
-        raise ValueError(f"bank_scan runs on CUDA or CPU tensors, got "
-                         f"{a_bank.device}")
     out = kernel.launch(a_bank, w_bank, v_bank, p_bank, trace_idx, wv_idx,
                         int(sb))
     bank_scan.launches += 1
+    bank_scan.launches_by_ring[kernel.ring_for(int(sb))] += 1
     return out
 
 
-#: Kernel launches since import (CPU calls are not counted).
+#: Kernel launches since import (CPU calls are not counted), in all and by
+#: ring instantiation.
 bank_scan.launches = 0
+bank_scan.launches_by_ring = {ring: 0 for ring in kernel.RINGS}

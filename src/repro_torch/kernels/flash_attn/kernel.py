@@ -1,10 +1,14 @@
-"""Build and ctypes binding of the CUDA flash-attention kernel.
+"""Build and ctypes binding of the CUDA flash-attention kernels.
 
-The kernel (``src/repro_torch/csrc/flash_attn.cu``) is compiled by hand
-with ``nvcc`` for ``sm_90a`` at first use, through the port's shared
-build helper (:mod:`repro_torch.kernels.nvcc`), into
+The kernels (``src/repro_torch/csrc/flash_attn.cu``) are compiled by
+hand with ``nvcc`` for ``sm_90a`` at first use, through the port's
+shared build helper (:mod:`repro_torch.kernels.nvcc`), into
 ``build/repro_torch/libflash_attn-<hash>.so``. Nothing here runs at
-import time.
+import time. Two kernels live in the library, and the dtype picks one
+(:data:`KERNEL_FOR_DTYPE`): bf16 runs on the tensor cores
+(``flash_attn_mma_launch``), f32 on the CUDA cores
+(``flash_attn_launch``), since TF32 products would miss the f32
+tolerance of 2e-5.
 """
 
 from __future__ import annotations
@@ -14,11 +18,14 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.kernels._tensor import aligned16
+from repro_torch.kernels._tensor import aligned16, on_card
 from repro_torch.kernels.nvcc import CudaLibrary
 
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The kernel of each dtype: "mma" on the tensor cores, "simt" on the
+#: CUDA cores.
+KERNEL_FOR_DTYPE = {torch.bfloat16: "mma", torch.float32: "simt"}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -28,6 +35,11 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
         ctypes.c_void_p]
     lib.flash_attn_launch.restype = ctypes.c_int
+    lib.flash_attn_mma_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attn_mma_launch.restype = ctypes.c_int
     lib.flash_attn_error_string.argtypes = [ctypes.c_int]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
@@ -65,26 +77,45 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
 
 
+def kernel_for(dtype: torch.dtype) -> str:
+    """The kernel that runs ``dtype``: the one place the choice is made."""
+    if dtype not in KERNEL_FOR_DTYPE:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {dtype}")
+    return KERNEL_FOR_DTYPE[dtype]
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> torch.Tensor:
+           causal: bool, which: str | None = None) -> torch.Tensor:
     """Attention on the current stream of the tensors' card; returns
-    ``(B, Sq, H, D)`` in q's dtype. Checks its inputs; raises
+    ``(B, Sq, H, D)`` in q's dtype. ``which`` names the kernel ("mma" or
+    "simt"); by default the dtype's (:func:`kernel_for`), the only
+    choice the public op makes. Checks its inputs; raises
     ``RuntimeError`` on a non-zero launch status; does not synchronise."""
     check_inputs(q, k, v, causal)
+    which = which or kernel_for(q.dtype)
+    if which == "mma" and q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core kernel takes bfloat16, got "
+                        f"{q.dtype}")
+    if which not in ("mma", "simt"):
+        raise ValueError(f"no flash_attn kernel {which!r}")
     lib = load()
     q, k, v = aligned16(q), aligned16(k), aligned16(v)
     b, sq, h, d = q.shape
     skv, kh = k.shape[1], k.shape[2]
-    dev = q.device
-    with torch.cuda.device(dev):
-        out = torch.empty_like(q)
-        status = lib.flash_attn_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
-            skv, h, kh, d, int(causal), float(1.0 / np.sqrt(d)),
-            DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    scale = float(1.0 / np.sqrt(d))
+    out = torch.empty_like(q)
+    with on_card(q.device) as stream:
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        if which == "mma":
+            status = lib.flash_attn_mma_launch(
+                *ptrs, b, sq, skv, h, kh, d, int(causal), scale, stream)
+        else:
+            status = lib.flash_attn_launch(
+                *ptrs, b, sq, skv, h, kh, d, int(causal), scale,
+                DTYPES[q.dtype], stream)
     if status != 0:
         msg = lib.flash_attn_error_string(status).decode()
-        raise RuntimeError(f"flash_attn launch failed (q {tuple(q.shape)}, "
-                           f"k {tuple(k.shape)}, {q.dtype}): CUDA error "
-                           f"{status} ({msg})")
+        raise RuntimeError(f"flash_attn {which} launch failed (q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype}): CUDA error {status} ({msg})")
     return out

@@ -7,9 +7,14 @@ oracle, and through the port's ``flash_attention`` on CPU tensors, which
 runs the plain version (``_blockwise_attention``), and the port's
 ``attention_ref``. Tolerances are the JAX test's: 2e-5 in f32, 2e-2 in
 bf16 (summation order and bf16 rounding points differ between XLA and
-torch). The CUDA kernel runs only on the card: its test skips here, and
-``chip_smoke.py`` holds it against the plain version there.
+torch). The CUDA kernels run only on the card: their tests skip here, and
+``chip_smoke.py`` holds them against the plain version there. What
+surrounds them -- which kernel a dtype takes, the arguments each entry
+point gets, the counters, a failed launch -- is tested here against a
+fake library in place of the built one.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ from repro.kernels.flash_attn.ops import flash_attention as jax_flash
 from repro.kernels.flash_attn.ref import attention_ref as jax_attention_ref
 from repro_torch.kernels.flash_attn import attention_ref, flash_attention
 from repro_torch.kernels.flash_attn import kernel
+from repro_torch.kernels.flash_attn import ops as fa_ops
 
 # (b, sq, skv, h, kh, d, causal, dtype): tests/test_kernels.py's ATTN_CASES
 ATTN_CASES = [
@@ -32,6 +38,13 @@ ATTN_CASES = [
     (1, 256, 256, 4, 4, 128, False, "float32"),   # non-causal
 ]
 IDS = ["gqa", "mha", "mqa", "bf16-unaligned", "kv-longer", "non-causal"]
+# on the card: a bf16 twin of each f32 case (the tensor-core kernel) and
+# head dim 16
+CUDA_CASES = ATTN_CASES + [c[:7] + ("bfloat16",) for c in ATTN_CASES
+                           if c[7] == "float32"] + [
+    (1, 128, 128, 4, 2, 16, True, "bfloat16")]
+CUDA_IDS = IDS + [f"{i}-bf16" for i, c in zip(IDS, ATTN_CASES)
+                  if c[7] == "float32"] + ["d16-bf16"]
 
 
 def _inputs(case, seed):
@@ -125,12 +138,104 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("case", ATTN_CASES, ids=IDS)
+@pytest.mark.parametrize("case", CUDA_CASES, ids=CUDA_IDS)
 def test_cuda_kernel_matches_plain(case, cuda_device):
     _, (q, k, v), causal, tol = _inputs(case, seed=14)
     before = flash_attention.launches
+    by_kernel = dict(flash_attention.launches_by_kernel)
     got = flash_attention(q.to(cuda_device), k.to(cuda_device),
                           v.to(cuda_device), causal=causal)
     assert flash_attention.launches == before + 1
+    which = "mma" if q.dtype == torch.bfloat16 else "simt"
+    assert flash_attention.launches_by_kernel[which] == by_kernel[which] + 1
     want = flash_attention(q, k, v, causal=causal, block_q=64, block_k=64)
     np.testing.assert_allclose(_np(got.cpu()), _np(want), atol=tol, rtol=tol)
+
+
+class FakeLibrary:
+    """Stands in for the built library: records each entry point's
+    arguments and returns ``status``."""
+
+    def __init__(self, status=0):
+        self.status = status
+        self.calls = []
+
+    def flash_attn_mma_launch(self, *args):
+        self.calls.append(("mma", args))
+        return self.status
+
+    def flash_attn_launch(self, *args):
+        self.calls.append(("simt", args))
+        return self.status
+
+    def flash_attn_error_string(self, code):
+        return b"fake failure"
+
+
+@contextlib.contextmanager
+def _no_card(dev):
+    yield 7                              # a stream handle
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The CUDA route of the op, on CPU tensors, into a fake library."""
+    lib = FakeLibrary()
+    monkeypatch.setattr(fa_ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(kernel, "load", lambda: lib)
+    monkeypatch.setattr(kernel, "on_card", _no_card)
+    return lib
+
+
+@pytest.mark.parametrize("d", kernel.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dtype_picks_the_kernel_and_its_arguments(fake_library, d, dtype):
+    """bf16 calls the tensor-core entry point, f32 the CUDA-core one, each
+    with the shapes, the f32 scale 1/sqrt(D), the mask flag and the stream;
+    the total and the per-kernel counters move by one."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros(2, 96, 6, d, dtype=dt)
+    k = torch.zeros(2, 160, 3, d, dtype=dt)
+    total = flash_attention.launches
+    by_kernel = dict(flash_attention.launches_by_kernel)
+    out = flash_attention(q, k, k.clone(), causal=True)
+    assert out.shape == q.shape and out.dtype == dt
+    [(which, args)] = fake_library.calls
+    assert which == ("mma" if dtype == "bfloat16" else "simt")
+    assert args[4:11] == (2, 96, 160, 6, 3, d, 1)
+    assert args[11] == pytest.approx(1.0 / np.sqrt(d), rel=1e-7)
+    assert args[0] == q.data_ptr() and args[3] == out.data_ptr()
+    if which == "mma":
+        assert args[12:] == (7,)
+    else:
+        assert args[12:] == (kernel.DTYPES[dt], 7)
+    assert flash_attention.launches == total + 1
+    assert flash_attention.launches_by_kernel == {
+        n: c + (n == which) for n, c in by_kernel.items()}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_nonzero_launch_status_raises(fake_library, dtype):
+    fake_library.status = 9
+    q = torch.zeros(1, 64, 2, 32, dtype=getattr(torch, dtype))
+    total = flash_attention.launches
+    by_kernel = dict(flash_attention.launches_by_kernel)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        flash_attention(q, q, q, causal=False)
+    assert flash_attention.launches == total
+    assert flash_attention.launches_by_kernel == by_kernel
+
+
+def test_tensor_core_kernel_takes_only_bf16(fake_library):
+    q = torch.zeros(1, 64, 2, 32)
+    with pytest.raises(TypeError):
+        kernel.launch(q, q, q, True, "mma")
+    with pytest.raises(TypeError):
+        kernel.kernel_for(torch.float16)
+    assert fake_library.calls == []
+
+
+def test_reset_counts():
+    fa_ops.reset_counts()
+    assert flash_attention.launches == 0
+    assert flash_attention.launches_by_kernel == {"mma": 0, "simt": 0}
