@@ -41,20 +41,25 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
    versions (``_blockwise_attention``, ``ssd_chunked``) and oracles
    (``attention_ref``, ``ssd_ref``) on the card, with TF32 off: every
    case of ``tests/test_kernels.py`` and a bf16 twin of each f32 attention
-   case (bf16 through the tensor-core kernel, f32 through the CUDA-core
-   one), hymba-1.5b's per-layer shapes, an SSD initial state and a decay
-   strong enough to overflow exp above the diagonal, at the JAX tests'
-   tolerances; at hymba's shapes each query row of attention against its
-   own scale and the SSD state against its own, each with a planted fault
-   that must land above the limit; each kernel's time against its bound,
-   its plain version and (attention, at hymba's and qwen3-0.6b's per-layer
-   shapes, in turns) ``scaled_dot_product_attention`` and the CUDA-core
-   kernel run on bf16;
+   case (each kernel's bf16 through its tensor-core kernel, f32 through
+   its CUDA-core one, each call's route checked), hymba-1.5b's per-layer
+   shapes; for the SSD also mamba2-2.7b's p 64 / n 128, n = 8, a ragged
+   last chunk, an initial state, a decay strong enough to overflow exp
+   above the diagonal and one weak enough (A = -0.05) to carry the state
+   across 16 chunks of 256, at the JAX tests' tolerances; at hymba's
+   shapes each query row of attention against its own scale and the SSD
+   state against its own; planted faults that must land above the limit
+   (attention's last q tile without its diagonal kv tile, the SSD state
+   without its last chunk, each SSD chunk reading its own output state as
+   its prior); each kernel's time against its bound, its plain version and,
+   in turns, its CUDA-core kernel run on bf16 (and, attention, at hymba's
+   and qwen3-0.6b's per-layer shapes, ``scaled_dot_product_attention``),
+   the SSD passes split by the profiler and the SSD f32 time;
 9. ``repro_torch.launch.serve.serve`` of hymba-1.5b at full width (32
    layers, d_model 1600, seeded random weights): 4 prompts of 4 096
    tokens, 32 greedy tokens each; each kernel launched once per layer in
-   the prefill, attention on the tensor-core kernel (bf16) and, for the
-   f32 copy below, on the CUDA-core one; tokens in range and logits
+   the prefill, both on their tensor-core kernels (bf16) and, for the
+   f32 copy below, on their CUDA-core ones; tokens in range and logits
    finite; the prefill's logits
    through the kernels against the plain versions on the card, and decode
    steps 1 and 31 against a fresh prefill of the prompt plus the tokens
@@ -78,6 +83,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -767,6 +773,16 @@ SSD_CASES = [
     (2, 64, 3, 32, 16, 64, "float32"),
     (1, 128, 2, 32, 32, 32, "bfloat16"),
 ]
+#: shapes the tensor-core passes must also take, beside hymba's
+SSD_MMA_CASES = [
+    (2, 512, 4, 64, 128, 256, "bfloat16"),         # mamba2-2.7b's p, n
+    (2, 256, 4, 32, 8, 64, "bfloat16"),            # n not a multiple of 16
+    (2, 300, 3, 64, 16, 128, "bfloat16"),          # ragged last chunk
+]
+#: a decay weak enough (A = -0.05) that the state carries across all 16
+#: chunks of 256 positions: a fault in passing it reads large here
+SSD_WEAK_DECAY = [(1, 4096, 4, 64, 16, 256, dt)
+                  for dt in ("bfloat16", "float32")]
 SERVE_ARCH = "hymba-1.5b"
 SERVE_REDUCED = False            # the published config, full width
 SERVE_BATCH = 4                  # the JAX launcher's --batch
@@ -792,9 +808,11 @@ SSD_TOLERANCE = ("tests/test_kernels.py's: max|y - y_plain| < 3e-2 (bf16) / "
                  "1e-5 (f32) of max|y_plain|; the state held to its own scale "
                  "at the same limit, max|s - s_plain| < 3e-2 / 1e-5 of "
                  "max|s_plain| (the JAX test's absolute 10x limit exceeds a "
-                 "bf16 state's whole scale) (cumsum order; the plain version "
-                 "rounds att, x*w and C*exp(seg) to the input type, the "
-                 "kernel keeps f32)")
+                 "bf16 state's whole scale) (cumsum order; in bf16 the "
+                 "tensor-core passes round att, x*w, C*exp(seg) and the "
+                 "prior state where the plain version does, but keep its "
+                 "bf16-rounded S, y_intra and y_inter in f32; the CUDA-core "
+                 "kernel keeps all in f32)")
 #: bf16 logits of two computation orders over 32 layers, each rounding its
 #: branch outputs to bf16 (ulp 2^-8 of the value), held to a share of the
 #: largest |logit|: sound comparisons read 1.5-1.9% on the H100, the gated
@@ -910,30 +928,43 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
         out[f"attn_{key}"] = hymba[key]
 
     hymba_ssd = (SERVE_BATCH, SERVE_PROMPT, 50, 64, 16, 256, "bfloat16")
-    cases = [(c, None, None) for c in SSD_CASES + [hymba_ssd]]
-    cases.append(((2, 200, 4, 64, 16, 64, "float32"), "init-state", None))
-    cases.append(((1, 256, 2, 32, 16, 256, "float32"), None, "strong-decay"))
-    for case, init, decay in cases:
+    cases = [(c, None) for c in SSD_CASES + SSD_MMA_CASES + [hymba_ssd]]
+    cases.append(((2, 200, 4, 64, 16, 64, "float32"), "init-state"))
+    cases.append(((2, 200, 4, 64, 16, 64, "bfloat16"), "init-state"))
+    cases.append(((1, 256, 2, 32, 16, 256, "float32"), "strong-decay"))
+    cases.append(((1, 256, 2, 32, 16, 256, "bfloat16"), "strong-decay"))
+    cases += [(c, "weak-decay") for c in SSD_WEAK_DECAY]
+    for case, kind in cases:
         b, l, h, p, n, chunk, dt = case
+        what = f"ssd_scan {case}{' ' + kind if kind else ''}"
         x = randn(b, l, h, p, dtype=dt, scale=0.5)
         dtt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 0.001
         A = -(torch.rand((h,), generator=gen, device=dev) * 1.5 + 0.5)
         if case == hymba_ssd:                  # hymba's A = -exp(A_log)
             A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
-        if decay:                              # exp(seg_i - seg_j) overflows
+        if kind == "strong-decay":             # exp(seg_i - seg_j) overflows
             A = torch.tensor([-50.0, -1.0], device=dev)
             dtt = torch.full_like(dtt, 0.1)
+        if kind == "weak-decay":
+            A = torch.full((h,), -0.05, device=dev)
         B, C = randn(b, l, n, dtype=dt, scale=0.3), randn(b, l, n, dtype=dt,
                                                           scale=0.3)
-        s0 = randn(b, h, p, n, scale=0.1) if init else None
+        s0 = randn(b, h, p, n, scale=0.1) if kind == "init-state" else None
         tol = 3e-2 if dt == "bfloat16" else 1e-5
+        before = dict(ssd.ops.ssd_scan.launches_by_kernel)
         y, s = ssd.ops.ssd_scan(x, dtt, A, B, C, chunk=chunk, init_state=s0)
+        which = "mma" if dt == "bfloat16" else "simt"
+        moved = {k: c - before[k] for k, c in
+                 ssd.ops.ssd_scan.launches_by_kernel.items()}
+        check(moved == {"mma": int(which == "mma"),
+                        "simt": int(which == "simt")},
+              f"{what}: one call of the {which} kernel")
         wants = {"plain": ssm_mod.ssd_chunked(x, dtt, A, B, C, chunk, s0),
                  "ssd_ref": ssd.ssd_ref(x, dtt, A, B, C, s0)}
         torch.cuda.synchronize()
         check(bool(torch.isfinite(y.float()).all()
                    and torch.isfinite(s.float()).all()),
-              f"ssd_scan {case} {init or decay or ''}: finite y and state")
+              f"{what}: finite y and state")
         for name, (yw, sw) in wants.items():
             err = float((y.float() - yw.float()).abs().max())
             yrel, srel = max_rel(y.float(), yw.float()), max_rel(
@@ -941,25 +972,82 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
             out["ssd_err"] = max(out["ssd_err"], err)
             out["ssd_state_rel"] = max(out.get("ssd_state_rel", 0.0), srel)
             check(yrel < tol and srel < tol,
-                  f"ssd_scan {case} {init or decay or ''}: kernel vs {name} "
-                  f"y err {yrel:.3g} of max|y|, state err {srel:.3g} of "
-                  f"max|state| (tol {tol})")
+                  f"{what}: kernel vs {name} y err {yrel:.3g} of max|y|, "
+                  f"state err {srel:.3g} of max|state| (tol {tol})")
         if case == hymba_ssd:
             hx = (x, dtt, A, B, C, chunk)
             out["ssd_planted_state_rel"] = check_ssd_state_planted(
                 torch, ssd, hx, wants["plain"][1], tol)
+        if kind == "weak-decay" and dt == "bfloat16":
+            out["ssd_planted_prior_rel"] = check_ssd_prior_planted(
+                torch, ssm_mod, (x, dtt, A, B, C, chunk), wants["plain"][0],
+                tol)
+    del x, y, s, B, C, wants
+    out.update(time_ssd(torch, ssd, ssm_mod, hx))
+    return out
+
+
+def time_ssd(torch, ssd, ssm_mod, hx) -> dict:
+    """At hymba's per-layer shape (bf16): the tensor-core passes and the
+    CUDA-core kernel run on the same bf16 inputs, timed in turns (passes,
+    CUDA cores, then the reverse; CUDA events, mean of 10 calls, 3 for the
+    CUDA-core kernel); the three passes' split from ``torch.profiler``;
+    the plain version; the CUDA-core kernel on an f32 copy of the inputs;
+    against the bound."""
     x, dtt, A, B, C, chunk = hx
-    out["ssd_ms"] = cuda_ms(lambda: ssd.ops.ssd_scan(x, dtt, A, B, C,
-                                                     chunk=chunk), 10)
+    runs = {
+        "ssd_ms": (lambda: ssd.ops.ssd_scan(x, dtt, A, B, C, chunk=chunk),
+                   10),
+        "ssd_simt_ms": (lambda: ssd.kernel.launch(x, dtt, A, B, C, chunk,
+                                                  None, "simt"), 3)}
+    turns = {key: [] for key in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            fn, reps = runs[key]
+            turns[key].append(cuda_ms(fn, reps))
+    out = {key: sum(ts) / len(ts) for key, ts in turns.items()}
+    out["ssd_turns"] = turns
+    out["ssd_passes_ms"] = ssd_pass_split(torch, runs["ssd_ms"][0], 5)
     out["ssd_plain_ms"] = cuda_ms(
         lambda: ssm_mod.ssd_chunked(x, dtt, A, B, C, chunk), 3)
+    x32, B32, C32 = x.float(), B.float(), C.float()
+    out["ssd_f32_ms"] = cuda_ms(
+        lambda: ssd.ops.ssd_scan(x32, dtt, A, B32, C32, chunk=chunk), 3)
+    del x32, B32, C32
     out["ssd_bound_ms"], out["ssd_bound_by"] = ssd_bound_ms(torch, x, B,
                                                             chunk)
-    print(f"  ssd_scan at {hymba_ssd}: kernel {out['ssd_ms']:.4f} ms (CUDA "
-          f"events, mean of 10); plain {out['ssd_plain_ms']:.4f} ms (mean "
-          f"of 3); no single PyTorch call computes the scan; bound "
+    print(f"  ssd_scan at hymba's per-layer shape {tuple(x.shape)}, n "
+          f"{B.shape[-1]}, chunk {chunk}, bf16: tensor-core passes "
+          f"{out['ssd_ms']:.4f} ms (per pass, profiler, mean of 5: "
+          f"{json.dumps(out['ssd_passes_ms'])}), CUDA-core kernel "
+          f"{out['ssd_simt_ms']:.4f} ms (in turns: {json.dumps(turns)}); "
+          f"plain {out['ssd_plain_ms']:.4f} ms (mean of 3); the CUDA-core "
+          f"kernel on an f32 copy {out['ssd_f32_ms']:.4f} ms (mean of 3); "
+          f"no single PyTorch call computes the scan; bound "
           f"{out['ssd_bound_ms']:.5f} ms ({out['ssd_bound_by']})")
     return out
+
+
+def ssd_pass_split(torch, fn, reps: int):
+    """Mean device ms per call of each ssd_scan kernel over ``reps`` calls
+    of ``fn()`` under ``torch.profiler``, by kernel name; ``None`` where
+    the profiler reports no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for evt in prof.key_averages():
+        name = re.search(r"ssd_scan\w*", evt.key)
+        if evt.device_type == DeviceType.CUDA and name:
+            split[name.group(0)] = (split.get(name.group(0), 0.0)
+                                    + evt.device_time_total / 1e3)
+    return {k: v / reps for k, v in split.items()} or None
 
 
 def time_attention(torch, fa, randn, shape) -> dict:
@@ -1057,6 +1145,31 @@ def check_ssd_state_planted(torch, ssd, hx, s_plain, tol) -> float:
     return rel
 
 
+def shifted_prior_ssd(torch, ssm_mod, x, dt, A, B, C, chunk):
+    """A planted fault: chunk c reads its own output state, the state after
+    chunk c, in place of its prior state."""
+    state, ys = None, []
+    for c in range(0, x.shape[1], chunk):
+        part = [t[:, c:c + chunk] for t in (x, dt, B, C)]
+        _, state = ssm_mod.ssd_chunked(part[0], part[1], A, part[2],
+                                       part[3], chunk, state)
+        state = state.float()
+        y, _ = ssm_mod.ssd_chunked(part[0], part[1], A, part[2], part[3],
+                                   chunk, state)
+        ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
+def check_ssd_prior_planted(torch, ssm_mod, args, y_plain, tol) -> float:
+    """A planted state-passing fault in the weak-decay case must land
+    above the y limit."""
+    rel = max_rel(shifted_prior_ssd(torch, ssm_mod, *args).float(),
+                  y_plain.float())
+    check(rel > tol, f"planted fault (each chunk reads its own output state "
+          f"as its prior) reads {rel:.4g} of max|y|, above the limit {tol}")
+    return rel
+
+
 def plain_attention(attn):
     return (lambda q, k, v, causal=True, **kw:
             attn._blockwise_attention(q, k, v, causal))
@@ -1134,7 +1247,7 @@ def profile_split(torch, fn) -> dict:
         us = evt.device_time_total
         name = evt.key.lower()
         key = ("flash_attn" if "flash_attn" in name else
-               "ssd_scan" if "ssd_scan_kernel" in name else
+               "ssd_scan" if "ssd_scan" in name else
                "gemm" if any(w in name for w in ("gemm", "xmma", "cutlass",
                                                  "cublas", "nvjet", "sm90_"))
                else "other")
@@ -1234,7 +1347,7 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fa.ops.reset_counts()
-    ssd.ops.ssd_scan.launches = 0
+    ssd.ops.reset_counts()
     t0 = time.perf_counter()
     res = serve_mod.serve(SERVE_ARCH, reduced=SERVE_REDUCED,
                           batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
@@ -1243,12 +1356,14 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
     launches = {"flash_attn": fa.ops.flash_attention.launches,
                 "ssd_scan": ssd.ops.ssd_scan.launches}
     by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
+    ssd_by_kernel = dict(ssd.ops.ssd_scan.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated()
     cfg = res.cfg
     out = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
            "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
            "decode_tok_per_s": res.decode_tok_per_s, "launches": launches,
            "attn_launches_by_kernel": by_kernel,
+           "ssd_launches_by_kernel": ssd_by_kernel,
            "peak_bytes": peak, "wall_s": wall_s,
            "params": cfg.param_count(), "tokens_seq0": res.tokens[0].tolist()}
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -1264,6 +1379,9 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
     check(by_kernel == {"mma": cfg.n_layers, "simt": 0},
           f"all {cfg.n_layers} attention launches of the bf16 prefill went "
           f"through the tensor-core kernel ({by_kernel})")
+    check(ssd_by_kernel == {"mma": cfg.n_layers, "simt": 0},
+          f"all {cfg.n_layers} ssd_scan calls of the bf16 prefill went "
+          f"through the tensor-core passes ({ssd_by_kernel})")
     check(tuple(res.tokens.shape) == (SERVE_BATCH, SERVE_GEN)
           and int(res.tokens.min()) >= 0
           and int(res.tokens.max()) < cfg.vocab_size,
@@ -1295,12 +1413,17 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         model32, params32 = build_model(cfg32), to_f32(torch, params)
         fa.ops.reset_counts()
+        ssd.ops.reset_counts()
         logits, cache = model32.prefill(params32, {"tokens": prompts[:1]},
                                         max_len=SERVE_PROMPT + SERVE_GEN)
         by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
+        ssd_by_kernel = dict(ssd.ops.ssd_scan.launches_by_kernel)
         check(by_kernel == {"mma": 0, "simt": cfg.n_layers},
               f"all {cfg.n_layers} attention launches of the f32 prefill "
               f"went through the CUDA-core kernel ({by_kernel})")
+        check(ssd_by_kernel == {"mma": 0, "simt": cfg.n_layers},
+              f"all {cfg.n_layers} ssd_scan calls of the f32 prefill went "
+              f"through the CUDA-core kernel ({ssd_by_kernel})")
         first = logits[:, -1].float()
         del logits
         out["f32"] = logit_checks(torch, model32, params32, prompts[:1],
@@ -1338,6 +1461,11 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
               f"launches")
         for ms, count, name in prof["top"]:
             print(f"    {ms:9.3f} ms {count:6d}x  {name}")
+    prof = out["prefill_profile"]
+    if prof["device_ms"] is not None:
+        check(prof["split_ms"]["ssd_scan"] > 0.0,
+              f"the prefill profile counts the ssd_scan kernels' device "
+              f"time ({prof['split_ms']['ssd_scan']:.3f} ms)")
     return out
 
 
@@ -1384,7 +1512,9 @@ def main(argv=None) -> int:
           "tensor cores and f32 on the CUDA cores, "
           "src/repro_torch/csrc/flash_attn.cu) replaces "
           "src/repro/kernels/flash_attn/kernel.py:82 flash_attention_pallas; "
-          "ssd_scan (CUDA C++, src/repro_torch/csrc/ssd_scan.cu) replaces "
+          "ssd_scan (CUDA C++, bf16 as three chunk-parallel passes on the "
+          "tensor cores and f32 on the CUDA cores, "
+          "src/repro_torch/csrc/ssd_scan.cu) replaces "
           "src/repro/kernels/ssd_scan/kernel.py:79 ssd_scan_pallas")
     t_start = time.perf_counter()
     build = phase_build([kernel.LIBRARY, lc_kernel.LIBRARY,
@@ -1451,6 +1581,10 @@ def main(argv=None) -> int:
     } for name, key, line, tol in (
         ("flash_attn", "attn", 82, ATTN_TOLERANCE),
         ("ssd_scan", "ssd", 79, SSD_TOLERANCE))]
+    ssd_entry = model_entries[1]
+    ssd_entry["launches_by_kernel"] = served["ssd_launches_by_kernel"]
+    for key in ("simt_ms", "f32_ms", "passes_ms"):
+        ssd_entry[key] = model_k[f"ssd_{key}"]
     attn_entry = model_entries[0]
     attn_entry["simt_ms"] = model_k["attn_simt_ms"]
     attn_entry["shapes"] = [

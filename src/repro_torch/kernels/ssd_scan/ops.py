@@ -1,12 +1,16 @@
-"""Public op of the SSD-scan kernel.
+"""Public op of the SSD-scan kernels.
 
 ``ssd_scan(x, dt, A, B, C, chunk, init_state)`` with the JAX package's
 signature (``kernels/ssd_scan/ops.py``) plus the optional initial state
 of ``ssd_chunked``, routed by the device of its tensors: a CUDA tensor
-launches the hand-written kernel (``kernel.py``) or raises; a CPU tensor
-runs the plain version, the port's ``ssd_chunked``; other devices raise.
-There is no override that sends a CUDA tensor to the plain version.
-``ssd_scan.launches`` counts kernel launches.
+launches the hand-written kernel of its dtype (``kernel.py``: bf16 as
+three chunk-parallel passes on the tensor cores, f32 on the CUDA cores)
+or raises; a CPU tensor runs the plain version, the port's
+``ssd_chunked``; other devices raise. There is no override that sends a
+CUDA tensor to the plain version. ``ssd_scan.launches`` counts calls
+that launched a kernel (one per call, whatever the passes inside), and
+``ssd_scan.launches_by_kernel`` splits them by kernel ("mma", "simt"),
+so a run can show which kernel its scan went through.
 """
 
 from __future__ import annotations
@@ -35,10 +39,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         # imported here: models.ssm imports this module
         from repro_torch.models.ssm import ssd_chunked
         return ssd_chunked(x, dt, A, B, C, chunk, init_state)
-    out = kernel.launch(x, dt, A, B, C, chunk, init_state)
+    which = kernel.kernel_for(x.dtype)
+    out = kernel.launch(x, dt, A, B, C, chunk, init_state, which)
     ssd_scan.launches += 1
+    ssd_scan.launches_by_kernel[which] += 1
     return out
 
 
-#: Kernel launches since import (CPU calls are not counted).
-ssd_scan.launches = 0
+def reset_counts() -> None:
+    """Set the launch counters to 0."""
+    ssd_scan.launches = 0
+    ssd_scan.launches_by_kernel = {"mma": 0, "simt": 0}
+
+
+#: Kernel launches since import or :func:`reset_counts` (CPU calls are
+#: not counted), in all and by kernel.
+reset_counts()

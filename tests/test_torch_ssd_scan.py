@@ -6,10 +6,13 @@ runs them on the CPU), its ``ssd_ref`` oracle and ``ssd_chunked``, and
 through the port's ``ssd_scan`` on CPU tensors (the plain version, the
 port's ``ssd_chunked``) and the port's ``ssd_ref``. Tolerances are the
 JAX test's: y within 1e-5 (f32) / 3e-2 (bf16) of max |y|, the state
-within ten times that. The CUDA kernel runs only on the card: its test
-skips here, and ``chip_smoke.py`` holds it against the plain version
-there.
+within ten times that. The CUDA kernels run only on the card: their
+tests skip here, and ``chip_smoke.py`` holds them against the plain
+version there. The wrapper (which kernel a call takes, the arguments each
+C entry point gets, the counters) is tested here with a fake library.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.ssd_scan import kernel, ssd_ref, ssd_scan
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.ssm import ssd_chunked
 
 # (b, l, h, p, n, chunk, dtype): tests/test_kernels.py's SSD_CASES
@@ -141,7 +145,8 @@ def test_strong_decay_gives_no_nan():
 
 @pytest.mark.parametrize("case", ["rank", "dt-shape", "A-shape", "BC-shape",
                                   "dtype-mix", "dtype", "head-dim",
-                                  "state-size", "init-shape", "chunk"])
+                                  "state-size", "init-shape", "chunk",
+                                  "heads"])
 def test_kernel_wrapper_rejects_bad_inputs(case):
     """What the CUDA kernel does not take raises before any launch."""
     x = torch.zeros(1, 32, 2, 64)
@@ -159,6 +164,9 @@ def test_kernel_wrapper_rejects_bad_inputs(case):
                            C=torch.zeros(1, 32, 200)),
         "init-shape": dict(init_state=torch.zeros(1, 2, 64, 8)),
         "chunk": dict(chunk=0),
+        "heads": dict(x=torch.zeros(1, 1, 65536, 16),
+                      dt=torch.zeros(1, 1, 65536), A=torch.zeros(65536),
+                      B=torch.zeros(1, 1, 16), C=torch.zeros(1, 1, 16)),
     }[case])
     err = TypeError if case.startswith("dtype") else ValueError
     with pytest.raises(err):
@@ -179,12 +187,209 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _on_card_call(tx, chunk, dev, init=None):
+    """The op on the card; asserts that it made one call of the dtype's
+    kernel (bf16: the tensor-core passes, f32: the CUDA-core kernel)."""
+    which = "mma" if tx["x"].dtype == torch.bfloat16 else "simt"
+    before = ssd_scan.launches
+    by_kernel = dict(ssd_scan.launches_by_kernel)
+    y, s = ssd_scan(*(tx[k].to(dev) for k in "x dt A B C".split()),
+                    chunk=chunk,
+                    init_state=None if init is None else init.to(dev))
+    assert ssd_scan.launches == before + 1
+    assert ssd_scan.launches_by_kernel == {
+        k: c + (k == which) for k, c in by_kernel.items()}
+    return y.cpu(), s.cpu()
+
+
 @pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
 def test_cuda_kernel_matches_plain(case, cuda_device):
     _, tx, chunk, tol = _inputs(case, seed=26)
-    before = ssd_scan.launches
-    y, s = ssd_scan(*(tx[k].to(cuda_device) for k in "x dt A B C".split()),
-                    chunk=chunk)
-    assert ssd_scan.launches == before + 1
+    y, s = _on_card_call(tx, chunk, cuda_device)
     y_ref, s_ref = ssd_ref(tx["x"], tx["dt"], tx["A"], tx["B"], tx["C"])
-    _close(y.cpu(), s.cpu(), y_ref, s_ref, tol, "kernel vs ssd_ref")
+    _close(y, s, y_ref, s_ref, tol, "kernel vs ssd_ref")
+
+
+# (b, l, h, p, n, chunk, dtype), kind: what the tensor-core passes must take
+MMA_CASES = [
+    ((2, 512, 4, 64, 128, 256, "bfloat16"), None),     # mamba2-2.7b's p, n
+    ((2, 256, 4, 32, 8, 64, "bfloat16"), None),        # n = 8
+    ((2, 300, 3, 64, 16, 128, "bfloat16"), None),      # ragged last chunk
+    ((1, 100, 2, 128, 5, 48, "bfloat16"), None),       # n = 5, chunk 48
+    ((1, 4096, 4, 64, 16, 256, "bfloat16"), "weak-decay"),
+    ((1, 4096, 4, 64, 16, 256, "float32"), "weak-decay"),
+    ((1, 256, 2, 32, 16, 256, "bfloat16"), "strong-decay"),
+    ((2, 200, 4, 64, 16, 64, "bfloat16"), "init-state"),
+]
+MMA_IDS = ["mamba2-width", "n8", "ragged", "n5", "weak-decay-bf16",
+           "weak-decay-f32", "strong-decay-bf16", "init-state-bf16"]
+
+
+@pytest.mark.parametrize("case,kind", MMA_CASES, ids=MMA_IDS)
+def test_cuda_kernel_new_cases(case, kind, cuda_device):
+    """Shapes and decays the chunk-parallel passes must take, against the
+    oracle and the plain version, through the dtype's kernel."""
+    _, tx, chunk, tol = _inputs(case, seed=27)
+    if kind == "weak-decay":             # the state carries over 16 chunks
+        tx["A"] = torch.full_like(tx["A"], -0.05)
+    if kind == "strong-decay":
+        tx["A"] = torch.tensor([-50.0, -1.0])
+        tx["dt"] = torch.full_like(tx["dt"], 0.1)
+    init = None
+    if kind == "init-state":
+        b, _, h, p, n = case[:5]
+        init = torch.from_numpy(np.random.default_rng(28).standard_normal(
+            (b, h, p, n)).astype(np.float32) * 0.1)
+    y, s = _on_card_call(tx, chunk, cuda_device, init)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(s.float()).all()
+    args = (tx["x"], tx["dt"], tx["A"], tx["B"], tx["C"])
+    y_ref, s_ref = ssd_ref(*args, init_state=init)
+    _close(y, s, y_ref, s_ref, tol, "kernel vs ssd_ref")
+    y_pl, s_pl = ssd_chunked(*args, chunk, init)
+    _close(y, s, y_pl, s_pl, tol, "kernel vs ssd_chunked")
+
+
+class FakeLibrary:
+    """Stands in for the built library: records each launch's arguments
+    and returns ``status``; reports ``smem`` bytes of shared memory and a
+    workspace of ``ws_bytes``."""
+
+    def __init__(self, status=0, smem=1024, ws_bytes=4096):
+        self.status, self.smem, self.ws_bytes = status, smem, ws_bytes
+        self.calls = []
+        self.ws_asked = []
+
+    def ssd_scan_mma_launch(self, *args):
+        self.calls.append(("mma", args))
+        return self.status
+
+    def ssd_scan_launch(self, *args):
+        self.calls.append(("simt", args))
+        return self.status
+
+    def ssd_scan_mma_smem_bytes(self, p, n, chunk):
+        return self.smem
+
+    def ssd_scan_smem_bytes(self, p, n, chunk):
+        return self.smem
+
+    def ssd_scan_mma_workspace_bytes(self, *args):
+        self.ws_asked.append(args)
+        return self.ws_bytes
+
+    def ssd_scan_error_string(self, code):
+        return b"fake failure"
+
+
+@contextlib.contextmanager
+def _no_card(dev):
+    yield 7                              # a stream handle
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The CUDA route of the op, on CPU tensors, into a fake library."""
+    lib = FakeLibrary()
+    monkeypatch.setattr(ssd_ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(kernel, "load", lambda: lib)
+    monkeypatch.setattr(kernel, "on_card", _no_card)
+    return lib
+
+
+def _zeros(b, l, h, p, n, dtype):
+    dt = getattr(torch, dtype)
+    return (torch.zeros(b, l, h, p, dtype=dt), torch.zeros(b, l, h),
+            torch.zeros(h), torch.zeros(b, l, n, dtype=dt),
+            torch.zeros(b, l, n, dtype=dt))
+
+
+@pytest.mark.parametrize("p", kernel.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dtype_picks_the_kernel_and_its_arguments(fake_library, p, dtype):
+    """bf16 calls the tensor-core entry point with a workspace of the size
+    the library asks for, f32 the CUDA-core one with its dtype code; each
+    with the shapes, the chunk and the stream; the total and the
+    per-kernel counters move by one."""
+    x, dt, A, B, C = _zeros(2, 96, 3, p, 16, dtype)
+    total = ssd_scan.launches
+    by_kernel = dict(ssd_scan.launches_by_kernel)
+    y, s = ssd_scan(x, dt, A, B, C, chunk=32)
+    assert y.shape == x.shape and y.dtype == x.dtype
+    assert s.shape == (2, 3, p, 16) and s.dtype == x.dtype
+    [(which, args)] = fake_library.calls
+    assert which == ("mma" if dtype == "bfloat16" else "simt")
+    assert args[0] == x.data_ptr() and args[5] is None
+    assert args[6] == y.data_ptr() and args[7] == s.data_ptr()
+    if which == "mma":
+        assert fake_library.ws_asked == [(2, 96, 3, p, 16, 32)]
+        assert isinstance(args[8], int) and args[8] != 0
+        assert args[9:] == (2, 96, 3, p, 16, 32, 7)
+    else:
+        assert fake_library.ws_asked == []
+        assert args[8:] == (2, 96, 3, p, 16, 32, kernel.DTYPES[x.dtype], 7)
+    assert ssd_scan.launches == total + 1
+    assert ssd_scan.launches_by_kernel == {
+        k: c + (k == which) for k, c in by_kernel.items()}
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_chunk_is_clamped_and_init_state_passed(fake_library, dtype):
+    x, dt, A, B, C = _zeros(1, 40, 2, 16, 8, dtype)
+    init = torch.zeros(1, 2, 16, 8)
+    ssd_scan(x, dt, A, B, C, chunk=256, init_state=init)
+    [(which, args)] = fake_library.calls
+    assert args[5] == init.data_ptr()
+    assert args[-2 if which == "mma" else -3] == 40
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_nonzero_launch_status_raises(fake_library, dtype):
+    fake_library.status = 9
+    total = ssd_scan.launches
+    by_kernel = dict(ssd_scan.launches_by_kernel)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        ssd_scan(*_zeros(1, 64, 2, 32, 16, dtype), chunk=32)
+    assert ssd_scan.launches == total
+    assert ssd_scan.launches_by_kernel == by_kernel
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_shared_memory_refused_before_launch(fake_library, dtype):
+    fake_library.smem = kernel.MAX_SMEM_BYTES + 16
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan(*_zeros(1, 64, 2, 32, 16, dtype), chunk=64)
+    assert fake_library.calls == []
+
+
+def test_tensor_core_kernel_takes_only_bf16(fake_library):
+    with pytest.raises(TypeError):
+        kernel.launch(*_zeros(1, 64, 2, 32, 16, "float32"), 32, None, "mma")
+    with pytest.raises(ValueError):
+        kernel.launch(*_zeros(1, 64, 2, 32, 16, "bfloat16"), 32, None,
+                      "wgmma")
+    with pytest.raises(TypeError):
+        kernel.kernel_for(torch.float16)
+    assert fake_library.calls == []
+
+
+def test_cuda_core_kernel_runs_bf16_by_name(fake_library):
+    """The yardstick route: the CUDA-core kernel on bf16 inputs, asked for
+    by name (the public op never does)."""
+    kernel.launch(*_zeros(1, 64, 2, 32, 16, "bfloat16"), 32, None, "simt")
+    [(which, args)] = fake_library.calls
+    assert which == "simt" and args[-2] == kernel.DTYPES[torch.bfloat16]
+
+
+def test_cpu_calls_count_nothing():
+    total = ssd_scan.launches
+    by_kernel = dict(ssd_scan.launches_by_kernel)
+    for dtype in ("bfloat16", "float32"):
+        ssd_scan(*_zeros(1, 64, 2, 16, 8, dtype), chunk=32)
+    assert ssd_scan.launches == total
+    assert ssd_scan.launches_by_kernel == by_kernel
+
+
+def test_reset_counts():
+    ssd_ops.reset_counts()
+    assert ssd_scan.launches == 0
+    assert ssd_scan.launches_by_kernel == {"mma": 0, "simt": 0}
