@@ -7,9 +7,9 @@ into per-node log rings, Algorithms 1-2 recovery, the log-dump
 compressor), and serving hymba-1.5b (prefill + greedy decode) -- and
 holds each hand-written CUDA kernel against its plain PyTorch version:
 
-1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu`` and
-   ``ssd_scan.cu`` from ``src/repro_torch/csrc``, one nvcc each, started
-   together;
+1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu``,
+   ``ssd_scan.cu`` and ``store_timeline.cu`` from
+   ``src/repro_torch/csrc``, one nvcc each, started together;
 2. kernel against the plain version on the card, ``==`` on all three
    outputs, over real banks at sb in {1, 7, 24, 48, 72, 200, 500}, a
    ragged n, n = 1, padded lanes and the ``[0]`` view of a sub-bank stack,
@@ -67,7 +67,27 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
    weights; in both, faults planted on purpose (a wrong GQA head map, an
    SSD state not carried across chunks, a zeroed SSD state or a short kv
    length handed to decode) must land above the limit, save those the
-   bf16 comparison cannot see.
+   bf16 comparison cannot see;
+10. the ``store_timeline`` kernel (the five commit rules before the
+    max-plus collapse) against its plain versions, ``==`` on all three
+    outputs: the serial mode for each rule at sb 1, 7, 72 and 500 on real
+    Fig. 10 cells at a ragged n = 2 003 (plain version on the card) and
+    at 50 000 stores (plain version on CPU tensors of the same inputs);
+    the per-step mode on a mixed-SB batch (sb 16 / 48 / 72 / 200, padded
+    lanes) at both sizes; a lane deeper than its ring gives NaN / -1;
+11. Fig. 10 at ``n_stores=50 000`` through four routes, caches cleared
+    before each: ``simulate_grid(engine="serial")`` (45 store_timeline
+    launches), ``simulate_batch(chunk_size=0)`` (one per-step launch),
+    ``simulate_batch(data_plane="stacked")`` (one bank_scan launch per
+    SB group) and the banked ``simulate_batch`` (one launch); every field
+    of every cell ``==`` across the routes, the serial route ``==`` the
+    per-store numpy oracle on three cells and its geomeans ``==`` the JAX
+    package's; each route's wall, and store_timeline's time per launch
+    beside its bound and the chain floor;
+12. the mega-grid at 50 000 stores on the stacked stream tier (82 tiles
+    of cell-major per-cell arrays, one bank_scan launch each): every
+    cell ``==`` the banked stream tier's, six sampled cells ``==``
+    ``simulate_spec``; the spans and ``bank_stats()``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -113,6 +133,10 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 OPS_PER_LANE_STORE = 6           # 2 max, 2 add, 2 compares per store
+#: store_timeline's f32 operations per lane-store: the retire max, its
+#: census compare, max(r, last) and the add, and the proactive rule's two
+#: adds, two maxes and compare
+TIMELINE_OPS_PER_STORE = 9
 #: the serial chain of the scan: c_i needs c_{i-1} through one f32 add and
 #: one max, each ~4 cycles of dependent-issue latency on Hopper's f32 pipe
 CHAIN_OPS_PER_STORE = 2
@@ -123,7 +147,7 @@ JAX_GEOMEANS_50K = {"wt": 7.800868352151868,
                     "baseline": 2.7793430928059646,
                     "parallel": 2.7555289788601542,
                     "proactive": 1.2559832132009918}
-TOLERANCE = "== (max_abs_err 0.0): the scan is IEEE add and max only"
+TOLERANCE = "== (max_abs_err 0.0): the scans are IEEE add and max only"
 LC_TOLERANCE = ("== on codes, scales and words (max_abs_err 0.0): IEEE "
                 "round-to-nearest intrinsics, no FMA, no -ftz")
 
@@ -1469,6 +1493,256 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
     return out
 
 
+def prepared(S, spec, n: int):
+    """The prepared per-store arrays of one cell, as every engine gets
+    them."""
+    return S._prepare_cell(spec, S._trace_cached(
+        spec.workload, n, spec.seed, S.PAPER_CLUSTER), n, S.PAPER_CLUSTER)
+
+
+def timeline_bound_ms(n_stores: int, lanes: int) -> tuple:
+    """Least time for one store_timeline launch: 17 B per lane-store read
+    once (arrivals, exposed, t_repl_i, svc_i f32; coalesce bool) and 12 B
+    of outputs per lane, against the f32 operations of every
+    lane-store. Returns ``(ms, "bytes"|"operations")``."""
+    nbytes = 17 * n_stores * lanes + 12 * lanes
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = (TIMELINE_OPS_PER_STORE * n_stores * lanes
+             / H100_F32_OPS_PER_S * 1e3)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_timeline_vs_plain(torch, S, Sc, stl) -> float:
+    print("phase 10: store_timeline kernel against the plain version on "
+          "the card")
+    dev = torch.device(DEVICE)
+    costs = S._commit_cost_ns("proactive", S.PAPER_CLUSTER)
+    knobs = {"t_l1": costs["t_l1"], "t_wt": costs["t_wt"]}
+    fig10 = Sc.fig10_grid()
+    five = [s for s in fig10 if s.workload == "canneal"]
+    max_err = 0.0
+
+    def same(got, want, what):
+        nonlocal max_err
+        got = [g.cpu() for g in got]
+        want = [w.cpu() for w in want]
+        err = float((got[0] - want[0]).abs().max())
+        max_err = max(max_err, err)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{what}: kernel == plain (max_abs_err {err})")
+
+    # serial mode: each rule at sb 1, 7, 72, 500 on real Fig. 10 cells at
+    # a ragged n (plain version on the card), and at the path's 50 000
+    # stores (plain version on CPU tensors of the same inputs)
+    for n, depths, plain_dev in ((2003, {c: (1, 7, 72, 500) for c in
+                                         S.CONFIGS}, dev),
+                                 (N_STORES, {"wb": (72,), "wt": (72,),
+                                             "baseline": (72,),
+                                             "parallel": (72,),
+                                             "proactive": (1, 7, 72, 500)},
+                                  torch.device("cpu"))):
+        for spec in five:
+            cell = prepared(S, spec, n)
+            on_card = S._to_device(cell, dev)
+            plain_in = S._to_device(cell, plain_dev)
+            for sb in depths[spec.config]:
+                got = stl.store_timeline(*on_card, config=spec.config,
+                                         sb=sb, **knobs)
+                want = stl.store_timeline_ref(*plain_in, config=spec.config,
+                                              sb=sb, **knobs)
+                same(got, want, f"serial n={n} {spec.workload}/"
+                     f"{spec.config} sb={sb} ({stl.kernel.ring_for(sb)} "
+                     f"ring)")
+    check(stl.kernel.ring_for(72) == "shared"
+          and stl.kernel.ring_for(500) == "scratch",
+          "sb 72 keeps its ring in shared memory, sb 500 in scratch")
+
+    # per-step mode: a mixed-SB batch, padded lanes repeating cell 0
+    mixed = [dataclasses.replace(s, sb_size=(16, 48, 72, 200)[i % 4])
+             for i, s in enumerate(fig10[:21])]
+    for n, plain_dev in ((2003, dev), (N_STORES, torch.device("cpu"))):
+        args, sb_max, _, _ = S._stack_cells([prepared(S, s, n)
+                                             for s in mixed])
+        on_card = tuple(torch.from_numpy(a).to(dev) for a in args)
+        plain_in = tuple(torch.from_numpy(a).to(plain_dev) for a in args)
+        got = stl.store_timeline_batch(*on_card, sb_max=sb_max, **knobs)
+        want = stl.store_timeline_batch_ref(*plain_in, sb_max=sb_max,
+                                            **knobs)
+        same(got, want, f"per-step n={n}, {len(mixed)} cells in "
+             f"{args[0].shape[1]} lanes, sb 16/48/72/200 in a ring of "
+             f"{sb_max}")
+    bad = torch.tensor([72, sb_max + 1], dtype=torch.int32, device=dev)
+    two = tuple(x[:, :2].contiguous() for x in on_card[:5])
+    c, ah, sf = stl.store_timeline_batch(*two, on_card[5][:2].contiguous(),
+                                         bad, sb_max=sb_max, **knobs)
+    check(bool(torch.isnan(c[1])) and int(ah[1]) == -1 and int(sf[1]) == -1
+          and not bool(torch.isnan(c[0])),
+          "a lane deeper than its ring gives NaN / -1, not a fault")
+    return max_err
+
+
+def phase_fig10_routes(torch, S, E, C, Sc, stl, bs_ops) -> dict:
+    print("phase 11: Fig. 10 at n_stores=50 000 through the serial, "
+          "per-step, stacked and banked routes")
+    specs = Sc.fig10_grid()
+    dev = torch.device(DEVICE)
+    routes = (
+        ("serial", "serial", "stacked", lambda: E.simulate_grid(
+            specs, n_stores=N_STORES, engine="serial")),
+        ("per-step", "perstep", "stacked", lambda: S.simulate_batch(
+            specs, n_stores=N_STORES, chunk_size=0)),
+        ("stacked", "blocked", "stacked", lambda: S.simulate_batch(
+            specs, n_stores=N_STORES, data_plane="stacked")),
+        ("banked", "blocked", "bank", lambda: S.simulate_batch(
+            specs, n_stores=N_STORES)),
+    )
+    res, walls, counts = {}, {}, {}
+    for name, engine, plane, run in routes:
+        S.clear_sim_caches()
+        stl.ops.reset_counts()
+        bs_ops.bank_scan.launches = 0
+        t0 = time.perf_counter()
+        res[name] = run()
+        walls[name] = time.perf_counter() - t0
+        counts[name] = {**stl.ops.store_timeline.launches_by_mode,
+                        "bank_scan": bs_ops.bank_scan.launches}
+        print(f"  {name}: wall {walls[name]:.3f} s (caches cleared "
+              f"first), launches {counts[name]}")
+        check(all(r.meta["engine"] == engine and r.meta["data_plane"] == plane
+                  for r in res[name]),
+              f"{name}: every cell ran engine={engine}, data_plane={plane}")
+    groups = len({s.sb_size for s in specs})
+    want = {"serial": {"serial": len(specs), "perstep": 0, "bank_scan": 0},
+            "per-step": {"serial": 0, "perstep": 1, "bank_scan": 0},
+            "stacked": {"serial": 0, "perstep": 0, "bank_scan": groups},
+            "banked": {"serial": 0, "perstep": 0, "bank_scan": 1}}
+    for name in want:
+        check(counts[name] == want[name], f"{name} launches {want[name]}")
+    serial = [fields(r) for r in res["serial"]]
+    for name in ("per-step", "stacked", "banked"):
+        check([fields(r) for r in res[name]] == serial,
+              f"every field of the {len(specs)} cells: {name} == serial")
+    for spec in (specs[4], specs[17], specs[42]):
+        o = C.serial_oracle(spec, n_stores=N_STORES)
+        check(fields(o) == serial[specs.index(spec)],
+              f"serial route {spec.workload}/{spec.config} == the per-store "
+              f"numpy oracle")
+    gm = S.geomean_slowdowns(S.slowdowns_from_results(res["serial"]))
+    check(all(gm[c] == v for c, v in JAX_GEOMEANS_50K.items()),
+          "serial route's geomeans == the JAX package's at 50 000 stores")
+
+    # the kernel alone: the 45 serial launches, inputs already on the card
+    costs = S._commit_cost_ns("proactive", S.PAPER_CLUSTER)
+    knobs = {"t_l1": costs["t_l1"], "t_wt": costs["t_wt"]}
+    cells = [prepared(S, s, N_STORES) for s in specs]
+    on_card = [S._to_device(c, dev) for c in cells]
+
+    def serial_all():
+        for spec, cell, x in zip(specs, cells, on_card):
+            stl.store_timeline(*x, config=spec.config, sb=cell.sb_size,
+                               **knobs)
+
+    serial_ms = cuda_ms(serial_all, 2) / len(specs)
+    by_config = {}
+    for i, spec in enumerate(specs[:5]):
+        by_config[spec.config] = cuda_ms(lambda: stl.store_timeline(
+            *on_card[i], config=spec.config, sb=cells[i].sb_size, **knobs),
+            10)
+    _, args, _, sb_max, _, _ = S._batch_inputs(tuple(specs), N_STORES,
+                                               S.PAPER_CLUSTER, dev)
+    perstep_ms = cuda_ms(lambda: stl.store_timeline_batch(
+        *args, sb_max=sb_max, **knobs), 3)
+    sm_mhz = sm_clock_mhz(torch, lambda: stl.store_timeline(
+        *on_card[4], config="proactive", sb=cells[4].sb_size, **knobs))
+    floor_ms = chain_floor_ms(N_STORES, sm_mhz)
+    t0 = time.perf_counter()
+    stl.store_timeline_ref(*on_card[4], config="proactive",
+                           sb=cells[4].sb_size, **knobs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    bound_ms, bound_by = timeline_bound_ms(N_STORES, 1)
+    pbound_ms, pbound_by = timeline_bound_ms(N_STORES, args[0].shape[1])
+    print(f"  store_timeline: {serial_ms:.4f} ms per serial launch (mean "
+          f"over the {len(specs)} cells, CUDA events, 2 passes); by rule "
+          + ", ".join(f"{c} {v:.4f}" for c, v in by_config.items())
+          + f" ms (mean of 10); per-step launch over {args[0].shape[1]} "
+          f"lanes {perstep_ms:.4f} ms (mean of 3); plain version on the "
+          f"card, one proactive cell, {plain_ms:.1f} ms; bound "
+          f"{bound_ms:.6f} ms ({bound_by}; {pbound_ms:.6f} ms for the "
+          f"per-step launch); chain floor {floor_ms:.4f} ms "
+          f"({N_STORES} stores x {CHAIN_OPS_PER_STORE} dependent f32 ops x "
+          f"{CHAIN_OP_CYCLES} cycles at clocks.sm {sm_mhz:.0f} MHz, read "
+          f"during the launches)")
+    return {"walls_s": walls, "launches": counts, "serial_ms": serial_ms,
+            "ms_by_config": by_config, "perstep_ms": perstep_ms,
+            "perstep_lanes": int(args[0].shape[1]), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "perstep_bound_ms": pbound_ms, "chain_floor_ms": floor_ms,
+            "sm_mhz": sm_mhz, "geomeans": gm}
+
+
+def phase_mega_stacked(torch, S, E, Sc, T, stl, bs_ops) -> dict:
+    print("phase 12: mega-grid at n_stores=50 000 on the stacked stream "
+          "tier, against the banked stream tier and the serial oracle")
+    specs = Sc.mega_grid()
+    S.clear_sim_caches()
+    bs_ops.bank_scan.launches = 0
+    t0 = time.perf_counter()
+    banked = Sc.run_sweep(specs, n_stores=N_STORES)
+    banked_s = time.perf_counter() - t0
+    banked_launches = bs_ops.bank_scan.launches
+    check(banked_launches == MEGA_TILES,
+          f"banked stream tier: {MEGA_TILES} launches, {banked_s:.3f} s wall")
+    S.clear_sim_caches()
+    stl.ops.reset_counts()
+    bs_ops.bank_scan.launches = 0
+    with T.recording():
+        t0 = time.perf_counter()
+        stacked = Sc.run_sweep(specs, n_stores=N_STORES, engine="stream",
+                               data_plane="stacked")
+        wall_s = time.perf_counter() - t0
+    launches = bs_ops.bank_scan.launches
+    stats = E.bank_stats()
+    summ = stats.pop("telemetry")
+    print(f"  wall {wall_s:.3f} s; bank_stats: {json.dumps(stats)}")
+    check(stats["data_plane"] == "stacked" and stats["bank_partition"] is None
+          and stats["h2d_bytes"] == stats["stacked_h2d_bytes"]
+          and stats["scan_lanes"] == len(specs),
+          f"bank_stats reports the stacked plane ({stats['h2d_bytes']} "
+          f"bytes host -> device, every cell a lane)")
+    check(launches == stats["tiles"] and launches > 0
+          and stl.ops.store_timeline.launches == 0,
+          f"one bank_scan launch per tile ({launches} launches, "
+          f"{stats['tiles']} tiles)")
+    check(all(r.meta["engine"] == "streamed"
+              and r.meta["data_plane"] == "stacked" for r in stacked),
+          "every cell streamed on the stacked plane")
+    check([fields(r) for r in stacked] == [fields(r) for r in banked],
+          f"every field of the {len(specs)} cells: stacked stream tier == "
+          f"banked stream tier")
+    # the benchmarks' sampler (5 cells at 12 960) and the last cell
+    n = len(specs)
+    sample = sorted(set(range(0, n, max(1, n // 5))) | {n - 1})
+    stl.ops.reset_counts()
+    for i in sample:
+        o = S.simulate_spec(specs[i], n_stores=N_STORES)
+        check(fields(o) == fields(stacked[i]),
+              f"cell {i} ({specs[i].workload}/{specs[i].config}, sb "
+              f"{specs[i].sb_size}) == simulate_spec")
+    serial_launches = stl.ops.store_timeline.launches
+    check(serial_launches == len(sample),
+          f"{serial_launches} store_timeline launches for the sampled cells")
+    spans = summ["spans"]
+    split = {k: spans.get(k, {}).get("total", 0.0) for k in
+             ("tile/prep", "tile/h2d", "tile/dispatch", "tile/drain")}
+    print(f"  telemetry (ms, spans; tile/prep runs on the prefetch "
+          f"thread): {json.dumps(split)}")
+    return {"wall_s": wall_s, "banked_wall_s": banked_s,
+            "launches": launches, "banked_launches": banked_launches,
+            "serial_launches": serial_launches, "bank_stats": stats,
+            "telemetry_ms": split, "sampled": sample}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measured numbers "
@@ -1487,6 +1761,7 @@ def main(argv=None) -> int:
     from repro_torch.core import telemetry as T
     from repro_torch.kernels import log_compress as lc
     from repro_torch.kernels.bank_scan import kernel, ops, ref
+    from repro_torch.kernels import store_timeline as stl
     from repro_torch.kernels.log_compress import kernel as lc_kernel
     from repro_torch.kernels.log_compress import ref as lc_ref
     from repro_torch.kernels import flash_attn as fa
@@ -1515,10 +1790,14 @@ def main(argv=None) -> int:
           "ssd_scan (CUDA C++, bf16 as three chunk-parallel passes on the "
           "tensor cores and f32 on the CUDA cores, "
           "src/repro_torch/csrc/ssd_scan.cu) replaces "
-          "src/repro/kernels/ssd_scan/kernel.py:79 ssd_scan_pallas")
+          "src/repro/kernels/ssd_scan/kernel.py:79 ssd_scan_pallas; "
+          "store_timeline (CUDA C++, src/repro_torch/csrc/store_timeline.cu)"
+          " replaces two lax.scans, src/repro/core/simulator.py:1229 "
+          "_timeline and :1290 _timeline_batch")
     t_start = time.perf_counter()
     build = phase_build([kernel.LIBRARY, lc_kernel.LIBRARY,
-                         fa.kernel.LIBRARY, ssd.kernel.LIBRARY])
+                         fa.kernel.LIBRARY, ssd.kernel.LIBRARY,
+                         stl.kernel.LIBRARY])
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
@@ -1532,12 +1811,19 @@ def main(argv=None) -> int:
     model_k = phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod)
     torch.cuda.empty_cache()
     served = phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod)
+    torch.cuda.empty_cache()
+    err10 = phase_timeline_vs_plain(torch, S, Sc, stl)
+    routes = phase_fig10_routes(torch, S, E, C, Sc, stl, ops)
+    mega_st = phase_mega_stacked(torch, S, E, Sc, T, stl, ops)
 
     entry = {
         "name": "bank_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/bank_scan.cu",
         "replaces": "src/repro/kernels/bank_scan/kernel.py:91",
-        "launches": fig10["launches"] + mega["launches"],
+        "launches": (fig10["launches"] + mega["launches"]
+                     + routes["launches"]["stacked"]["bank_scan"]
+                     + routes["launches"]["banked"]["bank_scan"]
+                     + mega_st["launches"] + mega_st["banked_launches"]),
         "max_abs_err": max(err2, fig10["max_abs_err"], mega["max_abs_err"]),
         "ms": mega["kernel_ms"], "plain_ms": mega["plain_ms"],
         "bound_ms": mega["bound_ms"], "bound_by": mega["bound_by"],
@@ -1553,7 +1839,33 @@ def main(argv=None) -> int:
              "launches": mega["launches"], "ms": mega["kernel_ms"],
              "plain_ms": mega["plain_ms"], "bound_ms": mega["bound_ms"],
              "chain_floor_ms": mega["chain_floor_ms"]},
+            {"path": "fig10 stacked and banked routes",
+             "launches": (routes["launches"]["stacked"]["bank_scan"]
+                          + routes["launches"]["banked"]["bank_scan"])},
+            {"path": "mega-grid stacked and banked stream tiers",
+             "launches": mega_st["launches"] + mega_st["banked_launches"]},
         ],
+    }
+    st_entry = {
+        "name": "store_timeline", "route": "cuda",
+        "source": "src/repro_torch/csrc/store_timeline.cu",
+        "replaces": "src/repro/core/simulator.py:1229",
+        "replaces_also": "src/repro/core/simulator.py:1290",
+        "launches": (routes["launches"]["serial"]["serial"]
+                     + routes["launches"]["per-step"]["perstep"]
+                     + mega_st["serial_launches"]),
+        "launches_by_mode": {
+            "serial": (routes["launches"]["serial"]["serial"]
+                       + mega_st["serial_launches"]),
+            "perstep": routes["launches"]["per-step"]["perstep"]},
+        "max_abs_err": err10,
+        "ms": routes["serial_ms"], "plain_ms": routes["plain_ms"],
+        "bound_ms": routes["bound_ms"], "bound_by": routes["bound_by"],
+        "library_ms": None, "chain_floor_ms": routes["chain_floor_ms"],
+        "perstep_ms": routes["perstep_ms"],
+        "perstep_bound_ms": routes["perstep_bound_ms"],
+        "ms_by_config": routes["ms_by_config"],
+        "tolerance": TOLERANCE,
     }
     lc_entries = [{
         "name": f"log_compress.{op}", "route": "cuda",
@@ -1591,7 +1903,7 @@ def main(argv=None) -> int:
         {k: t[k] for k in ("shape", "ms", "library_ms", "simt_ms",
                            "bound_ms", "bound_by")}
         for t in model_k["attn_timed"]]
-    kernels = [entry] + lc_entries + model_entries
+    kernels = [entry] + lc_entries + model_entries + [st_entry]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
@@ -1601,7 +1913,9 @@ def main(argv=None) -> int:
                        "cuda": torch.version.cuda, "build": build,
                        "fig10": fig10, "mega": mega, "faults": faults,
                        "paper_width": paper, "model_kernels": model_k,
-                       "serve": served, "kernels": kernels},
+                       "serve": served, "timeline_max_abs_err": err10,
+                       "fig10_routes": routes, "mega_stacked": mega_st,
+                       "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

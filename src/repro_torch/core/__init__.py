@@ -2,8 +2,10 @@
 and the replication / recovery mechanism.
 
 * :mod:`repro_torch.core.simulator`  -- host trace synthesis, the
-  columnar trace bank, and the banked scan on a torch device.
-* :mod:`repro_torch.core.engine`     -- the one-device streaming tier.
+  columnar trace bank, the serial oracle and the per-step, stacked and
+  banked engines on a torch device.
+* :mod:`repro_torch.core.engine`     -- the tier selector and the
+  one-device streaming tier.
 * :mod:`repro_torch.core.scenarios`  -- the paper's sweep grids, the
   SS VII-E recovery sweeps and the Fig. 9 fault scenarios.
 * :mod:`repro_torch.core.replication` / :mod:`~repro_torch.core.recovery`

@@ -14,14 +14,19 @@ seeds) is streamed through this tier instead:
    of ``tile_cells`` lanes padded to canonical sizes. The geometry is
    the JAX package's exactly: at 50 000 stores a tile holds 160 lanes,
    and the mega-grid runs as 18 tiles.
-3. **The columnar bank** (:class:`~repro_torch.core.simulator.TraceBank`)
-   is placed on the device ONCE per grid; tiles ship two ``int32`` index
+3. **Two data planes.** The columnar bank
+   (:class:`~repro_torch.core.simulator.TraceBank`, the default) is
+   placed on the device ONCE per grid; tiles ship two ``int32`` index
    vectors, and each tile program is one launch of the CUDA bank-scan
    kernel (:func:`repro_torch.kernels.bank_scan.bank_scan`), which
    gathers the rows itself. ``bank_partition="sub"`` places the
    per-shard sub-bank layout of the JAX package at one shard -- a
    ``(1, local_rows, n_stores)`` stack viewed as ``[0]`` --
-   ``"replicated"`` the plain columns; both gather the same rows.
+   ``"replicated"`` the plain columns; both gather the same rows. The
+   stacked plane (``data_plane="stacked"``, the measured baseline) ships
+   every cell's five per-store arrays, stacked cell-major on the host;
+   its tile program collapses them on the device and scans them with the
+   same kernel, one launch per tile.
 4. **Double-buffered streaming.** A prefetch thread prepares tile k+1's
    host payload while tile k is launched; launches run ahead of the
    device by at most :data:`MAX_IN_FLIGHT_TILES` tiles before the oldest
@@ -29,10 +34,12 @@ seeds) is streamed through this tier instead:
 
 :func:`simulate_grid` is the tier selector: grids below
 :data:`STREAM_THRESHOLD` cells go to the one-shot banked batch, larger
-grids stream. Results are ``==`` to the JAX package's on every
-``SimResult`` field but ``meta``. Not in this port yet (ROADMAP.md):
-more than one shard, the stacked plane, the serial and per-step tiers,
-and the chaos / retry hooks -- they raise ``NotImplementedError``.
+grids stream; ``engine="serial"`` and ``"perstep"`` run the serial
+oracle and the per-step engine. Results are ``==`` to the JAX package's
+on every ``SimResult`` field but ``meta``. Not in this port yet
+(ROADMAP.md): more than one shard and the chaos / retry hooks
+(``k_replicas``, ``worker_timeout_s``) -- they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,9 @@ from repro_torch.core import telemetry as _tm
 from repro_torch.core.simulator import (
     ScenarioSpec,
     SimResult,
+    _CellInputs,
+    _blocked_precompute,
+    _commit_cost_ns,
     _finish_result,
     _pad_len,
     _plane_keys,
@@ -60,6 +70,7 @@ from repro_torch.core.simulator import (
     get_trace_bank,
     register_cache_clearer,
     simulate_batch,
+    simulate_spec,
     sub_bank_rows,
 )
 from repro_torch.device import resolve_device
@@ -275,16 +286,84 @@ def _build_bank_tile_fn(sig: TileSignature) -> Callable:
     return run
 
 
+def _build_tile_fn(sig: TileSignature) -> Callable:
+    """The tile program of ``sig``: the banked one, or the stacked one --
+    the tile's cell-major arrays collapsed into max-plus rows on the
+    device (:func:`~repro_torch.core.simulator._blocked_precompute`),
+    then one bank-scan launch with lane ``b`` reading row ``b``. The
+    tile is SB-uniform, so ``sb_size`` is not read."""
+    if sig.data_plane == "bank":
+        return _build_bank_tile_fn(sig)
+    global _TRACE_COUNT
+    _TRACE_COUNT += 1
+
+    def run(arrivals, coalesce, exposed, t_repl_i, svc_i, config_idx,
+            sb_size, t_l1, t_wt):
+        w, v, pr_nc = _blocked_precompute(coalesce, exposed, t_repl_i,
+                                          svc_i, config_idx, t_l1, t_wt)
+        lanes = torch.arange(sig.b_pad, dtype=torch.int32,
+                             device=arrivals.device)
+        return bank_scan(arrivals, w, v, pr_nc, lanes, lanes,
+                         chunk=sig.chunk, sb=sig.sb_uniform)
+
+    return run
+
+
 def _tile_fn(sig: TileSignature) -> Callable:
     fn = _TILE_FNS.get(sig)
     if fn is None:
-        fn = _TILE_FNS.setdefault(sig, _build_bank_tile_fn(sig))
+        fn = _TILE_FNS.setdefault(sig, _build_tile_fn(sig))
     return fn
 
 
 @register_cache_clearer
 def _clear_engine_caches() -> None:
     _TILE_FNS.clear()
+
+
+# ---------------------------------------------------------------------------
+# Stacked-plane tiles
+# ---------------------------------------------------------------------------
+
+def _stack_tile(cells: List[_CellInputs], b_pad: int) -> tuple:
+    """Stack one tile's cells **cell-major** ``(B, n_stores)``: a
+    contiguous row memcpy per cell, and the rows the scan kernel reads.
+    Padding repeats cell 0."""
+    padded = cells + [cells[0]] * (b_pad - len(cells))
+    return (
+        np.stack([c.arrivals for c in padded], axis=0),
+        np.stack([c.coalesce for c in padded], axis=0),
+        np.stack([c.exposed for c in padded], axis=0),
+        np.stack([c.t_repl_i for c in padded], axis=0),
+        np.stack([c.svc_i for c in padded], axis=0),
+        np.asarray([c.config_idx for c in padded], np.int32),
+        np.asarray([c.sb_size for c in padded], np.int32),
+    )
+
+
+def _prep_tile(tile: Tile, n_stores: int, cluster: ClusterConfig
+               ) -> Tuple[List[_CellInputs], tuple]:
+    """Host-side prep for one stacked-plane tile (runs on the prefetch
+    thread): ``_prepare_cell`` per cell + the cell-major stacking. The
+    banked plane's prep lives in :func:`run_grid` (it needs the
+    lane->cells map) and ships only index vectors."""
+    cells = [_prepare_cell(s, _trace_cached(s.workload, n_stores, s.seed,
+                                            cluster), n_stores, cluster)
+             for s in tile.specs]
+    return cells, _stack_tile(cells, tile.sig.b_pad)
+
+
+def _place_tile(np_args: tuple, dev: torch.device) -> tuple:
+    """Put one tile's host arrays on the device: the two index vectors
+    of the banked plane, or the five stacked arrays plus the per-cell
+    vectors of the stacked plane."""
+    return tuple(torch.from_numpy(x).to(dev) for x in np_args)
+
+
+def _stacked_tile_bytes(sig: TileSignature) -> int:
+    """Host bytes of one stacked tile's payload (5 per-store arrays at
+    17 B per cell-store + the two per-cell i32 vectors)."""
+    return sig.b_pad * (17 * sig.n_stores + 8)
 
 
 def _stacked_plane_h2d(specs: Sequence[ScenarioSpec],
@@ -326,25 +405,30 @@ def run_grid(specs: Sequence[ScenarioSpec],
              k_replicas: Optional[int] = None,
              worker_timeout_s: Optional[float] = None,
              device=None) -> List[SimResult]:
-    """Stream a (mega-)grid through the banked tile engine on ``device``.
+    """Stream a (mega-)grid through the tile engine on ``device``.
 
     ``device=None`` means CUDA (raises without one). Results come back
-    in ``specs`` order, ``==`` to ``simulate_batch`` and to the JAX
-    package on every field but ``meta``. ``chunk_size=None`` uses the
+    in ``specs`` order, ``==`` to ``simulate_batch``, to the serial
+    oracle and to the JAX package on every field but ``meta``.
+    ``chunk_size=None`` uses the
     :func:`~repro_torch.core.simulator.auto_chunk` pick per SB group;
     ``tile_cells`` defaults to the :data:`DEFAULT_TILE_BYTES` budget.
-    ``bank_partition`` is ``"sub"`` (default: the per-shard sub-bank
-    layout at one shard) or ``"replicated"``. ``n_shards`` other than 1,
-    ``data_plane="stacked"``, ``k_replicas`` other than 1 and
-    ``worker_timeout_s`` raise ``NotImplementedError``.
+    ``data_plane`` is ``"bank"`` (default: the device-resident bank,
+    index-vector tiles over unique scan lanes) or ``"stacked"`` (every
+    cell's arrays shipped in cell-major tiles, the measured baseline);
+    ``bank_partition`` (bank plane) is ``"sub"`` (default: the per-shard
+    sub-bank layout at one shard) or ``"replicated"``. ``n_shards``
+    other than 1, ``k_replicas`` other than 1 and ``worker_timeout_s``
+    raise ``NotImplementedError``.
 
-    The prefetch thread derives tile k+1's index vectors and prepared
-    cells while tile k is launched; launches run ahead of the device by
-    at most :data:`MAX_IN_FLIGHT_TILES` tiles, past which the oldest is
-    drained. :func:`bank_stats` reports the run's accounting. With
-    telemetry on, the spans ``bank/build``, ``bank/place``,
+    The prefetch thread prepares tile k+1's host payload (index vectors
+    and prepared cells, or the stacked arrays) while tile k is launched;
+    launches run ahead of the device by at most
+    :data:`MAX_IN_FLIGHT_TILES` tiles, past which the oldest is drained.
+    :func:`bank_stats` reports the run's accounting. With telemetry on,
+    the spans ``bank/build`` and ``bank/place`` (bank plane), and
     ``tile/prep``, ``tile/h2d``, ``tile/dispatch`` and ``tile/drain``
-    split the run.
+    (both planes) split the run.
     """
     dev = resolve_device(device)
     if not specs:
@@ -358,8 +442,6 @@ def run_grid(specs: Sequence[ScenarioSpec],
     partition = bank_partition or "sub"
     if partition not in ("sub", "replicated"):
         raise ValueError(f"unknown bank_partition {bank_partition!r}")
-    if plane == "stacked":
-        raise NotImplementedError(f"data_plane='stacked': {_NOT_PORTED}")
     if n_shards not in (None, 1):
         raise NotImplementedError(f"n_shards={n_shards}: one device only; "
                                   f"logical shards are {_NOT_PORTED}")
@@ -372,49 +454,67 @@ def run_grid(specs: Sequence[ScenarioSpec],
         s.validate(cluster)
 
     tile_cells = tile_cells or _default_tile_cells(n_stores)
-    # --- scan-lane dedup: a timeline consumes exactly (arrivals row,
-    # max-plus row, SB depth), so cells sharing that triple are one lane
-    lane_of: Dict[tuple, int] = {}
-    lane_specs: List[ScenarioSpec] = []
+    bank = None
+    bank_dev: tuple = ()
     lane_members: List[List[int]] = []
-    for i, s in enumerate(specs):
-        sb = s.sb_size if s.sb_size is not None else cluster.store_buffer
-        key = (sb,) + _plane_keys(s, cluster)
-        j = lane_of.setdefault(key, len(lane_specs))
-        if j == len(lane_specs):
-            lane_specs.append(s)
-            lane_members.append([i])
-        else:
-            lane_members[j].append(i)
-    trace_map, wv_map = bank_row_maps(specs, cluster)
-    sub = partition == "sub"
-    shape = (len(trace_map),
-             sub_bank_rows(len(wv_map), n_shards) if sub else len(wv_map))
-    tiles = [dataclasses.replace(
-        t, sig=dataclasses.replace(t.sig, data_plane="bank",
-                                   bank_shape=shape, bank_sub=sub))
-        for t in plan_tiles(lane_specs, cluster=cluster, n_stores=n_stores,
-                            chunk_size=chunk_size, tile_cells=tile_cells,
-                            n_shards=n_shards, small_pad=False)]
+    if plane == "bank":
+        # --- scan-lane dedup: a timeline consumes exactly (arrivals row,
+        # max-plus row, SB depth), so cells sharing that triple are one
+        # lane
+        lane_of: Dict[tuple, int] = {}
+        lane_specs: List[ScenarioSpec] = []
+        for i, s in enumerate(specs):
+            sb = s.sb_size if s.sb_size is not None else cluster.store_buffer
+            key = (sb,) + _plane_keys(s, cluster)
+            j = lane_of.setdefault(key, len(lane_specs))
+            if j == len(lane_specs):
+                lane_specs.append(s)
+                lane_members.append([i])
+            else:
+                lane_members[j].append(i)
+        trace_map, wv_map = bank_row_maps(specs, cluster)
+        sub = partition == "sub"
+        shape = (len(trace_map),
+                 sub_bank_rows(len(wv_map), n_shards) if sub
+                 else len(wv_map))
+        tiles = [dataclasses.replace(
+            t, sig=dataclasses.replace(t.sig, data_plane="bank",
+                                       bank_shape=shape, bank_sub=sub))
+            for t in plan_tiles(lane_specs, cluster=cluster,
+                                n_stores=n_stores, chunk_size=chunk_size,
+                                tile_cells=tile_cells, n_shards=n_shards,
+                                small_pad=False)]
+    else:
+        tiles = plan_tiles(specs, cluster=cluster, n_stores=n_stores,
+                           chunk_size=chunk_size, tile_cells=tile_cells,
+                           n_shards=n_shards)
+    costs = _commit_cost_ns("proactive", cluster)
+
+    def tile_payload_bytes(sig: TileSignature) -> int:
+        return 8 * sig.b_pad if plane == "bank" else _stacked_tile_bytes(sig)
 
     results: List[Optional[SimResult]] = [None] * len(specs)
-    stacked_h2d = _stacked_plane_h2d(specs, cluster, n_stores, tile_cells,
-                                     n_shards)
-    h2d_bytes = sum(8 * t.sig.b_pad for t in tiles)
-
-    with _tm.span("bank/build", cells=len(specs)):
-        bank = get_trace_bank(specs, n_stores, cluster)
-    with _tm.span("bank/place", rows=bank.n_rows):
-        if sub:
-            fresh, bank_dev = bank.sub_device_args(n_shards, device=dev)
-        else:
-            fresh, bank_dev = bank.device_args(device=dev)
-    h2d_bytes += fresh
-    bank_dev_bytes = sum(t.numel() * t.element_size() for t in bank_dev)
+    if plane == "bank":
+        stacked_h2d = _stacked_plane_h2d(specs, cluster, n_stores,
+                                         tile_cells, n_shards)
+    else:
+        stacked_h2d = sum(_stacked_tile_bytes(t.sig) for t in tiles)
+    h2d_bytes = sum(tile_payload_bytes(t.sig) for t in tiles)
+    bank_dev_bytes = 0
+    if plane == "bank":
+        with _tm.span("bank/build", cells=len(specs)):
+            bank = get_trace_bank(specs, n_stores, cluster)
+        with _tm.span("bank/place", rows=bank.n_rows):
+            if sub:
+                fresh, bank_dev = bank.sub_device_args(n_shards, device=dev)
+            else:
+                fresh, bank_dev = bank.device_args(device=dev)
+        h2d_bytes += fresh
+        bank_dev_bytes = sum(t.numel() * t.element_size() for t in bank_dev)
     live_bytes = hwm_bytes = bank_dev_bytes
 
-    def prep(tile: Tile):
-        """Prefetch-thread work for one tile: the two padded int32
+    def prep_banked(tile: Tile):
+        """Prefetch-thread work for one banked tile: the two padded int32
         row-index vectors, plus the prepared member cells of each lane
         (the scatter targets). Padding slots stay 0 -- row 0 is a valid
         gather target and padding outputs are discarded."""
@@ -430,6 +530,14 @@ def run_grid(specs: Sequence[ScenarioSpec],
             for lane in tile.indices]
         return groups, (trace_idx, wv_idx)
 
+    def prep_stacked(tile: Tile):
+        """Prefetch-thread work for one stacked tile: its prepared cells
+        (each its own scatter target) and their cell-major arrays."""
+        cells, np_args = _prep_tile(tile, n_stores, cluster)
+        return [[(i, c)] for i, c in zip(tile.indices, cells)], np_args
+
+    prep = prep_banked if plane == "bank" else prep_stacked
+
     def prep_spanned(tile: Tile, no: int):
         with _tm.span("tile/prep", tile=no):
             return prep(tile)
@@ -441,7 +549,7 @@ def run_grid(specs: Sequence[ScenarioSpec],
         kt, tile, groups, outs = entry
         with _tm.span("tile/drain", tile=kt):
             exec_ns, at_head, sb_full = (o.cpu().numpy() for o in outs)
-        live_bytes -= 8 * tile.sig.b_pad
+        live_bytes -= tile_payload_bytes(tile.sig)
         for pos, group in enumerate(groups):
             for i, cell in group:
                 meta = {"engine": "streamed",
@@ -450,8 +558,9 @@ def run_grid(specs: Sequence[ScenarioSpec],
                         "tile_cells": tile.sig.b_pad,
                         "n_shards": n_shards,
                         "data_plane": plane,
-                        "bank_partition": partition,
-                        "bank_rows": bank.n_rows,
+                        "bank_partition": (partition if plane == "bank"
+                                           else None),
+                        "bank_rows": bank.n_rows if bank is not None else 0,
                         "h2d_bytes": h2d_bytes,
                         "bank_fabric_bytes": 0}
                 results[i] = _finish_result(cell, exec_ns[pos],
@@ -462,17 +571,21 @@ def run_grid(specs: Sequence[ScenarioSpec],
     with ThreadPoolExecutor(max_workers=1) as prep_pool:
         fut = prep_pool.submit(prep_spanned, tiles[0], 0)
         for kt, tile in enumerate(tiles):
-            groups, np_idx = fut.result()
+            groups, np_args = fut.result()
             if kt + 1 < len(tiles):
                 fut = prep_pool.submit(prep_spanned, tiles[kt + 1], kt + 1)
             with _tm.span("tile/h2d", tile=kt):
-                idx = tuple(torch.from_numpy(x).to(dev) for x in np_idx)
+                placed = _place_tile(np_args, dev)
             with _tm.span("tile/dispatch", tile=kt):
-                outs = _tile_fn(tile.sig)(*bank_dev, *idx)
+                if plane == "bank":
+                    outs = _tile_fn(tile.sig)(*bank_dev, *placed)
+                else:
+                    outs = _tile_fn(tile.sig)(*placed, costs["t_l1"],
+                                              costs["t_wt"])
             in_flight.append((kt, tile, groups, outs))
             _tm.gauge("engine/in_flight_tiles", len(in_flight))
             _tm.gauge("engine/prefetch_queue_depth", len(tiles) - kt - 1)
-            live_bytes += 8 * tile.sig.b_pad
+            live_bytes += tile_payload_bytes(tile.sig)
             hwm_bytes = max(hwm_bytes, live_bytes)
             # backpressure: launches run ahead of the device, so drain
             # the oldest tile once MAX_IN_FLIGHT_TILES are outstanding
@@ -484,10 +597,13 @@ def run_grid(specs: Sequence[ScenarioSpec],
     _BANK_STATS.clear()
     _BANK_STATS.update({
         "data_plane": plane, "cells": len(specs), "n_shards": n_shards,
-        "bank_partition": partition, "scan_lanes": len(lane_members),
+        "bank_partition": partition if plane == "bank" else None,
+        "scan_lanes": len(lane_members) if plane == "bank" else len(specs),
         "tiles": len(tiles),
-        "trace_rows": bank.trace_rows, "wv_rows": bank.wv_rows,
-        "bank_rows": bank.n_rows, "bank_bytes": bank.nbytes,
+        "trace_rows": bank.trace_rows if bank is not None else 0,
+        "wv_rows": bank.wv_rows if bank is not None else 0,
+        "bank_rows": bank.n_rows if bank is not None else 0,
+        "bank_bytes": bank.nbytes if bank is not None else 0,
         "bank_dev_bytes_per_shard": bank_dev_bytes,
         "bank_dev_bytes": bank_dev_bytes,
         "h2d_bytes": h2d_bytes,
@@ -527,13 +643,20 @@ def simulate_grid(specs: Sequence[ScenarioSpec],
                   device=None) -> List[SimResult]:
     """Run a scenario grid on the right engine tier, on ``device``.
 
-    ``engine``: ``"auto"`` (default) -- the one-shot banked batch below
-    :data:`STREAM_THRESHOLD` cells, the streaming tier at or above it;
-    ``"blocked"`` -- ``simulate_batch``; ``"stream"`` --
-    :func:`run_grid`. ``"serial"`` and ``"perstep"`` raise
-    ``NotImplementedError``. ``device=None`` means CUDA (raises
-    without one). All tiers return ``==`` results in ``specs`` order;
-    ``SimResult.meta`` records what actually ran.
+    ``engine``:
+
+    * ``"auto"`` (default) -- the one-shot banked batch below
+      :data:`STREAM_THRESHOLD` cells, the streaming tier at or above it;
+    * ``"serial"`` -- the per-cell oracle loop (``simulate_spec``);
+    * ``"perstep"`` -- the per-step batched engine
+      (``simulate_batch(chunk_size=0)``);
+    * ``"blocked"`` -- ``simulate_batch``;
+    * ``"stream"`` -- :func:`run_grid`.
+
+    ``data_plane`` (blocked and stream tiers) selects the columnar bank
+    (default) or the stacked per-cell-copies baseline. ``device=None``
+    means CUDA (raises without one). All tiers return ``==`` results in
+    ``specs`` order; ``SimResult.meta`` records what actually ran.
     """
     dev = resolve_device(device)
     if engine == "auto":
@@ -545,8 +668,18 @@ def simulate_grid(specs: Sequence[ScenarioSpec],
             and engine != "stream":
         raise ValueError("k_replicas / worker_timeout_s apply to the "
                          f"stream tier only, not {engine!r}")
-    if engine in ("serial", "perstep"):
-        raise NotImplementedError(f"engine={engine!r}: {_NOT_PORTED}")
+    if engine == "serial":
+        for s in specs:
+            s.validate(cluster)
+        return [simulate_spec(s, cluster=cluster, n_stores=n_stores,
+                              device=dev) for s in specs]
+    if engine == "perstep":
+        # forwarded so an explicit data_plane="bank" raises (the
+        # per-step engine has no banked plane) instead of silently
+        # running stacked
+        return simulate_batch(specs, cluster=cluster, n_stores=n_stores,
+                              chunk_size=0, data_plane=data_plane,
+                              device=dev)
     if engine == "blocked":
         return simulate_batch(specs, cluster=cluster, n_stores=n_stores,
                               chunk_size=chunk_size, data_plane=data_plane,

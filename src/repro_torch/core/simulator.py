@@ -24,18 +24,31 @@ all five rules into one recurrence ``c_i = max(r_i + w_i, c_{i-1} +
 v_i)`` over deduplicated :class:`TraceBank` rows. Keeping that arithmetic
 in numpy f32/f64 keeps every input bit-identical to the JAX package's.
 
-The device half is the banked blocked scan only: the bank's four
-columns are placed on a torch device once, each scan lane carries two
-``int32`` row indices, and :func:`repro_torch.kernels.bank_scan.bank_scan`
-gathers and scans them -- a hand-written CUDA kernel for a CUDA tensor,
-the plain torch loop for a CPU tensor. The scan uses IEEE add and max
-only, so every ``SimResult`` field is ``==`` to the JAX package's.
+The device half has the JAX package's four engines:
+
+* the **serial oracle** (:func:`simulate`, :func:`simulate_spec`): one
+  cell, its rule applied as written -- before the collapse -- by the
+  hand-written store-timeline kernel
+  (:func:`repro_torch.kernels.store_timeline.store_timeline`);
+* the **per-step engine** (``simulate_batch(chunk_size=0)``): the
+  stacked time-major cells of a grid through the same kernel in its
+  per-lane mode, every lane with its own rule and SB depth;
+* the **stacked blocked plane** (``simulate_batch(data_plane=
+  "stacked")``): the same stacked cells collapsed on the device
+  (:func:`_blocked_precompute`, plain torch) and scanned by the
+  bank-scan kernel as a cell-major bank, one launch per SB depth;
+* the **banked blocked plane** (the default): the bank's four columns
+  placed on a torch device once, each scan lane carrying two ``int32``
+  row indices, gathered and scanned by
+  :func:`repro_torch.kernels.bank_scan.bank_scan`.
+
+Each kernel is the hand-written CUDA kernel for a CUDA tensor and its
+plain torch loop for a CPU tensor. All use IEEE add and max only, so
+every ``SimResult`` field is ``==`` to the JAX package's, across engines
+and planes.
 
 Entry points take ``device=None``, which means CUDA; without a CUDA
-device they raise (``device="cpu"`` runs the plain version). Not in this
-port yet (see ROADMAP.md): the serial per-cell scan, the per-step
-engine (``chunk_size=0``), the stacked data plane and
-``slowdown_table(batched=False)``; they raise ``NotImplementedError``.
+device they raise (``device="cpu"`` runs the plain versions).
 """
 
 from __future__ import annotations
@@ -69,10 +82,8 @@ from repro_torch.core.hostcache import BoundedCache
 from repro_torch.core import telemetry as _tm
 from repro_torch.device import resolve_device
 from repro_torch.kernels.bank_scan import bank_scan
-
-#: Where each unported engine of the JAX package is queued.
-_NOT_PORTED = ("not ported yet: the serial, per-step and stacked planes "
-               "are the next item of ROADMAP.md's port queue")
+from repro_torch.kernels.store_timeline import (store_timeline,
+                                                store_timeline_batch)
 
 
 CONFIGS = ("wb", "wt", "baseline", "parallel", "proactive")
@@ -292,6 +303,9 @@ _BoundedCache = BoundedCache
 
 #: Reduced-key per-store array derivations (see :func:`_cell_arrays`).
 _CELL_ARRAY_CACHE = _BoundedCache(maxsize=512)
+#: Stacked batch inputs on a device (see :func:`_batch_inputs`): each
+#: entry pins full per-cell array copies, so the bound is small.
+_BATCH_INPUT_CACHE = _BoundedCache(maxsize=4)
 #: Precollapsed max-plus rows (see :func:`_wv_row`): one ``(w, v,
 #: pr_nc)`` triple per unique row key, ~9 bytes x n_stores each.
 _WV_ROW_CACHE = _BoundedCache(maxsize=1024)
@@ -315,14 +329,16 @@ def register_cache_clearer(fn: Callable[[], None]) -> Callable[[], None]:
 
 def clear_sim_caches() -> None:
     """Drop every host-side simulator memo: synthesized traces, reduced-
-    key cell arrays, max-plus rows, banks with their device placements,
-    banked batch inputs, and any registered engine caches (the
+    key cell arrays, stacked batch inputs, max-plus rows, banks with
+    their device placements, banked batch inputs, and any registered
+    engine caches (the
     streaming engine's tile programs). Benchmarks call this
     between engines so no engine's timing rides on caches another
     engine warmed; long-lived processes can call it to release pinned
     memory after a mega-grid sweep."""
     _trace_cached.cache_clear()
     _CELL_ARRAY_CACHE.clear()
+    _BATCH_INPUT_CACHE.clear()
     _WV_ROW_CACHE.clear()
     _BANK_CACHE.clear()       # drops host columns AND device placements
     _BANKED_INPUT_CACHE.clear()
@@ -1157,8 +1173,203 @@ def _timeline_banked(a_bank: torch.Tensor, w_bank: torch.Tensor,
     return exec_ns, at_head, sb_full
 
 
+def _blocked_precompute(coalesce: torch.Tensor, exposed: torch.Tensor,
+                        t_repl_i: torch.Tensor, svc_i: torch.Tensor,
+                        config_idx: torch.Tensor, t_l1: float, t_wt: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Collapse all five commit rules into one max-plus recurrence, on
+    the stacked cells' device: the JAX package's ``_blocked_precompute``
+    over **cell-major** ``(B, n_stores)`` inputs (``config_idx`` ``(B,)``).
+
+    Every rule is exactly (bit-for-bit) ``c_i = max(r_i + w_i, c_{i-1} +
+    v_i)``, because IEEE addition is monotone: WB / WT / baseline /
+    parallel / coalesced-proactive take ``w_i = v_i = extra_i``,
+    non-coalesced proactive ``w_i = max(t_repl_i, exposed_i)``,
+    ``v_i = svc_i``. Returns cell-major ``(w f32, v f32, pr_nc bool)``
+    (``pr_nc`` = proactive and not coalesced, the Fig. 11 candidates) --
+    the rows of a bank :func:`bank_scan` takes. ``t_l1`` / ``t_wt`` are
+    rounded to f32 first, as the JAX package's traced scalars are."""
+    dev = exposed.device
+    t_l1 = torch.tensor(np.float32(t_l1), device=dev)
+    t_wt = torch.tensor(np.float32(t_wt), device=dev)
+    cfg = config_idx[:, None]
+    is_wt = cfg == _CONFIG_IDX["wt"]
+    is_bl = cfg == _CONFIG_IDX["baseline"]
+    is_pl = cfg == _CONFIG_IDX["parallel"]
+    is_pr = cfg == _CONFIG_IDX["proactive"]
+
+    ex_bl = torch.where(coalesce, t_l1, exposed + t_repl_i)
+    ex_pl = torch.where(coalesce, t_l1, torch.maximum(exposed, t_repl_i))
+    # wb and coalesced-proactive both add t_l1
+    ex_other = torch.where(is_wt, t_wt, t_l1)
+    extra = torch.where(is_bl, ex_bl, torch.where(is_pl, ex_pl, ex_other))
+    pr_nc = is_pr & ~coalesce
+    w = torch.where(pr_nc, torch.maximum(t_repl_i, exposed), extra)
+    v = torch.where(pr_nc, svc_i, extra)
+    return w.contiguous(), v.contiguous(), pr_nc.contiguous()
+
+
+def _timeline_stacked(arrivals: torch.Tensor, coalesce: torch.Tensor,
+                      exposed: torch.Tensor, t_repl_i: torch.Tensor,
+                      svc_i: torch.Tensor, config_idx: torch.Tensor,
+                      sb_size: np.ndarray, chunk: int, t_l1: float,
+                      t_wt: float
+                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Stacked blocked timeline: collapse the cell-major ``(B, n_stores)``
+    cells on their device, then scan them as a bank whose row ``b`` is
+    lane ``b`` (``trace_idx = wv_idx = arange(B)``), one launch per SB
+    depth (:func:`_timeline_banked`). The banked plane scans the same
+    collapsed rows with the same kernel, so the planes are ``==`` -- as
+    in the JAX package, where both go through one ``_scan_wv``. Returns
+    host ``(exec_time_ns f32, at_head i32, sb_full i32)`` per lane."""
+    w, v, pr_nc = _blocked_precompute(coalesce, exposed, t_repl_i, svc_i,
+                                      config_idx, t_l1, t_wt)
+    lanes = np.arange(arrivals.shape[0], dtype=np.int32)
+    return _timeline_banked(arrivals, w, v, pr_nc, lanes, lanes, sb_size,
+                            chunk)
+
+
+def _to_device(cell: _CellInputs, dev: torch.device) -> tuple:
+    """A cell's five per-store arrays as tensors on ``dev``, in the dtypes
+    :func:`_prepare_cell` gives them (f32 and bool)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (cell.arrivals, cell.coalesce, cell.exposed,
+                           cell.t_repl_i, cell.svc_i))
+
+
+# ---------------------------------------------------------------------------
+# Public entries
+# ---------------------------------------------------------------------------
+
+def simulate(workload: str, config: str,
+             cluster: ClusterConfig = PAPER_CLUSTER,
+             n_stores: int = 50_000, seed: int = 0,
+             n_replicas: Optional[int] = None,
+             link_bw_gbps: Optional[float] = None,
+             n_cns: Optional[int] = None,
+             sb_size: Optional[int] = None,
+             coalescing: bool = True,
+             read_share: Optional[float] = None,
+             conflict_rate: Optional[float] = None,
+             consistency_schedule: Optional[str] = None,
+             directory_load: Optional[float] = None,
+             device=None) -> SimResult:
+    """Simulate one (workload, config) pair on one compute node, on
+    ``device`` (``None`` means CUDA; raises without one).
+
+    All sensitivity knobs of Figs. 16-18 are exposed as overrides
+    (``n_replicas`` replica count, ``link_bw_gbps`` CXL link bandwidth in
+    GB/s, ``n_cns`` compute-node count, ``sb_size`` store-buffer
+    entries), as are the contention axes (``read_share`` /
+    ``conflict_rate`` / ``consistency_schedule``) and the directory axis
+    (``directory_load``). This is the serial oracle the batched engines
+    are held against: the cell's rule is applied as written, store by
+    store, before the max-plus collapse, by one launch of the
+    store-timeline kernel (its plain version on the CPU). Returns a
+    :class:`SimResult` (times in ns, log sizes in bytes, bandwidths in
+    GB/s), ``==`` to the JAX package's ``simulate`` on every field but
+    ``meta``.
+    """
+    dev = resolve_device(device)
+    spec = ScenarioSpec(workload, config, seed=seed, n_replicas=n_replicas,
+                        link_bw_gbps=link_bw_gbps, n_cns=n_cns,
+                        sb_size=sb_size, coalescing=coalescing,
+                        read_share=read_share, conflict_rate=conflict_rate,
+                        consistency_schedule=consistency_schedule,
+                        directory_load=directory_load)
+    spec.validate(cluster)
+    trace = _trace_cached(workload, n_stores, seed, cluster)
+    cell = _prepare_cell(spec, trace, n_stores, cluster)
+    costs = _commit_cost_ns(config, cluster)
+    exec_ns, at_head, sb_full = store_timeline(
+        *_to_device(cell, dev), config=config, sb=cell.sb_size,
+        t_l1=costs["t_l1"], t_wt=costs["t_wt"])
+    return _finish_result(cell, exec_ns.item(), int(at_head), int(sb_full),
+                          meta={"engine": "serial",
+                                "data_plane": "stacked",
+                                "bank_partition": None})
+
+
+def simulate_spec(spec: ScenarioSpec,
+                  cluster: ClusterConfig = PAPER_CLUSTER,
+                  n_stores: int = 50_000, device=None) -> SimResult:
+    """Run the serial oracle for one :class:`ScenarioSpec` cell on
+    ``device`` (``None`` means CUDA).
+
+    The single place that maps EVERY spec knob -- including the
+    contention axes -- onto :func:`simulate`'s keyword surface, so
+    differential callers (the engine's ``serial`` tier, oracle checks)
+    cannot silently drop a new axis."""
+    return simulate(spec.workload, spec.config, cluster=cluster,
+                    n_stores=n_stores, seed=spec.seed,
+                    n_replicas=spec.n_replicas,
+                    link_bw_gbps=spec.link_bw_gbps, n_cns=spec.n_cns,
+                    sb_size=spec.sb_size, coalescing=spec.coalescing,
+                    read_share=spec.read_share,
+                    conflict_rate=spec.conflict_rate,
+                    consistency_schedule=spec.consistency_schedule,
+                    directory_load=spec.directory_load, device=device)
+
+
 def _pad_len(n: int, mult: int = 8) -> int:
     return max(((n + mult - 1) // mult) * mult, mult)
+
+
+def _stack_cells(cells: List[_CellInputs]):
+    """Stack prepared cells into time-major batch arrays (host numpy).
+
+    The batch is padded to the next multiple of 8 cells by repeating
+    cell 0, and SB rings to the widest cell (multiple of 8). Per-store
+    arrays are stacked time-major ``(n_stores, B)``, the layout in which
+    the per-step kernel's lanes read neighbouring words. The streaming
+    engine does NOT use this: its tiles stack cell-major
+    (``engine._stack_tile``).
+
+    Returns ``(args, sb_max, sb_min, sb_uniform)`` where ``args`` is
+    the 7-tuple the batched timelines consume.
+    """
+    n_pad = _pad_len(len(cells))
+    padded = cells + [cells[0]] * (n_pad - len(cells))
+    sb_max = _pad_len(max(c.sb_size for c in padded))
+    args = (
+        np.stack([c.arrivals for c in padded], axis=1),
+        np.stack([c.coalesce for c in padded], axis=1),
+        np.stack([c.exposed for c in padded], axis=1),
+        np.stack([c.t_repl_i for c in padded], axis=1),
+        np.stack([c.svc_i for c in padded], axis=1),
+        np.asarray([c.config_idx for c in padded], np.int32),
+        np.asarray([c.sb_size for c in padded], np.int32),
+    )
+    sb_min = min(c.sb_size for c in padded)
+    sb_uniform = sb_min if sb_min == max(c.sb_size for c in padded) else None
+    return args, sb_max, sb_min, sb_uniform
+
+
+def _make_batch_inputs(specs: Tuple[ScenarioSpec, ...], n_stores: int,
+                       cluster: ClusterConfig, device: torch.device):
+    cells = [_prepare_cell(s, _trace_cached(s.workload, n_stores, s.seed,
+                                            cluster), n_stores, cluster)
+             for s in specs]
+    np_args, sb_max, sb_min, sb_uniform = _stack_cells(cells)
+    args = tuple(torch.from_numpy(a).to(device) for a in np_args)
+    return cells, args, np_args[6], sb_max, sb_min, sb_uniform
+
+
+def _batch_inputs(specs: Tuple[ScenarioSpec, ...], n_stores: int,
+                  cluster: ClusterConfig, device: torch.device):
+    """Memoized stacked prep for one batch on ``device``: every cell
+    prepared and the padded time-major arrays placed there. Returns
+    ``(cells, device args, host sb_size, sb_max, sb_min, sb_uniform)``.
+
+    The memo is digest-keyed (:func:`_specs_key`, plus the device) and
+    size-bounded (:data:`_BATCH_INPUT_CACHE`), as in the JAX package;
+    :func:`clear_sim_caches` drops it."""
+    key = _specs_key(specs, n_stores, cluster) + (str(device),)
+    return _BATCH_INPUT_CACHE.get_or_put(
+        key, lambda: _make_batch_inputs(specs, n_stores, cluster, device))
+
+
+_batch_inputs.cache_clear = _BATCH_INPUT_CACHE.clear   # lru_cache-compat
 
 
 def _specs_key(specs: Sequence[ScenarioSpec], n_stores: int,
@@ -1263,23 +1474,32 @@ def simulate_batch(specs: Sequence[ScenarioSpec],
                    chunk_size: Optional[int] = None,
                    data_plane: Optional[str] = None,
                    device=None) -> List[SimResult]:
-    """Simulate a whole scenario grid in one banked scan.
+    """Simulate a whole scenario grid in one batched scan on ``device``
+    (``None`` means CUDA; raises without one).
 
     Results come back in ``specs`` order (one :class:`SimResult` per
-    spec; times in ns, log sizes in bytes, bandwidths in GB/s). The grid's
-    deduplicated :class:`TraceBank` is placed on ``device`` (``None``
-    means CUDA; raises without one), and only unique **lanes** are
-    scanned: cells sharing ``(SB, trace row, max-plus row)`` have
-    bit-identical timelines, so their outputs are scattered from one
-    lane (``meta["scan_lanes"]`` reports the count). The lane vector is
-    padded to a multiple of 8 as in the JAX package.
+    spec; times in ns, log sizes in bytes, bandwidths in GB/s). Unique
+    ``(workload, seed)`` traces are synthesized once and shared across
+    every cell that scans them.
 
-    ``chunk_size=None`` records the :func:`auto_chunk` pick in
+    ``chunk_size`` selects the engine: ``None`` (default) runs the
+    blocked scan and records the :func:`auto_chunk` pick in
     ``meta["chunk"]``; an explicit ``>= 1`` value is clamped to
-    ``n_stores`` and the narrowest SB. The chunk changes no result.
-    ``chunk_size=0`` (the per-step engine) and ``data_plane="stacked"``
-    raise ``NotImplementedError``. Every field but ``meta`` is ``==`` to
-    the JAX package's ``simulate_batch`` on the same specs.
+    ``n_stores`` and the narrowest SB (the chunk changes no result);
+    ``0`` runs the per-step engine, the store-timeline kernel over the
+    stacked cells with every rule applied before the collapse.
+    ``data_plane`` selects how the blocked scan's inputs reach the
+    device: ``"bank"`` (default) places the grid's deduplicated
+    :class:`TraceBank` and scans only unique **lanes** -- cells sharing
+    ``(SB, trace row, max-plus row)`` have bit-identical timelines, so
+    their outputs are scattered from one lane (``meta["scan_lanes"]``);
+    ``"stacked"`` ships one full array copy per cell (padded to a
+    multiple of 8 cells by repeating cell 0), collapses them on the
+    device and scans them with the same kernel -- the only plane of the
+    per-step engine. ``meta`` reports the engine, chunk and plane that
+    ran, and ``h2d_bytes``, the plane's cold host-to-device bytes. Every
+    field but ``meta`` is ``==`` to the JAX package's ``simulate_batch``
+    on the same specs, whatever the engine and plane.
     """
     dev = resolve_device(device)
     if not specs:
@@ -1290,40 +1510,71 @@ def simulate_batch(specs: Sequence[ScenarioSpec],
         raise ValueError(f"unknown data_plane {data_plane!r}")
     if data_plane == "bank" and chunk_size is not None and chunk_size == 0:
         raise ValueError("the per-step engine has no banked plane")
-    if chunk_size == 0 or data_plane == "stacked":
-        raise NotImplementedError(
-            f"simulate_batch(chunk_size={chunk_size!r}, "
-            f"data_plane={data_plane!r}): {_NOT_PORTED}")
     for s in specs:
         s.validate(cluster)
 
-    (cells, cell_lane, n_lanes, trace_idx, wv_idx, sb_arr, _sb_max,
-     sb_min, _sb_uniform) = _banked_inputs(tuple(specs), n_stores, cluster)
-    bank = get_trace_bank(specs, n_stores, cluster)
-    idx_bytes = trace_idx.nbytes + wv_idx.nbytes + sb_arr.nbytes
-    batch_width = len(trace_idx)        # padded unique lanes
-    # a block may not reach past the carried history: the SB depth
-    # bounds the lookback (c_{i-sb}), so clamp to the narrowest cell
-    chunk = auto_chunk(n_stores, sb_min, batch_width) \
-        if chunk_size is None else min(chunk_size, n_stores, sb_min)
-    meta = {"engine": "blocked", "chunk": chunk,
-            "auto_chunk": chunk_size is None, "data_plane": "bank",
-            "bank_partition": None,      # one device: nothing to shard
-            "bank_rows": bank.n_rows, "scan_lanes": n_lanes,
-            "h2d_bytes": bank.nbytes + idx_bytes}
-    _, bank_dev = bank.device_args(device=dev)
-    exec_ns, at_head, sb_full = _timeline_banked(
-        *bank_dev, trace_idx, wv_idx, sb_arr, chunk)
-    # scatter each deduplicated lane's outputs to its member cells
-    exec_ns = exec_ns[cell_lane]
-    at_head = at_head[cell_lane]
-    sb_full = sb_full[cell_lane]
+    costs = _commit_cost_ns("proactive", cluster)   # t_l1/t_wt are shared
+    cell_lane = None
+    if chunk_size is None or chunk_size:
+        plane = data_plane or "bank"
+        if plane == "bank":
+            (cells, cell_lane, n_lanes, trace_idx, wv_idx, sb_arr, _sb_max,
+             sb_min, _sb_uniform) = _banked_inputs(tuple(specs), n_stores,
+                                                   cluster)
+            bank = get_trace_bank(specs, n_stores, cluster)
+            idx_bytes = trace_idx.nbytes + wv_idx.nbytes + sb_arr.nbytes
+            batch_width = len(trace_idx)        # padded unique lanes
+        else:
+            cells, args, sb_host, _sb_max, sb_min, _sb_uniform = \
+                _batch_inputs(tuple(specs), n_stores, cluster, dev)
+            batch_width = _pad_len(len(specs))
+        # a block may not reach past the carried history: the SB depth
+        # bounds the lookback (c_{i-sb}), so clamp to the narrowest cell
+        chunk = auto_chunk(n_stores, sb_min, batch_width) \
+            if chunk_size is None else min(chunk_size, n_stores, sb_min)
+        meta = {"engine": "blocked", "chunk": chunk,
+                "auto_chunk": chunk_size is None, "data_plane": plane,
+                "bank_partition": None}   # one device: nothing to shard
+        if plane == "bank":
+            meta["bank_rows"] = bank.n_rows
+            meta["scan_lanes"] = n_lanes
+            meta["h2d_bytes"] = bank.nbytes + idx_bytes
+            _, bank_dev = bank.device_args(device=dev)
+            exec_ns, at_head, sb_full = _timeline_banked(
+                *bank_dev, trace_idx, wv_idx, sb_arr, chunk)
+        else:
+            meta["h2d_bytes"] = _stacked_bytes(args)
+            # the scan reads cell-major rows: one device transpose each
+            exec_ns, at_head, sb_full = _timeline_stacked(
+                *(x.T.contiguous() for x in args[:5]), args[5], sb_host,
+                chunk, costs["t_l1"], costs["t_wt"])
+    else:
+        cells, args, _sb_host, sb_max, _sb_min, _sb_uniform = \
+            _batch_inputs(tuple(specs), n_stores, cluster, dev)
+        meta = {"engine": "perstep", "chunk": 0, "auto_chunk": False,
+                "data_plane": "stacked", "bank_partition": None,
+                "h2d_bytes": _stacked_bytes(args)}
+        exec_ns, at_head, sb_full = (x.cpu().numpy() for x in
+                                     store_timeline_batch(
+                                         *args, sb_max=sb_max,
+                                         t_l1=costs["t_l1"],
+                                         t_wt=costs["t_wt"]))
+    if cell_lane is not None:
+        # scatter each deduplicated lane's outputs to its member cells
+        exec_ns = exec_ns[cell_lane]
+        at_head = at_head[cell_lane]
+        sb_full = sb_full[cell_lane]
 
     # fresh meta per result: SimResult is frozen but a shared dict would
     # alias annotations across the whole batch
     return [_finish_result(c, exec_ns[i], int(at_head[i]), int(sb_full[i]),
                            meta=dict(meta))
             for i, c in enumerate(cells)]
+
+
+def _stacked_bytes(args: Sequence[torch.Tensor]) -> int:
+    """Bytes of the stacked plane's arrays (what crossed host->device)."""
+    return sum(t.numel() * t.element_size() for t in args)
 
 
 def slowdowns_from_results(results: Sequence[SimResult],
@@ -1349,24 +1600,33 @@ def slowdown_table(configs: Tuple[str, ...] = CONFIGS,
                    n_stores: int = 50_000, batched: bool = True,
                    cluster: ClusterConfig = PAPER_CLUSTER,
                    device=None, **kw) -> Dict[str, Dict[str, float]]:
-    """Fig. 2 / Fig. 10: per-workload slowdowns normalized to WB.
+    """Fig. 2 / Fig. 10: per-workload slowdowns normalized to WB, on
+    ``device`` (``None`` means CUDA).
 
-    Runs the whole grid as ONE :func:`simulate_batch` call on ``device``
-    (``None`` means CUDA). ``batched=False`` (the JAX package's serial
-    per-cell loop) raises ``NotImplementedError``. ``kw`` takes any
-    ScenarioSpec knob (seed, n_replicas, link_bw_gbps, n_cns, sb_size,
-    coalescing).
+    ``batched=True`` (default) runs the whole grid as ONE
+    :func:`simulate_batch` call; ``batched=False`` keeps the serial
+    per-cell oracle loop (:func:`simulate`) for differential testing.
+    ``kw`` takes any ScenarioSpec knob (seed, n_replicas, link_bw_gbps,
+    n_cns, sb_size, coalescing).
     """
-    if not batched:
-        raise NotImplementedError(
-            f"slowdown_table(batched=False): {_NOT_PORTED}")
     workloads = workloads or tuple(WORKLOADS)
     cfgs = tuple(dict.fromkeys(("wb",) + tuple(configs)))
-    specs = [ScenarioSpec(w, c, **kw) for w in workloads for c in cfgs]
-    results = simulate_batch(specs, cluster=cluster, n_stores=n_stores,
-                             device=device)
-    table = slowdowns_from_results(results)
-    return {w: {c: table[w][c] for c in configs} for w in workloads}
+    if batched:
+        specs = [ScenarioSpec(w, c, **kw) for w in workloads for c in cfgs]
+        results = simulate_batch(specs, cluster=cluster, n_stores=n_stores,
+                                 device=device)
+        table = slowdowns_from_results(results)
+        return {w: {c: table[w][c] for c in configs} for w in workloads}
+    out: Dict[str, Dict[str, float]] = {}
+    for w in workloads:
+        base = simulate(w, "wb", cluster=cluster, n_stores=n_stores,
+                        device=device, **kw).exec_time_ns
+        out[w] = {}
+        for c in configs:
+            t = simulate(w, c, cluster=cluster, n_stores=n_stores,
+                         device=device, **kw).exec_time_ns
+            out[w][c] = t / base
+    return out
 
 
 def geomean_slowdowns(table: Dict[str, Dict[str, float]]) -> Dict[str, float]:

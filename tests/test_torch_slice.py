@@ -175,19 +175,12 @@ def test_auto_tier_selection():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: TS.simulate_batch(TSc.fig10_grid(), n_stores=100,
-                              chunk_size=0, device="cpu"),
-    lambda: TS.simulate_batch(TSc.fig10_grid(), n_stores=100,
-                              data_plane="stacked", device="cpu"),
-    lambda: TS.slowdown_table(n_stores=100, batched=False, device="cpu"),
-    lambda: TE.simulate_grid(TSc.fig10_grid(), n_stores=100,
-                             engine="serial", device="cpu"),
-    lambda: TE.simulate_grid(TSc.fig10_grid(), n_stores=100,
-                             engine="perstep", device="cpu"),
     lambda: TE.run_grid(TSc.fig10_grid(), n_stores=100, n_shards=2,
                         device="cpu"),
     lambda: TE.run_grid(TSc.fig10_grid(), n_stores=100, k_replicas=2,
                         device="cpu"),
+    lambda: TE.run_grid(TSc.fig10_grid(), n_stores=100,
+                        worker_timeout_s=5.0, device="cpu"),
 ])
 def test_later_slices_raise_not_implemented(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
