@@ -9,7 +9,8 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
 
 1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu``,
    ``ssd_scan.cu`` and ``store_timeline.cu`` from
-   ``src/repro_torch/csrc``, one nvcc each, started together;
+   ``src/repro_torch/csrc``, one nvcc each, started together; ptxas
+   reports no spill in any ``store_timeline`` instantiation;
 2. kernel against the plain version on the card, ``==`` on all three
    outputs, over real banks at sb in {1, 7, 24, 48, 72, 200, 500}, a
    ragged n, n = 1, padded lanes and the ``[0]`` view of a sub-bank stack,
@@ -70,20 +71,29 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
    bf16 comparison cannot see;
 10. the ``store_timeline`` kernel (the five commit rules before the
     max-plus collapse) against its plain versions, ``==`` on all three
-    outputs: the serial mode for each rule at sb 1, 7, 72 and 500 on real
-    Fig. 10 cells at a ragged n = 2 003 (plain version on the card) and
-    at 50 000 stores (plain version on CPU tensors of the same inputs);
-    the per-step mode on a mixed-SB batch (sb 16 / 48 / 72 / 200, padded
-    lanes) at both sizes; a lane deeper than its ring gives NaN / -1;
+    outputs, with the ring instantiation each call took (register at sb
+    48 / 72, shared up to 384 slots, scratch above): the serial mode for
+    each rule at sb 1, 7, 48, 72 and 500 on real Fig. 10 cells at a ragged
+    n = 2 003 (plain version on the card), at sb 48 and 72 (proactive also
+    1, 7, 500) at 50 000 stores (plain version on CPU tensors of the same
+    inputs), at n = 1, 5 and one either side of the kernel's chunk, and on
+    views that start at element 1 (no input 16-byte aligned); the
+    per-step mode on Fig. 10's own sb-72 batch (the register ring, read
+    from the lanes' depths) at those sizes and 50 000, on a mixed-SB batch (sb
+    16 / 48 / 72 / 200: shared) and one past the shared ring (sb 16 / 48 /
+    400 / 500: scratch), padded lanes; a lane deeper than its ring gives
+    NaN / -1;
 11. Fig. 10 at ``n_stores=50 000`` through four routes, caches cleared
     before each: ``simulate_grid(engine="serial")`` (45 store_timeline
-    launches), ``simulate_batch(chunk_size=0)`` (one per-step launch),
-    ``simulate_batch(data_plane="stacked")`` (one bank_scan launch per
-    SB group) and the banked ``simulate_batch`` (one launch); every field
-    of every cell ``==`` across the routes, the serial route ``==`` the
-    per-store numpy oracle on three cells and its geomeans ``==`` the JAX
-    package's; each route's wall, and store_timeline's time per launch
-    beside its bound and the chain floor;
+    launches, all on the register ring), ``simulate_batch(chunk_size=0)``
+    (one per-step launch, register ring), ``simulate_batch(data_plane=
+    "stacked")`` (one bank_scan launch per SB group) and the banked
+    ``simulate_batch`` (one launch); every field of every cell ``==``
+    across the routes, the serial route ``==`` the per-store numpy oracle
+    on three cells and its geomeans ``==`` the JAX package's; each
+    route's wall, and store_timeline's time per launch (serial, by rule,
+    per-step on the register and the shared ring) beside its bound (by
+    rule: each reads only its rule's inputs) and the chain floor;
 12. the mega-grid at 50 000 stores on the stacked stream tier (82 tiles
     of cell-major per-cell arrays, one bank_scan launch each): every
     cell ``==`` the banked stream tier's, six sampled cells ``==``
@@ -133,10 +143,16 @@ SEED = 0
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_F32_OPS_PER_S = 67e12       # f32 outside the tensor cores
 OPS_PER_LANE_STORE = 6           # 2 max, 2 add, 2 compares per store
-#: store_timeline's f32 operations per lane-store: the retire max, its
-#: census compare, max(r, last) and the add, and the proactive rule's two
-#: adds, two maxes and compare
-TIMELINE_OPS_PER_STORE = 9
+#: store_timeline's f32 operations per lane-store, by rule: the retire
+#: max, its census compare, max(r, last) and the add; baseline's coh + tr,
+#: parallel's max(coh, tr); proactive's two adds, two maxes and compare
+TIMELINE_OPS_PER_STORE = {"wb": 4, "wt": 4, "baseline": 5, "parallel": 5,
+                          "proactive": 9}
+#: bytes of input a store_timeline lane reads per store, by rule: wb and
+#: wt the arrivals (f32); baseline and parallel also coalesce (bool),
+#: exposed and t_repl_i (f32); proactive also svc_i (f32)
+TIMELINE_BYTES_PER_STORE = {"wb": 4, "wt": 4, "baseline": 13,
+                            "parallel": 13, "proactive": 17}
 #: the serial chain of the scan: c_i needs c_{i-1} through one f32 add and
 #: one max, each ~4 cycles of dependent-issue latency on Hopper's f32 pipe
 CHAIN_OPS_PER_STORE = 2
@@ -221,12 +237,13 @@ def chain_floor_ms(n_stores: int, sm_mhz: float) -> float:
     return n_stores * CHAIN_OPS_PER_STORE * CHAIN_OP_CYCLES / sm_mhz * 1e-3
 
 
-def rings_used(ops, fn):
-    """Run ``fn()`` and return the ring instantiations whose launch count
+def rings_used(op, fn):
+    """Run ``fn()`` and return the ring instantiations of kernel op
+    ``op`` (``bank_scan`` or ``store_timeline``) whose launch count
     moved."""
-    before = dict(ops.bank_scan.launches_by_ring)
+    before = dict(op.launches_by_ring)
     out = fn()
-    return out, sorted(r for r, n in ops.bank_scan.launches_by_ring.items()
+    return out, sorted(r for r, n in op.launches_by_ring.items()
                        if n != before[r])
 
 
@@ -282,6 +299,57 @@ def phase_build(libraries) -> dict:
     return out
 
 
+def ptxas_spills(log: str) -> dict:
+    """``{function: (spill store bytes, spill load bytes)}`` of each
+    function a ``ptxas -v`` log reports."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name is not None:
+            out[name] = (int(m.group(1)), int(m.group(2)))
+            name = None
+    return out
+
+
+def ptxas_log(lib) -> str:
+    """The ``ptxas -v`` log of ``lib``: its build's or, when the library
+    was built before this run, that of a compile of the same source and
+    flags into a throwaway file."""
+    log = lib.last_build[2]
+    if log:
+        return log
+    from repro_torch.kernels import nvcc
+    tmp = nvcc.BUILD_DIR / f"ptxas-{lib.name}-{os.getpid()}.so"
+    try:
+        proc = subprocess.run([nvcc.nvcc(), *nvcc.NVCC_FLAGS, "-o",
+                               str(tmp), str(lib.source)],
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise SmokeFailure(f"nvcc failed on {lib.source}: {proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def check_no_spills(lib, kernel: str, count: int) -> None:
+    """ptxas compiled ``count`` instantiations of ``kernel`` in ``lib``,
+    none with a byte of spill stores or loads."""
+    log = ptxas_log(lib)
+    entries = [e for e in re.findall(r"Compiling entry function '([^']+)'",
+                                     log) if kernel in e]
+    spills = ptxas_spills(log)
+    check(len(entries) == count,
+          f"{lib.name}: ptxas compiled {len(entries)} instantiations of "
+          f"{kernel}, {count} expected")
+    bad = {e: spills.get(e) for e in entries if spills.get(e) != (0, 0)}
+    check(not bad, f"{lib.name}: 0 bytes of spill stores and loads in each "
+          f"of them" + (f" (spills: {bad})" if bad else ""))
+
+
 def phase_kernel_vs_plain(torch, S, Sc, ops, ref) -> float:
     print("phase 2: kernel against the plain version on the card")
     dev = torch.device(DEVICE)
@@ -301,7 +369,7 @@ def phase_kernel_vs_plain(torch, S, Sc, ops, ref) -> float:
         sub_view = (sub[0], sub[1][0], sub[2][0], sub[3][0])
         for sb in (1, 7, 24, 48, 72, 200, 500):
             for name, banks in (("columns", cols), ("sub[0]", sub_view)):
-                got, rings = rings_used(ops, lambda: ops.bank_scan(
+                got, rings = rings_used(ops.bank_scan, lambda: ops.bank_scan(
                     *banks, tr, wv, chunk=sb, sb=sb))
                 want = ref.bank_scan_ref(*banks, tr, wv, chunk=sb, sb=sb)
                 torch.cuda.synchronize()
@@ -1500,15 +1568,21 @@ def prepared(S, spec, n: int):
         spec.workload, n, spec.seed, S.PAPER_CLUSTER), n, S.PAPER_CLUSTER)
 
 
-def timeline_bound_ms(n_stores: int, lanes: int) -> tuple:
-    """Least time for one store_timeline launch: 17 B per lane-store read
-    once (arrivals, exposed, t_repl_i, svc_i f32; coalesce bool) and 12 B
-    of outputs per lane, against the f32 operations of every
-    lane-store. Returns ``(ms, "bytes"|"operations")``."""
-    nbytes = 17 * n_stores * lanes + 12 * lanes
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = (TIMELINE_OPS_PER_STORE * n_stores * lanes
-             / H100_F32_OPS_PER_S * 1e3)
+def timeline_bound_ms(n_stores: int, configs, per_lane: bool = False,
+                      launches: int = 1) -> tuple:
+    """Least time for store_timeline over lanes of rules ``configs``, per
+    launch of ``launches`` that share them: each lane-store's inputs read
+    once and 12 B of outputs per lane written once, against the f32
+    operations of every lane-store under its rule. The serial mode reads
+    the inputs of the lane's rule (``TIMELINE_BYTES_PER_STORE``); the
+    per-step mode (``per_lane``) all five, and each lane's config_idx and
+    sb_size. Returns ``(ms, "bytes"|"operations")``."""
+    per_store = sum(TIMELINE_BYTES_PER_STORE["proactive" if per_lane else c]
+                    for c in configs)
+    nbytes = per_store * n_stores + (20 if per_lane else 12) * len(configs)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3 / launches
+    t_ops = (sum(TIMELINE_OPS_PER_STORE[c] for c in configs) * n_stores
+             / H100_F32_OPS_PER_S * 1e3 / launches)
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1516,10 +1590,13 @@ def phase_timeline_vs_plain(torch, S, Sc, stl) -> float:
     print("phase 10: store_timeline kernel against the plain version on "
           "the card")
     dev = torch.device(DEVICE)
+    cpu = torch.device("cpu")
     costs = S._commit_cost_ns("proactive", S.PAPER_CLUSTER)
     knobs = {"t_l1": costs["t_l1"], "t_wt": costs["t_wt"]}
     fig10 = Sc.fig10_grid()
     five = [s for s in fig10 if s.workload == "canneal"]
+    chunk = stl.kernel.load().store_timeline_chunk_stores()
+    op = stl.ops.store_timeline
     max_err = 0.0
 
     def same(got, want, what):
@@ -1531,46 +1608,76 @@ def phase_timeline_vs_plain(torch, S, Sc, stl) -> float:
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
               f"{what}: kernel == plain (max_abs_err {err})")
 
-    # serial mode: each rule at sb 1, 7, 72, 500 on real Fig. 10 cells at
-    # a ragged n (plain version on the card), and at the path's 50 000
-    # stores (plain version on CPU tensors of the same inputs)
-    for n, depths, plain_dev in ((2003, {c: (1, 7, 72, 500) for c in
-                                         S.CONFIGS}, dev),
-                                 (N_STORES, {"wb": (72,), "wt": (72,),
-                                             "baseline": (72,),
-                                             "parallel": (72,),
-                                             "proactive": (1, 7, 72, 500)},
-                                  torch.device("cpu"))):
+    def serial(n, depths, plain_dev, view=lambda x: x, what=""):
+        """Each rule of `depths` on canneal's Fig. 10 cells at n stores;
+        `view` cuts the inputs on both sides."""
         for spec in five:
             cell = prepared(S, spec, n)
-            on_card = S._to_device(cell, dev)
-            plain_in = S._to_device(cell, plain_dev)
+            on_card = tuple(view(x) for x in S._to_device(cell, dev))
+            plain_in = tuple(view(x) for x in S._to_device(cell, plain_dev))
             for sb in depths[spec.config]:
-                got = stl.store_timeline(*on_card, config=spec.config,
-                                         sb=sb, **knobs)
+                got, rings = rings_used(op, lambda: stl.store_timeline(
+                    *on_card, config=spec.config, sb=sb, **knobs))
                 want = stl.store_timeline_ref(*plain_in, config=spec.config,
                                               sb=sb, **knobs)
-                same(got, want, f"serial n={n} {spec.workload}/"
-                     f"{spec.config} sb={sb} ({stl.kernel.ring_for(sb)} "
-                     f"ring)")
-    check(stl.kernel.ring_for(72) == "shared"
-          and stl.kernel.ring_for(500) == "scratch",
-          "sb 72 keeps its ring in shared memory, sb 500 in scratch")
+                same(got, want, f"serial n={on_card[0].shape[0]}{what} "
+                     f"{spec.workload}/{spec.config} sb={sb} "
+                     f"({'/'.join(rings)} ring)")
+                check(rings == [stl.kernel.ring_for(sb)],
+                      f"sb={sb} ran on the {stl.kernel.ring_for(sb)} ring")
 
-    # per-step mode: a mixed-SB batch, padded lanes repeating cell 0
+    check(stl.kernel.ring_for(48) == stl.kernel.ring_for(72) == "register"
+          and stl.kernel.ring_for(7) == "shared"
+          and stl.kernel.ring_for(500) == "scratch",
+          "sb 48 and 72 keep their ring in registers, sb 7 in shared "
+          "memory, sb 500 in scratch")
+    # serial mode: every rule at sb 1, 7, 48, 72, 500 at a ragged n = 2 003
+    # (plain version on the card); at the path's 50 000 stores every rule
+    # at sb 48 and 72 and proactive also at 1, 7, 500 (plain version on
+    # CPU tensors of the same inputs)
+    serial(2003, {c: (1, 7, 48, 72, 500) for c in S.CONFIGS}, dev)
+    serial(N_STORES, {c: (48, 72) + ((1, 7, 500) if c == "proactive"
+                                     else ()) for c in S.CONFIGS}, cpu)
+    # n = 1, 5 and one either side of the kernel's chunk (the tail paths)
+    for n in (1, 5, chunk - 1, chunk + 1):
+        serial(n, {c: (7, 48, 72) for c in S.CONFIGS}, dev)
+    # contiguous views that start at element 1: no input 16-byte aligned
+    serial(2004, {c: (7, 72) for c in S.CONFIGS}, dev,
+           view=lambda x: x[1:], what=" (views from element 1)")
+
+    # per-step mode: Fig. 10's own batch (48 lanes, every one sb 72: the
+    # register ring), a mixed-SB batch (sb 16 / 48 / 72
+    # / 200: shared) and one past the shared ring (sb 16 / 48 / 400 / 500:
+    # scratch), padded lanes repeating cell 0
     mixed = [dataclasses.replace(s, sb_size=(16, 48, 72, 200)[i % 4])
              for i, s in enumerate(fig10[:21])]
-    for n, plain_dev in ((2003, dev), (N_STORES, torch.device("cpu"))):
-        args, sb_max, _, _ = S._stack_cells([prepared(S, s, n)
-                                             for s in mixed])
+    deep = [dataclasses.replace(s, sb_size=(16, 48, 400, 500)[i % 4])
+            for i, s in enumerate(fig10[:21])]
+    cases = [(fig10, n, d) for n, d in ((1, dev), (5, dev), (chunk - 1, dev),
+                                        (chunk + 1, dev), (2003, dev),
+                                        (N_STORES, cpu))]
+    cases += [(mixed, n, d) for n, d in ((chunk + 1, dev), (2003, dev),
+                                         (N_STORES, cpu))]
+    cases += [(deep, 2003, dev)]
+    for specs, n, plain_dev in cases:
+        args, sb_max, _, sb_uniform = S._stack_cells([prepared(S, s, n)
+                                                      for s in specs])
         on_card = tuple(torch.from_numpy(a).to(dev) for a in args)
         plain_in = tuple(torch.from_numpy(a).to(plain_dev) for a in args)
-        got = stl.store_timeline_batch(*on_card, sb_max=sb_max, **knobs)
+        got, rings = rings_used(op, lambda: stl.store_timeline_batch(
+            *on_card, sb_max=sb_max, **knobs))
         want = stl.store_timeline_batch_ref(*plain_in, sb_max=sb_max,
                                             **knobs)
-        same(got, want, f"per-step n={n}, {len(mixed)} cells in "
-             f"{args[0].shape[1]} lanes, sb 16/48/72/200 in a ring of "
-             f"{sb_max}")
+        depths = sorted(set(args[6].tolist()))
+        same(got, want, f"per-step n={n}, {len(specs)} cells in "
+             f"{args[0].shape[1]} lanes, sb {'/'.join(map(str, depths))} "
+             f"({'/'.join(rings)} ring, {sb_max} slots)")
+        check(rings == [stl.kernel.ring_for(sb_uniform, sb_max)],
+              f"per-step batch of sb {'/'.join(map(str, depths))} ran on "
+              f"the {stl.kernel.ring_for(sb_uniform, sb_max)} ring")
+    args, sb_max, _, _ = S._stack_cells([prepared(S, s, 2003)
+                                         for s in mixed])
+    on_card = tuple(torch.from_numpy(a).to(dev) for a in args)
     bad = torch.tensor([72, sb_max + 1], dtype=torch.int32, device=dev)
     two = tuple(x[:, :2].contiguous() for x in on_card[:5])
     c, ah, sf = stl.store_timeline_batch(*two, on_card[5][:2].contiguous(),
@@ -1596,7 +1703,7 @@ def phase_fig10_routes(torch, S, E, C, Sc, stl, bs_ops) -> dict:
         ("banked", "blocked", "bank", lambda: S.simulate_batch(
             specs, n_stores=N_STORES)),
     )
-    res, walls, counts = {}, {}, {}
+    res, walls, counts, rings = {}, {}, {}, {}
     for name, engine, plane, run in routes:
         S.clear_sim_caches()
         stl.ops.reset_counts()
@@ -1606,8 +1713,10 @@ def phase_fig10_routes(torch, S, E, C, Sc, stl, bs_ops) -> dict:
         walls[name] = time.perf_counter() - t0
         counts[name] = {**stl.ops.store_timeline.launches_by_mode,
                         "bank_scan": bs_ops.bank_scan.launches}
+        rings[name] = dict(stl.ops.store_timeline.launches_by_ring)
         print(f"  {name}: wall {walls[name]:.3f} s (caches cleared "
-              f"first), launches {counts[name]}")
+              f"first), launches {counts[name]}, store_timeline by ring "
+              f"{rings[name]}")
         check(all(r.meta["engine"] == engine and r.meta["data_plane"] == plane
                   for r in res[name]),
               f"{name}: every cell ran engine={engine}, data_plane={plane}")
@@ -1618,6 +1727,12 @@ def phase_fig10_routes(torch, S, E, C, Sc, stl, bs_ops) -> dict:
             "banked": {"serial": 0, "perstep": 0, "bank_scan": 1}}
     for name in want:
         check(counts[name] == want[name], f"{name} launches {want[name]}")
+    check(rings["serial"] == {"register": len(specs), "shared": 0,
+                              "scratch": 0}
+          and rings["per-step"] == {"register": 1, "shared": 0,
+                                    "scratch": 0},
+          f"all {len(specs)} serial launches and the per-step launch took "
+          f"the register ring (sb 72)")
     serial = [fields(r) for r in res["serial"]]
     for name in ("per-step", "stacked", "banked"):
         check([fields(r) for r in res[name]] == serial,
@@ -1648,10 +1763,22 @@ def phase_fig10_routes(torch, S, E, C, Sc, stl, bs_ops) -> dict:
         by_config[spec.config] = cuda_ms(lambda: stl.store_timeline(
             *on_card[i], config=spec.config, sb=cells[i].sb_size, **knobs),
             10)
-    _, args, _, sb_max, _, _ = S._batch_inputs(tuple(specs), N_STORES,
-                                               S.PAPER_CLUSTER, dev)
-    perstep_ms = cuda_ms(lambda: stl.store_timeline_batch(
-        *args, sb_max=sb_max, **knobs), 3)
+    _, args, _, sb_max, _, sb_uniform = S._batch_inputs(
+        tuple(specs), N_STORES, S.PAPER_CLUSTER, dev)
+
+    def perstep_launch(ring):
+        return lambda: stl.kernel.launch(
+            *args, stl.kernel.PER_LANE_CONFIG,
+            sb_uniform if ring == "register" else 0, sb_max, ring,
+            knobs["t_l1"], knobs["t_wt"])
+
+    # the kernel alone on the register ring and, as a batch of mixed
+    # depths runs, on the shared ring; then the op, which also reads the
+    # lanes' depths back to pick the ring
+    perstep_ms = cuda_ms(perstep_launch("register"), 10)
+    perstep_shared_ms = cuda_ms(perstep_launch("shared"), 10)
+    perstep_op_ms = cuda_ms(lambda: stl.store_timeline_batch(
+        *args, sb_max=sb_max, **knobs), 10)
     sm_mhz = sm_clock_mhz(torch, lambda: stl.store_timeline(
         *on_card[4], config="proactive", sb=cells[4].sb_size, **knobs))
     floor_ms = chain_floor_ms(N_STORES, sm_mhz)
@@ -1660,21 +1787,35 @@ def phase_fig10_routes(torch, S, E, C, Sc, stl, bs_ops) -> dict:
                            sb=cells[4].sb_size, **knobs)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    bound_ms, bound_by = timeline_bound_ms(N_STORES, 1)
-    pbound_ms, pbound_by = timeline_bound_ms(N_STORES, args[0].shape[1])
+    # the serial launches' mean bound, each launch reading its rule's
+    # inputs; the per-step launch reads all five for every lane
+    bound_ms, bound_by = timeline_bound_ms(
+        N_STORES, [s.config for s in specs], launches=len(specs))
+    bound_by_config = {c: timeline_bound_ms(N_STORES, [c])[0]
+                       for c in by_config}
+    pbound_ms, pbound_by = timeline_bound_ms(
+        N_STORES, [S.CONFIGS[i] for i in args[5].tolist()], per_lane=True)
     print(f"  store_timeline: {serial_ms:.4f} ms per serial launch (mean "
           f"over the {len(specs)} cells, CUDA events, 2 passes); by rule "
           + ", ".join(f"{c} {v:.4f}" for c, v in by_config.items())
           + f" ms (mean of 10); per-step launch over {args[0].shape[1]} "
-          f"lanes {perstep_ms:.4f} ms (mean of 3); plain version on the "
-          f"card, one proactive cell, {plain_ms:.1f} ms; bound "
-          f"{bound_ms:.6f} ms ({bound_by}; {pbound_ms:.6f} ms for the "
-          f"per-step launch); chain floor {floor_ms:.4f} ms "
+          f"lanes {perstep_ms:.4f} ms on the register ring, "
+          f"{perstep_shared_ms:.4f} ms on the shared one, "
+          f"{perstep_op_ms:.4f} ms through the op (means of 10); "
+          f"plain version on the card, one proactive cell, "
+          f"{plain_ms:.1f} ms; bound {bound_ms:.6f} ms ({bound_by}, the "
+          f"mean of the serial launches, each its rule's inputs; by rule "
+          + ", ".join(f"{c} {v:.6f}" for c, v in bound_by_config.items())
+          + f" ms; {pbound_ms:.6f} ms ({pbound_by}) for the per-step "
+          f"launch); chain floor {floor_ms:.4f} ms "
           f"({N_STORES} stores x {CHAIN_OPS_PER_STORE} dependent f32 ops x "
           f"{CHAIN_OP_CYCLES} cycles at clocks.sm {sm_mhz:.0f} MHz, read "
           f"during the launches)")
-    return {"walls_s": walls, "launches": counts, "serial_ms": serial_ms,
-            "ms_by_config": by_config, "perstep_ms": perstep_ms,
+    return {"walls_s": walls, "launches": counts, "rings": rings,
+            "serial_ms": serial_ms, "ms_by_config": by_config,
+            "bound_ms_by_config": bound_by_config,
+            "perstep_ms": perstep_ms, "perstep_shared_ms": perstep_shared_ms,
+            "perstep_op_ms": perstep_op_ms,
             "perstep_lanes": int(args[0].shape[1]), "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "perstep_bound_ms": pbound_ms, "chain_floor_ms": floor_ms,
@@ -1730,8 +1871,10 @@ def phase_mega_stacked(torch, S, E, Sc, T, stl, bs_ops) -> dict:
               f"cell {i} ({specs[i].workload}/{specs[i].config}, sb "
               f"{specs[i].sb_size}) == simulate_spec")
     serial_launches = stl.ops.store_timeline.launches
+    serial_rings = dict(stl.ops.store_timeline.launches_by_ring)
     check(serial_launches == len(sample),
-          f"{serial_launches} store_timeline launches for the sampled cells")
+          f"{serial_launches} store_timeline launches for the sampled cells "
+          f"(by ring {serial_rings})")
     spans = summ["spans"]
     split = {k: spans.get(k, {}).get("total", 0.0) for k in
              ("tile/prep", "tile/h2d", "tile/dispatch", "tile/drain")}
@@ -1739,7 +1882,8 @@ def phase_mega_stacked(torch, S, E, Sc, T, stl, bs_ops) -> dict:
           f"thread): {json.dumps(split)}")
     return {"wall_s": wall_s, "banked_wall_s": banked_s,
             "launches": launches, "banked_launches": banked_launches,
-            "serial_launches": serial_launches, "bank_stats": stats,
+            "serial_launches": serial_launches, "serial_rings": serial_rings,
+            "bank_stats": stats,
             "telemetry_ms": split, "sampled": sample}
 
 
@@ -1798,6 +1942,11 @@ def main(argv=None) -> int:
     build = phase_build([kernel.LIBRARY, lc_kernel.LIBRARY,
                          fa.kernel.LIBRARY, ssd.kernel.LIBRARY,
                          stl.kernel.LIBRARY])
+    # the five rules and the per-lane one, each on every register depth
+    # and on the ring in memory
+    check_no_spills(stl.kernel.LIBRARY, "store_timeline_kernel",
+                    (len(S.CONFIGS) + 1)
+                    * (len(stl.kernel.register_ring_depths()) + 1))
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
@@ -1858,13 +2007,26 @@ def main(argv=None) -> int:
             "serial": (routes["launches"]["serial"]["serial"]
                        + mega_st["serial_launches"]),
             "perstep": routes["launches"]["per-step"]["perstep"]},
+        "launches_by_ring": {
+            ring: (routes["rings"]["serial"][ring]
+                   + routes["rings"]["per-step"][ring]
+                   + mega_st["serial_rings"][ring])
+            for ring in stl.kernel.RINGS},
+        "rings": {"register": "sb " + " / ".join(
+                      map(str, stl.kernel.register_ring_depths()))
+                  + " (unrolled, one register a slot)",
+                  "shared": "other depths up to 384 slots",
+                  "scratch": "deeper rings, in device memory"},
         "max_abs_err": err10,
         "ms": routes["serial_ms"], "plain_ms": routes["plain_ms"],
         "bound_ms": routes["bound_ms"], "bound_by": routes["bound_by"],
         "library_ms": None, "chain_floor_ms": routes["chain_floor_ms"],
         "perstep_ms": routes["perstep_ms"],
+        "perstep_shared_ms": routes["perstep_shared_ms"],
         "perstep_bound_ms": routes["perstep_bound_ms"],
+        "perstep_op_ms": routes["perstep_op_ms"],
         "ms_by_config": routes["ms_by_config"],
+        "bound_ms_by_config": routes["bound_ms_by_config"],
         "tolerance": TOLERANCE,
     }
     lc_entries = [{

@@ -34,12 +34,12 @@
 // warp and back. The scan warp, one thread per lane, reads only shared
 // memory and registers: each row is padded to an odd number of 16-byte
 // units, so the float4 / uint4 reads of the 8 lanes fall in 8 different bank
-// quads. At the repo's depths (sb 72, the paper's Table II SB, and 48, the
-// mega-grid's second size) the ring of the last sb commits lives in
-// registers: the inner loop is unrolled over lcm(16, sb) stores, so ring
-// slot k is a fixed register and no load, store or wrap test sits beside
-// the chain. Other depths keep the ring in shared memory ([k * 8 + t], no
-// bank conflicts) and, past sb = 384, in a device scratch buffer
+// quads. At the repo's depths (kRegisterDepths: sb 72, the paper's Table II
+// SB, and 48, the mega-grid's second size) the ring of the last sb commits
+// lives in registers: the inner loop is unrolled over lcm(16, sb) stores, so
+// ring slot k is a fixed register and no load, store or wrap test sits
+// beside the chain. Other depths keep the ring in shared memory ([k * 8 +
+// t], no bank conflicts) and, past sb = 384, in a device scratch buffer
 // [k * n_lanes + lane] that the caller passes. The census is one compare
 // and one predicated add per counter, off the chain.
 //
@@ -72,6 +72,12 @@ constexpr int kFull = 1;                // named barriers kFull + buffer
 constexpr int kEmpty = kFull + kStages; // and kEmpty + buffer
 
 enum RingKind { kRegisterRing = 0, kSharedRing = 1, kScratchRing = 2 };
+
+// Store-buffer depths with a register-ring instantiation: the paper's SB
+// (Table II) and the mega-grid's second size. launch_register dispatches on
+// them and bank_scan_register_ring_depth exports them.
+constexpr int kRegisterDepths[] = {48, 72};
+constexpr int kRegisterRings = sizeof(kRegisterDepths) / sizeof(int);
 
 constexpr int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
@@ -417,7 +423,38 @@ int launch(const float* a_bank, const float* w_bank, const float* v_bank,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The register-ring instantiation of depth sb, from kRegisterDepths[K] on;
+// cudaErrorInvalidValue for a depth without one.
+template <int K = 0>
+int launch_register(const float* a_bank, const float* w_bank,
+                    const float* v_bank, const uint8_t* p_bank,
+                    const int32_t* trace_idx, const int32_t* wv_idx,
+                    int n_lanes, int64_t n_stores, int64_t trace_rows,
+                    int64_t wv_rows, int sb, float* out_c,
+                    int32_t* out_at_head, int32_t* out_sb_full,
+                    cudaStream_t stream) {
+  if constexpr (K == kRegisterRings) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (sb == kRegisterDepths[K])
+      return launch<kRegisterDepths[K]>(
+          a_bank, w_bank, v_bank, p_bank, trace_idx, wv_idx, n_lanes,
+          n_stores, trace_rows, wv_rows, sb, nullptr, 0, out_c, out_at_head,
+          out_sb_full, stream);
+    return launch_register<K + 1>(a_bank, w_bank, v_bank, p_bank, trace_idx,
+                                  wv_idx, n_lanes, n_stores, trace_rows,
+                                  wv_rows, sb, out_c, out_at_head,
+                                  out_sb_full, stream);
+  }
+}
+
 }  // namespace
+
+// The k-th depth with a register-ring instantiation, for k from 0 on, and 0
+// past the last.
+extern "C" int bank_scan_register_ring_depth(int k) {
+  return k >= 0 && k < kRegisterRings ? kRegisterDepths[k] : 0;
+}
 
 // The deepest ring that fits shared memory; deeper rings need a scratch
 // buffer of sb * n_lanes floats from the caller.
@@ -425,10 +462,10 @@ extern "C" int bank_scan_max_shared_sb() { return kMaxSharedSb; }
 
 // Launches the scan on `stream` and returns cudaGetLastError(), or
 // cudaErrorInvalidValue for arguments it does not take. Every pointer is
-// device memory. `ring` picks the instantiation: 0 the register ring (sb 48
-// or 72 only), 1 the shared-memory ring (sb <= bank_scan_max_shared_sb()),
-// 2 the scratch ring in `ring_scratch` (sb * n_lanes floats; null
-// otherwise).
+// device memory. `ring` picks the instantiation: 0 the register ring (sb
+// one of bank_scan_register_ring_depth's), 1 the shared-memory ring (sb <=
+// bank_scan_max_shared_sb()), 2 the scratch ring in `ring_scratch` (sb *
+// n_lanes floats; null otherwise).
 extern "C" int bank_scan_launch(
     const float* a_bank, const float* w_bank, const float* v_bank,
     const uint8_t* p_bank, const int32_t* trace_idx, const int32_t* wv_idx,
@@ -441,15 +478,9 @@ extern "C" int bank_scan_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   switch (ring) {
     case kRegisterRing:
-      if (sb == 48)
-        return launch<48>(a_bank, w_bank, v_bank, p_bank, trace_idx, wv_idx,
-                          n_lanes, n_stores, trace_rows, wv_rows, sb, nullptr,
-                          0, out_c, out_at_head, out_sb_full, s);
-      if (sb == 72)
-        return launch<72>(a_bank, w_bank, v_bank, p_bank, trace_idx, wv_idx,
-                          n_lanes, n_stores, trace_rows, wv_rows, sb, nullptr,
-                          0, out_c, out_at_head, out_sb_full, s);
-      return static_cast<int>(cudaErrorInvalidValue);
+      return launch_register(a_bank, w_bank, v_bank, p_bank, trace_idx,
+                             wv_idx, n_lanes, n_stores, trace_rows, wv_rows,
+                             sb, out_c, out_at_head, out_sb_full, s);
     case kSharedRing:
       if (sb > bank_scan_max_shared_sb())
         return static_cast<int>(cudaErrorInvalidValue);

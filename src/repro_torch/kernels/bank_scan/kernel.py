@@ -18,11 +18,6 @@ import torch
 from repro_torch.kernels._tensor import on_card
 from repro_torch.kernels.nvcc import CudaLibrary
 
-#: Store-buffer depths with a register-ring instantiation in
-#: ``bank_scan.cu``: the paper's SB (Table II) and the mega-grid's second
-#: size. Other depths keep the ring in shared memory, or past
-#: ``bank_scan_max_shared_sb()`` in a scratch buffer.
-REGISTER_RING_DEPTHS = (48, 72)
 #: The ring instantiations, by the code ``bank_scan_launch`` takes.
 RINGS = {"register": 0, "shared": 1, "scratch": 2}
 
@@ -37,6 +32,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.bank_scan_launch.restype = ctypes.c_int
     lib.bank_scan_max_shared_sb.argtypes = []
     lib.bank_scan_max_shared_sb.restype = ctypes.c_int
+    lib.bank_scan_register_ring_depth.argtypes = [ctypes.c_int]
+    lib.bank_scan_register_ring_depth.restype = ctypes.c_int
     lib.bank_scan_error_string.argtypes = [ctypes.c_int]
     lib.bank_scan_error_string.restype = ctypes.c_char_p
 
@@ -45,10 +42,22 @@ LIBRARY = CudaLibrary("bank_scan", _bind)
 load = LIBRARY.load
 
 
+def register_ring_depths() -> Tuple[int, ...]:
+    """The store-buffer depths with a register-ring instantiation in the
+    built kernel (``kRegisterDepths``: the paper's SB, Table II, and the
+    mega-grid's second size)."""
+    lib = load()
+    depths = []
+    while (sb := lib.bank_scan_register_ring_depth(len(depths))) > 0:
+        depths.append(sb)
+    return tuple(depths)
+
+
 def ring_for(sb: int) -> str:
-    """The ring instantiation that runs depth ``sb``: "register",
-    "shared" or "scratch"."""
-    if sb in REGISTER_RING_DEPTHS:
+    """The ring instantiation that runs depth ``sb``: "register" for a
+    depth of :func:`register_ring_depths`, else "shared" up to the
+    kernel's shared-memory limit and "scratch" above."""
+    if sb in register_ring_depths():
         return "register"
     return "shared" if sb <= load().bank_scan_max_shared_sb() else "scratch"
 

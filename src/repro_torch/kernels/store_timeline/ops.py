@@ -7,9 +7,10 @@ and SB depth fixed), :func:`store_timeline_batch` the per-step engine's
 the hand-written kernel (``kernel.py``) or raises; a CPU tensor runs the
 plain torch version (``ref.py``). There is no override that sends a CUDA
 tensor to the plain version. ``store_timeline.launches`` counts kernel
-launches of both, and ``store_timeline.launches_by_mode`` splits them
-("serial", "perstep"), so a run can show that its scans went through the
-kernel.
+launches of both, ``store_timeline.launches_by_mode`` splits them
+("serial", "perstep") and ``store_timeline.launches_by_ring`` by the ring
+instantiation each took ("register", "shared", "scratch"), so a run can
+show that its scans went through the kernel, and on which ring.
 """
 
 from __future__ import annotations
@@ -84,10 +85,10 @@ def store_timeline(arrivals: torch.Tensor, coalesce: torch.Tensor,
     if _route(arrivals) == "cpu":
         return store_timeline_ref(*inputs, config=config, sb=int(sb),
                                   t_l1=t_l1, t_wt=t_wt)
+    ring = kernel.ring_for(int(sb))
     out = kernel.launch(*inputs, None, None, CONFIGS.index(config), int(sb),
-                        int(sb), t_l1, t_wt)
-    store_timeline.launches += 1
-    store_timeline.launches_by_mode["serial"] += 1
+                        int(sb), ring, t_l1, t_wt)
+    _count("serial", ring)
     return tuple(x.reshape(()) for x in out)
 
 
@@ -100,10 +101,13 @@ def store_timeline_batch(arrivals: torch.Tensor, coalesce: torch.Tensor,
     """The per-step engine's timeline of ``B`` lanes: time-major
     ``(n_stores, B)`` inputs, ``config_idx`` (index into ``CONFIGS``) and
     ``sb_size`` ``(B,)`` int32, and a ring of ``sb_max`` slots shared by
-    every depth (each in ``[1, sb_max]``). Returns ``(B,)`` ``(last
-    commit time f32, at_head i32, sb_full i32)`` on the inputs' device,
-    without synchronising. On the card a lane whose depth or rule is out
-    of range gets NaN and -1 counts; the plain version raises."""
+    every depth (each in ``[1, sb_max]``). When every lane has one depth
+    of ``kernel.register_ring_depths()``, the launch keeps the ring in
+    registers (the card reads ``sb_size``'s least and greatest depth back
+    to the host to see it). Returns ``(B,)`` ``(last commit time f32,
+    at_head i32, sb_full i32)`` on the inputs' device, without
+    synchronising on the outputs. On the card a lane whose depth or rule
+    is out of range gets NaN and -1 counts; the plain version raises."""
     inputs = (arrivals, coalesce, exposed, t_repl_i, svc_i)
     _check(inputs, {"config_idx": config_idx, "sb_size": sb_size}, 2)
     if int(sb_max) < 1:
@@ -112,19 +116,37 @@ def store_timeline_batch(arrivals: torch.Tensor, coalesce: torch.Tensor,
         return store_timeline_batch_ref(*inputs, config_idx, sb_size,
                                         sb_max=int(sb_max), t_l1=t_l1,
                                         t_wt=t_wt)
+    uniform = _uniform_depth(sb_size)
+    ring = kernel.ring_for(uniform, int(sb_max))
+    # the depth goes to the kernel only for the register ring: every lane
+    # has it
+    sb = uniform if ring == "register" else 0
     out = kernel.launch(*inputs, config_idx, sb_size,
-                        kernel.PER_LANE_CONFIG, 0, int(sb_max), t_l1, t_wt)
-    store_timeline.launches += 1
-    store_timeline.launches_by_mode["perstep"] += 1
+                        kernel.PER_LANE_CONFIG, sb, int(sb_max), ring,
+                        t_l1, t_wt)
+    _count("perstep", ring)
     return out
+
+
+def _uniform_depth(sb_size: torch.Tensor) -> Optional[int]:
+    """The one depth of every lane, if they share one, else None."""
+    lo, hi = torch.stack(torch.aminmax(sb_size)).tolist()
+    return lo if lo == hi else None
+
+
+def _count(mode: str, ring: str) -> None:
+    store_timeline.launches += 1
+    store_timeline.launches_by_mode[mode] += 1
+    store_timeline.launches_by_ring[ring] += 1
 
 
 def reset_counts() -> None:
     """Set the launch counters to 0."""
     store_timeline.launches = 0
     store_timeline.launches_by_mode = {"serial": 0, "perstep": 0}
+    store_timeline.launches_by_ring = {ring: 0 for ring in kernel.RINGS}
 
 
 #: Kernel launches since import or :func:`reset_counts` (CPU calls are
-#: not counted), in all and by mode.
+#: not counted), in all, by mode and by ring instantiation.
 reset_counts()

@@ -183,12 +183,16 @@ class FakeLibrary:
     """Stands in for the built library: records each launch's arguments
     and returns ``status``."""
 
-    def __init__(self, status=0):
+    def __init__(self, status=0, depths=(48, 72)):
         self.status = status
+        self.depths = depths
         self.calls = []
 
     def bank_scan_max_shared_sb(self):
         return 384
+
+    def bank_scan_register_ring_depth(self, k):
+        return self.depths[k] if 0 <= k < len(self.depths) else 0
 
     def bank_scan_launch(self, *args):
         self.calls.append(args)
@@ -249,6 +253,19 @@ def test_depth_picks_the_ring(sb24, fake_library, sb, ring):
     assert bank_scan.launches == total + 1
     assert bank_scan.launches_by_ring == {
         r: c + (r == ring) for r, c in by_ring.items()}
+
+
+def test_register_ring_depths_come_from_the_library(monkeypatch):
+    """The register-ring depths are the built library's, not a copy: a
+    library with another list moves ``ring_for`` with it."""
+    monkeypatch.setattr(scan_kernel, "load", lambda: FakeLibrary())
+    assert scan_kernel.register_ring_depths() == (48, 72)
+    lib = FakeLibrary(depths=(24,))
+    monkeypatch.setattr(scan_kernel, "load", lambda: lib)
+    assert scan_kernel.register_ring_depths() == (24,)
+    assert scan_kernel.ring_for(24) == "register"
+    assert scan_kernel.ring_for(48) == scan_kernel.ring_for(72) == "shared"
+    assert scan_kernel.ring_for(500) == "scratch"
 
 
 def test_nonzero_launch_status_raises(sb24, fake_library):

@@ -12,6 +12,7 @@ built one.
 """
 
 import contextlib
+import dataclasses
 import os
 import subprocess
 import sys
@@ -70,11 +71,12 @@ def _same(port, want, ctx):
         assert np.array_equal(p, w), (ctx, name, p, w)
 
 
-@pytest.mark.parametrize("sb", [1, 7, 72, N + 1])
+@pytest.mark.parametrize("sb", [1, 7, 48, 72, N + 1])
 @pytest.mark.parametrize("config", JS.CONFIGS)
 def test_serial_plain_equals_jax_timeline(config, sb):
-    """Each rule at sb 1, 7, the paper's 72 and deeper than the trace, on
-    a real cell with contention and directory load folded in."""
+    """Each rule at sb 1, 7, the mega-grid's 48, the paper's 72 and deeper
+    than the trace, on a real cell with contention and directory load
+    folded in."""
     arrs = _cell("canneal", config, conflict_rate=0.2, directory_load=0.4)
     port = store_timeline(*(torch.from_numpy(x) for x in arrs),
                           config=config, sb=sb, **KNOBS)
@@ -126,14 +128,31 @@ def test_batch_plain_on_real_cells_equals_serial():
 
 def test_cpu_route_counts_no_launch():
     arrs = tuple(torch.from_numpy(x) for x in _random((50,), seed=1))
-    before = (store_timeline.launches, dict(store_timeline.launches_by_mode))
+    before = (store_timeline.launches, dict(store_timeline.launches_by_mode),
+              dict(store_timeline.launches_by_ring))
     store_timeline(*arrs, config="wb", sb=4, **KNOBS)
     two = tuple(torch.stack([x, x], dim=1) for x in arrs)
     store_timeline_batch(*two, torch.tensor([0, 4], dtype=torch.int32),
                          torch.tensor([4, 8], dtype=torch.int32), sb_max=8,
                          **KNOBS)
-    assert (store_timeline.launches,
-            store_timeline.launches_by_mode) == before
+    assert (store_timeline.launches, store_timeline.launches_by_mode,
+            store_timeline.launches_by_ring) == before
+
+
+def test_batch_plain_uniform_depth_equals_serial():
+    """A batch whose lanes all have one register-ring depth (48) gives,
+    lane by lane, the serial plain version's results under each lane's
+    rule."""
+    arrs = tuple(torch.from_numpy(x) for x in _random((120, 8), seed=9))
+    cfg = torch.arange(8, dtype=torch.int32) % 5
+    sbs = torch.full((8,), 48, dtype=torch.int32)
+    got = store_timeline_batch(*arrs, cfg, sbs, sb_max=48, **KNOBS)
+    for lane in range(8):
+        want = store_timeline_ref(*(x[:, lane].contiguous() for x in arrs),
+                                  config=JS.CONFIGS[lane % 5], sb=48,
+                                  **KNOBS)
+        for g, w in zip(got, want):
+            assert torch.equal(g[lane], w), lane
 
 
 @pytest.mark.parametrize("case", ["dtype", "shape", "contiguity", "device",
@@ -188,11 +207,48 @@ def cuda_device():
 def test_cuda_serial_kernel_matches_plain(cuda_device, config):
     arrs = tuple(torch.from_numpy(x) for x in _cell("barnes", config))
     on_card = tuple(x.to(cuda_device) for x in arrs)
-    for sb in (1, 7, 72, 500):
+    for sb in (1, 7, 48, 72, 500):
         before = store_timeline.launches
+        ring = store_timeline.launches_by_ring[st_kernel.ring_for(sb)]
         got = store_timeline(*on_card, config=config, sb=sb, **KNOBS)
         assert store_timeline.launches == before + 1
+        assert (store_timeline.launches_by_ring[st_kernel.ring_for(sb)]
+                == ring + 1)
         want = store_timeline_ref(*arrs, config=config, sb=sb, **KNOBS)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (config, sb)
+
+
+def _chunk_sizes():
+    chunk = st_kernel.load().store_timeline_chunk_stores()
+    return (1, 5, chunk - 1, chunk + 1)
+
+
+@pytest.mark.parametrize("config", JS.CONFIGS)
+def test_cuda_serial_small_and_ragged_n(cuda_device, config):
+    """n = 1, 5, one below and one above the kernel's chunk, on the
+    register ring (sb 48, 72) and the shared one (sb 7)."""
+    for n in _chunk_sizes():
+        arrs = tuple(torch.from_numpy(x) for x in _random((n,), seed=n))
+        on_card = tuple(x.to(cuda_device) for x in arrs)
+        for sb in (7, 48, 72):
+            got = store_timeline(*on_card, config=config, sb=sb, **KNOBS)
+            want = store_timeline_ref(*arrs, config=config, sb=sb, **KNOBS)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w), (config, n, sb)
+
+
+@pytest.mark.parametrize("config", JS.CONFIGS)
+def test_cuda_serial_misaligned_inputs(cuda_device, config):
+    """Contiguous views that start at element 1: no input 16-byte
+    aligned, the coalesce bytes not even 4-byte aligned."""
+    arrs = tuple(torch.from_numpy(x) for x in _random((2004,), seed=11))
+    on_card = tuple(x.to(cuda_device)[1:] for x in arrs)
+    assert all(x.is_contiguous() and x.data_ptr() % 16 for x in on_card)
+    for sb in (7, 72):
+        got = store_timeline(*on_card, config=config, sb=sb, **KNOBS)
+        want = store_timeline_ref(*(x[1:] for x in arrs), config=config,
+                                  sb=sb, **KNOBS)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w), (config, sb)
 
@@ -211,16 +267,46 @@ def test_cuda_perstep_kernel_matches_plain(cuda_device):
         assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("sb, sb_max, ring", [(48, 48, "register"),
+                                              (72, 72, "register"),
+                                              (None, 400, "scratch")])
+def test_cuda_perstep_rings_match_plain(cuda_device, sb, sb_max, ring):
+    """Every lane at sb 48 / 72, read from ``sb_size`` (the register
+    ring), and mixed depths past the shared limit (scratch); rules mixed
+    across the eight lanes of a block, ragged lanes and small n."""
+    for n in _chunk_sizes() + (2003,):
+        arrs = tuple(torch.from_numpy(x) for x in _random((n, 19), seed=n))
+        cfg = torch.arange(19, dtype=torch.int32) % 5
+        sbs = (torch.full((19,), sb, dtype=torch.int32) if sb else
+               torch.tensor([1, 7, 385, 400] * 5, dtype=torch.int32)[:19])
+        before = store_timeline.launches_by_ring[ring]
+        got = store_timeline_batch(*(x.to(cuda_device) for x in arrs),
+                                   cfg.to(cuda_device), sbs.to(cuda_device),
+                                   sb_max=sb_max, **KNOBS)
+        assert store_timeline.launches_by_ring[ring] == before + 1
+        want = store_timeline_batch_ref(*arrs, cfg, sbs, sb_max=sb_max,
+                                        **KNOBS)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w), (n, sb)
+
+
 class FakeLibrary:
     """Stands in for the built library: records each launch's arguments
     and returns ``status``."""
 
-    def __init__(self, status=0):
+    def __init__(self, status=0, depths=(48, 72)):
         self.status = status
+        self.depths = depths
         self.calls = []
 
     def store_timeline_max_shared_ring(self):
         return 384
+
+    def store_timeline_chunk_stores(self):
+        return 432
+
+    def store_timeline_register_ring_depth(self, k):
+        return self.depths[k] if 0 <= k < len(self.depths) else 0
 
     def store_timeline_launch(self, *args):
         self.calls.append(args)
@@ -254,31 +340,40 @@ def fake_library(monkeypatch):
     return lib, sizes
 
 
-@pytest.mark.parametrize("sb, ring", [(1, "shared"), (72, "shared"),
-                                      (384, "shared"), (385, "scratch"),
-                                      (500, "scratch")])
-def test_serial_launch_arguments(fake_library, sb, ring):
+@pytest.mark.parametrize("sb, memory_ring", [(1, "shared"), (48, "shared"),
+                                             (72, "shared"), (384, "shared"),
+                                             (385, "scratch"),
+                                             (500, "scratch")])
+def test_serial_launch_arguments(fake_library, sb, memory_ring):
     """The serial mode passes its rule's index, its depth as the ring's
-    width, no per-lane vectors and f32-rounded costs; rings past the
-    shared limit get a scratch buffer of ring x lanes floats."""
+    width, the ring instantiation, no per-lane vectors and f32-rounded
+    costs. ``memory_ring`` is where a ring of ``sb`` slots lives in
+    memory; the launch keeps it in registers instead at the register
+    depths (sb 48 / 72). Rings past the shared limit get a scratch buffer
+    of ring x lanes floats."""
+    ring = "register" if sb in (48, 72) else memory_ring
     lib, sizes = fake_library
     arrs = tuple(torch.from_numpy(x) for x in _random((90,), seed=4))
     total = store_timeline.launches
     serial = store_timeline.launches_by_mode["serial"]
+    by_ring = store_timeline.launches_by_ring[ring]
     out = store_timeline(*arrs, config="parallel", sb=sb, **KNOBS)
     assert [tuple(x.shape) for x in out] == [()] * 3
     [args] = lib.calls
     assert args[5] is None and args[6] is None      # no per-lane vectors
     assert args[7:12] == (3, sb, 1, 90, sb)
-    assert args[12] == float(np.float32(KNOBS["t_l1"]))
-    assert args[13] == float(np.float32(KNOBS["t_wt"]))
-    assert (args[14] is not None) == (ring == "scratch")
-    assert args[18] == 7
+    assert args[12] == st_kernel.RINGS[ring]
+    assert args[13] == float(np.float32(KNOBS["t_l1"]))
+    assert args[14] == float(np.float32(KNOBS["t_wt"]))
+    assert (args[15] is not None) == (ring == "scratch")
+    assert args[19] == 7
     assert st_kernel.ring_for(sb) == ring
+    assert st_kernel.ring_for(None, sb) == memory_ring
     assert sizes[:3] == [(1,)] * 3
     assert sizes[3:] == ([(sb,)] if ring == "scratch" else [])
     assert store_timeline.launches == total + 1
     assert store_timeline.launches_by_mode["serial"] == serial + 1
+    assert store_timeline.launches_by_ring[ring] == by_ring + 1
 
 
 def test_perstep_launch_arguments(fake_library):
@@ -291,10 +386,91 @@ def test_perstep_launch_arguments(fake_library):
     assert [tuple(x.shape) for x in out] == [(16,)] * 3
     [args] = lib.calls
     assert args[5] == cfg.data_ptr() and args[6] == sbs.data_ptr()
-    assert args[7:12] == (st_kernel.PER_LANE_CONFIG, 0, 16, 60, 400)
-    assert args[14] is not None
+    assert args[7:13] == (st_kernel.PER_LANE_CONFIG, 0, 16, 60, 400,
+                          st_kernel.RINGS["scratch"])
+    assert args[15] is not None
     assert sizes[3:] == [(400 * 16,)]
     assert store_timeline.launches_by_mode["perstep"] == perstep + 1
+
+
+@pytest.mark.parametrize("sbs, sb_max, ring, sb_arg", [
+    ([72] * 16, 72, "register", 72),
+    ([48] * 16, 48, "register", 48),
+    ([72] * 16, 200, "register", 72),
+    ([16] * 16, 16, "shared", 0),
+    ([16, 48, 72, 200] * 4, 200, "shared", 0),
+    ([48, 72] * 8, 400, "scratch", 0),
+    ([72] * 16, 48, "shared", 0),
+])
+def test_perstep_ring_from_sb_size(fake_library, sbs, sb_max, ring, sb_arg):
+    """A depth with a register instantiation that every lane of
+    ``sb_size`` shares takes the register ring and hands the kernel that
+    depth; other depths, mixed depths, and a depth past ``sb_max`` (its
+    lanes get NaN / -1) keep a ring of ``sb_max`` slots in shared memory
+    or scratch."""
+    lib, sizes = fake_library
+    arrs = tuple(torch.from_numpy(x) for x in _random((60, 16), seed=12))
+    cfg = torch.arange(16, dtype=torch.int32) % 5
+    by_ring = store_timeline.launches_by_ring[ring]
+    store_timeline_batch(*arrs, cfg, torch.tensor(sbs, dtype=torch.int32),
+                         sb_max=sb_max, **KNOBS)
+    [args] = lib.calls
+    assert args[8] == sb_arg and args[11] == sb_max
+    assert args[12] == st_kernel.RINGS[ring]
+    assert (args[15] is not None) == (ring == "scratch")
+    assert sizes[3:] == ([(sb_max * 16,)] if ring == "scratch" else [])
+    assert store_timeline.launches_by_ring[ring] == by_ring + 1
+
+
+def test_perstep_engine_takes_register_ring(monkeypatch):
+    """Through ``simulate_batch(chunk_size=0)``, Fig. 10's sb-72 cells
+    take the register ring and a mixed-SB batch does not; results are
+    those of the plain route."""
+    from repro_torch.core import scenarios as TSc
+    from repro_torch.core import simulator as TS
+
+    specs = TSc.fig10_grid()[:6]
+    mixed = [dataclasses.replace(s, sb_size=(16, 72)[i % 2])
+             for i, s in enumerate(specs)]
+    groups = (specs, mixed)
+    want = [TS.simulate_batch(g, n_stores=150, chunk_size=0, device="cpu")
+            for g in groups]
+    rings = []
+
+    def plain_launch(*args):
+        rings.append(args[10])
+        return store_timeline_batch_ref(*args[:7], sb_max=args[9],
+                                        t_l1=args[11], t_wt=args[12])
+
+    monkeypatch.setattr(st_ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(st_kernel, "load", FakeLibrary)
+    monkeypatch.setattr(st_kernel, "launch", plain_launch)
+    for g, ring, plain in zip(groups, ("register", "shared"), want):
+        TS.clear_sim_caches()
+        got = TS.simulate_batch(g, n_stores=150, chunk_size=0, device="cpu")
+        assert rings[-1] == ring
+        assert [_fields(r) for r in got] == [_fields(r) for r in plain]
+    TS.clear_sim_caches()
+
+
+def _fields(r):
+    return tuple(getattr(r, f.name) for f in dataclasses.fields(r)
+                 if f.name != "meta")
+
+
+def test_register_ring_depths_come_from_the_library(monkeypatch):
+    """The register-ring depths are the built library's, not a copy:
+    a library with another list moves ``ring_for`` with it."""
+    monkeypatch.setattr(st_kernel, "load", lambda: FakeLibrary())
+    assert st_kernel.register_ring_depths() == (48, 72)
+    lib = FakeLibrary(depths=(16,))
+    monkeypatch.setattr(st_kernel, "load", lambda: lib)
+    assert st_kernel.register_ring_depths() == (16,)
+    assert st_kernel.ring_for(16) == "register"
+    assert st_kernel.ring_for(48) == st_kernel.ring_for(72) == "shared"
+    assert st_kernel.ring_for(None, 16) == "shared"
+    # a depth past the ring's width never takes the register ring
+    assert st_kernel.ring_for(16, 8) == "shared"
 
 
 def test_nonzero_launch_status_raises(fake_library):
@@ -314,6 +490,26 @@ def test_reset_counts(fake_library):
     st_ops.reset_counts()
     assert store_timeline.launches == 0
     assert store_timeline.launches_by_mode == {"serial": 0, "perstep": 0}
+    assert store_timeline.launches_by_ring == {"register": 0, "shared": 0,
+                                               "scratch": 0}
+
+
+def test_launches_by_ring_counts(fake_library):
+    """Each launch counts once under the ring it took, and nowhere
+    else."""
+    arrs = tuple(torch.from_numpy(x) for x in _random((30,), seed=10))
+    st_ops.reset_counts()
+    for sb in (72, 48, 7, 500, 72):
+        store_timeline(*arrs, config="proactive", sb=sb, **KNOBS)
+    two = tuple(torch.stack([x] * 8, dim=1) for x in arrs)
+    cfg = torch.arange(8, dtype=torch.int32) % 5
+    store_timeline_batch(*two, cfg, torch.full((8,), 48, dtype=torch.int32),
+                         sb_max=48, **KNOBS)
+    assert store_timeline.launches_by_ring == {"register": 4, "shared": 1,
+                                               "scratch": 1}
+    assert store_timeline.launches_by_mode == {"serial": 5, "perstep": 1}
+    assert store_timeline.launches == 6
+    st_ops.reset_counts()
 
 
 def test_cuda_route_never_falls_back(monkeypatch):
