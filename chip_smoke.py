@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's three paths at full width through the entry points a
+Drives the port's four paths at full width through the entry points a
 user calls -- the paper's evaluation, the ReCXL mechanism (replication
 into per-node log rings, Algorithms 1-2 recovery, the log-dump
-compressor), and serving hymba-1.5b (prefill + greedy decode) -- and
+compressor), serving hymba-1.5b (prefill + greedy decode), and the
+scenario service with its chaos recovery over logical shards -- and
 holds each hand-written CUDA kernel against its plain PyTorch version:
 
 1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu``,
@@ -15,7 +16,9 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
    outputs, over real banks at sb in {1, 7, 24, 48, 72, 200, 500}, a
    ragged n, n = 1, padded lanes and the ``[0]`` view of a sub-bank stack,
    with the ring instantiation (register, shared, scratch) each sb ran
-   on: sb 48 and 72 on the register ring;
+   on: sb 48 and 72 on the register ring; and a 4-shard, k_replicas = 2
+   stack with NaN replica blocks and capacity tail, read through flat
+   rows by lanes of every shard at sb 48, 72 and 200;
 3. ``run_sweep(fig10_grid(), n_stores=50_000)`` on the blocked tier: one
    launch, every cell ``==`` the plain version on CPU tensors, three
    cells ``==`` the serial per-store oracle, geomeans inside the paper's
@@ -97,7 +100,23 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
 12. the mega-grid at 50 000 stores on the stacked stream tier (82 tiles
     of cell-major per-cell arrays, one bank_scan launch each): every
     cell ``==`` the banked stream tier's, six sampled cells ``==``
-    ``simulate_spec``; the spans and ``bank_stats()``.
+    ``simulate_spec``; the spans and ``bank_stats()``;
+13. the scenario service at the evaluation's width: a ``ScenarioServer``
+    over 4 logical shards (64-lane serve tiles) warmed on the mega-grid
+    (27 + 1 298 rows, 2 700 lanes, 512 local wv rows a shard), then a
+    seeded stream of 500 queries (70% mega-grid cells, 30% of 30 novel
+    seed-3 cells), a 64-query submit burst, a grid query and a downtime
+    query: mega-grid answers ``==`` phase 4's, novel ones ``==`` the
+    blocked oracle and three ``==`` ``simulate_spec``; zero new tile
+    programs and kernel builds after the warm; hit and miss latency,
+    queries per second, h2d bytes per query, launches, resident bytes;
+14. resilience: the mega-grid at 4 logical shards with a replica set,
+    fault-free, then losing shard 3 at dispatch 5 (rebuilt from the
+    replica block), then with wv row 0 corrupted (found by digest), each
+    ``==`` phase 4 with zero new tile programs; a degraded finish on 3
+    shards (``==``, one new program per SB group); and
+    ``serve_scenarios`` in process at 50 000 stores, 200 queries, 4
+    shards, shard 3 lost mid-stream, ``--check``.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -164,6 +183,9 @@ JAX_GEOMEANS_50K = {"wt": 7.800868352151868,
                     "parallel": 2.7555289788601542,
                     "proactive": 1.2559832132009918}
 TOLERANCE = "== (max_abs_err 0.0): the scans are IEEE add and max only"
+#: The scenario service of phases 13-14: logical shards and stream size.
+SERVE_SHARDS = 4
+SERVE_QUERIES = 500
 LC_TOLERANCE = ("== on codes, scales and words (max_abs_err 0.0): IEEE "
                 "round-to-nearest intrinsics, no FMA, no -ftz")
 
@@ -382,7 +404,57 @@ def phase_kernel_vs_plain(torch, S, Sc, ops, ref) -> float:
                 if sb in (48, 72):
                     check(rings == ["register"], f"sb={sb} ran on the "
                           f"register ring")
+        if n > 1:
+            max_err = max(max_err, check_multi_shard(torch, S, ops, ref, bank,
+                                                     specs, cols))
     check_bad_index(torch, ops, cols)
+    return max_err
+
+
+def check_multi_shard(torch, S, ops, ref, bank, specs, cols) -> float:
+    """The kernel on a logical-shard sub-bank as the sharded tiers place
+    it: a 4-shard, k_replicas = 2 stack, contiguous on the card, whose
+    replica blocks and capacity tail are NaN, gathered through flat rows
+    ``owner * k * cap + local`` by lanes of every shard. ``==`` the plain
+    version on the same stack and on the plain columns, NaN-free: a
+    gather from the wrong block or the tail would show."""
+    import numpy as np
+    n_shards, k = 4, 2
+    n = bank.n_stores
+    cap = S.sub_bank_rows(bank.wv_rows, n_shards) + 5     # capacity tail
+    stacks = []
+    for col in (bank.w, bank.v, bank.pr_nc):
+        out = np.zeros((n_shards, k * cap, n), col.dtype)
+        if col.dtype != bool:
+            out[:] = np.nan
+        for s in range(n_shards):
+            rows = col[s::n_shards]
+            out[s, :rows.shape[0]] = rows
+        stacks.append(torch.from_numpy(out).to(DEVICE).view(-1, n))
+    rows = [bank.rows_for(s) for s in specs]
+    check({r[1] % n_shards for r in rows} == set(range(n_shards)),
+          f"lanes of all {n_shards} shards")
+    tr = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=DEVICE)
+    flat = torch.tensor([(r[1] % n_shards) * k * cap + r[1] // n_shards
+                         for r in rows], dtype=torch.int32, device=DEVICE)
+    wv = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=DEVICE)
+    max_err = 0.0
+    for sb in (48, 72, 200):
+        got, rings = rings_used(ops.bank_scan, lambda: ops.bank_scan(
+            cols[0], *stacks, tr, flat, chunk=sb, sb=sb))
+        same_stack = ref.bank_scan_ref(cols[0], *stacks, tr, flat, chunk=sb,
+                                       sb=sb)
+        plain = ref.bank_scan_ref(*cols, tr, wv, chunk=sb, sb=sb)
+        torch.cuda.synchronize()
+        err = float((got[0] - plain[0]).abs().max())
+        max_err = max(max_err, err)
+        check(not bool(torch.isnan(got[0]).any())
+              and all(torch.equal(g, w) for g, w in zip(got, same_stack))
+              and all(torch.equal(g, w) for g, w in zip(got, plain)),
+              f"n={n} sb={sb} {n_shards}-shard k={k} stack (NaN replica "
+              f"blocks and tail), {len(rows)} lanes, {'/'.join(rings)} ring: "
+              f"kernel == plain on the stack and on the columns "
+              f"(max_abs_err {err})")
     return max_err
 
 
@@ -591,7 +663,8 @@ def phase_mega(torch, S, E, Sc, T, ops, ref) -> dict:
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     print(f"  plain version on the card, one tile: {plain_ms:.1f} ms")
-    return {"launches": launches, "wall_s": wall_s, "bank_stats": stats,
+    return {"results": res,
+            "launches": launches, "wall_s": wall_s, "bank_stats": stats,
             "telemetry_ms": split, "tile_kernel_ms": [t[0] for t in per_tile],
             "tile_bound_ms": [t[1] for t in per_tile], "kernel_ms": ms_mean,
             "kernel_total_ms": kernel_total, "bound_ms": bound_mean,
@@ -1887,6 +1960,223 @@ def phase_mega_stacked(torch, S, E, Sc, T, stl, bs_ops) -> dict:
             "telemetry_ms": split, "sampled": sample}
 
 
+def pct(xs, q: float) -> float:
+    """Nearest-rank percentile ``q`` of ``xs`` (ms)."""
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else 0.0
+
+
+def phase_serving(torch, S, E, Sc, sv, kernel, ops, mega_res) -> dict:
+    print("phase 13: ScenarioServer at n_stores=50 000, 4 logical shards, "
+          "64-lane serve tiles: the mega-grid warmed, then a seeded stream "
+          "of 500 queries, a submit burst, a grid query and a downtime query")
+    import numpy as np
+    mega = Sc.mega_grid()
+    index = {s: i for i, s in enumerate(mega)}
+    novel = Sc.grid_delta(mega, seeds=(3,),
+                          workloads=("ycsb", "canneal", "barnes"),
+                          sb_sizes=(72, 48))
+    check(len(novel) == 30, f"{len(novel)} novel cells (seed 3)")
+    rng = np.random.default_rng(SEED)
+    stream = [mega[rng.integers(len(mega))] if rng.random() < 0.7
+              else novel[rng.integers(len(novel))]
+              for _ in range(SERVE_QUERIES)]
+    S.clear_sim_caches()
+    srv = sv.ScenarioServer(n_stores=N_STORES, n_shards=SERVE_SHARDS,
+                            batch_cells=64)
+    with srv:
+        t0 = time.perf_counter()
+        srv.warm(mega)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        st = srv.stats()
+        check(st["bank_rows"] == 27 + 1298 and st["lanes_cached"] == 2700,
+              f"warm: {len(mega)} cells, {st['bank_rows']} bank rows, "
+              f"{st['lanes_cached']} lanes, {warm_s:.3f} s")
+        check(st["bank_capacity"] == (256, 512),
+              f"capacity {st['bank_capacity']} (trace rows, local wv rows "
+              f"per shard); {st['bank_dev_bytes']} bytes resident")
+        warm_dev_bytes = st["bank_dev_bytes"]
+        srv.reset_stats()
+        tc0 = E.trace_count()
+        lib0 = kernel.LIBRARY._lib, kernel.LIBRARY.last_build
+        ops.bank_scan.launches = 0
+        hit_ms, miss_ms, answers = [], [], []
+        t0 = time.perf_counter()
+        for spec in stream:
+            t1 = time.perf_counter()
+            r = srv.query(spec)
+            (hit_ms if r.meta["cache"] == "hit" else miss_ms).append(
+                (time.perf_counter() - t1) * 1e3)
+            answers.append(r)
+        stream_s = time.perf_counter() - t0
+        launches = ops.bank_scan.launches
+        st = srv.stats()
+        burst = [f.result(timeout=600) for f in
+                 [srv.submit(s) for s in stream[:64]]]
+        grid_q = srv.query_grid(workloads=("streamcluster",),
+                                configs=("proactive",), n_replicas=(2, 4))
+        est = srv.query_downtime("ycsb", fail_time_ms=50.0, n_cns=8)
+        new_programs = E.trace_count() - tc0
+        same_lib = (kernel.LIBRARY._lib, kernel.LIBRARY.last_build) == lib0
+        dev_bytes = srv.stats()["bank_dev_bytes"]
+    print(f"  stream: {len(stream)} queries in {stream_s:.3f} s "
+          f"({len(stream) / stream_s:.1f} q/s); hits {len(hit_ms)}: p50 "
+          f"{pct(hit_ms, 0.5):.4f} ms p99 {pct(hit_ms, 0.99):.4f} ms; "
+          f"misses {len(miss_ms)}: p50 {pct(miss_ms, 0.5):.3f} ms p99 "
+          f"{pct(miss_ms, 0.99):.3f} ms; h2d "
+          f"{st['h2d_bytes'] / len(stream):.1f} bytes per query; "
+          f"{launches} bank_scan launches; resident bank "
+          f"{dev_bytes} bytes")
+    check(len(miss_ms) == st["lane_misses"] == len(set(stream) - set(mega)),
+          f"{len(miss_ms)} misses, one per novel cell asked")
+    check(launches == st["lane_misses"],
+          f"one bank_scan launch per miss flush ({launches})")
+    check(new_programs == 0 and st["compiled_programs"] == 0,
+          "zero new tile programs after warm")
+    check(same_lib, "zero new kernel builds after warm (the library "
+          "loaded before the stream is the one that ran)")
+    check(dev_bytes == warm_dev_bytes, "resident bank bytes unchanged")
+    for spec, r in zip(stream[:64], burst):
+        check_answer(r, answers[stream.index(spec)], "submit burst")
+    for spec, r in zip(stream, answers):
+        if spec in index:
+            if fields(r) != fields(mega_res[index[spec]]):
+                raise SmokeFailure(f"{spec} served != phase 4's answer")
+    n_hits = sum(s in index for s in stream)
+    check(True, f"{n_hits} mega-grid answers == phase 4's stream-tier "
+          f"results")
+    asked = list(dict.fromkeys(s for s in stream if s not in index))
+    blocked = E.simulate_grid(asked + list(Sc.sweep_grid(
+        workloads=("streamcluster",), configs=("proactive",),
+        n_replicas=(2, 4))), n_stores=N_STORES, engine="blocked")
+    by_spec = {s: r for s, r in zip(stream, answers)}
+    for spec, want in zip(asked, blocked):
+        check_answer(by_spec[spec], want, "novel cell vs blocked oracle")
+    check(True, f"{len(asked)} novel answers == simulate_grid(engine="
+          f"\"blocked\") on the card")
+    for r, want in zip(grid_q, blocked[len(asked):]):
+        check_answer(r, want, "query_grid vs blocked oracle")
+    check(True, f"query_grid: {len(grid_q)} cells == the blocked oracle")
+    for spec in asked[:3]:
+        check_answer(by_spec[spec], S.simulate_spec(spec, n_stores=N_STORES),
+                     "novel cell vs simulate_spec")
+    check(True, "three novel cells == simulate_spec")
+    want = Sc.downtime_query("ycsb", 50.0, n_cns=8)
+    check(est == want, f"query_downtime == downtime_query "
+          f"({est.total_ns / 1e6:.4f} ms)")
+    return {"warm_s": warm_s, "queries": len(stream), "stream_s": stream_s,
+            "qps": len(stream) / stream_s, "hits": len(hit_ms),
+            "misses": len(miss_ms), "hit_p50_ms": pct(hit_ms, 0.5),
+            "hit_p99_ms": pct(hit_ms, 0.99), "miss_p50_ms": pct(miss_ms, 0.5),
+            "miss_p99_ms": pct(miss_ms, 0.99),
+            "h2d_bytes_per_query": st["h2d_bytes"] / len(stream),
+            "launches": launches, "bank_dev_bytes": dev_bytes,
+            "bank_capacity": st["bank_capacity"]}
+
+
+def check_answer(got, want, what: str) -> None:
+    if fields(got) != fields(want):
+        raise SmokeFailure(f"{what}: {got} != {want}")
+
+
+def phase_resilience(torch, S, E, Sc, chaos, launcher, ops,
+                     mega_res) -> dict:
+    print("phase 14: resilience on the card: the mega-grid at 4 logical "
+          "shards with a replica set, a lost shard, a corrupt row, a "
+          "degraded finish, and the serving launcher's shard-loss demo")
+    import contextlib
+    import io
+    mega = Sc.mega_grid()
+    want = [fields(r) for r in mega_res]
+    out = {"launches": 0}
+    S.clear_sim_caches()
+    ops.bank_scan.launches = 0
+    t0 = time.perf_counter()
+    clean = E.run_grid(mega, n_stores=N_STORES, n_shards=SERVE_SHARDS,
+                       k_replicas=2)
+    out["clean_wall_s"] = time.perf_counter() - t0
+    stats = E.bank_stats()
+    out["launches"] += ops.bank_scan.launches
+    check([fields(r) for r in clean] == want
+          and stats["k_replicas"] == 2 and stats["tiles"]
+          == ops.bank_scan.launches,
+          f"fault-free: {stats['tiles']} tiles at {SERVE_SHARDS} shards, "
+          f"k_replicas 2, one launch each, every cell == phase 4 "
+          f"({out['clean_wall_s']:.3f} s, {stats['bank_dev_bytes']} bytes "
+          f"resident)")
+    for name, cfg in (
+            ("shard loss", chaos.ChaosConfig(lose_shard=3,
+                                             lose_at_dispatch=5)),
+            ("corrupt row", chaos.ChaosConfig(corrupt_wv_row=0,
+                                              verify_rows=True))):
+        tc0 = E.trace_count()
+        ops.bank_scan.launches = 0
+        t0 = time.perf_counter()
+        with chaos.inject(cfg) as cs:
+            res = E.run_grid(mega, n_stores=N_STORES, n_shards=SERVE_SHARDS,
+                             k_replicas=2)
+        wall = time.perf_counter() - t0
+        out["launches"] += ops.bank_scan.launches
+        rep = cs.report()
+        rec = rep["recoveries"]
+        check([fields(r) for r in res] == want,
+              f"{name}: every cell == phase 4 ({wall:.3f} s, "
+              f"{ops.bank_scan.launches} launches)")
+        if cfg.lose_shard is not None:
+            check(len(rec) == 1 and rec[0]["shard"] == 3
+                  and rec[0]["source"] == "replica",
+                  f"one recovery of shard 3 from the replica block "
+                  f"({rec[0]['ms']:.2f} ms)" if rec else "one recovery")
+        else:
+            check(rep["detection_dispatches"] is not None and len(rec) == 1,
+                  f"detected by digest after {rep['detection_dispatches']} "
+                  f"dispatches, recovered from {rec[0]['source']} "
+                  f"({rec[0]['ms']:.2f} ms)" if rec else "detected")
+        check(E.trace_count() == tc0, f"{name}: zero new tile programs")
+        out[name] = {"wall_s": wall, "report": {k: rep[k] for k in (
+            "dispatches", "recoveries", "detection_dispatches",
+            "detection_ms", "recovery_ms")}}
+    tc0 = E.trace_count()
+    ops.bank_scan.launches = 0
+    t0 = time.perf_counter()
+    with chaos.inject(chaos.ChaosConfig(lose_shard=3, lose_at_dispatch=5,
+                                        recovery="degraded")) as cs:
+        res = E.run_grid(mega, n_stores=N_STORES, n_shards=SERVE_SHARDS,
+                         k_replicas=2)
+    wall = time.perf_counter() - t0
+    out["launches"] += ops.bank_scan.launches
+    rec = cs.report()["recoveries"]
+    check([fields(r) for r in res] == want and E.bank_stats()["degraded"]
+          and rec and rec[0]["source"] == "degraded-mesh",
+          f"degraded: every cell == phase 4 ({wall:.3f} s), finished on "
+          f"{SERVE_SHARDS - 1} shards, replicated")
+    check(E.trace_count() - tc0 == 2,
+          f"degraded: {E.trace_count() - tc0} new programs, one per SB group")
+    out["degraded"] = {"wall_s": wall, "recoveries": rec}
+    S.clear_sim_caches()
+    ops.bank_scan.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        launcher.main(["--stores", str(N_STORES), "--queries", "200",
+                       "--shards", str(SERVE_SHARDS), "--lose-shard", "3",
+                       "--check"])
+    wall = time.perf_counter() - t0
+    out["launches"] += ops.bank_scan.launches
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"  | {line}")
+    check("oracle check: 200 answers bit-identical" in text,
+          "launcher: 200 answers == the blocked oracle")
+    check("shard 3 lost, recovered from replica" in text,
+          "launcher: shard 3 recovered from the replica block")
+    check("post-recovery tile programs 0" in text,
+          f"launcher: 0 post-recovery tile programs ({wall:.1f} s)")
+    out["launcher_wall_s"] = wall
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measured numbers "
@@ -1910,7 +2200,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels.log_compress import ref as lc_ref
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.core import chaos
+    from repro_torch.core import serving as sv
     from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import serve_scenarios
     from repro_torch.models import attention as attn
     from repro_torch.models import ssm as ssm_mod
 
@@ -1950,6 +2243,7 @@ def main(argv=None) -> int:
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
+    mega_res = mega.pop("results")
     S.clear_sim_caches()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1964,6 +2258,9 @@ def main(argv=None) -> int:
     err10 = phase_timeline_vs_plain(torch, S, Sc, stl)
     routes = phase_fig10_routes(torch, S, E, C, Sc, stl, ops)
     mega_st = phase_mega_stacked(torch, S, E, Sc, T, stl, ops)
+    served_sc = phase_serving(torch, S, E, Sc, sv, kernel, ops, mega_res)
+    resil = phase_resilience(torch, S, E, Sc, chaos, serve_scenarios, ops,
+                             mega_res)
 
     entry = {
         "name": "bank_scan", "route": "cuda",
@@ -1972,7 +2269,8 @@ def main(argv=None) -> int:
         "launches": (fig10["launches"] + mega["launches"]
                      + routes["launches"]["stacked"]["bank_scan"]
                      + routes["launches"]["banked"]["bank_scan"]
-                     + mega_st["launches"] + mega_st["banked_launches"]),
+                     + mega_st["launches"] + mega_st["banked_launches"]
+                     + served_sc["launches"] + resil["launches"]),
         "max_abs_err": max(err2, fig10["max_abs_err"], mega["max_abs_err"]),
         "ms": mega["kernel_ms"], "plain_ms": mega["plain_ms"],
         "bound_ms": mega["bound_ms"], "bound_by": mega["bound_by"],
@@ -1993,6 +2291,10 @@ def main(argv=None) -> int:
                           + routes["launches"]["banked"]["bank_scan"])},
             {"path": "mega-grid stacked and banked stream tiers",
              "launches": mega_st["launches"] + mega_st["banked_launches"]},
+            {"path": "scenario service stream, 4 logical shards",
+             "launches": served_sc["launches"]},
+            {"path": "resilience: 4-shard runs, recoveries, launcher",
+             "launches": resil["launches"]},
         ],
     }
     st_entry = {
@@ -2077,6 +2379,7 @@ def main(argv=None) -> int:
                        "paper_width": paper, "model_kernels": model_k,
                        "serve": served, "timeline_max_abs_err": err10,
                        "fig10_routes": routes, "mega_stacked": mega_st,
+                       "serving": served_sc, "resilience": resil,
                        "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")

@@ -708,6 +708,16 @@ def _place(host: tuple, device: torch.device) -> tuple:
                  for x in host)
 
 
+def columns_key(device: torch.device) -> tuple:
+    """Placement-memo key of a bank's plain columns on ``device``."""
+    return ("columns", str(device))
+
+
+def sub_key(n_shards: int, k_replicas: int, device: torch.device) -> tuple:
+    """Placement-memo key of a bank's sub-bank stacks on ``device``."""
+    return ("sub", n_shards, k_replicas, str(device))
+
+
 @dataclasses.dataclass
 class TraceBank:
     """Columnar, deduplicated per-store inputs for one grid.
@@ -797,15 +807,19 @@ class TraceBank:
                    w=cols[0], v=cols[1], pr_nc=cols[2],
                    trace_row=dict(trace_row), wv_row=dict(wv_row))
 
-    def device_args(self, device=None) -> Tuple[int, tuple]:
+    def device_args(self, device=None,
+                    on_upload: Optional[Callable[[int], None]] = None
+                    ) -> Tuple[int, tuple]:
         """``(arrivals, w, v, pr_nc)`` as torch tensors on ``device``.
 
         ``device=None`` means CUDA and raises without a CUDA device.
-        Placements are memoized per device, so a grid swept by several
-        engines uploads once. Returns ``(bytes_uploaded_now,
-        tensors)`` -- ``bytes_uploaded_now`` is 0 on a placement-cache
-        hit, which is what the engines' ``h2d_bytes`` accounting
-        reports.
+        Placements are memoized per device (key :func:`columns_key`), so
+        a grid swept by several engines uploads once. Returns
+        ``(bytes_uploaded_now, tensors)`` -- ``bytes_uploaded_now`` is 0
+        on a placement-cache hit, which is what the engines'
+        ``h2d_bytes`` accounting reports. ``on_upload(nbytes)`` is
+        called just before any bytes cross host->device (the engines'
+        chaos injection point).
 
         After :meth:`extend` grew the bank, a resident placement is
         refreshed **incrementally**: only the appended row slices cross
@@ -813,7 +827,7 @@ class TraceBank:
         device-side, so ``bytes_uploaded_now`` is the diff's bytes, not
         the bank's."""
         dev_key = resolve_device(device)
-        mkey = ("columns", str(dev_key))
+        mkey = columns_key(dev_key)
         dev = self._device.get(mkey)
         if dev is not None:
             t_res, p_res = int(dev[0].shape[0]), int(dev[1].shape[0])
@@ -822,11 +836,15 @@ class TraceBank:
             # diff upload: ship only the rows appended since placement
             host = (self.arrivals[t_res:], self.w[p_res:],
                     self.v[p_res:], self.pr_nc[p_res:])
+            if on_upload is not None:
+                on_upload(sum(int(x.nbytes) for x in host))
             dev = tuple(torch.cat([d, f], dim=0)
                         for d, f in zip(dev, _place(host, dev_key)))
             self._device[mkey] = dev
             return sum(int(x.nbytes) for x in host), dev
         host = (self.arrivals, self.w, self.v, self.pr_nc)
+        if on_upload is not None:
+            on_upload(self.nbytes)
         dev = _place(host, dev_key)
         self._device[mkey] = dev
         return self.nbytes, dev
@@ -838,8 +856,7 @@ class TraceBank:
         shard ``s``'s PRIMARY sub-bank (local rows ``[0, local)``) is
         rows ``s::n_shards`` of the global plane, zero-padded to the
         widest shard's :func:`sub_bank_rows` count.  Arrivals stay the
-        global 2-D plane (they are replicated on device; see
-        ``distributed.sharding.SUB_BANK_SPEC``).
+        global 2-D plane (one copy, gathered by every shard's lanes).
 
         ``k_replicas > 1`` appends the paper's **Replica set** along
         the local-row axis: replica block ``j`` (local rows ``[j *
@@ -847,7 +864,7 @@ class TraceBank:
         by shard ``(s - j) % n_shards`` -- so global row ``r`` is
         resident on shards ``r % n`` (primary) and ``(r % n + 1) % n``
         (first replica), and losing ONE shard never loses a row
-        (the JAX package's ``chaos.replica_rebuild`` reads the
+        (``repro_torch.core.chaos.replica_rebuild`` reads the
         survivor's block back).  Gathers always target the primary
         block, so the scan arithmetic -- and at ``k_replicas=1`` the
         bytes -- are unchanged; the replica blocks cost
@@ -868,26 +885,42 @@ class TraceBank:
 
         return self.arrivals, sub(self.w), sub(self.v), sub(self.pr_nc)
 
-    def sub_device_args(self, n_shards: int, device=None
+    def sub_device_args(self, n_shards: int, device=None,
+                        k_replicas: int = 1,
+                        on_upload: Optional[Callable[[int], None]] = None
                         ) -> Tuple[int, tuple]:
-        """The :meth:`sub_bank_host` layout (primary blocks only) as
-        torch tensors on ``device`` (``None`` means CUDA), memoized like
-        :meth:`device_args` per ``(n_shards, device)``. Returns
-        ``(bytes_uploaded_now, tensors)``. Growth re-places the whole
-        sub-bank (no diff path: the streaming engine never extends a
-        bank mid-run)."""
+        """The :meth:`sub_bank_host` layout as torch tensors on
+        ``device`` (``None`` means CUDA): the ``(n_shards, k_replicas *
+        local_rows, n_stores)`` stacks of the logical shards lie
+        contiguous on the one device. Memoized per :func:`sub_key`
+        ``("sub", n_shards, k_replicas, device)``, so resilient and plain
+        placements of one bank coexist. Returns ``(bytes_uploaded_now,
+        tensors)``; ``on_upload(nbytes)`` is called just before a fresh
+        placement. Growth re-places the whole sub-bank (no diff path: the
+        streaming engine never extends a bank mid-run, and the serving
+        daemon keeps its own capacity-padded tensors)."""
         dev_key = resolve_device(device)
-        mkey = ("sub", n_shards, str(dev_key))
+        mkey = sub_key(n_shards, k_replicas, dev_key)
         entry = self._device.get(mkey)
         rows_now = (self.trace_rows, self.wv_rows)
         if entry is not None:
             rows_placed, dev = entry
             if rows_placed == rows_now:
                 return 0, dev
-        host = self.sub_bank_host(n_shards)
+        host = self.sub_bank_host(n_shards, k_replicas)
+        nbytes = sum(int(x.nbytes) for x in host)
+        if on_upload is not None:
+            on_upload(nbytes)
         dev = _place(host, dev_key)
         self._device[mkey] = (rows_now, dev)
-        return sum(int(x.nbytes) for x in host), dev
+        return nbytes, dev
+
+    def drop_placement(self, key: object) -> None:
+        """Forget one memoized device placement (:func:`columns_key` /
+        :func:`sub_key`): after a shard loss the stale tensors must not
+        be served from the memo -- the next ``device_args`` /
+        ``sub_device_args`` call re-places from the host truth."""
+        self._device.pop(key, None)
 
     # -- Logging-Unit journal (resilience) --------------------------------
 
@@ -956,8 +989,8 @@ class TraceBank:
         With the Logging-Unit journal enabled (:meth:`enable_journal`),
         every append additionally retains a COPY of its new rows until
         :meth:`ack_journal` confirms the device dump -- the host-side
-        replay source the JAX package's ``chaos.journal_rebuild`` recovers a
-        lost shard from."""
+        replay source :func:`repro_torch.core.chaos.journal_rebuild`
+        recovers a lost shard from."""
         t0, p0 = self.trace_rows, self.wv_rows
         new_trace: List[tuple] = []
         new_wv: List[tuple] = []

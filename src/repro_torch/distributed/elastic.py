@@ -1,11 +1,13 @@
-"""Installing a recovered shard into the live state (spare replacement).
+"""Elastic scaling after a node loss: spare replacement or a degraded mesh.
 
 After recovery (:mod:`repro_torch.core.recovery`), a hot-spare node
 takes over the failed node's coordinates and the recovered shard is
 written into the state at them; the node axes keep their sizes. On one
-card that is tensor surgery on the global state. The degraded-mesh
-strategy of the JAX package's ``distributed/elastic.py`` (shrinking the
-``data`` axis) is not ported.
+card that is tensor surgery on the global state
+(:func:`install_recovered_shard`). Without a spare the mesh shrinks
+instead (:func:`shrink_data_axis`). The streaming engine's logical
+``cells`` shards follow the same two policies
+(:func:`cells_spare_replacement`, :func:`cells_degraded_shards`).
 """
 
 from __future__ import annotations
@@ -84,3 +86,39 @@ def install_recovered_shard(state: Any, specs: Any, engine: ReplicationEngine,
             out[sl] = patch.reshape(out[sl].shape)
         new_flat.append(out)
     return tree_unflatten(treedef, new_flat)
+
+
+def shrink_data_axis(mesh_shape: Tuple[int, ...], axes: Tuple[str, ...]
+                     ) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """Degraded-mesh shape after losing one data rank."""
+    out = list(mesh_shape)
+    di = axes.index("data")
+    if out[di] <= 1:
+        raise ValueError("cannot shrink a single-rank data axis")
+    out[di] -= 1
+    return tuple(out), axes
+
+
+# -- the engine tier's logical ``cells`` shards (core.engine / chaos) -------
+
+def cells_spare_replacement(n_shards: int, lost: int) -> int:
+    """Spare-replacement shard count for the streaming engine's
+    ``cells`` shards: UNCHANGED -- a spare takes the lost shard's place,
+    so every tile program stays valid and recovery costs re-placing the
+    rebuilt rows only (``run_grid``'s recovery path; zero new
+    programs). Returns the shard count after validating the lost
+    index."""
+    if not 0 <= lost < n_shards:
+        raise ValueError(f"lost shard {lost} not in [0, {n_shards})")
+    return n_shards
+
+
+def cells_degraded_shards(n_shards: int) -> int:
+    """Degraded shard count after losing one shard with no spare: one
+    fewer -- the caller re-runs on it with ``bank_partition=
+    "replicated"`` (per-shard sub-banks would need a reshard; the
+    replicated layout needs only its new tile programs) and keeps
+    serving."""
+    if n_shards <= 1:
+        raise ValueError("cannot shrink a single-shard cells mesh")
+    return n_shards - 1

@@ -36,7 +36,9 @@ from repro_torch.kernels.flash_attn import kernel as FA_kernel
 from repro_torch.kernels.flash_attn import ops as FA_ops
 from repro_torch.kernels.ssd_scan import kernel as SSD_kernel
 from repro_torch.kernels.ssd_scan import ops as SSD_ops
+from repro_torch.core.serving import ScenarioServer
 from repro_torch.launch import serve as TServe
+from repro_torch.launch import serve_scenarios as TServeScenarios
 from repro_torch.models import attention as TA
 from repro_torch.models import build_model
 from repro_torch.models import model_zoo as TMZ
@@ -73,7 +75,9 @@ MODULES = [
     "repro_torch.kernels.ssd_scan.ref", "repro_torch.kernels.ssd_scan.kernel",
     "repro_torch.kernels.ssd_scan.ops", "repro_torch.training",
     "repro_torch.training.steps", "repro_torch.launch",
-    "repro_torch.launch.serve", "chip_smoke",
+    "repro_torch.launch.serve", "repro_torch.core.retry",
+    "repro_torch.core.chaos", "repro_torch.core.serving",
+    "repro_torch.launch.serve_scenarios", "chip_smoke",
 ]
 SPECS = TSc.sweep_grid(workloads=("ycsb",), configs=("wb", "proactive"))
 HYMBA = get_reduced_config("hymba-1.5b")
@@ -139,11 +143,15 @@ def no_cuda():
     lambda: TMZ.make_batch(HYMBA, ShapeConfig("s", 8, 2, "prefill")),
     lambda: TMZ.params_from_jax(HYMBA, {}),
     lambda: TServe.serve("hymba-1.5b", reduced=True, prompt_len=8, gen=2),
+    lambda: ScenarioServer(n_stores=50),
+    lambda: TE.run_grid(SPECS, n_stores=50, n_shards=2),
+    lambda: TServeScenarios.main(["--stores", "50", "--queries", "2"]),
 ], ids=["simulate_batch", "slowdown_table", "run_grid", "simulate_grid",
         "run_sweep", "device_args", "sub_device_args", "run_fault_scenario",
         "ReplicationEngine", "recovery_sweep", "recovery_time_batch",
         "logging_unit.init_state", "build_model.init", "init_cache",
-        "make_batch", "params_from_jax", "serve"])
+        "make_batch", "params_from_jax", "serve", "ScenarioServer",
+        "run_grid_sharded", "serve_scenarios"])
 def test_entry_points_default_to_cuda_and_raise(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()

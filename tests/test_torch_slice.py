@@ -175,13 +175,19 @@ def test_auto_tier_selection():
 
 
 @pytest.mark.parametrize("call", [
-    lambda: TE.run_grid(TSc.fig10_grid(), n_stores=100, n_shards=2,
+    lambda: TE.run_grid(TSc.fig10_grid(), n_stores=100, n_shards=0,
                         device="cpu"),
     lambda: TE.run_grid(TSc.fig10_grid(), n_stores=100, k_replicas=2,
-                        device="cpu"),
-    lambda: TE.run_grid(TSc.fig10_grid(), n_stores=100,
-                        worker_timeout_s=5.0, device="cpu"),
+                        data_plane="stacked", device="cpu"),
+    lambda: TE.simulate_grid(TSc.fig10_grid(), n_stores=100,
+                             engine="blocked", worker_timeout_s=5.0,
+                             device="cpu"),
 ])
 def test_later_slices_raise_not_implemented(call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``n_shards``, ``k_replicas`` and ``worker_timeout_s`` are ported
+    (``test_torch_sub_bank.py``, ``test_torch_chaos.py``); what still
+    raises is what the JAX package refuses too: fewer than one shard,
+    replica blocks off the sub-partitioned bank plane, and the chaos
+    knobs on a tier other than the stream tier."""
+    with pytest.raises(ValueError):
         call()
