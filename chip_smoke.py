@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port on one CUDA card.
 
-Drives the port's four paths at full width through the entry points a
-user calls -- the paper's evaluation, the ReCXL mechanism (replication
-into per-node log rings, Algorithms 1-2 recovery, the log-dump
-compressor), serving hymba-1.5b (prefill + greedy decode), and the
-scenario service with its chaos recovery over logical shards -- and
-holds each hand-written CUDA kernel against its plain PyTorch version:
+Drives the port's paths at full width through the entry points a user
+calls -- the paper's evaluation, the ReCXL mechanism (replication into
+per-node log rings, Algorithms 1-2 recovery, the log-dump compressor,
+the YCSB key-value demo), serving hymba-1.5b and moonshot-v1-16b-a3b
+whole and four more decoder configs cut in depth (prefill + greedy
+decode), and the scenario service with its chaos recovery over logical
+shards -- and holds each hand-written CUDA kernel against its plain
+PyTorch version:
 
 1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu``,
    ``ssd_scan.cu`` and ``store_timeline.cu`` from
    ``src/repro_torch/csrc``, one nvcc each, started together; ptxas
-   reports no spill in any ``store_timeline`` instantiation;
+   reports no spill in any ``store_timeline`` instantiation nor in the
+   three ``flash_attn`` instantiations at head dim 160;
 2. kernel against the plain version on the card, ``==`` on all three
    outputs, over real banks at sb in {1, 7, 24, 48, 72, 200, 500}, a
    ragged n, n = 1, padded lanes and the ``[0]`` view of a sub-bank stack,
@@ -46,18 +49,21 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
    (``attention_ref``, ``ssd_ref``) on the card, with TF32 off: every
    case of ``tests/test_kernels.py`` and a bf16 twin of each f32 attention
    case (each kernel's bf16 through its tensor-core kernel, f32 through
-   its CUDA-core one, each call's route checked), hymba-1.5b's per-layer
-   shapes; for the SSD also mamba2-2.7b's p 64 / n 128, n = 8, a ragged
+   its CUDA-core one, each call's route checked), hymba-1.5b's,
+   moonshot-v1-16b-a3b's and stablelm-12b's per-layer shapes (the last at
+   head dim 160, in bf16 and f32); for the SSD also mamba2-2.7b's p 64 /
+   n 128, n = 8, a ragged
    last chunk, an initial state, a decay strong enough to overflow exp
    above the diagonal and one weak enough (A = -0.05) to carry the state
-   across 16 chunks of 256, at the JAX tests' tolerances; at hymba's
+   across 16 chunks of 256, at the JAX tests' tolerances; at the serving
    shapes each query row of attention against its own scale and the SSD
    state against its own; planted faults that must land above the limit
    (attention's last q tile without its diagonal kv tile, the SSD state
    without its last chunk, each SSD chunk reading its own output state as
    its prior); each kernel's time against its bound, its plain version and,
-   in turns, its CUDA-core kernel run on bf16 (and, attention, at hymba's
-   and qwen3-0.6b's per-layer shapes, ``scaled_dot_product_attention``),
+   in turns, its CUDA-core kernel run on bf16 (and, attention, at hymba's,
+   qwen3-0.6b's, moonshot's and stablelm's per-layer shapes,
+   ``scaled_dot_product_attention``),
    the SSD passes split by the profiler and the SSD f32 time;
 9. ``repro_torch.launch.serve.serve`` of hymba-1.5b at full width (32
    layers, d_model 1600, seeded random weights): 4 prompts of 4 096
@@ -116,7 +122,27 @@ holds each hand-written CUDA kernel against its plain PyTorch version:
     ``==`` phase 4 with zero new tile programs; a degraded finish on 3
     shards (``==``, one new program per SB group); and
     ``serve_scenarios`` in process at 50 000 stores, 200 queries, 4
-    shards, shard 3 lost mid-stream, ``--check``.
+    shards, shard 3 lost mid-stream, ``--check``;
+15. ``repro_torch.launch.serve.serve`` of moonshot-v1-16b-a3b at its
+    published width and depth (48 layers, d_model 2 048, 64 experts top-6
+    + 2 shared, 28.9e9 parameters in bf16, seeded random weights): 4
+    prompts of 2 048 tokens, 32 greedy tokens each; 48 tensor-core
+    ``flash_attn`` launches in the prefill; request 0's logits through
+    the kernel against the plain attention, decode steps 1 and 31 against
+    fresh prefills at the no-drop capacity factor 16, and three planted
+    faults (gates not renormalized, shared experts left out, a short kv
+    length); then an f32 copy cut to 4 layers through the CUDA-core
+    kernel. Routing flips between two runs are counted, shown and, where
+    a comparison reads above its limit with flips, read again with the
+    second run pinned to the first run's experts; a profiled prefill and
+    8 decode steps with the MoE dispatch as its own bucket;
+16. grok-1-314b, deepseek-67b, stablelm-12b (head dim 160) and
+    starcoder2-15b at full width, cut to 2 layers: batch 1, a 512-token
+    prompt, 4 decode steps each; 2 tensor-core launches each, logits
+    against the plain attention and fresh prefills (grok at capacity
+    factor 16);
+17. ``repro_torch.examples.ycsb_kv`` with its Logging Units on the card:
+    the failed node's shard recovered with an exact match, 0 drops.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -129,7 +155,10 @@ sees no CUDA device, or when the repo's sources are missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import os
 import re
@@ -929,9 +958,14 @@ ATTN_CASES = [
 ATTN_CASES += [c[:7] + ("bfloat16",) for c in ATTN_CASES
                if c[7] == "float32"]
 ATTN_CASES.append((1, 128, 128, 4, 2, 16, True, "bfloat16"))   # head dim 16
-#: per-layer attention shapes timed against SDPA: (name, B, S, H, K, D)
+#: per-layer attention shapes timed against SDPA: (name, B, S, H, K, D),
+#: in bf16 (the tensor-core kernel); stablelm-12b's also in f32 (the
+#: CUDA-core kernel), its head dim 160
 ATTN_TIMED = [("hymba-1.5b", 4, 4096, 25, 5, 64),
-              ("qwen3-0.6b", 4, 4096, 16, 8, 128)]
+              ("qwen3-0.6b", 4, 4096, 16, 8, 128),
+              ("moonshot-v1-16b-a3b", 4, 2048, 16, 16, 128),
+              ("stablelm-12b", 1, 2048, 32, 8, 160)]
+ATTN_TIMED_F32 = [("stablelm-12b", 1, 2048, 32, 8, 160)]
 SSD_CASES = [
     (2, 128, 4, 16, 32, 32, "float32"),
     (1, 96, 2, 64, 128, 32, "float32"),            # unaligned l
@@ -966,7 +1000,8 @@ ATTN_TOLERANCE = ("tests/test_kernels.py's: allclose atol = rtol = 2e-2 in "
 ATTN_ROW_TOLERANCE = {"f32 oracle": 2.0 ** -6, "plain": 2.0 ** -5}
 ATTN_TOLERANCE = ("tests/test_kernels.py's: allclose atol = rtol = 2e-2 in "
                   "bf16, 2e-5 in f32 (summation order, bf16 rounding of p); "
-                  "at hymba's shape also max|err| of each query row within "
+                  "at the serving shapes (hymba's, moonshot's, stablelm's) "
+                  "also max|err| of each query row within "
                   "2^-6 of that row's max|value| against an f32 oracle, "
                   "2^-5 against the plain version (bf16 scores)")
 SSD_TOLERANCE = ("tests/test_kernels.py's: max|y - y_plain| < 3e-2 (bf16) / "
@@ -1051,10 +1086,16 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
         t = torch.randn(shape, generator=gen, device=dev) * scale
         return t.to(getattr(torch, dtype))
 
-    out = {"attn_err": 0.0, "ssd_err": 0.0}
+    out = {"attn_err": 0.0, "ssd_err": 0.0, "attn_rows_by_shape": {}}
     hymba_attn = (SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT, 25, 5, 64, True,
                   "bfloat16")
-    for case in ATTN_CASES + [hymba_attn]:
+    # the serving shapes, each query row also held to its own scale
+    serving = {hymba_attn: "hymba-1.5b"}
+    for name, b, s, h, kh, d in ATTN_TIMED[2:]:
+        serving[(b, s, s, h, kh, d, True, "bfloat16")] = name
+    for name, b, s, h, kh, d in ATTN_TIMED_F32:
+        serving[(b, s, s, h, kh, d, True, "float32")] = name + " f32"
+    for case in ATTN_CASES + list(serving):
         b, sq, skv, h, kh, d, causal, dt = case
         q = randn(b, sq, h, d, dtype=dt)
         k, v = randn(b, skv, kh, d, dtype=dt), randn(b, skv, kh, d, dtype=dt)
@@ -1069,7 +1110,7 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
               f"flash_attn {case}: one launch of the {which} kernel")
         plain = attn._blockwise_attention(q, k, v, causal)
         wants = {"plain": plain}
-        if case != hymba_attn:
+        if case not in serving:
             wants["attention_ref"] = fa.attention_ref(q, k, v, causal)
         torch.cuda.synchronize()
         for name, want in wants.items():
@@ -1079,17 +1120,19 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
             out["attn_err"] = max(out["attn_err"], err)
             check(ok, f"flash_attn {case}: kernel vs {name} max_abs_err "
                   f"{err:.3g} (tol {tol})")
-        if case == hymba_attn:
-            out["attn_rows"] = check_attn_rows(torch, fa, attn, q, k, v, got,
-                                               plain)
-    # hymba's per-layer shape: the plain version's time
-    out["attn_plain_ms"] = cuda_ms(
-        lambda: attn._blockwise_attention(q, k, v, True), 3)
-    del q, k, v, got, plain, wants
-    out["attn_timed"] = [time_attention(torch, fa, randn, shape)
+        if case in serving:
+            out["attn_rows_by_shape"][serving[case]] = check_attn_rows(
+                torch, fa, attn, q, k, v, got, plain, serving[case])
+        del q, k, v, got, plain, wants
+    out["attn_rows"] = out["attn_rows_by_shape"]["hymba-1.5b"]
+    out["attn_timed"] = [time_attention(torch, fa, attn, randn, shape)
                          for shape in ATTN_TIMED]
+    out["attn_timed"] += [time_attention(torch, fa, attn, randn, shape,
+                                         "float32")
+                          for shape in ATTN_TIMED_F32]
     hymba = out["attn_timed"][0]
-    for key in ("ms", "library_ms", "simt_ms", "bound_ms", "bound_by"):
+    for key in ("ms", "library_ms", "simt_ms", "bound_ms", "bound_by",
+                "plain_ms"):
         out[f"attn_{key}"] = hymba[key]
 
     hymba_ssd = (SERVE_BATCH, SERVE_PROMPT, 50, 64, 16, 256, "bfloat16")
@@ -1215,40 +1258,50 @@ def ssd_pass_split(torch, fn, reps: int):
     return {k: v / reps for k, v in split.items()} or None
 
 
-def time_attention(torch, fa, randn, shape) -> dict:
-    """At one per-layer shape (bf16, causal): the tensor-core kernel, SDPA
-    and the CUDA-core kernel run on bf16, timed in turns (kernel, SDPA,
-    CUDA cores, then the reverse; CUDA events, mean of 10 launches, 3 for
-    the CUDA-core kernel), against the bound."""
+def time_attention(torch, fa, attn, randn, shape, dtype="bfloat16") -> dict:
+    """At one per-layer shape (causal): the kernel of ``dtype`` and SDPA,
+    and in bf16 also the CUDA-core kernel run on bf16, timed in turns
+    (kernel, SDPA, CUDA cores, then the reverse; CUDA events, mean of 10
+    launches, 3 for the CUDA-core kernel on bf16); the plain version
+    (mean of 3); against the bound."""
     name, b, s, h, kh, d = shape
-    q = randn(b, s, h, d, dtype="bfloat16")
-    k, v = (randn(b, s, kh, d, dtype="bfloat16") for _ in range(2))
+    q = randn(b, s, h, d, dtype=dtype)
+    k, v = (randn(b, s, kh, d, dtype=dtype) for _ in range(2))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    which = fa.kernel.kernel_for(q.dtype)
     runs = {
-        "ms": (lambda: fa.kernel.launch(q, k, v, True, "mma"), 10),
+        "ms": (lambda: fa.kernel.launch(q, k, v, True, which), 10),
         "library_ms": (lambda: sdpa(qt, kt, vt, is_causal=True,
-                                    enable_gqa=True), 10),
-        "simt_ms": (lambda: fa.kernel.launch(q, k, v, True, "simt"), 3)}
+                                    enable_gqa=True), 10)}
+    if which == "mma":
+        runs["simt_ms"] = (lambda: fa.kernel.launch(q, k, v, True, "simt"),
+                           3)
     times = {key: [] for key in runs}
     for order in (list(runs), list(runs)[::-1]):
         for key in order:
             fn, reps = runs[key]
             times[key].append(cuda_ms(fn, reps))
     out = {key: sum(ts) / len(ts) for key, ts in times.items()}
+    out.setdefault("simt_ms", None)
     out["turns"] = times
+    out["plain_ms"] = cuda_ms(
+        lambda: attn._blockwise_attention(q, k, v, True), 3)
     lib_err = float((sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
                      .transpose(1, 2).float()
-                     - fa.kernel.launch(q, k, v, True, "mma").float())
+                     - fa.kernel.launch(q, k, v, True, which).float())
                     .abs().max())
     out["bound_ms"], out["bound_by"] = attn_bound_ms(torch, q, k, True)
     out["shape"] = shape
+    out["dtype"] = dtype
+    simt = ("" if which == "simt" else
+            f", CUDA-core kernel {out['simt_ms']:.4f} ms")
     print(f"  flash_attn at {name}'s per-layer shape (B {b}, S {s}, H {h}, "
-          f"K {kh}, D {d}, bf16, causal): tensor-core kernel "
+          f"K {kh}, D {d}, {dtype}, causal): {which} kernel "
           f"{out['ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms (max_abs_err "
-          f"vs the kernel {lib_err:.3g}), CUDA-core kernel "
-          f"{out['simt_ms']:.4f} ms (in turns: {json.dumps(times)}); bound "
-          f"{out['bound_ms']:.5f} ms ({out['bound_by']})")
+          f"vs the kernel {lib_err:.3g}){simt} (in turns: "
+          f"{json.dumps(times)}); plain {out['plain_ms']:.4f} ms (mean of "
+          f"3); bound {out['bound_ms']:.5f} ms ({out['bound_by']})")
     return out
 
 
@@ -1260,8 +1313,8 @@ def row_rel(got, want) -> float:
                   / w.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def check_attn_rows(torch, fa, attn, q, k, v, got, plain) -> dict:
-    """At the serving shape, each query row against its own scale: vs the
+def check_attn_rows(torch, fa, attn, q, k, v, got, plain, shape) -> dict:
+    """At a serving shape, each query row against its own scale: vs the
     plain version, and vs an f32 oracle for the first and the last kv group
     of request 0. A planted fault -- the last q tile without its last kv
     tile, the one that holds the diagonal -- must land above the limit."""
@@ -1278,18 +1331,19 @@ def check_attn_rows(torch, fa, attn, q, k, v, got, plain) -> dict:
     bad = attn._blockwise_attention(q[:, -t:], k[:, :-t], v[:, :-t], False)
     r["planted"] = row_rel(bad, got[:, -t:])
     r["planted_abs"] = float((bad.float() - got[:, -t:].float()).abs().max())
-    print(f"  flash_attn at the serving shape, row errors over the row's "
-          f"max|value|: {r}")
+    print(f"  flash_attn at {shape}'s serving shape, row errors over the "
+          f"row's max|value|: {r}")
     oracle_tol = ATTN_ROW_TOLERANCE["f32 oracle"]
     for name, limit in (("vs_plain", ATTN_ROW_TOLERANCE["plain"]),
                         ("vs_f32_first_group", oracle_tol),
                         ("vs_f32_last_group", oracle_tol)):
         check(r[name] <= limit,
-              f"flash_attn at the serving shape, kernel {name}: largest "
+              f"flash_attn at {shape}'s serving shape, kernel {name}: largest "
               f"row error {r[name]:.4g} of the row's max|value| (tol "
               f"{limit:.4g})")
     check(r["planted"] > max(ATTN_ROW_TOLERANCE.values()),
-          f"planted fault (the last q tile without its last kv tile) reads "
+          f"{shape}: planted fault (the last q tile without its last kv "
+          f"tile) reads "
           f"{r['planted']:.4g} of the row's max|value|, above the row limits "
           f"(its max_abs_err {r['planted_abs']:.3g}, against the absolute "
           f"2e-2)")
@@ -1385,12 +1439,15 @@ def max_rel(got, want) -> float:
     return float((got - want).abs().max()) / float(want.abs().max())
 
 
-def profile_split(torch, fn) -> dict:
+def profile_split(torch, fn, ranges=()) -> dict:
     """Run ``fn()`` once under ``torch.profiler`` and split the device
     time by kernel: the attention and SSD kernels, GEMMs (cuBLAS / CUTLASS,
     the projections, MLP and unembedding), and everything else
     (normalisations, RoPE, convolution, elementwise, copies, the decode
-    path's plain attention). ``busy`` is the kernels' sum over the wall of
+    path's plain attention). ``ranges`` names ``record_function`` ranges
+    (the MoE's routing, dispatch and combine, which launch no GEMM) whose
+    kernels' device time becomes a bucket of its own, "moe_dispatch",
+    taken out of "other". ``busy`` is the kernels' sum over the wall of
     the window (host clock, ending in a synchronise); the profiler's own
     cost is inside that wall. All ms; ``None`` where the profiler reports
     no device time."""
@@ -1405,7 +1462,14 @@ def profile_split(torch, fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     split = {"flash_attn": 0.0, "ssd_scan": 0.0, "gemm": 0.0, "other": 0.0}
     launches, rows = 0, []
+    # a range's CPU row sums its kernels' time; its GPU row (if the
+    # profiler makes one) spans them on the device's timeline
+    in_ranges = {"cpu": 0.0, "gpu": 0.0}
     for evt in prof.key_averages():
+        if evt.key in ranges:
+            side = "gpu" if evt.device_type == DeviceType.CUDA else "cpu"
+            in_ranges[side] += evt.device_time_total / 1e3
+            continue
         # kernel rows only: a CPU op's row repeats its kernels' time
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -1419,12 +1483,30 @@ def profile_split(torch, fn) -> dict:
         split[key] += us / 1e3
         launches += evt.count
         rows.append((us / 1e3, evt.count, evt.key[:70]))
+    if ranges:
+        moe_ms = in_ranges["cpu"] or in_ranges["gpu"]
+        split["moe_dispatch"] = min(moe_ms, split["other"])
+        split["other"] -= split["moe_dispatch"]
     total = sum(split.values())
     if total == 0.0:
         return {"wall_ms": wall_ms, "device_ms": None}
     return {"wall_ms": wall_ms, "device_ms": total, "split_ms": split,
             "busy": total / wall_ms, "kernel_launches": launches,
             "top": sorted(rows, reverse=True)[:12]}
+
+
+def print_profile(what, prof) -> None:
+    if prof["device_ms"] is None:
+        print(f"  {what} under torch.profiler: {prof['wall_ms']:.1f} ms "
+              f"wall; device time not measured (the profiler reported "
+              f"none)")
+        return
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in prof["split_ms"].items())
+    print(f"  {what} under torch.profiler: {prof['wall_ms']:.1f} ms wall, "
+          f"kernels {prof['device_ms']:.1f} ms ({parts}); device busy "
+          f"{prof['busy']:.3f}, {prof['kernel_launches']} kernel launches")
+    for ms, count, name in prof["top"]:
+        print(f"    {ms:9.3f} ms {count:6d}x  {name}")
 
 
 def to_f32(torch, tree):
@@ -1614,24 +1696,464 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
         del cache
     for what, prof in (("prefill", out["prefill_profile"]),
                        ("8 decode steps", out["decode_profile"])):
-        if prof["device_ms"] is None:
-            print(f"  {what} under torch.profiler: {prof['wall_ms']:.1f} ms "
-                  f"wall; device time not measured (the profiler reported "
-                  f"none)")
-            continue
-        parts = ", ".join(f"{k} {v:.1f}" for k, v in prof["split_ms"].items())
-        print(f"  {what} under torch.profiler: {prof['wall_ms']:.1f} ms "
-              f"wall, kernels {prof['device_ms']:.1f} ms ({parts}); device "
-              f"busy {prof['busy']:.3f}, {prof['kernel_launches']} kernel "
-              f"launches")
-        for ms, count, name in prof["top"]:
-            print(f"    {ms:9.3f} ms {count:6d}x  {name}")
+        print_profile(what, prof)
     prof = out["prefill_profile"]
     if prof["device_ms"] is not None:
         check(prof["split_ms"]["ssd_scan"] > 0.0,
               f"the prefill profile counts the ssd_scan kernels' device "
               f"time ({prof['split_ms']['ssd_scan']:.3f} ms)")
     return out
+
+
+#: phase 15: moonshot-v1-16b-a3b served whole (its published config)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_BATCH = 4
+MOE_PROMPT = 2048
+MOE_GEN = 32
+#: decode steps of request 0 held against fresh prefills
+MOE_CONSISTENCY_STEPS = (1, MOE_GEN - 1)
+#: tests/test_archs_smoke.py's no-drop capacity for decode consistency:
+#: at the default 1.25 a decode step of batch 1 has capacity 1 and a
+#: prefill of 2 048 tokens 240, so the two drop other pairs by design
+MOE_NO_DROP_CF = 16.0
+#: the f32 copy's depth: 4 of the 48 layers at full width (~12 GB)
+MOE_F32_LAYERS = 4
+#: phase 16: the other configs at full width, cut in depth
+CUT_ARCHS = ("grok-1-314b", "deepseek-67b", "stablelm-12b", "starcoder2-15b")
+CUT_LAYERS = 2
+CUT_BATCH = 1
+CUT_PROMPT = 512
+CUT_GEN = 5                      # the prefill's token and 4 decode steps
+FAULT_NO_RENORM = "moe: gates not renormalized after top-k"
+FAULT_NO_SHARED = "moe: shared experts left out"
+#: the MoE's routing, dispatch and combine as profiler ranges
+MOE_RANGES = {"top_k_gates": "moe.route", "dispatch": "moe.dispatch",
+              "combine": "moe.combine"}
+FLIP_POLICY = ("two runs whose routing flipped (a token whose top-k set "
+               "differs: O(1) in its FFN output, not rounding) are compared "
+               "with the second run pinned to the first run's expert "
+               "indices, at the same limit; the unpinned reading is "
+               "printed beside it")
+
+
+class RoutingTape:
+    """Swaps ``models/moe.py``'s ``top_k_gates`` for the length of a
+    ``with``, as ``last_logits_with`` swaps kernel ops: ``record()``
+    keeps each call's (expert indices, top-k margin) in call order (the
+    margin is the k-th minus the (k+1)-th probability); ``pin(calls)``
+    makes each call take the recorded indices, its gates its own
+    probabilities there, renormalized; ``swap(fn)`` puts ``fn`` in."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe, self.own = torch, moe, moe.top_k_gates
+
+    @contextlib.contextmanager
+    def swap(self, fn):
+        self.moe.top_k_gates = fn
+        try:
+            yield
+        finally:
+            self.moe.top_k_gates = self.own
+
+    @contextlib.contextmanager
+    def record(self):
+        calls = []
+
+        def recording(probs, k):
+            gate, idx = self.own(probs, k)
+            top = probs.sort(dim=-1, descending=True).values
+            margin = (top[:, k - 1] - top[:, k] if top.shape[1] > k
+                      else self.torch.full_like(top[:, 0], float("inf")))
+            calls.append((idx, margin))
+            return gate, idx
+
+        with self.swap(recording):
+            yield calls
+
+    def pin(self, calls):
+        queue = [idx for idx, _ in calls]
+
+        def pinned(probs, k):
+            idx = queue.pop(0)
+            gate = probs.gather(-1, idx)
+            return gate / gate.sum(dim=-1, keepdim=True), idx
+
+        return self.swap(pinned)
+
+
+def unnormalized_top_k(torch):
+    """A planted fault: the top-k gates not renormalized."""
+    def fn(probs, k):
+        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        return vals[:, :k], idx[:, :k]
+    return fn
+
+
+def without_shared_experts(params):
+    """A planted fault: every layer's shared experts left out."""
+    return {**params, "layers": [
+        {**lp, "moe": {k: v for k, v in lp["moe"].items() if k != "shared"}}
+        for lp in params["layers"]]}
+
+
+def route_flips(a_calls, b_calls) -> dict:
+    """Over (layer, token) pairs, where two runs' top-k expert sets differ:
+    the count, the share, and the first flip (lowest layer, then token)
+    with its router margin in each run."""
+    pairs = flips = 0
+    first = None
+    for layer, ((ia, ma), (ib, mb)) in enumerate(zip(a_calls, b_calls)):
+        diff = (ia.sort(dim=-1).values != ib.sort(dim=-1).values).any(-1)
+        pairs += diff.numel()
+        n = int(diff.sum())
+        flips += n
+        if n and first is None:
+            tok = int(diff.nonzero()[0, 0])
+            first = {"layer": layer, "token": tok,
+                     "margin_first_run": float(ma[tok]),
+                     "margin_second_run": float(mb[tok])}
+    return {"pairs": pairs, "flips": flips,
+            "share": flips / pairs if pairs else 0.0, "first": first}
+
+
+def decode_path_routes(torch, calls, n_layers: int, t: int):
+    """Per layer, the routing of a prefill and its first ``t`` decode steps
+    (recorded in call order) as one full-sequence call, to compare with
+    or pin a fresh prefill of the same tokens."""
+    out = []
+    for layer in range(n_layers):
+        parts = [calls[layer]] + [calls[n_layers * s + layer]
+                                  for s in range(1, t + 1)]
+        out.append((torch.cat([p[0] for p in parts]),
+                    torch.cat([p[1] for p in parts])))
+    return out
+
+
+def hold_with_flips(name, rel, flips, pinned_rel, tol) -> dict:
+    """Gate one comparison of two runs at ``tol`` under FLIP_POLICY: with
+    no routing flip the runs are compared as they are; with flips,
+    ``pinned_rel()`` reads the comparison again with the second run pinned
+    to the first run's experts, and that reading is gated."""
+    out = {"rel": rel, "flips": flips}
+    print(f"  {name}: max|diff| {rel:.4g} of max|logit|; routing flips "
+          f"{flips['flips']} of {flips['pairs']} (layer, token) pairs "
+          f"({flips['share']:.3g}), the first {flips['first']}")
+    if not flips["flips"]:
+        check(rel <= tol, f"{name}: {rel:.4g} of max|logit| (tol {tol})")
+        return out
+    out["pinned_rel"] = pinned_rel()
+    check(out["pinned_rel"] <= tol,
+          f"{name}: {rel:.4g} unpinned with {flips['flips']} routing flips "
+          f"(the first at layer {flips['first']['layer']}, token "
+          f"{flips['first']['token']}, router margin "
+          f"{flips['first']['margin_first_run']:.3g} / "
+          f"{flips['first']['margin_second_run']:.3g}); pinned to the first "
+          f"run's experts {out['pinned_rel']:.4g} of max|logit| (tol {tol})")
+    return out
+
+
+def served_checks(torch, model, params, prompt, gen_toks, fa, ssd, attn,
+                  tape, tol, steps, faults) -> dict:
+    """Request 0 (``prompt``, batch 1) of a served model: its last-position
+    logits through the kernel against the plain attention; decode steps
+    ``steps`` against fresh prefills (for MoE at MOE_NO_DROP_CF); the
+    planted faults when ``faults``, each read through the same comparison
+    and each above ``tol``. Routing flips under FLIP_POLICY."""
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    out = {}
+
+    def last(p=params, toks=prompt, m=model,
+             attn_fn=fa.ops.flash_attention):
+        return last_logits_with(m, p, toks, fa.ops, ssd.ops, attn_fn,
+                                ssd.ops.ssd_scan)
+
+    fa.ops.reset_counts()
+    with tape.record() as k_calls:
+        kern = last()
+    which = fa.kernel.kernel_for(getattr(torch, cfg.dtype))
+    by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
+    check(by_kernel == {"mma": cfg.n_layers * (which == "mma"),
+                        "simt": cfg.n_layers * (which == "simt")},
+          f"{cfg.name} ({cfg.dtype}), request 0: {cfg.n_layers} "
+          f"{which} launches of flash_attn in its prefill ({by_kernel})")
+    check(bool(torch.isfinite(kern).all()), "prefill logits finite")
+    plain_attn = plain_attention(attn)
+    with tape.record() as p_calls:
+        plain = last(attn_fn=plain_attn)
+    pinned = {}
+
+    def pinned_plain():
+        with tape.pin(k_calls):
+            pinned["logits"] = last(attn_fn=plain_attn)
+        return max_rel(kern, pinned["logits"])
+
+    out["kernel_vs_plain"] = hold_with_flips(
+        f"{cfg.name}, request 0's last-position logits through the kernel "
+        f"vs the plain attention", max_rel(kern, plain),
+        route_flips(k_calls, p_calls), pinned_plain, tol)
+    reference = pinned.get("logits", plain)
+    readings = {}
+    if faults:
+        with tape.swap(unnormalized_top_k(torch)):
+            readings[FAULT_NO_RENORM] = max_rel(last(), reference)
+        readings[FAULT_NO_SHARED] = max_rel(
+            last(p=without_shared_experts(params)), reference)
+    del k_calls, p_calls, plain, pinned
+    if steps:
+        m = (build_model(dataclasses.replace(cfg,
+                                             capacity_factor=MOE_NO_DROP_CF))
+             if cfg.is_moe else model)
+        max_len = prompt.shape[1] + max(steps) + 1
+        with tape.record() as d_calls:
+            _, cache = m.prefill(params, {"tokens": prompt}, max_len=max_len)
+            dec = {}
+            for t in range(1, max(steps) + 1):
+                step, cache = m.decode_step(params, cache, gen_toks[:, t - 1])
+                if t in steps:
+                    dec[t] = step.float()
+        del cache
+        out["consistency"], fresh = {}, {}
+        for t in steps:
+            toks = torch.cat([prompt, gen_toks[:, :t]], dim=1)
+            with tape.record() as f_calls:
+                fresh[t] = last(toks=toks, m=m)
+            path = decode_path_routes(torch, d_calls, cfg.n_layers, t) \
+                if cfg.is_moe else []
+
+            def pinned_fresh(toks=toks, path=path):
+                with tape.pin(path):
+                    fresh[t] = last(toks=toks, m=m)
+                return max_rel(dec[t], fresh[t])
+
+            out["consistency"][t] = hold_with_flips(
+                f"{cfg.name}, decode step {t} vs a fresh prefill of "
+                f"{toks.shape[1]} tokens (capacity factor "
+                f"{m.cfg.capacity_factor})", max_rel(dec[t], fresh[t]),
+                route_flips(path, f_calls), pinned_fresh, tol)
+        if faults:
+            _, cache = m.prefill(params, {"tokens": prompt}, max_len=max_len)
+            cache["length"] -= 1
+            step, _ = m.decode_step(params, cache, gen_toks[:, 0])
+            readings[FAULT_KV_SHORT] = max_rel(step.float(), fresh[1])
+            del cache
+    out["planted"] = readings
+    for name, rel in readings.items():
+        check(rel > tol, f"planted fault, {name}: {rel:.4g} of max|logit|, "
+              f"above the limit {tol}")
+    return out
+
+
+@contextlib.contextmanager
+def moe_ranges(torch, moe):
+    """``models/moe.py``'s routing, dispatch and combine, each inside a
+    ``record_function`` range of MOE_RANGES for the profiler."""
+    saved = {fn: getattr(moe, fn) for fn in MOE_RANGES}
+
+    def ranged(name, fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
+        return call
+
+    for fn, name in MOE_RANGES.items():
+        setattr(moe, fn, ranged(name, saved[fn]))
+    try:
+        yield
+    finally:
+        for fn, f in saved.items():
+            setattr(moe, fn, f)
+
+
+def phase_serve_moe(torch, serve_mod, fa, ssd, attn, moe) -> dict:
+    print(f"phase 15: serve {MOE_ARCH} at full width and depth -- "
+          f"{MOE_BATCH} prompts of {MOE_PROMPT} tokens, {MOE_GEN} greedy "
+          f"tokens each")
+    from repro_torch.models import build_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  device memory held before the phase: "
+          f"{torch.cuda.memory_allocated()} bytes; routing-flip policy: "
+          f"{FLIP_POLICY}")
+    fa.ops.reset_counts()
+    t0 = time.perf_counter()
+    res = serve_mod.serve(MOE_ARCH, batch=MOE_BATCH, prompt_len=MOE_PROMPT,
+                          gen=MOE_GEN, seed=SEED)
+    wall_s = time.perf_counter() - t0
+    by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = res.cfg
+    out = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+           "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
+           "decode_tok_per_s": res.decode_tok_per_s,
+           "flip_policy": FLIP_POLICY,
+           "launches": fa.ops.flash_attention.launches,
+           "attn_launches_by_kernel": by_kernel, "peak_bytes": peak,
+           "wall_s": wall_s, "params": cfg.param_count(),
+           "tokens_seq0": res.tokens[0].tolist()}
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts}"
+          f" shared, {cfg.param_count()} parameters ({cfg.dtype}); prefill "
+          f"{res.prefill_s * 1e3:.1f} ms wall; {res.decode_steps} decode "
+          f"steps {out['decode_ms_per_step']:.3f} ms each "
+          f"({res.decode_tok_per_s:.1f} tok/s); peak device memory {peak} "
+          f"bytes; serve() {wall_s:.1f} s with init")
+    print(f"  sample generation (seq 0): {res.tokens[0].tolist()}")
+    check((cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.top_k,
+           cfg.n_shared_experts) == (48, 2048, 64, 6, 2),
+          "the published config: 48 layers, d_model 2048, 64 experts, "
+          "top-6, 2 shared")
+    check(by_kernel == {"mma": cfg.n_layers, "simt": 0},
+          f"the prefill launched the tensor-core flash_attn kernel "
+          f"{cfg.n_layers} times, the CUDA-core one none ({by_kernel})")
+    check(tuple(res.tokens.shape) == (MOE_BATCH, MOE_GEN)
+          and int(res.tokens.min()) >= 0
+          and int(res.tokens.max()) < cfg.vocab_size,
+          f"{MOE_BATCH} x {MOE_GEN} tokens, all in [0, {cfg.vocab_size})")
+
+    model = build_model(cfg)
+    params, prompts = res.params, res.prompts
+    gen_toks = res.tokens.to(prompts.device)
+    del res
+    tape = RoutingTape(torch, moe)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": prompts},
+                                      max_len=MOE_PROMPT + MOE_GEN)
+        torch.cuda.synchronize()
+        out["warm_prefill_s"] = time.perf_counter() - t0
+        check(torch.equal(logits[:, -1].argmax(-1).to(torch.int32).cpu(),
+                          gen_toks[:, 0].cpu()),
+              f"a second (warm) prefill, {out['warm_prefill_s'] * 1e3:.1f} "
+              f"ms wall, gives serve()'s first tokens")
+        del logits, cache
+        out["bf16"] = served_checks(torch, model, params, prompts[:1],
+                                    gen_toks[:1], fa, ssd, attn, tape,
+                                    LOGIT_TOLERANCE, MOE_CONSISTENCY_STEPS,
+                                    faults=True)
+        print(f"  an f32 copy of the served weights at full width, cut to "
+              f"{MOE_F32_LAYERS} of {cfg.n_layers} layers, request 0 (the "
+              f"CUDA-core kernel):")
+        cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                    n_layers=MOE_F32_LAYERS)
+        params32 = to_f32(torch, {**params,
+                                  "layers": params["layers"][:MOE_F32_LAYERS]})
+        out["f32"] = served_checks(torch, build_model(cfg32), params32,
+                                   prompts[:1], gen_toks[:1], fa, ssd, attn,
+                                   tape, F32_LOGIT_TOLERANCE, (), faults=True)
+        del params32
+        torch.cuda.empty_cache()
+
+        # where the time goes: one prefill and 8 decode steps, profiled
+        def prefill_once():
+            nonlocal cache
+            _, cache = model.prefill(params, {"tokens": prompts},
+                                     max_len=MOE_PROMPT + MOE_GEN)
+
+        def decode_8():
+            nonlocal cache
+            for t in range(8):
+                _, cache = model.decode_step(params, cache, gen_toks[:, t])
+
+        cache = None
+        with moe_ranges(torch, moe):
+            ranges = tuple(MOE_RANGES.values())
+            out["prefill_profile"] = profile_split(torch, prefill_once,
+                                                   ranges)
+            out["decode_profile"] = profile_split(torch, decode_8, ranges)
+        del cache
+    for what, prof in (("prefill", out["prefill_profile"]),
+                       ("8 decode steps", out["decode_profile"])):
+        print_profile(what, prof)
+    prof = out["decode_profile"]
+    if prof["device_ms"] is not None:
+        out["launches_per_decode_step"] = prof["kernel_launches"] / 8
+        print(f"  {out['launches_per_decode_step']:.1f} kernel launches per "
+              f"decode step")
+    del params, prompts, gen_toks
+    return out
+
+
+def phase_cut_configs(torch, serve_mod, config, fa, ssd, attn, moe) -> dict:
+    print(f"phase 16: {', '.join(CUT_ARCHS)} at full width, cut to "
+          f"{CUT_LAYERS} layers -- batch {CUT_BATCH}, a {CUT_PROMPT}-token "
+          f"prompt, {CUT_GEN - 1} decode steps")
+    from repro_torch.models import build_model
+    out = {}
+    tape = RoutingTape(torch, moe)
+    for arch in CUT_ARCHS:
+        full = config.get_model_config(arch)
+        cut = dataclasses.replace(full, name=f"{arch}-{CUT_LAYERS}-layers",
+                                  n_layers=CUT_LAYERS)
+        if cut.name not in config.list_models():
+            config.register_model(cut)
+        print(f"  {arch}: the published config cut from {full.n_layers} to "
+              f"{cut.n_layers} layers (dataclasses.replace, registered as "
+              f"{cut.name!r}): d_model {cut.d_model}, {cut.n_heads} heads / "
+              f"{cut.n_kv_heads} kv heads of {cut.resolved_head_dim}, mlp "
+              f"{cut.mlp}, {cut.n_experts} experts top-{cut.top_k}; "
+              f"{cut.param_count()} parameters")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.ops.reset_counts()
+        t0 = time.perf_counter()
+        res = serve_mod.serve(cut.name, batch=CUT_BATCH,
+                              prompt_len=CUT_PROMPT, gen=CUT_GEN, seed=SEED)
+        wall_s = time.perf_counter() - t0
+        by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
+        r = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+             "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
+             "launches": fa.ops.flash_attention.launches,
+             "attn_launches_by_kernel": by_kernel, "wall_s": wall_s,
+             "peak_bytes": torch.cuda.max_memory_allocated(),
+             "params": cut.param_count(),
+             "head_dim": cut.resolved_head_dim}
+        print(f"  {cut.name}: prefill {res.prefill_s * 1e3:.1f} ms wall, "
+              f"{res.decode_steps} decode steps "
+              f"{r['decode_ms_per_step']:.3f} ms each; peak "
+              f"{r['peak_bytes']} bytes; serve() {wall_s:.1f} s with init")
+        check(by_kernel == {"mma": CUT_LAYERS, "simt": 0},
+              f"{cut.name}: {CUT_LAYERS} tensor-core flash_attn launches at "
+              f"head dim {cut.resolved_head_dim} ({by_kernel})")
+        check(tuple(res.tokens.shape) == (CUT_BATCH, CUT_GEN)
+              and int(res.tokens.min()) >= 0
+              and int(res.tokens.max()) < cut.vocab_size,
+              f"{cut.name}: {CUT_GEN} tokens in [0, {cut.vocab_size})")
+        model = build_model(res.cfg)
+        with torch.inference_mode():
+            r.update(served_checks(
+                torch, model, res.params, res.prompts[:1],
+                res.tokens[:1].to(res.prompts.device), fa, ssd, attn, tape,
+                LOGIT_TOLERANCE, (1, CUT_GEN - 1), faults=False))
+        out[arch] = r
+        del res, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_ycsb(torch) -> dict:
+    print("phase 17: the YCSB key-value twin (repro_torch.examples.ycsb_kv) "
+          "with its Logging Units on the card")
+    from repro_torch.examples import ycsb_kv
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        drops = ycsb_kv.main([])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        print(f"  | {line}")
+    check(any(line.strip().endswith("exact match: True") for line in lines),
+          f"the failed node's shard recovered from the replica logs, exact "
+          f"match ({wall_s:.1f} s wall)")
+    check(drops == 0 and "logging-unit drops: 0 (must be 0)" in lines,
+          "0 Logging Unit drops")
+    return {"wall_s": wall_s, "lines": lines, "drops": drops}
 
 
 def prepared(S, spec, n: int):
@@ -2205,7 +2727,9 @@ def main(argv=None) -> int:
     from repro_torch.launch import serve as serve_mod
     from repro_torch.launch import serve_scenarios
     from repro_torch.models import attention as attn
+    from repro_torch.models import moe
     from repro_torch.models import ssm as ssm_mod
+    from repro_torch import config
 
     # plain f32 products in full f32 on the card, never TF32 (both knobs)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2240,6 +2764,8 @@ def main(argv=None) -> int:
     check_no_spills(stl.kernel.LIBRARY, "store_timeline_kernel",
                     (len(S.CONFIGS) + 1)
                     * (len(stl.kernel.register_ring_depths()) + 1))
+    # head dim 160: the f32 and bf16 CUDA-core and the tensor-core kernels
+    check_no_spills(fa.kernel.LIBRARY, "Li160E", 3)
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
@@ -2261,6 +2787,11 @@ def main(argv=None) -> int:
     served_sc = phase_serving(torch, S, E, Sc, sv, kernel, ops, mega_res)
     resil = phase_resilience(torch, S, E, Sc, chaos, serve_scenarios, ops,
                              mega_res)
+    del mega_res
+    S.clear_sim_caches()
+    served_moe = phase_serve_moe(torch, serve_mod, fa, ssd, attn, moe)
+    cut = phase_cut_configs(torch, serve_mod, config, fa, ssd, attn, moe)
+    ycsb = phase_ycsb(torch)
 
     entry = {
         "name": "bank_scan", "route": "cuda",
@@ -2364,9 +2895,17 @@ def main(argv=None) -> int:
     attn_entry = model_entries[0]
     attn_entry["simt_ms"] = model_k["attn_simt_ms"]
     attn_entry["shapes"] = [
-        {k: t[k] for k in ("shape", "ms", "library_ms", "simt_ms",
-                           "bound_ms", "bound_by")}
+        {k: t[k] for k in ("shape", "dtype", "ms", "library_ms", "simt_ms",
+                           "plain_ms", "bound_ms", "bound_by")}
         for t in model_k["attn_timed"]]
+    attn_entry["paths"] = [
+        {"path": "hymba-1.5b serve, prefill", "launches":
+         served["launches"]["flash_attn"]},
+        {"path": f"{MOE_ARCH} serve, prefill", "launches":
+         served_moe["launches"]}] + [
+        {"path": f"{arch} at {CUT_LAYERS} layers, serve, prefill",
+         "launches": cut[arch]["launches"]} for arch in CUT_ARCHS]
+    attn_entry["launches"] = sum(p["launches"] for p in attn_entry["paths"])
     kernels = [entry] + lc_entries + model_entries + [st_entry]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if args.report:
@@ -2380,7 +2919,8 @@ def main(argv=None) -> int:
                        "serve": served, "timeline_max_abs_err": err10,
                        "fig10_routes": routes, "mega_stacked": mega_st,
                        "serving": served_sc, "resilience": resil,
-                       "kernels": kernels},
+                       "serve_moe": served_moe, "cut_configs": cut,
+                       "ycsb": ycsb, "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -29,8 +29,13 @@
 // per m-tile: two m-tiles (a 128-row q tile) at D <= 64, so each K and V
 // fragment read from shared memory feeds two products -- the ldmatrix
 // traffic, not the tensor cores, is what one m-tile runs out of -- and one
-// at D = 128, where two would spill registers. Q, K and V stay bf16 in
-// shared memory, rows padded by 16 bytes so that every ldmatrix (x4 for Q
+// at D = 128 and 160, where two would spill registers. At D = 160
+// (stablelm-12b) the output fragment is 20 n-tiles (80 f32 registers a
+// thread) and the shared tiles (64 + 4 x 64 rows of 168 bf16) 107 520
+// bytes; the CUDA-core kernel's tiles at D = 160 take 142 336 bytes. Q, K
+// and V stay bf16 in shared memory, rows padded by 16 bytes (at D = 160 a
+// row is 336 bytes, 84 words: 8 rows still start in 8 different bank
+// quads) so that every ldmatrix (x4 for Q
 // and K, x4.trans for V) reads 8 rows in 8 different bank quads; K and V
 // tiles are double-buffered with 16-byte cp.async, so tile j + 1 loads while
 // tile j is computed. Q's fragments stay in registers for the whole kv loop.
@@ -52,9 +57,11 @@
 // ty + 16a and key columns tx + 16c of the score tile (a, c < 4) and output
 // columns tx + 16e, so a row's max and sum are shuffles within a half warp.
 // Q and K rows are padded to D + 4 floats and read as float4 along D; P
-// rows to 68 floats. It also takes bf16 (widened to f32 in shared memory):
-// the wrapper runs it so only when asked by name, as the yardstick the
-// tensor-core kernel is timed against.
+// rows to 68 floats. At D = 160 it is launched as flash_attn_kernel_wide,
+// the same body compiled for one block an SM, so that its 40 accumulators
+// a thread fit in registers. It also takes bf16 (widened to f32 in shared
+// memory): the wrapper runs it so only when asked by name, as the
+// yardstick the tensor-core kernel is timed against.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -137,11 +144,13 @@ constexpr int smem_floats() {
   return kBQ * (D + 4) + kBK * (D + 4) + kBK * D + kBQ * kLdP;
 }
 
+// One (b, h, 64-row q tile) of the CUDA-core kernel, the body of both of
+// its entry points below.
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int sq,
-                  int skv, int h, int kh, int causal, float scale) {
+__device__ __forceinline__ void flash_attn_block(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, T* __restrict__ out, int sq, int skv, int h,
+    int kh, int causal, float scale) {
   constexpr int kLdQ = D + 4;
   constexpr int kLdK = D + 4;
   constexpr int kCols = D / 16;              // output columns per thread
@@ -282,11 +291,33 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ out, int sq,
+                  int skv, int h, int kh, int causal, float scale) {
+  flash_attn_block<T, D>(q, k, v, out, sq, skv, h, kh, causal, scale);
+}
+
+// D = 160: the tiles take 142 336 bytes, so one block fits an SM, and it is
+// compiled for one (the bound's second argument) and may use 255 registers
+// a thread; left to choose, ptxas kept the narrower widths' 128 and spilled.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attn_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int sq,
+                       int skv, int h, int kh, int causal, float scale) {
+  flash_attn_block<T, D>(q, k, v, out, sq, skv, h, kh, causal, scale);
+}
+
+template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, void* out, int b,
            int sq, int skv, int h, int kh, int causal, float scale,
            cudaStream_t stream) {
   constexpr int kSmem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  auto kernel = flash_attn_kernel<T, D>;
+  auto kernel = [] {
+    if constexpr (D > 128) return flash_attn_kernel_wide<T, D>;
+    else return flash_attn_kernel<T, D>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -315,6 +346,9 @@ int launch_dim(int d, const void* q, const void* k, const void* v, void* out,
     case 128:
       return launch<T, 128>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
                             stream);
+    case 160:
+      return launch<T, 160>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
+                            stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -331,7 +365,7 @@ bool aligned16(const void* p) {
 constexpr int kMmaBK = 64;             // keys per kv tile
 constexpr int kWarps = 4;              // warps per block
 // 16-row m-tiles per warp: two share each K and V fragment, halving the
-// shared-memory reads per product; at D = 128 two would spill registers.
+// shared-memory reads per product; at D >= 128 two would spill registers.
 template <int D>
 constexpr int kMTiles = D <= 64 ? 2 : 1;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -660,6 +694,9 @@ int launch_mma_dim(int d, const void* q, const void* k, const void* v,
     case 128:
       return launch_mma<128>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
                              stream);
+    case 160:
+      return launch_mma<160>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
+                             stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -679,7 +716,7 @@ bool valid_args(const void* q, const void* k, const void* v, const void* out,
 // cudaErrorInvalidValue for arguments the kernel does not take). q and out
 // are (b, sq, h, d), k and v (b, skv, kh, d), all contiguous, 16-byte
 // aligned device memory of one type: dtype 0 is f32, 1 is bf16. d is 16, 32,
-// 64 or 128; h is a multiple of kh; causal needs skv >= sq.
+// 64, 128 or 160; h is a multiple of kh; causal needs skv >= sq.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* out, int b, int sq, int skv, int h,
                                  int kh, int d, int causal, float scale,

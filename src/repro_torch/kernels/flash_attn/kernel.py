@@ -21,7 +21,10 @@ import torch
 from repro_torch.kernels._tensor import aligned16, on_card
 from repro_torch.kernels.nvcc import CudaLibrary
 
-HEAD_DIMS = (16, 32, 64, 128)
+#: The head dims the kernels are instantiated at. The Pallas kernel takes
+#: any D (its blocks carry D whole); these are the widths of the configs
+#: the port serves, 160 being stablelm-12b's.
+HEAD_DIMS = (16, 32, 64, 128, 160)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The kernel of each dtype: "mma" on the tensor cores, "simt" on the
 #: CUDA cores.
@@ -67,7 +70,10 @@ def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"the kernel takes float32 or bfloat16, got "
                         f"{q.dtype}")
     if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head dims {HEAD_DIMS}, got {d}")
+        raise ValueError(
+            f"the kernel is instantiated at head dims {HEAD_DIMS}, got {d}; "
+            f"the JAX kernel takes any D, so a config at another width "
+            f"needs its instantiation added (ROADMAP B3)")
     if min(q.shape) == 0 or min(k.shape) == 0:
         raise ValueError("empty q or k")
     if causal and k.shape[1] < sq:

@@ -4,11 +4,19 @@ Example (the card)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --batch 4 --prompt-len 4096 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch moonshot-v1-16b-a3b --batch 4 --prompt-len 2048 --gen 32
 
 and on the CPU, at the reduced config::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
         --reduced --prompt-len 64 --device cpu
+
+``--arch`` takes every registered config (``config.list_models()``):
+hymba-1.5b, qwen3-0.6b, mamba2-2.7b, moonshot-v1-16b-a3b, grok-1-314b,
+deepseek-67b, stablelm-12b and starcoder2-15b. As in the JAX launcher
+there is no depth flag: a config is served at its published depth, or
+its reduced one with ``--reduced``.
 
 Weights come from the port's seeded init and the prompts from
 ``make_batch`` (both from ``--seed``). ``--gen`` tokens are answered

@@ -37,7 +37,7 @@ class Model:
 
 def build_model(cfg: ModelConfig) -> Model:
     """The model of ``cfg``. Raises ``NotImplementedError`` for the
-    families the port does not run yet (moe, enc-dec, vlm)."""
+    families the port does not run yet (enc-dec, vlm)."""
     transformer.check_family(cfg)
 
     def init(seed: int = 0, device=None) -> Dict[str, Any]:

@@ -1,11 +1,12 @@
-"""Decoder-only model assembly for the dense / ssm / hybrid families.
+"""Decoder-only model assembly for the dense / moe / ssm / hybrid
+families.
 
 The JAX package's ``models/transformer.py`` on torch tensors. Its layer
 ``lax.scan`` over stacked parameters becomes a Python loop over a list
 of per-layer parameter dicts (``params["layers"][i]`` holds the JAX
 package's keys). The ``constrain_*`` sharding hints are identities on
-one card and are not ported. The moe, vlm and enc-dec families raise
-``NotImplementedError`` (ROADMAP item 18).
+one card and are not ported. The vlm and enc-dec families raise
+``NotImplementedError`` (ROADMAP A6).
 
 Caches are dicts of tensors with the JAX package's keys (``k``, ``v``
 ``(L, B, max_len, K, hd)``; ``conv``, ``ssd``) plus ``length``, a Python
@@ -23,6 +24,7 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Params,
@@ -40,17 +42,17 @@ from repro_torch.models.layers import (
 Cache = Dict[str, Any]
 
 MOE_AUX_COEF = 0.01
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
     """Raise for the families the port does not run yet."""
-    if cfg.is_moe or cfg.is_encdec or cfg.family not in FAMILIES:
+    if cfg.is_encdec or cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family"
-            f"{' (moe)' if cfg.is_moe else ''} is not ported yet; the port "
-            f"runs {FAMILIES} (ROADMAP item 18 lists moe, enc-dec and vlm "
-            f"next)")
+            f"{' (enc-dec)' if cfg.is_encdec else ''} is not ported yet; "
+            f"the port runs {FAMILIES} (ROADMAP A6 lists enc-dec, then "
+            f"vlm)")
 
 
 # ---------------------------------------------------------------------------
@@ -71,13 +73,18 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
         p["ssm"] = ssm_mod.ssm_init(gen, cfg)
         p["norm_attn"] = rmsnorm_init(cfg.d_model, dt, dev)
         p["norm_ssm"] = rmsnorm_init(cfg.d_model, dt, dev)
-    p["mlp"] = mlp_init(gen, cfg)
+    if cfg.is_moe:
+        p["moe"] = moe_mod.moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, cfg)
     return p
 
 
 def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
          ) -> Tuple[torch.Tensor, torch.Tensor]:
-    check_family(cfg)
+    """The layer's FFN: (out, aux_loss), the aux loss 0 for a dense one."""
+    if cfg.is_moe:
+        return moe_mod.moe_apply(p["moe"], x, cfg)
     return mlp_apply(p["mlp"], x, cfg), torch.zeros((), device=x.device)
 
 

@@ -1,7 +1,7 @@
 """Serving step functions: prefill and greedy decode.
 
 The serving half of the JAX package's ``training/steps.py``. The train
-and eval steps wait for the training stack (ROADMAP item 19), and with
+and eval steps wait for the training stack (ROADMAP A7), and with
 them ``RunConfig``, which the JAX package's ``make_serve_fns`` takes and
 does not read.
 """

@@ -38,13 +38,17 @@ ATTN_CASES = [
     (1, 256, 256, 4, 4, 128, False, "float32"),   # non-causal
 ]
 IDS = ["gqa", "mha", "mqa", "bf16-unaligned", "kv-longer", "non-causal"]
-# on the card: a bf16 twin of each f32 case (the tensor-core kernel) and
-# head dim 16
+# stablelm-12b's head dim, 160 (GQA group 4, a ragged last q tile)
+D160_CASES = [(1, 200, 200, 8, 2, 160, True, dt)
+              for dt in ("float32", "bfloat16")]
+D160_IDS = ["d160-f32", "d160-bf16"]
+# on the card: a bf16 twin of each f32 case (the tensor-core kernel), head
+# dim 16 and head dim 160
 CUDA_CASES = ATTN_CASES + [c[:7] + ("bfloat16",) for c in ATTN_CASES
                            if c[7] == "float32"] + [
-    (1, 128, 128, 4, 2, 16, True, "bfloat16")]
+    (1, 128, 128, 4, 2, 16, True, "bfloat16")] + D160_CASES
 CUDA_IDS = IDS + [f"{i}-bf16" for i, c in zip(IDS, ATTN_CASES)
-                  if c[7] == "float32"] + ["d16-bf16"]
+                  if c[7] == "float32"] + ["d16-bf16"] + D160_IDS
 
 
 def _inputs(case, seed):
@@ -63,7 +67,8 @@ def _np(t):
         else np.asarray(t.astype(jnp.float32))
 
 
-@pytest.mark.parametrize("case", ATTN_CASES, ids=IDS)
+@pytest.mark.parametrize("case", ATTN_CASES + D160_CASES,
+                         ids=IDS + D160_IDS)
 def test_plain_version_matches_jax_paths(case):
     (jq, jk, jv), (q, k, v), causal, tol = _inputs(case, seed=11)
     before = flash_attention.launches
@@ -122,6 +127,15 @@ def test_kernel_wrapper_rejects_bad_inputs(case):
     err = TypeError if case.startswith("dtype") else ValueError
     with pytest.raises(err):
         kernel.check_inputs(*args, causal=True)
+
+
+@pytest.mark.parametrize("d", [20, 96, 256])
+def test_uninstantiated_head_dims_name_the_contract(d):
+    """A head dim with no instantiation raises before any launch, saying
+    that the JAX kernel takes any D and where the gap is tracked."""
+    q = torch.zeros(1, 8, 2, d)
+    with pytest.raises(ValueError, match="any D.*ROADMAP"):
+        kernel.check_inputs(q, q, q, causal=True)
 
 
 def test_other_devices_raise():

@@ -37,6 +37,7 @@ from repro_torch.kernels.flash_attn import ops as FA_ops
 from repro_torch.kernels.ssd_scan import kernel as SSD_kernel
 from repro_torch.kernels.ssd_scan import ops as SSD_ops
 from repro_torch.core.serving import ScenarioServer
+from repro_torch.examples import ycsb_kv as TYcsb
 from repro_torch.launch import serve as TServe
 from repro_torch.launch import serve_scenarios as TServeScenarios
 from repro_torch.models import attention as TA
@@ -77,10 +78,16 @@ MODULES = [
     "repro_torch.training.steps", "repro_torch.launch",
     "repro_torch.launch.serve", "repro_torch.core.retry",
     "repro_torch.core.chaos", "repro_torch.core.serving",
-    "repro_torch.launch.serve_scenarios", "chip_smoke",
+    "repro_torch.launch.serve_scenarios", "repro_torch.models.moe",
+    "repro_torch.configs.moonshot_v1_16b_a3b",
+    "repro_torch.configs.grok1_314b", "repro_torch.configs.deepseek_67b",
+    "repro_torch.configs.stablelm_12b", "repro_torch.configs.starcoder2_15b",
+    "repro_torch.examples", "repro_torch.examples.ycsb_kv",
+    "repro_torch.examples.protocol_sim", "chip_smoke",
 ]
 SPECS = TSc.sweep_grid(workloads=("ycsb",), configs=("wb", "proactive"))
 HYMBA = get_reduced_config("hymba-1.5b")
+MOONSHOT = get_reduced_config("moonshot-v1-16b-a3b")
 
 
 def _env():
@@ -146,12 +153,17 @@ def no_cuda():
     lambda: ScenarioServer(n_stores=50),
     lambda: TE.run_grid(SPECS, n_stores=50, n_shards=2),
     lambda: TServeScenarios.main(["--stores", "50", "--queries", "2"]),
+    lambda: build_model(MOONSHOT).init(0),
+    lambda: TServe.serve("moonshot-v1-16b-a3b", reduced=True, prompt_len=8,
+                         gen=2),
+    lambda: TYcsb.main([]),
 ], ids=["simulate_batch", "slowdown_table", "run_grid", "simulate_grid",
         "run_sweep", "device_args", "sub_device_args", "run_fault_scenario",
         "ReplicationEngine", "recovery_sweep", "recovery_time_batch",
         "logging_unit.init_state", "build_model.init", "init_cache",
         "make_batch", "params_from_jax", "serve", "ScenarioServer",
-        "run_grid_sharded", "serve_scenarios"])
+        "run_grid_sharded", "serve_scenarios", "moe_build_model.init",
+        "moe_serve", "ycsb_kv"])
 def test_entry_points_default_to_cuda_and_raise(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()

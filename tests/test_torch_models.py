@@ -5,10 +5,20 @@ the JAX package's own initialised weights through ``params_from_jax``)
 on both sides. Module-level tolerances are f32 rounding (atol 1e-5 /
 rtol 1e-5 unless stated); bf16 comparisons are relative to the largest
 magnitude, since XLA and torch round bf16 at other points. The whole
-slice -- ``prefill`` plus 4 ``decode_step``s of reduced hymba, qwen3 and
-mamba2 -- is held at atol = rtol = 1e-4 in f32 (with greedy tokens equal
-wherever the JAX top-2 margin exceeds 1e-3) and at 3e-2 of max |logit|
-in bf16.
+slice -- ``prefill`` plus 4 ``decode_step``s of every ported arch at its
+reduced config -- is held at atol = rtol = 1e-4 in f32 (with greedy
+tokens equal wherever the JAX top-2 margin exceeds 1e-3) and at 3e-2 of
+max |logit| in bf16.
+
+MoE archs route each token to its top-k experts, and where two experts'
+probabilities nearly tie, rounding alone can change the choice and the
+token's FFN output by O(1), not by rounding; the change then reaches
+later positions through attention. So for MoE the JAX side's choices and
+their top-k margins (the k-th minus the (k+1)-th probability) are read
+from its own ``jax.lax.top_k`` calls, and the port is held to JAX (a)
+unpinned, on each sequence's positions before the first margin below
+1e-3 at any layer, and (b) pinned to JAX's expert indices (its gates
+still its own), on every position, both under the rules above.
 """
 
 import dataclasses
@@ -29,11 +39,16 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model
 from repro_torch.models import layers as tlayers
+from repro_torch.models import moe as tmoe
 from repro_torch.models import ssm as tssm
 from repro_torch.models.model_zoo import (batch_struct, make_batch,
                                           params_from_jax)
 
-ARCHS = ("hymba-1.5b", "qwen3-0.6b", "mamba2-2.7b")
+ARCHS = ("hymba-1.5b", "qwen3-0.6b", "mamba2-2.7b", "moonshot-v1-16b-a3b",
+         "grok-1-314b", "deepseek-67b", "stablelm-12b", "starcoder2-15b")
+MOE_ARCHS = ("moonshot-v1-16b-a3b", "grok-1-314b")
+#: router top-k margins below this are near ties (see the docstring)
+ROUTER_MARGIN = 1e-3
 RNG = np.random.default_rng(7)
 
 
@@ -80,8 +95,10 @@ def test_configs_are_copies(arch):
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert j.param_count() == t.param_count()
         for prop in ("resolved_head_dim", "q_dim", "kv_dim", "d_inner",
-                     "ssm_n_heads", "is_moe", "supports_long_context"):
+                     "ssm_n_heads", "is_moe", "expert_d_ff",
+                     "supports_long_context"):
             assert getattr(j, prop) == getattr(t, prop), prop
+        assert j.active_param_count() == t.active_param_count()
         for name, shape in JC.SHAPES.items():
             assert dataclasses.asdict(shape) == dataclasses.asdict(
                 TC.SHAPES[name])
@@ -92,14 +109,15 @@ def test_configs_are_copies(arch):
 def test_registry_lists_the_ported_models():
     assert set(TC.list_models()) == set(ARCHS)
     assert TC.get_model_config("hymba-1.5b").param_count() == 1_640_768_896
+    assert TC.get_model_config(
+        "moonshot-v1-16b-a3b").param_count() == 28_888_467_456
     with pytest.raises(KeyError):
-        TC.get_model_config("grok-1-314b")
+        TC.get_model_config("whisper-medium")
 
 
-@pytest.mark.parametrize("change", [dict(n_experts=4, top_k=2),
-                                    dict(encoder_layers=2),
+@pytest.mark.parametrize("change", [dict(encoder_layers=2),
                                     dict(family="vlm", n_patches=4)],
-                         ids=["moe", "enc-dec", "vlm"])
+                         ids=["enc-dec", "vlm"])
 def test_unported_families_raise(change):
     cfg = dataclasses.replace(TC.get_reduced_config("qwen3-0.6b"), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -339,37 +357,191 @@ def test_params_from_jax_keeps_keys_shapes_and_types():
                            jparams["embed"]["tok"], np.float32)))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_prefill_and_decode_match_jax(arch, dtype):
-    jcfg, jm, jparams, tcfg, tm, tparams = _models(arch, dtype)
-    seq, gen = 48, 4
-    toks = RNG.integers(0, jcfg.vocab_size, (2, seq)).astype(np.int32)
+def test_params_from_jax_carries_the_moe_leaves():
+    """The stacked expert leaves (layer axis first, then the expert axis)
+    and the f32 router keep their shapes, types and values."""
+    jcfg, _, jparams, tcfg, tm, tparams = _models("moonshot-v1-16b-a3b",
+                                                  "bfloat16")
+    own = tm.init(0, device="cpu")["layers"][1]["moe"]
+    E, d, ff = tcfg.n_experts, tcfg.d_model, tcfg.expert_d_ff
+    for i in range(tcfg.n_layers):
+        moe = tparams["layers"][i]["moe"]
+        for key, shape in (("w_up", (E, d, ff)), ("w_gate", (E, d, ff)),
+                           ("w_down", (E, ff, d)), ("router", (d, E))):
+            want = np.asarray(jparams["layers"]["moe"][key][i], np.float32)
+            assert tuple(moe[key].shape) == shape == want.shape, key
+            assert moe[key].dtype == own[key].dtype, key
+            assert np.array_equal(moe[key].float().numpy(), want), key
+        assert moe["router"].dtype == torch.float32
+        assert moe["shared"]["w_up"].shape == (d, ff * tcfg.n_shared_experts)
+
+
+class JaxRouting:
+    """The JAX side's expert choices, in call order: while it is set up,
+    each ``jax.lax.top_k`` call of the JAX package's MoE layers records
+    (indices, top-k margin) through an ordered debug callback, so the
+    calls inside ``jit`` and the layer ``scan`` are read too."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        top_k = jax.lax.top_k
+
+        def recording(probs, k):
+            vals, idx = top_k(probs, min(k + 1, probs.shape[-1]))
+            margin = (vals[..., k - 1] - vals[..., k] if vals.shape[-1] > k
+                      else jnp.full(probs.shape[:-1], jnp.inf))
+            jax.debug.callback(self._record, idx[..., :k], margin,
+                               ordered=True)
+            return vals[..., :k], idx[..., :k]
+
+        monkeypatch.setattr(jax.lax, "top_k", recording)
+
+    def _record(self, idx, margin):
+        self.calls.append((np.array(idx), np.array(margin)))
+
+    def read(self):
+        jax.effects_barrier()
+        return list(self.calls)
+
+
+def _pin_port_routing(monkeypatch, calls):
+    """Pin the port's expert choices to JAX's recorded ones, call by
+    call; its gates stay its own probabilities at those experts. Returns
+    the queue of choices not yet taken."""
+    queue = [torch.from_numpy(idx).long() for idx, _ in calls]
+
+    def pinned(probs, k):
+        idx = queue.pop(0)
+        gate = probs.gather(-1, idx)
+        return gate / gate.sum(dim=-1, keepdim=True), idx
+
+    monkeypatch.setattr(tmoe, "top_k_gates", pinned)
+    return queue
+
+
+def _near_tie_horizon(calls, n_layers, batch, seq):
+    """Per sequence, the first position whose router top-k margin is
+    below ROUTER_MARGIN at any layer (inf if none). The first
+    ``n_layers`` calls are a full-sequence pass over ``seq`` positions;
+    each later group of ``n_layers`` is one decode step."""
+    horizon = np.full(batch, np.inf)
+    for c, (_, margin) in enumerate(calls):
+        step = c // n_layers
+        m = margin.reshape(batch, -1)
+        first_pos = 0 if step == 0 else seq + step - 1
+        for b in range(batch):
+            near = np.nonzero(m[b] < ROUTER_MARGIN)[0]
+            if near.size:
+                horizon[b] = min(horizon[b], first_pos + near[0])
+    return horizon
+
+
+def _check_step(tl, jl, dtype, what, rows=None):
+    """Hold one step's logits (``(B, S, V)`` or ``(B, V)``) to JAX's on
+    ``rows`` (a bool mask over the leading dims; all by default): f32 at
+    atol = rtol = 1e-4 with the greedy token equal at the last position
+    wherever JAX's top-2 margin exceeds 1e-3, bf16 at 3e-2 of max
+    |logit|. Returns the number of rows compared."""
+    g, w = _np(tl), _np(jl)
+    if rows is None:
+        rows = np.ones(g.shape[:-1], bool)
+    if not rows.any():
+        return 0
+    if dtype == "float32":
+        _close(g[rows], w[rows], 1e-4, 1e-4, what)
+        last_rows = rows[:, -1] if g.ndim == 3 else rows
+        last = w[:, -1] if w.ndim == 3 else w
+        tlast = g[:, -1] if g.ndim == 3 else g
+        top2 = np.sort(last, axis=-1)[..., -2:]
+        clear = (top2[..., 1] - top2[..., 0] > 1e-3) & last_rows
+        assert np.array_equal(tlast.argmax(-1)[clear],
+                              last.argmax(-1)[clear]), what
+    else:
+        _close_rel(g[rows], w[rows], 3e-2, what)
+    return int(rows.sum())
+
+
+def _jax_steps(jm, jparams, toks, gen):
+    """JAX's prefill and ``gen`` greedy decode steps: its logits and the
+    tokens it fed each step."""
+    seq = toks.shape[1]
     jlog, jcache = jax.jit(lambda p, b: jm.prefill(p, b, max_len=seq + gen))(
         jparams, {"tokens": jnp.asarray(toks)})
-    tlog, tcache = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
-                              max_len=seq + gen)
-    steps = [(tlog, jlog)]
+    logits, fed = [jlog], []
     jdec = jax.jit(jm.decode_step)
     nxt = jnp.argmax(jlog[:, -1], axis=-1).astype(jnp.int32)
     for _ in range(gen):
+        fed.append(np.array(nxt))
         jl, jcache = jdec(jparams, jcache, nxt)
-        tl, tcache = tm.decode_step(tparams, tcache,
-                                    torch.from_numpy(np.array(nxt)))
-        steps.append((tl, jl))
+        logits.append(jl)
         nxt = jnp.argmax(jl, axis=-1).astype(jnp.int32)
+    return logits, fed
+
+
+def _port_steps(tm, tparams, toks, fed):
+    """The port's prefill and decode steps on JAX's tokens."""
+    seq = toks.shape[1]
+    tlog, tcache = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
+                              max_len=seq + len(fed))
+    logits = [tlog]
+    for nxt in fed:
+        tl, tcache = tm.decode_step(tparams, tcache, torch.from_numpy(nxt))
+        logits.append(tl)
+    return logits, tcache
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_match_jax(arch, dtype, monkeypatch):
+    jcfg, jm, jparams, tcfg, tm, tparams = _models(arch, dtype)
+    seq, gen = 48, 4
+    toks = RNG.integers(0, jcfg.vocab_size, (2, seq)).astype(np.int32)
+    routing = JaxRouting(monkeypatch) if tcfg.is_moe else None
+    jsteps, fed = _jax_steps(jm, jparams, toks, gen)
+    tsteps, tcache = _port_steps(tm, tparams, toks, fed)
     assert tcache["length"] == seq + gen
-    for i, (tl, jl) in enumerate(steps):
-        if dtype == "float32":
-            _close(tl, jl, 1e-4, 1e-4, f"step {i}")
-            last = _np(jl)[..., -1, :] if i == 0 else _np(jl)
-            tlast = _np(tl)[..., -1, :] if i == 0 else _np(tl)
-            top2 = np.sort(last, axis=-1)[..., -2:]
-            clear = top2[..., 1] - top2[..., 0] > 1e-3
-            assert np.array_equal(tlast.argmax(-1)[clear],
-                                  last.argmax(-1)[clear]), f"step {i}"
-        else:
-            _close_rel(tl, jl, 3e-2, f"step {i}")
+    if routing is None:
+        for i, (tl, jl) in enumerate(zip(tsteps, jsteps)):
+            _check_step(tl, jl, dtype, f"step {i}")
+        return
+    calls = routing.read()
+    assert len(calls) == tcfg.n_layers * (gen + 1)
+    horizon = _near_tie_horizon(calls, tcfg.n_layers, toks.shape[0], seq)
+    compared = 0
+    for i, (tl, jl) in enumerate(zip(tsteps, jsteps)):
+        pos = np.arange(seq) if i == 0 else np.array([seq + i - 1])
+        rows = pos[None, :] < horizon[:, None]
+        compared += _check_step(tl, jl, dtype, f"step {i}, unpinned",
+                                rows if i == 0 else rows[:, 0])
+    if dtype == "float32":
+        assert compared > 0, "some positions precede every near tie"
+    queue = _pin_port_routing(monkeypatch, calls)
+    tsteps, _ = _port_steps(tm, tparams, toks, fed)
+    assert not queue
+    for i, (tl, jl) in enumerate(zip(tsteps, jsteps)):
+        _check_step(tl, jl, dtype, f"step {i}, pinned to JAX's experts")
+
+
+@pytest.mark.parametrize("arch", ARCHS[3:])
+def test_prefill_decode_agreement(arch):
+    """Twin of ``tests/test_archs_smoke.py::test_prefill_decode_agreement``
+    for the archs of the MoE slice: decode(prefill(t[:-1]), t[-1]) ==
+    prefill(t)[-1] within its 0.05 (bf16). MoE archs at the reference's
+    no-drop ``capacity_factor=16.0``, so routing does not depend on how
+    many tokens share a call."""
+    cfg = TC.get_reduced_config(arch)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, capacity_factor=16.0)
+    model = build_model(cfg)
+    params = model.init(1, device="cpu")
+    batch = make_batch(cfg, TC.ShapeConfig("smoke", 48, 2, "prefill"),
+                       device="cpu")
+    full, _ = model.prefill(params, batch, max_len=64)
+    _, cache = model.prefill(params, {"tokens": batch["tokens"][:, :-1]},
+                             max_len=64)
+    dec, _ = model.decode_step(params, cache, batch["tokens"][:, -1])
+    err = float((dec.float() - full[:, -1].float()).abs().max())
+    assert err <= 0.05, f"{arch}: decode/prefill mismatch {err}"
 
 
 # ---------------------------------------------------------------------------
@@ -391,17 +563,48 @@ def test_batch_struct_and_make_batch():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_forward_and_loss_match_jax(arch):
+def test_forward_and_loss_match_jax(arch, monkeypatch):
+    """Logits, loss and aux loss; for MoE unpinned before the first near
+    tie and pinned to JAX's experts everywhere (see the docstring)."""
     jcfg, jm, jparams, tcfg, tm, tparams = _models(arch, "float32")
     toks = RNG.integers(0, jcfg.vocab_size, (2, 24)).astype(np.int32)
-    jl, _ = jm.forward(jparams, {"tokens": jnp.asarray(toks)})
-    tl, _ = tm.forward(tparams, {"tokens": torch.from_numpy(toks)})
-    _close(tl, jl, 1e-4, 1e-4)
-    jloss, _ = jm.loss_fn(jparams, {"tokens": jnp.asarray(toks),
-                                    "labels": jnp.asarray(toks)})
-    tloss, _ = tm.loss_fn(tparams, {"tokens": torch.from_numpy(toks),
-                                    "labels": torch.from_numpy(toks)})
-    _close(tloss, jloss, 1e-5, 1e-5)
+    jbatch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(toks)}
+    tbatch = {"tokens": torch.from_numpy(toks),
+              "labels": torch.from_numpy(toks)}
+    routing = JaxRouting(monkeypatch) if tcfg.is_moe else None
+    jl, jaux = jm.forward(jparams, {"tokens": jbatch["tokens"]})
+    jloss, jparts = jm.loss_fn(jparams, jbatch)
+
+    def port():
+        tl, taux = tm.forward(tparams, {"tokens": tbatch["tokens"]})
+        tloss, tparts = tm.loss_fn(tparams, tbatch)
+        assert set(tparts) == set(jparts)
+        assert tl.shape == jl.shape and taux.shape == jaux.shape == ()
+        return tl, taux, tloss, tparts
+
+    tl, taux, tloss, tparts = port()
+    horizon = np.inf
+    if routing is not None:
+        calls = routing.read()
+        assert len(calls) == 2 * tcfg.n_layers
+        horizon = _near_tie_horizon(calls[:tcfg.n_layers], tcfg.n_layers,
+                                    2, 24)[:, None]
+        assert np.any(horizon > 0), "some positions precede every near tie"
+    rows = np.arange(24)[None, :] < horizon * np.ones((2, 1))
+    _check_step(tl, jl, "float32", "forward logits", rows)
+    if rows.all():
+        _close(tloss, jloss, 1e-5, 1e-5)
+        assert float(taux) == pytest.approx(float(jaux), rel=1e-6, abs=0)
+    if routing is not None:
+        queue = _pin_port_routing(monkeypatch, calls)
+        tl, taux, tloss, tparts = port()
+        assert not queue
+        _check_step(tl, jl, "float32", "forward logits, pinned")
+        _close(tloss, jloss, 1e-5, 1e-5)
+        assert float(taux) > 0.0
+    for key in ("ce_loss", "aux_loss"):
+        _close(tparts[key], jparts[key], 1e-5, 1e-5, key)
+    assert float(taux) == pytest.approx(float(jaux), rel=1e-6, abs=0)
 
 
 def test_serve_launcher_on_the_cpu(capsys):
@@ -416,3 +619,12 @@ def test_serve_launcher_on_the_cpu(capsys):
     logits, _ = model.prefill(res.params, {"tokens": res.prompts})
     assert torch.equal(logits[:, -1].argmax(-1).to(torch.int32),
                        res.tokens[:, 0])
+
+
+@pytest.mark.parametrize("arch", ARCHS[3:])
+def test_serve_launcher_takes_the_new_archs(arch, capsys):
+    res = tserve.main(["--arch", arch, "--reduced", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "24", "--gen", "3"])
+    assert f"{arch}-reduced: prefill 2x24" in capsys.readouterr().out
+    assert res.tokens.shape == (2, 3)
+    assert 0 <= int(res.tokens.min()) and int(res.tokens.max()) < 512
