@@ -4,11 +4,11 @@
 Drives the port's paths at full width through the entry points a user
 calls -- the paper's evaluation, the ReCXL mechanism (replication into
 per-node log rings, Algorithms 1-2 recovery, the log-dump compressor,
-the YCSB key-value demo), serving hymba-1.5b and moonshot-v1-16b-a3b
-whole and four more decoder configs cut in depth (prefill + greedy
-decode), and the scenario service with its chaos recovery over logical
-shards -- and holds each hand-written CUDA kernel against its plain
-PyTorch version:
+the YCSB key-value demo), serving hymba-1.5b, moonshot-v1-16b-a3b,
+whisper-medium (enc-dec) and internvl2-26b (vlm) whole and four more
+decoder configs cut in depth (prefill + greedy decode), and the scenario
+service with its chaos recovery over logical shards -- and holds each
+hand-written CUDA kernel against its plain PyTorch version:
 
 1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu``,
    ``ssd_scan.cu`` and ``store_timeline.cu`` from
@@ -49,9 +49,12 @@ PyTorch version:
    (``attention_ref``, ``ssd_ref``) on the card, with TF32 off: every
    case of ``tests/test_kernels.py`` and a bf16 twin of each f32 attention
    case (each kernel's bf16 through its tensor-core kernel, f32 through
-   its CUDA-core one, each call's route checked), hymba-1.5b's,
-   moonshot-v1-16b-a3b's and stablelm-12b's per-layer shapes (the last at
-   head dim 160, in bf16 and f32); for the SSD also mamba2-2.7b's p 64 /
+   its CUDA-core one, each call's route checked), unmasked cases with
+   Skv = 1 500 (not a multiple of the 64-key tile) and Sq 100 or 1 500,
+   hymba-1.5b's, moonshot-v1-16b-a3b's, stablelm-12b's (head dim 160, in
+   bf16 and f32), whisper-medium's (encoder and cross-attention unmasked,
+   the cross one at Sq 224 against 1 500 frames; decoder causal) and
+   internvl2-26b's per-layer shapes; for the SSD also mamba2-2.7b's p 64 /
    n 128, n = 8, a ragged
    last chunk, an initial state, a decay strong enough to overflow exp
    above the diagonal and one weak enough (A = -0.05) to carry the state
@@ -61,9 +64,8 @@ PyTorch version:
    (attention's last q tile without its diagonal kv tile, the SSD state
    without its last chunk, each SSD chunk reading its own output state as
    its prior); each kernel's time against its bound, its plain version and,
-   in turns, its CUDA-core kernel run on bf16 (and, attention, at hymba's,
-   qwen3-0.6b's, moonshot's and stablelm's per-layer shapes,
-   ``scaled_dot_product_attention``),
+   in turns, its CUDA-core kernel run on bf16 (and, attention, at every
+   per-layer shape above and qwen3-0.6b's, ``scaled_dot_product_attention``),
    the SSD passes split by the profiler and the SSD f32 time;
 9. ``repro_torch.launch.serve.serve`` of hymba-1.5b at full width (32
    layers, d_model 1600, seeded random weights): 4 prompts of 4 096
@@ -142,7 +144,26 @@ PyTorch version:
     against the plain attention and fresh prefills (grok at capacity
     factor 16);
 17. ``repro_torch.examples.ycsb_kv`` with its Logging Units on the card:
-    the failed node's shard recovered with an exact match, 0 drops.
+    the failed node's shard recovered with an exact match, 0 drops;
+18. ``repro_torch.launch.serve.serve`` of whisper-medium at its published
+    width and depth (24 encoder and 24 decoder layers, d_model 1 024, 16
+    heads of 64, 0.81e9 parameters in bf16, seeded random weights, stub
+    frame embeddings): 8 requests of 1 500 frames and 224 prompt tokens,
+    32 greedy tokens each; 72 tensor-core ``flash_attn`` launches per
+    prefill (24 encoder, 24 decoder, 24 cross-attention), 0 in decode;
+    request 0's logits at every prompt position through the kernel
+    against the plain attention, decode steps 1 and 31 against fresh
+    prefills, planted faults (cross-attention under a causal mask, the
+    encoder causal, the cross caches one frame short; the two
+    cross-attention ones below bf16's rounding, so gated on the f32
+    copy only); then an f32 copy of the whole model through the
+    CUDA-core kernel; a profiled prefill and 8 decode steps;
+19. the same for internvl2-26b at its published width and depth (48
+    layers, d_model 6 144, 48 heads and 8 kv heads of 128, 19.9e9
+    parameters, 39.7 GB in bf16, stub patch embeddings in the leading
+    256 positions): 4 prompts of 1 024 positions, 32 greedy tokens each;
+    48 launches per prefill; the planted fault: ``patch_embeds``
+    ignored; the f32 copy at full width cut to 2 layers.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -958,14 +979,28 @@ ATTN_CASES = [
 ATTN_CASES += [c[:7] + ("bfloat16",) for c in ATTN_CASES
                if c[7] == "float32"]
 ATTN_CASES.append((1, 128, 128, 4, 2, 16, True, "bfloat16"))   # head dim 16
-#: per-layer attention shapes timed against SDPA: (name, B, S, H, K, D),
-#: in bf16 (the tensor-core kernel); stablelm-12b's also in f32 (the
-#: CUDA-core kernel), its head dim 160
-ATTN_TIMED = [("hymba-1.5b", 4, 4096, 25, 5, 64),
-              ("qwen3-0.6b", 4, 4096, 16, 8, 128),
-              ("moonshot-v1-16b-a3b", 4, 2048, 16, 16, 128),
-              ("stablelm-12b", 1, 2048, 32, 8, 160)]
-ATTN_TIMED_F32 = [("stablelm-12b", 1, 2048, 32, 8, 160)]
+#: unmasked, Skv not a multiple of the kernel's 64-key tile, Sq != Skv (the
+#: cross-attention's form), in both dtypes
+ATTN_CASES += [(1, 100, 1500, 16, 16, 64, False, dt)
+               for dt in ("float32", "bfloat16")]
+ATTN_CASES += [(2, 1500, 1500, 16, 16, 64, False, dt)
+               for dt in ("float32", "bfloat16")]
+#: per-layer attention shapes timed against SDPA, (name, B, Sq, Skv, H, K,
+#: D, causal), in bf16 (the tensor-core kernel); stablelm-12b's also in
+#: f32 (the CUDA-core kernel), its head dim 160. All but qwen3-0.6b's
+#: are serving shapes whose query rows phase 8 also holds one by one:
+#: whisper-medium's encoder, cross- and decoder self-attention at phase
+#: 18's batch 8, 1 500 frames and 224-token prompts, and internvl2-26b's
+#: at phase 19's batch 4 and 1 024 positions.
+ATTN_TIMED = [("hymba-1.5b", 4, 4096, 4096, 25, 5, 64, True),
+              ("qwen3-0.6b", 4, 4096, 4096, 16, 8, 128, True),
+              ("moonshot-v1-16b-a3b", 4, 2048, 2048, 16, 16, 128, True),
+              ("stablelm-12b", 1, 2048, 2048, 32, 8, 160, True),
+              ("whisper-medium encoder", 8, 1500, 1500, 16, 16, 64, False),
+              ("whisper-medium cross", 8, 224, 1500, 16, 16, 64, False),
+              ("whisper-medium decoder", 8, 224, 224, 16, 16, 64, True),
+              ("internvl2-26b", 4, 1024, 1024, 48, 8, 128, True)]
+ATTN_TIMED_F32 = [("stablelm-12b", 1, 2048, 2048, 32, 8, 160, True)]
 SSD_CASES = [
     (2, 128, 4, 16, 32, 32, "float32"),
     (1, 96, 2, 64, 128, 32, "float32"),            # unaligned l
@@ -1000,8 +1035,9 @@ ATTN_TOLERANCE = ("tests/test_kernels.py's: allclose atol = rtol = 2e-2 in "
 ATTN_ROW_TOLERANCE = {"f32 oracle": 2.0 ** -6, "plain": 2.0 ** -5}
 ATTN_TOLERANCE = ("tests/test_kernels.py's: allclose atol = rtol = 2e-2 in "
                   "bf16, 2e-5 in f32 (summation order, bf16 rounding of p); "
-                  "at the serving shapes (hymba's, moonshot's, stablelm's) "
-                  "also max|err| of each query row within "
+                  "at the serving shapes (hymba's, moonshot's, stablelm's, "
+                  "whisper-medium's encoder, cross and decoder, "
+                  "internvl2-26b's) also max|err| of each query row within "
                   "2^-6 of that row's max|value| against an f32 oracle, "
                   "2^-5 against the plain version (bf16 scores)")
 SSD_TOLERANCE = ("tests/test_kernels.py's: max|y - y_plain| < 3e-2 (bf16) / "
@@ -1091,10 +1127,10 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
                   "bfloat16")
     # the serving shapes, each query row also held to its own scale
     serving = {hymba_attn: "hymba-1.5b"}
-    for name, b, s, h, kh, d in ATTN_TIMED[2:]:
-        serving[(b, s, s, h, kh, d, True, "bfloat16")] = name
-    for name, b, s, h, kh, d in ATTN_TIMED_F32:
-        serving[(b, s, s, h, kh, d, True, "float32")] = name + " f32"
+    for name, *shape in ATTN_TIMED[2:]:
+        serving[tuple(shape) + ("bfloat16",)] = name
+    for name, *shape in ATTN_TIMED_F32:
+        serving[tuple(shape) + ("float32",)] = name + " f32"
     for case in ATTN_CASES + list(serving):
         b, sq, skv, h, kh, d, causal, dt = case
         q = randn(b, sq, h, d, dtype=dt)
@@ -1122,7 +1158,7 @@ def phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod) -> dict:
                   f"{err:.3g} (tol {tol})")
         if case in serving:
             out["attn_rows_by_shape"][serving[case]] = check_attn_rows(
-                torch, fa, attn, q, k, v, got, plain, serving[case])
+                torch, fa, attn, q, k, v, got, plain, serving[case], causal)
         del q, k, v, got, plain, wants
     out["attn_rows"] = out["attn_rows_by_shape"]["hymba-1.5b"]
     out["attn_timed"] = [time_attention(torch, fa, attn, randn, shape)
@@ -1259,24 +1295,26 @@ def ssd_pass_split(torch, fn, reps: int):
 
 
 def time_attention(torch, fa, attn, randn, shape, dtype="bfloat16") -> dict:
-    """At one per-layer shape (causal): the kernel of ``dtype`` and SDPA,
-    and in bf16 also the CUDA-core kernel run on bf16, timed in turns
-    (kernel, SDPA, CUDA cores, then the reverse; CUDA events, mean of 10
-    launches, 3 for the CUDA-core kernel on bf16); the plain version
-    (mean of 3); against the bound."""
-    name, b, s, h, kh, d = shape
-    q = randn(b, s, h, d, dtype=dtype)
-    k, v = (randn(b, s, kh, d, dtype=dtype) for _ in range(2))
+    """At one per-layer shape: the kernel of ``dtype`` and SDPA, and in
+    bf16 also the CUDA-core kernel run on bf16, timed in turns (kernel,
+    SDPA, CUDA cores, then the reverse; CUDA events, mean of 10 launches,
+    3 for the CUDA-core kernel on bf16); the plain version (mean of 3);
+    against the bound. SDPA's causal mask is aligned to the top left,
+    the kernel's to the bottom right: the causal shapes here have Sq =
+    Skv, where the two agree."""
+    name, b, sq, skv, h, kh, d, causal = shape
+    q = randn(b, sq, h, d, dtype=dtype)
+    k, v = (randn(b, skv, kh, d, dtype=dtype) for _ in range(2))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     which = fa.kernel.kernel_for(q.dtype)
     runs = {
-        "ms": (lambda: fa.kernel.launch(q, k, v, True, which), 10),
-        "library_ms": (lambda: sdpa(qt, kt, vt, is_causal=True,
+        "ms": (lambda: fa.kernel.launch(q, k, v, causal, which), 10),
+        "library_ms": (lambda: sdpa(qt, kt, vt, is_causal=causal,
                                     enable_gqa=True), 10)}
     if which == "mma":
-        runs["simt_ms"] = (lambda: fa.kernel.launch(q, k, v, True, "simt"),
-                           3)
+        runs["simt_ms"] = (lambda: fa.kernel.launch(q, k, v, causal,
+                                                    "simt"), 3)
     times = {key: [] for key in runs}
     for order in (list(runs), list(runs)[::-1]):
         for key in order:
@@ -1286,18 +1324,19 @@ def time_attention(torch, fa, attn, randn, shape, dtype="bfloat16") -> dict:
     out.setdefault("simt_ms", None)
     out["turns"] = times
     out["plain_ms"] = cuda_ms(
-        lambda: attn._blockwise_attention(q, k, v, True), 3)
-    lib_err = float((sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        lambda: attn._blockwise_attention(q, k, v, causal), 3)
+    lib_err = float((sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
                      .transpose(1, 2).float()
-                     - fa.kernel.launch(q, k, v, True, which).float())
+                     - fa.kernel.launch(q, k, v, causal, which).float())
                     .abs().max())
-    out["bound_ms"], out["bound_by"] = attn_bound_ms(torch, q, k, True)
+    out["bound_ms"], out["bound_by"] = attn_bound_ms(torch, q, k, causal)
     out["shape"] = shape
     out["dtype"] = dtype
     simt = ("" if which == "simt" else
             f", CUDA-core kernel {out['simt_ms']:.4f} ms")
-    print(f"  flash_attn at {name}'s per-layer shape (B {b}, S {s}, H {h}, "
-          f"K {kh}, D {d}, {dtype}, causal): {which} kernel "
+    print(f"  flash_attn at {name}'s per-layer shape (B {b}, Sq {sq}, Skv "
+          f"{skv}, H {h}, K {kh}, D {d}, {dtype}, "
+          f"{'causal' if causal else 'no mask'}): {which} kernel "
           f"{out['ms']:.4f} ms, SDPA {out['library_ms']:.4f} ms (max_abs_err "
           f"vs the kernel {lib_err:.3g}){simt} (in turns: "
           f"{json.dumps(times)}); plain {out['plain_ms']:.4f} ms (mean of "
@@ -1313,18 +1352,20 @@ def row_rel(got, want) -> float:
                   / w.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def check_attn_rows(torch, fa, attn, q, k, v, got, plain, shape) -> dict:
+def check_attn_rows(torch, fa, attn, q, k, v, got, plain, shape,
+                    causal=True) -> dict:
     """At a serving shape, each query row against its own scale: vs the
     plain version, and vs an f32 oracle for the first and the last kv group
     of request 0. A planted fault -- the last q tile without its last kv
-    tile, the one that holds the diagonal -- must land above the limit."""
+    tile (the one that holds the diagonal, when causal) -- must land above
+    the limit."""
     r = {"vs_plain": row_rel(got, plain)}
     g = q.shape[2] // k.shape[2]
     for name, kv in (("first", 0), ("last", k.shape[2] - 1)):
         hs = slice(kv * g, (kv + 1) * g)
         want = fa.attention_ref(q[:1, :, hs].float(),
                                 k[:1, :, kv:kv + 1].float(),
-                                v[:1, :, kv:kv + 1].float(), True)
+                                v[:1, :, kv:kv + 1].float(), causal)
         r[f"vs_f32_{name}_group"] = row_rel(got[:1, :, hs], want)
         del want
     t = 64
@@ -2156,6 +2197,283 @@ def phase_ycsb(torch) -> dict:
     return {"wall_s": wall_s, "lines": lines, "drops": drops}
 
 
+#: phase 18: whisper-medium served whole (its published config); prompts
+#: of 224 tokens, half the decoder's 448-token context given to
+#: previous-text conditioning, as long-form transcription does, and 32
+#: generated, so the self-attention cache holds 256
+WHISPER_ARCH = "whisper-medium"
+WHISPER_BATCH = 8
+WHISPER_PROMPT = 224
+WHISPER_GEN = 32
+#: phase 19: internvl2-26b served whole (its published config); prompts
+#: of 1 024 positions, the 256 patch positions, then 768 text tokens
+VLM_ARCH = "internvl2-26b"
+VLM_BATCH = 4
+VLM_PROMPT = 1024
+VLM_GEN = 32
+#: the f32 copies: whisper whole (3.2 GB), internvl2 at full width cut to
+#: 2 of its 48 layers (~7.7 GB), as moonshot's f32 copy is cut
+VLM_F32_LAYERS = 2
+#: decode steps of request 0 held against fresh prefills
+FAMILY_CONSISTENCY_STEPS = (1, 31)
+#: the published widths the two phases must serve
+PUBLISHED = {
+    WHISPER_ARCH: dict(n_layers=24, encoder_layers=24, d_model=1024,
+                       n_heads=16, n_kv_heads=16, head_dim=64, d_ff=4096,
+                       vocab_size=51865, n_frames=1500, mlp="gelu"),
+    VLM_ARCH: dict(n_layers=48, d_model=6144, n_heads=48, n_kv_heads=8,
+                   head_dim=128, d_ff=16384, vocab_size=92553,
+                   n_patches=256, mlp="swiglu")}
+FAULT_CROSS_CAUSAL = "cross-attention under a causal mask"
+FAULT_ENC_CAUSAL = "the encoder's self-attention causal"
+FAULT_CROSS_SHORT = "decode: the cross caches one frame short"
+FAULT_NO_PATCHES = "vlm: patch_embeds ignored"
+#: planted faults the bf16 comparisons of phases 18-19 read but do not
+#: gate, and why: with random weights the cross-attention is a mean over
+#: 1 500 near-uniformly weighted frames, a small share of the residual
+#: stream, and these faults move that share by less than the rounding of
+#: 24 bf16 layers (the largest logit's bf16 ulp alone is ~1.6% of it);
+#: the f32 copy gates both
+FAMILY_BF16_UNGATED = {
+    FAULT_CROSS_CAUSAL: "the mask hides at most 223 of 1 500 frames, from "
+                        "the early positions only; the f32 copy gates it",
+    FAULT_CROSS_SHORT: "one of 1 500 frames moves the cross-attention "
+                       "output by ~1/1 500 of a value; the f32 copy gates "
+                       "it"}
+
+
+def prefill_launches(cfg) -> int:
+    """``flash_attn`` launches of one prefill: one per attention (enc-dec:
+    each encoder layer's, and each decoder layer's self and cross)."""
+    return (cfg.encoder_layers + 2 * cfg.n_layers if cfg.is_encdec
+            else cfg.n_layers)
+
+
+def logits_with(model, params, batch, fa_ops, attn_fn):
+    """Every position's logits of a prefill of ``batch`` (f32) with the
+    kernel op swapped for ``attn_fn``, on the same card tensors."""
+    saved = fa_ops.flash_attention
+    fa_ops.flash_attention = attn_fn
+    try:
+        logits, _ = model.prefill(params, batch)
+    finally:
+        fa_ops.flash_attention = saved
+    return logits.float()
+
+
+def cross_causal_attention(attn):
+    """A planted fault: the cross-attention (Sq != Skv) under the causal
+    mask, aligned to the last frame as the kernel aligns it."""
+    return (lambda q, k, v, causal=True, **kw: attn._blockwise_attention(
+        q, k, v, causal or q.shape[1] != k.shape[1]))
+
+
+def encoder_causal_attention(attn):
+    """A planted fault: the encoder's self-attention (the unmasked Sq ==
+    Skv call) causal."""
+    return (lambda q, k, v, causal=True, **kw: attn._blockwise_attention(
+        q, k, v, causal or q.shape[1] == k.shape[1]))
+
+
+def family_checks(torch, model, params, batch0, gen0, fa, attn, tol,
+                  ungated) -> dict:
+    """Request 0 (``batch0``: its tokens, frames or patches) of a served
+    enc-dec or vlm model: the logits of every prompt position through the
+    kernel against the plain attention; decode steps
+    FAMILY_CONSISTENCY_STEPS against fresh prefills; then the planted
+    faults, each read through the same comparison and each above ``tol``
+    but those in ``ungated``, printed with the reason."""
+    cfg = model.cfg
+    out = {}
+    n = prefill_launches(cfg)
+    which = fa.kernel.kernel_for(getattr(torch, cfg.dtype))
+    fa.ops.reset_counts()
+    kern = logits_with(model, params, batch0, fa.ops, fa.ops.flash_attention)
+    by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
+    check(by_kernel == {"mma": n * (which == "mma"),
+                        "simt": n * (which == "simt")},
+          f"{cfg.name} ({cfg.dtype}), request 0: {n} {which} launches of "
+          f"flash_attn in its prefill ({by_kernel})")
+    check(bool(torch.isfinite(kern).all()), "prefill logits finite")
+    plain_fn = plain_attention(attn)
+    plain = logits_with(model, params, batch0, fa.ops, plain_fn)
+    out["kernel_vs_plain_rel"] = max_rel(kern, plain)
+    check(out["kernel_vs_plain_rel"] <= tol,
+          f"{cfg.name}, request 0's logits at all {kern.shape[1]} positions "
+          f"through the kernel vs the plain attention: max|diff| "
+          f"{out['kernel_vs_plain_rel']:.4g} of max|logit| (tol {tol})")
+    del kern
+    prompt, steps = batch0["tokens"], FAMILY_CONSISTENCY_STEPS
+    max_len = prompt.shape[1] + max(steps) + 1
+    _, cache = model.prefill(params, batch0, max_len=max_len)
+    dec = {}
+    for t in range(1, max(steps) + 1):
+        step, cache = model.decode_step(params, cache, gen0[:, t - 1])
+        if t in steps:
+            dec[t] = step.float()
+    del cache
+    out["consistency"], fresh = {}, {}
+    for t in steps:
+        toks = torch.cat([prompt, gen0[:, :t]], dim=1)
+        fresh[t] = logits_with(model, params, dict(batch0, tokens=toks),
+                               fa.ops, fa.ops.flash_attention)[:, -1]
+        rel = max_rel(dec[t], fresh[t])
+        out["consistency"][t] = rel
+        check(rel <= tol, f"{cfg.name}, decode step {t} vs a fresh prefill "
+              f"of {toks.shape[1]} tokens, last position: max|diff| "
+              f"{rel:.4g} of max|logit| (tol {tol})")
+    readings = {}
+    if cfg.is_encdec:
+        for name, fn in ((FAULT_CROSS_CAUSAL, cross_causal_attention(attn)),
+                         (FAULT_ENC_CAUSAL, encoder_causal_attention(attn))):
+            readings[name] = max_rel(
+                logits_with(model, params, batch0, fa.ops, fn), plain)
+        _, cache = model.prefill(params, batch0, max_len=max_len)
+        for key in ("cross_k", "cross_v"):
+            cache[key] = cache[key][:, :, :-1]
+        step, _ = model.decode_step(params, cache, gen0[:, 0])
+        readings[FAULT_CROSS_SHORT] = max_rel(step.float(), fresh[1])
+        del cache
+    if cfg.family == "vlm":
+        readings[FAULT_NO_PATCHES] = max_rel(
+            logits_with(model, params, {"tokens": prompt}, fa.ops, plain_fn),
+            plain)
+    out["planted"] = readings
+    for name, rel in readings.items():
+        print(f"  planted fault, {name}: max|diff| {rel:.4g} of max|logit|"
+              + (f"; not gated: {ungated[name]}" if name in ungated else ""))
+    for name, rel in readings.items():
+        if name not in ungated:
+            check(rel > tol, f"planted fault, {name}: {rel:.4g} of "
+                  f"max|logit|, above the limit {tol}")
+    return out
+
+
+def phase_serve_family(torch, serve_mod, fa, attn, phase: int, arch: str,
+                       batch: int, prompt: int, gen: int,
+                       f32_layers) -> dict:
+    """Phases 18-19: ``serve`` of an enc-dec or vlm config at its
+    published width and depth; its checks on request 0 in bf16 and on an
+    f32 copy (``f32_layers`` of its decoder layers, all if ``None``); a
+    profiled prefill and 8 decode steps."""
+    from repro_torch.models import build_model
+    print(f"phase {phase}: serve {arch} at full width and depth -- {batch} "
+          f"prompts of {prompt} positions, {gen} greedy tokens each")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"  device memory held before the phase: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    fa.ops.reset_counts()
+    t0 = time.perf_counter()
+    res = serve_mod.serve(arch, batch=batch, prompt_len=prompt, gen=gen,
+                          seed=SEED)
+    wall_s = time.perf_counter() - t0
+    by_kernel = dict(fa.ops.flash_attention.launches_by_kernel)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = res.cfg
+    n = prefill_launches(cfg)
+    out = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+           "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
+           "decode_tok_per_s": res.decode_tok_per_s,
+           "launches": fa.ops.flash_attention.launches,
+           "attn_launches_by_kernel": by_kernel, "peak_bytes": peak,
+           "wall_s": wall_s, "params": cfg.param_count(),
+           "tokens_seq0": res.tokens[0].tolist()}
+    stub = {k: tuple(v.shape) for k, v in res.inputs.items()
+            if k != "tokens"}
+    print(f"  {cfg.name}: {cfg.n_layers} decoder layers"
+          + (f", {cfg.encoder_layers} encoder layers" if cfg.is_encdec
+             else "")
+          + f", d_model {cfg.d_model}, {cfg.n_heads} heads / "
+          f"{cfg.n_kv_heads} kv heads of {cfg.resolved_head_dim}, "
+          f"{cfg.param_count()} parameters ({cfg.dtype}); stub inputs "
+          f"{stub}; prefill {res.prefill_s * 1e3:.1f} ms wall; "
+          f"{res.decode_steps} decode steps {out['decode_ms_per_step']:.3f} "
+          f"ms each ({res.decode_tok_per_s:.1f} tok/s); peak device memory "
+          f"{peak} bytes; serve() {wall_s:.1f} s with init")
+    print(f"  sample generation (seq 0): {res.tokens[0].tolist()}")
+    check({k: getattr(cfg, k) for k in PUBLISHED[arch]} == PUBLISHED[arch],
+          f"the published config: {PUBLISHED[arch]}")
+    check(by_kernel == {"mma": n, "simt": 0},
+          f"serve() launched the tensor-core flash_attn kernel {n} times, "
+          f"all in its prefill, the CUDA-core one none ({by_kernel})")
+    check(tuple(res.tokens.shape) == (batch, gen)
+          and int(res.tokens.min()) >= 0
+          and int(res.tokens.max()) < cfg.vocab_size,
+          f"{batch} x {gen} tokens, all in [0, {cfg.vocab_size})")
+
+    model = build_model(cfg)
+    params, inputs = res.params, res.inputs
+    gen_toks = res.tokens.to(inputs["tokens"].device)
+    max_len = prompt + gen
+    del res
+    with torch.inference_mode():
+        fa.ops.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, inputs, max_len=max_len)
+        torch.cuda.synchronize()
+        out["warm_prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = fa.ops.flash_attention.launches
+        check(torch.equal(logits[:, -1].argmax(-1).to(torch.int32),
+                          gen_toks[:, 0]),
+              f"a second (warm) prefill, {out['warm_prefill_s'] * 1e3:.1f} "
+              f"ms wall, gives serve()'s first tokens")
+        del logits
+        model.decode_step(params, cache, gen_toks[:, 0])
+        out["decode_launches"] = (fa.ops.flash_attention.launches
+                                  - out["prefill_launches"])
+        check(out["prefill_launches"] == n and out["decode_launches"] == 0,
+              f"{out['prefill_launches']} flash_attn launches in a prefill "
+              f"({n} expected), {out['decode_launches']} in a decode step")
+        del cache
+        batch0 = {k: v[:1] for k, v in inputs.items()}
+        out["bf16"] = family_checks(torch, model, params, batch0,
+                                    gen_toks[:1], fa, attn, LOGIT_TOLERANCE,
+                                    FAMILY_BF16_UNGATED)
+        cut = f32_layers or cfg.n_layers
+        print(f"  an f32 copy of the served weights at full width, "
+              f"{cut} of {cfg.n_layers} decoder layers"
+              + (" and every encoder layer" if cfg.is_encdec else "")
+              + ", request 0 (the CUDA-core kernel):")
+        cfg32 = dataclasses.replace(cfg, dtype="float32", n_layers=cut)
+        params32 = to_f32(torch, {**params, "layers": params["layers"][:cut]})
+        out["f32"] = family_checks(torch, build_model(cfg32), params32,
+                                   batch0, gen_toks[:1], fa, attn,
+                                   F32_LOGIT_TOLERANCE, {})
+        del params32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # where the time goes: one prefill and 8 decode steps, profiled
+        def prefill_once():
+            nonlocal cache
+            _, cache = model.prefill(params, inputs, max_len=max_len)
+
+        def decode_8():
+            nonlocal cache
+            for t in range(8):
+                _, cache = model.decode_step(params, cache, gen_toks[:, t])
+
+        cache = None
+        out["prefill_profile"] = profile_split(torch, prefill_once)
+        out["decode_profile"] = profile_split(torch, decode_8)
+        del cache
+    for what, prof in (("prefill", out["prefill_profile"]),
+                       ("8 decode steps", out["decode_profile"])):
+        print_profile(what, prof)
+    prof = out["decode_profile"]
+    if prof["device_ms"] is not None:
+        out["launches_per_decode_step"] = prof["kernel_launches"] / 8
+        print(f"  {out['launches_per_decode_step']:.1f} kernel launches per "
+              f"decode step")
+    del params, inputs, gen_toks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def prepared(S, spec, n: int):
     """The prepared per-store arrays of one cell, as every engine gets
     them."""
@@ -2792,6 +3110,11 @@ def main(argv=None) -> int:
     served_moe = phase_serve_moe(torch, serve_mod, fa, ssd, attn, moe)
     cut = phase_cut_configs(torch, serve_mod, config, fa, ssd, attn, moe)
     ycsb = phase_ycsb(torch)
+    whisper = phase_serve_family(torch, serve_mod, fa, attn, 18,
+                                 WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT,
+                                 WHISPER_GEN, None)
+    vlm = phase_serve_family(torch, serve_mod, fa, attn, 19, VLM_ARCH,
+                             VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_F32_LAYERS)
 
     entry = {
         "name": "bank_scan", "route": "cuda",
@@ -2904,7 +3227,10 @@ def main(argv=None) -> int:
         {"path": f"{MOE_ARCH} serve, prefill", "launches":
          served_moe["launches"]}] + [
         {"path": f"{arch} at {CUT_LAYERS} layers, serve, prefill",
-         "launches": cut[arch]["launches"]} for arch in CUT_ARCHS]
+         "launches": cut[arch]["launches"]} for arch in CUT_ARCHS] + [
+        {"path": f"{WHISPER_ARCH} serve, prefill (encoder, decoder, cross)",
+         "launches": whisper["launches"]},
+        {"path": f"{VLM_ARCH} serve, prefill", "launches": vlm["launches"]}]
     attn_entry["launches"] = sum(p["launches"] for p in attn_entry["paths"])
     kernels = [entry] + lc_entries + model_entries + [st_entry]
     print(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2920,7 +3246,8 @@ def main(argv=None) -> int:
                        "fig10_routes": routes, "mega_stacked": mega_st,
                        "serving": served_sc, "resilience": resil,
                        "serve_moe": served_moe, "cut_configs": cut,
-                       "ycsb": ycsb, "kernels": kernels},
+                       "ycsb": ycsb, "serve_whisper": whisper,
+                       "serve_vlm": vlm, "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

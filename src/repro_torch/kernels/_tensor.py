@@ -21,3 +21,16 @@ def on_card(dev: torch.device) -> Iterator[int]:
     current stream, the one a kernel is launched on."""
     with torch.cuda.device(dev):
         yield torch.cuda.current_stream(dev).cuda_stream
+
+
+def refuse_grad(op: str, *tensors) -> None:
+    """Raise when grad mode is on and one of ``tensors`` (``None``s
+    skipped) requires grad: the kernels compute the forward only, and an
+    output written through ctypes would silently carry no gradient back
+    to its inputs (the backward comes with training, ROADMAP A7)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{op}: the CUDA kernel has no backward yet (ROADMAP A7); call "
+            f"it under torch.no_grad() or torch.inference_mode(), or on "
+            f"CPU tensors, whose plain version autograd differentiates")

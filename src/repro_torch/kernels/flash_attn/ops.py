@@ -8,15 +8,20 @@ cores; their own tiles) or raises; a CPU tensor runs the plain
 version, the port's ``_blockwise_attention`` with ``block_q`` /
 ``block_k`` tiles, as the JAX ops' non-TPU route does; other devices
 raise. There is no override that sends a CUDA tensor to the plain
-version. ``flash_attention.launches`` counts kernel launches and
-``flash_attention.launches_by_kernel`` splits them by kernel ("mma",
-"simt"), so a run can show which kernel its attention went through.
+version. The kernels compute the forward only: on the CUDA route, with
+grad mode on and an input that requires grad, the op raises instead of
+returning an output that autograd cannot trace back (the backward comes
+with training, ROADMAP A7). ``flash_attention.launches`` counts kernel
+launches and ``flash_attention.launches_by_kernel`` splits them by
+kernel ("mma", "simt"), so a run can show which kernel its attention
+went through.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._tensor import refuse_grad
 from repro_torch.kernels.flash_attn import kernel
 
 
@@ -36,6 +41,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         from repro_torch.models.attention import _blockwise_attention
         return _blockwise_attention(q, k, v, causal, q_block=block_q,
                                     kv_block=block_k)
+    refuse_grad("flash_attention", q, k, v)
     which = kernel.kernel_for(q.dtype)
     out = kernel.launch(q, k, v, causal, which)
     flash_attention.launches += 1

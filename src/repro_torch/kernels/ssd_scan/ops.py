@@ -7,7 +7,10 @@ launches the hand-written kernel of its dtype (``kernel.py``: bf16 as
 three chunk-parallel passes on the tensor cores, f32 on the CUDA cores)
 or raises; a CPU tensor runs the plain version, the port's
 ``ssd_chunked``; other devices raise. There is no override that sends a
-CUDA tensor to the plain version. ``ssd_scan.launches`` counts calls
+CUDA tensor to the plain version. The kernels compute the forward only:
+on the CUDA route, with grad mode on and an input that requires grad,
+the op raises (the backward comes with training, ROADMAP A7).
+``ssd_scan.launches`` counts calls
 that launched a kernel (one per call, whatever the passes inside), and
 ``ssd_scan.launches_by_kernel`` splits them by kernel ("mma", "simt"),
 so a run can show which kernel its scan went through.
@@ -19,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels._tensor import refuse_grad
 from repro_torch.kernels.ssd_scan import kernel
 
 
@@ -39,6 +43,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         # imported here: models.ssm imports this module
         from repro_torch.models.ssm import ssd_chunked
         return ssd_chunked(x, dt, A, B, C, chunk, init_state)
+    refuse_grad("ssd_scan", x, dt, A, B, C, init_state)
     which = kernel.kernel_for(x.dtype)
     out = kernel.launch(x, dt, A, B, C, chunk, init_state, which)
     ssd_scan.launches += 1

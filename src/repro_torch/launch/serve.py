@@ -6,6 +6,10 @@ Example (the card)::
         --batch 4 --prompt-len 4096 --gen 32
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --batch 4 --prompt-len 2048 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch whisper-medium --batch 8 --prompt-len 224 --gen 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch internvl2-26b --batch 4 --prompt-len 1024 --gen 32
 
 and on the CPU, at the reduced config::
 
@@ -14,12 +18,16 @@ and on the CPU, at the reduced config::
 
 ``--arch`` takes every registered config (``config.list_models()``):
 hymba-1.5b, qwen3-0.6b, mamba2-2.7b, moonshot-v1-16b-a3b, grok-1-314b,
-deepseek-67b, stablelm-12b and starcoder2-15b. As in the JAX launcher
-there is no depth flag: a config is served at its published depth, or
-its reduced one with ``--reduced``.
+deepseek-67b, stablelm-12b, starcoder2-15b, whisper-medium (enc-dec)
+and internvl2-26b (vlm). As in the JAX launcher there is no depth flag:
+a config is served at its published depth, or its reduced one with
+``--reduced``.
 
 Weights come from the port's seeded init and the prompts from
-``make_batch`` (both from ``--seed``). ``--gen`` tokens are answered
+``make_batch`` (both from ``--seed``): tokens, and for whisper-medium
+the stub frame embeddings, for internvl2-26b the stub patch embeddings
+that take the prompt's leading positions; the prefill gets the whole
+batch. ``--gen`` tokens are answered
 per request: the first from the prefill, the rest one per decode step,
 as the JAX package's launcher does. It prints the prefill time, the
 decode time, tokens/s and sequence 0. The JAX launcher's ``--mesh`` and
@@ -51,7 +59,8 @@ from repro_torch.training.steps import make_serve_fns
 class ServeResult:
     cfg: ModelConfig
     params: Dict[str, Any]
-    prompts: torch.Tensor              # (batch, prompt_len)
+    prompts: torch.Tensor              # (batch, prompt_len) tokens
+    inputs: Dict[str, torch.Tensor]    # the prefill's whole batch
     tokens: torch.Tensor               # (batch, gen) generated, on the host
     prefill_s: float                   # wall, ending in a synchronise
     decode_s: float                    # wall of the gen - 1 decode steps
@@ -104,7 +113,7 @@ def serve(arch: str, reduced: bool = False, batch: int = 4,
         _sync(dev)
         decode_s = time.perf_counter() - t0
     return ServeResult(cfg=cfg, params=params, prompts=prompts["tokens"],
-                       tokens=torch.stack(out, dim=1).cpu(),
+                       inputs=prompts, tokens=torch.stack(out, dim=1).cpu(),
                        prefill_s=prefill_s, decode_s=decode_s, device=dev)
 
 

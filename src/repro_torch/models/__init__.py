@@ -1,4 +1,5 @@
-"""Model definitions of the port: the dense, ssm and hybrid families.
+"""Model definitions of the port: the dense, moe, ssm, hybrid, vlm and
+enc-dec (audio) families.
 
 Plain functions on torch tensors with the JAX package's layouts and
 parameter keys; :func:`build_model` is the uniform facade.

@@ -1,4 +1,5 @@
-"""GQA attention: full / blockwise-causal self-attention, prefill, decode.
+"""GQA attention: full / blockwise-causal self-attention, cross-attention,
+prefill, decode.
 
 The JAX package's ``models/attention.py`` on torch tensors, with its
 layouts: q ``(B, S, H, hd)``, k / v ``(B, S, K, hd)``, weights
@@ -11,14 +12,17 @@ layouts: q ``(B, S, H, hd)``, k / v ``(B, S, K, hd)``, weights
 * ``decode``    -- one-token attention against a KV cache, grouped
   against the unexpanded cache.
 
-Routing of causal self-attention (``self_attention``,
-``prefill_self_attention``): a CUDA tensor goes through the hand-written
-flash-attention kernel (``kernels/flash_attn``) at every length -- the
-kernel computes the function both plain paths compute. A CPU tensor
-takes the JAX package's threshold path (full up to
-``BLOCKWISE_THRESHOLD``, blockwise above), so the parity tests compare
-like with like. Decode attention stays plain torch: the JAX package has
-no kernel for it. All paths accumulate softmax statistics in f32.
+Routing of prefill attention -- causal self-attention (``self_attention``,
+``prefill_self_attention``), the encoder's non-causal self-attention and
+cross-attention (``cross_attention``, no mask, ``Sq != Skv``): a CUDA
+tensor goes through the hand-written flash-attention kernel
+(``kernels/flash_attn``) at every length -- the kernel computes the
+function both plain paths compute, masked or not. A CPU tensor takes
+the JAX package's own path (self-attention: full up to
+``BLOCKWISE_THRESHOLD``, blockwise above; cross-attention: full), so the
+parity tests compare like with like. Decode attention stays plain
+torch: the JAX package has no kernel for it. All paths accumulate
+softmax statistics in f32.
 """
 
 from __future__ import annotations
@@ -222,15 +226,21 @@ def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def _causal_self_attention(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, use_blockwise: bool
-                           ) -> torch.Tensor:
-    """The kernel for a CUDA tensor; the threshold path on the CPU."""
-    if q.device.type == "cuda":
-        return flash_ops.flash_attention(q, k, v, causal=True)
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether attention over ``t`` takes the kernel: a CUDA tensor."""
+    return t.device.type == "cuda"
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, use_blockwise: bool) -> torch.Tensor:
+    """Prefill attention, causal (right-aligned) or unmasked (``Sq`` may
+    differ from ``Skv``): the kernel for a CUDA tensor; on the CPU the
+    blockwise or the full path."""
+    if _on_card(q):
+        return flash_ops.flash_attention(q, k, v, causal=causal)
     if use_blockwise:
-        return _blockwise_attention(q, k, v, causal=True)
-    return _full_attention(q, k, v, causal=True)
+        return _blockwise_attention(q, k, v, causal=causal)
+    return _full_attention(q, k, v, causal=causal)
 
 
 def self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -246,13 +256,36 @@ def self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     q, k, v = _project_qkv(params, x, x, cfg, positions, positions, use_rope)
     use_blockwise = (s > BLOCKWISE_THRESHOLD if force_blockwise is None
                      else force_blockwise)
-    if causal:
-        o = _causal_self_attention(q, k, v, use_blockwise)
-    elif use_blockwise:
-        o = _blockwise_attention(q, k, v, causal=False)
-    else:
-        o = _full_attention(q, k, v, causal=False)
+    o = _attend(q, k, v, causal, use_blockwise)
     return o.reshape(b, s, -1) @ params["wo"]
+
+
+def cross_kv(params: Params, ctx: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K / V ``(B, F, K, hd)`` of the context (the
+    encoder output): its projections, with no norm and no RoPE."""
+    b, f, _ = ctx.shape
+    hd = cfg.resolved_head_dim
+    return ((ctx @ params["wk"]).reshape(b, f, cfg.n_kv_heads, hd),
+            (ctx @ params["wv"]).reshape(b, f, cfg.n_kv_heads, hd))
+
+
+def cross_attend(params: Params, x: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of ``x`` (B, S, d_model) to projected K / V (from
+    :func:`cross_kv`): no mask, no RoPE; on the CPU the JAX package's
+    full path at every length."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
+    o = _attend(q, k, v, causal=False, use_blockwise=False)
+    return o.reshape(b, s, -1) @ params["wo"]
+
+
+def cross_attention(params: Params, x: torch.Tensor, ctx: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Decoder -> encoder cross-attention (no mask, no RoPE)."""
+    k, v = cross_kv(params, ctx, cfg)
+    return cross_attend(params, x, k, v, cfg)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -298,6 +331,6 @@ def prefill_self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, x, cfg, positions, positions, True)
-    o = _causal_self_attention(q, k, v, s > BLOCKWISE_THRESHOLD)
+    o = _attend(q, k, v, True, s > BLOCKWISE_THRESHOLD)
     out = o.reshape(b, s, -1) @ params["wo"]
     return out, k, v

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import dtype_of
 
 
@@ -36,28 +36,34 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of ``cfg``. Raises ``NotImplementedError`` for the
-    families the port does not run yet (enc-dec, vlm)."""
+    """The model of ``cfg``: ``models/encdec.py`` for an enc-dec config,
+    ``models/transformer.py`` otherwise. Raises ``NotImplementedError``
+    for a family the port's models do not know."""
     transformer.check_family(cfg)
+    mod = encdec if cfg.is_encdec else transformer
 
     def init(seed: int = 0, device=None) -> Dict[str, Any]:
         """Random weights from ``torch.Generator(device).manual_seed(seed)``,
         made on ``device`` (``None``: the card)."""
         dev = resolve_device(device)
-        return transformer.init_params(
-            torch.Generator(device=dev).manual_seed(seed), cfg)
+        return mod.init_params(torch.Generator(device=dev).manual_seed(seed),
+                               cfg)
 
     def init_cache(batch: int, max_len: int, device=None) -> Dict[str, Any]:
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                "enc-dec caches are created by prefill (the cross K/V need "
+                "the encoder output)")
         return transformer.init_cache(cfg, batch, max_len,
                                       device=resolve_device(device))
 
     return Model(
         cfg=cfg,
         init=init,
-        forward=lambda p, b: transformer.forward(p, b, cfg),
-        loss_fn=lambda p, b: transformer.loss_fn(p, b, cfg),
-        prefill=lambda p, b, **kw: transformer.prefill(p, b, cfg, **kw),
-        decode_step=lambda p, c, t: transformer.decode_step(p, c, t, cfg),
+        forward=lambda p, b: mod.forward(p, b, cfg),
+        loss_fn=lambda p, b: mod.loss_fn(p, b, cfg),
+        prefill=lambda p, b, **kw: mod.prefill(p, b, cfg, **kw),
+        decode_step=lambda p, c, t: mod.decode_step(p, c, t, cfg),
         init_cache=init_cache,
     )
 
@@ -83,20 +89,34 @@ def batch_struct(cfg: ModelConfig, shape: ShapeConfig
     specs = {"tokens": TensorSpec((b, s), torch.int32)}
     if shape.kind == "train":
         specs["labels"] = TensorSpec((b, s), torch.int32)
+    if cfg.family == "vlm":
+        specs["patch_embeds"] = TensorSpec((b, cfg.n_patches, cfg.d_model),
+                                           dtype_of(cfg))
+    if cfg.is_encdec:
+        specs["frames"] = TensorSpec((b, cfg.n_frames, cfg.d_model),
+                                     dtype_of(cfg))
     return specs
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0,
                device=None) -> Dict[str, torch.Tensor]:
-    """A synthetic batch matching :func:`batch_struct`: tokens (and
-    labels) uniform in ``[0, vocab)`` from ``torch.Generator().manual_seed
-    (seed)`` on the CPU, so the same seed gives the same tokens on every
-    device, then moved to ``device`` (``None``: the card)."""
+    """A synthetic batch matching :func:`batch_struct`, drawn in its
+    order from one ``torch.Generator().manual_seed(seed)`` on the CPU, so
+    the same seed gives the same batch on every device, then moved to
+    ``device`` (``None``: the card): tokens (and labels) uniform in ``[0,
+    vocab)``; the stub embeddings (``patch_embeds``, ``frames``) normal x
+    0.02 in f32, then cast to the config's dtype."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    return {name: torch.randint(0, cfg.vocab_size, spec.shape,
-                                generator=gen, dtype=spec.dtype).to(dev)
-            for name, spec in batch_struct(cfg, shape).items()}
+    out = {}
+    for name, spec in batch_struct(cfg, shape).items():
+        if spec.dtype == torch.int32:
+            t = torch.randint(0, cfg.vocab_size, spec.shape, generator=gen,
+                              dtype=spec.dtype)
+        else:
+            t = (torch.randn(spec.shape, generator=gen) * 0.02).to(spec.dtype)
+        out[name] = t.to(dev)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -123,8 +143,9 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], device=None
                     ) -> Dict[str, Any]:
     """The port's parameters from the JAX package's parameter tree of
     ``cfg`` (nested dicts of numpy arrays, the layer axis leading in
-    ``tree["layers"]``), on ``device`` (``None``: the card). Every value
-    keeps its type, so both packages compute from the same weights."""
+    ``tree["layers"]`` and, enc-dec, ``tree["enc_layers"]``), on
+    ``device`` (``None``: the card). Every value keeps its type, so both
+    packages compute from the same weights."""
     transformer.check_family(cfg)
     dev = resolve_device(device)
 
@@ -133,12 +154,17 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], device=None
             return {k: layer(v, i) for k, v in node.items()}
         return np.asarray(node)[i]
 
-    layers = tree["layers"]
+    def stack(name, n):
+        return [_tree(layer(tree[name], i), dev) for i in range(n)]
+
     out = {
         "embed": _tree(tree["embed"], dev),
-        "layers": [_tree(layer(layers, i), dev) for i in range(cfg.n_layers)],
+        "layers": stack("layers", cfg.n_layers),
         "final_norm": _tree(tree["final_norm"], dev),
     }
+    if cfg.is_encdec:
+        out["enc_layers"] = stack("enc_layers", cfg.encoder_layers)
+        out["enc_norm"] = _tree(tree["enc_norm"], dev)
     if out["embed"]["tok"].dtype != dtype_of(cfg):
         raise ValueError(f"the tree's embedding is {out['embed']['tok'].dtype}"
                          f", the config says {cfg.dtype}")

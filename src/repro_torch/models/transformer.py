@@ -1,12 +1,13 @@
-"""Decoder-only model assembly for the dense / moe / ssm / hybrid
+"""Decoder-only model assembly for the dense / moe / ssm / hybrid / vlm
 families.
 
 The JAX package's ``models/transformer.py`` on torch tensors. Its layer
 ``lax.scan`` over stacked parameters becomes a Python loop over a list
 of per-layer parameter dicts (``params["layers"][i]`` holds the JAX
 package's keys). The ``constrain_*`` sharding hints are identities on
-one card and are not ported. The vlm and enc-dec families raise
-``NotImplementedError`` (ROADMAP A6).
+one card and are not ported. A vlm batch's ``patch_embeds`` replace the
+leading positions' token embeddings. Enc-dec configs run in
+``models/encdec.py``; ``model_zoo.build_model`` picks the module.
 
 Caches are dicts of tensors with the JAX package's keys (``k``, ``v``
 ``(L, B, max_len, K, hd)``; ``conv``, ``ssd``) plus ``length``, a Python
@@ -42,17 +43,17 @@ from repro_torch.models.layers import (
 Cache = Dict[str, Any]
 
 MOE_AUX_COEF = 0.01
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the families the port's models run; an enc-dec config (``encoder_layers
+#: > 0``, the audio family's) runs in ``models/encdec.py``
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    """Raise for the families the port does not run yet."""
-    if cfg.is_encdec or cfg.family not in FAMILIES:
+    """Raise for a family the port's models do not know."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family"
-            f"{' (enc-dec)' if cfg.is_encdec else ''} is not ported yet; "
-            f"the port runs {FAMILIES} (ROADMAP A6 lists enc-dec, then "
-            f"vlm)")
+            f"{cfg.name}: the {cfg.family} family has no model in the port, "
+            f"which runs {FAMILIES}")
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +134,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
                   cfg: ModelConfig) -> torch.Tensor:
-    return embed_tokens(params["embed"], batch["tokens"])
+    """Token embeddings; for vlm, ``patch_embeds`` (B, P, d) in their
+    place at the leading P positions, cast to the activation type. As in
+    the JAX package, P > S gives P positions."""
+    x = embed_tokens(params["embed"], batch["tokens"])
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
 
 
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
@@ -180,7 +188,10 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     bsz, seq = tokens.shape
     max_len = max_len or seq
     x = _embed_inputs(params, batch, cfg)
-    cache = init_cache(cfg, bsz, max_len, device=x.device)
+    # the JAX package pads the K/V of all x.shape[1] positions (more than
+    # seq when a vlm batch has more patches than tokens) by max_len - seq
+    n_pos = x.shape[1]
+    cache = init_cache(cfg, bsz, max_len + n_pos - seq, device=x.device)
     for i, lp in enumerate(params["layers"]):
         if cfg.family == "ssm":
             h = rmsnorm(lp["norm"], x, cfg.norm_eps)
@@ -191,8 +202,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             continue
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         a, k, v = attn.prefill_self_attention(lp["attn"], h, cfg)
-        cache["k"][i, :, :seq] = k
-        cache["v"][i, :, :seq] = v
+        cache["k"][i, :, :n_pos] = k
+        cache["v"][i, :, :n_pos] = v
         if cfg.family == "hybrid":
             s, (conv, ssd) = ssm_mod.ssm_apply(lp["ssm"], h, cfg,
                                                return_cache=True)

@@ -253,3 +253,36 @@ def test_reset_counts():
     fa_ops.reset_counts()
     assert flash_attention.launches == 0
     assert flash_attention.launches_by_kernel == {"mma": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_cuda_route_refuses_grad(fake_library, which):
+    """The kernel has no backward (ROADMAP A7): on the CUDA route, with
+    grad mode on and an input that requires grad, the op raises before
+    any launch; under ``no_grad`` / ``inference_mode`` the same call
+    launches as before."""
+    t = {n: torch.randn(1, 64, 2, 32) for n in "qkv"}
+    t[which].requires_grad_(True)
+    total = flash_attention.launches
+    with pytest.raises(RuntimeError, match="A7"):
+        flash_attention(t["q"], t["k"], t["v"], causal=False)
+    assert fake_library.calls == [] and flash_attention.launches == total
+    with torch.no_grad():
+        flash_attention(t["q"], t["k"], t["v"], causal=False)
+    with torch.inference_mode():
+        flash_attention(t["q"], t["k"], t["v"], causal=True)
+    assert [w for w, _ in fake_library.calls] == ["simt", "simt"]
+    assert flash_attention.launches == total + 2
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_cpu_route_backpropagates(causal):
+    """On CPU tensors the op is the plain version, which autograd
+    differentiates: finite, non-zero gradients reach q, k and v."""
+    q, k, v = (torch.randn(1, 48, 4, 16, requires_grad=True)
+               for _ in range(3))
+    out = flash_attention(q, k, v, causal=causal, block_q=16, block_k=16)
+    (out * torch.randn_like(out)).sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.abs().max()) > 0.0

@@ -11,6 +11,7 @@
   raises -- it never gives way to the plain version.
 """
 
+import contextlib
 import os
 import shutil
 import subprocess
@@ -83,11 +84,14 @@ MODULES = [
     "repro_torch.configs.grok1_314b", "repro_torch.configs.deepseek_67b",
     "repro_torch.configs.stablelm_12b", "repro_torch.configs.starcoder2_15b",
     "repro_torch.examples", "repro_torch.examples.ycsb_kv",
-    "repro_torch.examples.protocol_sim", "chip_smoke",
+    "repro_torch.examples.protocol_sim", "repro_torch.models.encdec",
+    "repro_torch.configs.whisper_medium", "repro_torch.configs.internvl2_26b",
+    "chip_smoke",
 ]
 SPECS = TSc.sweep_grid(workloads=("ycsb",), configs=("wb", "proactive"))
 HYMBA = get_reduced_config("hymba-1.5b")
 MOONSHOT = get_reduced_config("moonshot-v1-16b-a3b")
+WHISPER = get_reduced_config("whisper-medium")
 
 
 def _env():
@@ -157,13 +161,19 @@ def no_cuda():
     lambda: TServe.serve("moonshot-v1-16b-a3b", reduced=True, prompt_len=8,
                          gen=2),
     lambda: TYcsb.main([]),
+    lambda: build_model(WHISPER).init(0),
+    lambda: TServe.serve("whisper-medium", reduced=True, prompt_len=8,
+                         gen=2),
+    lambda: TServe.serve("internvl2-26b", reduced=True, prompt_len=8,
+                         gen=2),
 ], ids=["simulate_batch", "slowdown_table", "run_grid", "simulate_grid",
         "run_sweep", "device_args", "sub_device_args", "run_fault_scenario",
         "ReplicationEngine", "recovery_sweep", "recovery_time_batch",
         "logging_unit.init_state", "build_model.init", "init_cache",
         "make_batch", "params_from_jax", "serve", "ScenarioServer",
         "run_grid_sharded", "serve_scenarios", "moe_build_model.init",
-        "moe_serve", "ycsb_kv"])
+        "moe_serve", "ycsb_kv", "encdec_build_model.init", "encdec_serve",
+        "vlm_serve"])
 def test_entry_points_default_to_cuda_and_raise(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()
@@ -240,9 +250,90 @@ def test_models_take_the_plain_paths_on_the_cpu(monkeypatch):
                         lambda *a, **k: calls.append("flash") or a[0])
     q = torch.randn(1, 8, 2, 16)
     for blockwise in (False, True):
-        out = TA._causal_self_attention(q, q, q, use_blockwise=blockwise)
+        out = TA._attend(q, q, q, True, use_blockwise=blockwise)
         assert out.shape == q.shape
     assert calls == []
+
+
+class RecordingLibrary:
+    """Stands in for the built flash_attn library: records each launch's
+    entry point and arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def flash_attn_mma_launch(self, *args):
+        self.calls.append(("mma", args))
+        return 0
+
+    def flash_attn_launch(self, *args):
+        self.calls.append(("simt", args))
+        return 0
+
+
+@contextlib.contextmanager
+def _no_card(dev):
+    yield 7
+
+
+def _whisper_attention():
+    gen = torch.Generator().manual_seed(0)
+    params = TA.attention_init(gen, WHISPER)
+    cross = TA.attention_init(gen, WHISPER, cross=True)
+    x = torch.randn(2, 10, WHISPER.d_model, generator=gen,
+                    dtype=torch.bfloat16)
+    ctx = torch.randn(2, 16, WHISPER.d_model, generator=gen,
+                      dtype=torch.bfloat16)
+    return params, cross, x, ctx
+
+
+def test_noncausal_and_cross_attention_launch_the_kernel_on_the_card(
+        monkeypatch):
+    """On the kernel route the encoder's non-causal self-attention and
+    the cross-attention launch the ``flash_attn`` kernel with the mask
+    off, and never call a plain version; the library gets Sq = Skv = 10
+    for the first and Sq 10, Skv 16 for the cross call."""
+    lib = RecordingLibrary()
+
+    def plain_called(*args, **kwargs):
+        raise AssertionError("the CUDA route called a plain version")
+
+    monkeypatch.setattr(TA, "_on_card", lambda t: True)
+    monkeypatch.setattr(FA_ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(FA_kernel, "load", lambda: lib)
+    monkeypatch.setattr(FA_kernel, "on_card", _no_card)
+    monkeypatch.setattr(TA, "_blockwise_attention", plain_called)
+    monkeypatch.setattr(TA, "_full_attention", plain_called)
+    params, cross, x, ctx = _whisper_attention()
+    before = FA_ops.flash_attention.launches_by_kernel["mma"]
+    TA.self_attention(params, x, WHISPER, causal=False)
+    TA.cross_attention(cross, x, ctx, WHISPER)
+    hd, h = WHISPER.resolved_head_dim, WHISPER.n_heads
+    assert [(w, a[4:11]) for w, a in lib.calls] == [
+        ("mma", (2, 10, 10, h, h, hd, 0)), ("mma", (2, 10, 16, h, h, hd, 0))]
+    assert FA_ops.flash_attention.launches_by_kernel["mma"] == before + 2
+
+
+def test_noncausal_and_cross_attention_take_full_attention_on_the_cpu(
+        monkeypatch):
+    """On CPU tensors both take the JAX package's ``_full_attention``,
+    unmasked, and never the kernel op."""
+    calls = []
+    full = TA._full_attention
+
+    def recording(q, k, v, causal):
+        calls.append((q.shape[1], k.shape[1], causal))
+        return full(q, k, v, causal)
+
+    def kernel_called(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernel op")
+
+    monkeypatch.setattr(TA, "_full_attention", recording)
+    monkeypatch.setattr(FA_ops, "flash_attention", kernel_called)
+    params, cross, x, ctx = _whisper_attention()
+    TA.self_attention(params, x, WHISPER, causal=False)
+    TA.cross_attention(cross, x, ctx, WHISPER)
+    assert calls == [(10, 10, False), (10, 16, False)]
 
 
 def _run_chip_smoke(script, cwd):

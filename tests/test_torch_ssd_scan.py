@@ -393,3 +393,43 @@ def test_reset_counts():
     ssd_ops.reset_counts()
     assert ssd_scan.launches == 0
     assert ssd_scan.launches_by_kernel == {"mma": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("which", ["x", "dt", "B", "init_state"])
+def test_cuda_route_refuses_grad(fake_library, which):
+    """The kernels have no backward (ROADMAP A7): on the CUDA route, with
+    grad mode on and an input that requires grad (the initial state
+    too), the op raises before any launch; under ``no_grad`` /
+    ``inference_mode`` the same call launches as before."""
+    x, dt, A, B, C = _zeros(1, 64, 2, 32, 16, "float32")
+    t = {"x": x, "dt": dt, "B": B, "init_state": torch.zeros(1, 2, 32, 16)}
+    t[which].requires_grad_(True)
+    args = (t["x"], t["dt"], A, t["B"], C)
+    total = ssd_scan.launches
+    with pytest.raises(RuntimeError, match="A7"):
+        ssd_scan(*args, chunk=32, init_state=t["init_state"])
+    assert fake_library.calls == [] and ssd_scan.launches == total
+    with torch.no_grad():
+        ssd_scan(*args, chunk=32, init_state=t["init_state"])
+    with torch.inference_mode():
+        ssd_scan(*args, chunk=32, init_state=t["init_state"])
+    assert [w for w, _ in fake_library.calls] == ["simt", "simt"]
+    assert ssd_scan.launches == total + 2
+
+
+def test_cpu_route_backpropagates():
+    """On CPU tensors the op is the plain version (``ssd_chunked``),
+    which autograd differentiates: finite, non-zero gradients reach x,
+    dt, A, B, C and the initial state."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 40, 2, 16, generator=g).requires_grad_()
+    dt = (torch.rand(1, 40, 2, generator=g) * 0.1 + 0.01).requires_grad_()
+    A = (-torch.rand(2, generator=g) - 0.5).requires_grad_()
+    B = torch.randn(1, 40, 8, generator=g).requires_grad_()
+    C = torch.randn(1, 40, 8, generator=g).requires_grad_()
+    s0 = torch.randn(1, 2, 16, 8, generator=g).requires_grad_()
+    y, s = ssd_scan(x, dt, A, B, C, chunk=16, init_state=s0)
+    (y.sum() + s.square().sum()).backward()
+    for t in (x, dt, A, B, C, s0):
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+        assert float(t.grad.abs().max()) > 0.0
