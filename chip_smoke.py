@@ -6,12 +6,13 @@ calls -- the paper's evaluation, the ReCXL mechanism (replication into
 per-node log rings, Algorithms 1-2 recovery, the log-dump compressor,
 the YCSB key-value demo), serving hymba-1.5b, moonshot-v1-16b-a3b,
 whisper-medium (enc-dec) and internvl2-26b (vlm) whole and four more
-decoder configs cut in depth (prefill + greedy decode), and the scenario
-service with its chaos recovery over logical shards -- and holds each
-hand-written CUDA kernel against its plain PyTorch version:
+decoder configs cut in depth (prefill + greedy decode), the scenario
+service with its chaos recovery over logical shards, and training
+qwen3-0.6b whole through the fault-tolerant ``Trainer`` -- and holds
+each hand-written CUDA kernel against its plain PyTorch version:
 
 1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu``,
-   ``ssd_scan.cu`` and ``store_timeline.cu`` from
+   ``flash_attn_bwd.cu``, ``ssd_scan.cu`` and ``store_timeline.cu`` from
    ``src/repro_torch/csrc``, one nvcc each, started together; ptxas
    reports no spill in any ``store_timeline`` instantiation nor in the
    three ``flash_attn`` instantiations at head dim 160;
@@ -163,7 +164,28 @@ hand-written CUDA kernel against its plain PyTorch version:
     parameters, 39.7 GB in bf16, stub patch embeddings in the leading
     256 positions): 4 prompts of 1 024 positions, 32 greedy tokens each;
     48 launches per prefill; the planted fault: ``patch_embeds``
-    ignored; the f32 copy at full width cut to 2 layers.
+    ignored; the f32 copy at full width cut to 2 layers;
+20. training: the ``flash_attn`` backward kernel (``flash_attn_bwd.cu``)
+    against its plain version (``attention_bwd_ref``, one request at a
+    time) at qwen3-0.6b's training shape (B 4, S 4 096, H 16, K 8, D
+    128, causal), hymba-1.5b's, whisper-medium's encoder and
+    cross-attention (unmasked, Sq 224 / Skv 1 500) and stablelm-12b's
+    head dim 160, in bf16 (also against an f32 oracle) and, at the last
+    two, f32; planted faults (dK / dV not summed over the GQA group, the
+    causal mask dropped) above the limits; each shape's time beside its
+    bound, the plain version's and SDPA's forward + backward; then
+    qwen3-0.6b at its published width and depth (28 layers, 0.6e9
+    parameters, bf16, AdamW with an f32 master copy, ``remat="full"``)
+    trained 6 steps through ``Trainer`` on a logical data 4 x model 2
+    mesh (proactive, N_r 2, 4 buckets) at train_4k's 4 096 positions and
+    batch 4, node 2 failing at step 3 (recovered from the replica logs,
+    the installed shard ``==`` the node's parameters with its blocks
+    lost) and one MN dump (restored bit for bit); 56 forward and 28
+    backward launches a step, no ``ssd_scan``; step time, tokens/s, peak
+    memory, model FLOP share, replicate, recovery and dump walls; and the
+    gradients of ``loss_fn`` through the kernels against the plain
+    attention on an f32 copy cut to 2 layers, with the causal mask
+    dropped in the backward as a planted fault.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -3017,6 +3039,460 @@ def phase_resilience(torch, S, E, Sc, chaos, launcher, ops,
     return out
 
 
+#: phase 20: training. The backward kernel's shapes, (name, B, Sq, Skv, H,
+#: K, D, causal, dtypes): qwen3-0.6b's training shape (train_4k's 4 096
+#: positions, batch 4), hymba-1.5b's, whisper-medium's encoder and
+#: cross-attention (unmasked, Skv 1 500 not a multiple of the 64-key
+#: tile, Sq != Skv), stablelm-12b's head dim 160
+BWD_CASES = [
+    ("qwen3-0.6b train", 4, 4096, 4096, 16, 8, 128, True, ("bfloat16",)),
+    ("hymba-1.5b", 4, 4096, 4096, 25, 5, 64, True, ("bfloat16",)),
+    ("whisper-medium encoder", 8, 1500, 1500, 16, 16, 64, False,
+     ("bfloat16",)),
+    ("whisper-medium cross", 8, 224, 1500, 16, 16, 64, False,
+     ("bfloat16", "float32")),
+    ("stablelm-12b", 1, 2048, 2048, 32, 8, 160, True,
+     ("bfloat16", "float32")),
+]
+#: dq, dk, dv each held to its own max|value|: f32 in the forward's
+#: 1e-5 class (sums in another order); bf16 in its 2e-2 class against the
+#: plain version on the same bf16 inputs (which rounds p to bf16 as the
+#: kernel does) and against an f32 oracle (the exact gradient of the
+#: f32 function at the bf16 inputs)
+BWD_TOLERANCE = {"float32": 1e-5, "bfloat16": 2e-2}
+BWD_TOLERANCE_TEXT = ("dq, dk, dv each within 1e-5 (f32) / 2e-2 (bf16) of "
+                      "its own max|value|, against attention_bwd_ref on the "
+                      "same inputs, the kernel's own output and lse; bf16 "
+                      "also against an f32 oracle at 2e-2")
+FAULT_BWD_GQA = ("backward: dK / dV of the group's first query head, not "
+                 "summed over the GQA group")
+FAULT_BWD_CAUSAL = "backward: the causal mask dropped"
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_SEQ = 4096                 # train_4k's sequence length
+TRAIN_BATCH = 4                  # train_4k's global batch 256, cut to a card
+TRAIN_STEPS = 6
+TRAIN_FAIL = (3, 2)              # (step, node): a fail-stop
+TRAIN_DUMP_INTERVAL = 5          # one MN dump, after step 4
+TRAIN_LOG_CAPACITY = 2
+TRAIN_F32_LAYERS = 2
+#: the gradients of loss_fn with attention through the kernels against
+#: through the plain version, each leaf relative to its max|grad|: the f32
+#: copy at the reference model test's f32 class
+TRAIN_GRAD_TOLERANCE = 1e-4
+
+
+def bwd_bound_ms(torch, q, k, causal: bool) -> tuple:
+    """q, k, v, out, dout and lse read once, dq, dk, dv written once,
+    against the five products of the backward: 10 D operations per
+    allowed (query, key) pair (s, dP, dV, dK, dQ)."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    es = q.element_size()
+    nbytes = (4 * q.numel() + 4 * k.numel()) * es + b * h * sq * 4
+    if causal:
+        off = skv - sq
+        pairs = sum(min(i + off + 1, skv) for i in range(sq))
+    else:
+        pairs = sq * skv
+    return bound(nbytes, 10.0 * d * pairs * b * h, rate_for(torch, q.dtype))
+
+
+def per_batch(torch, fn, *ts):
+    """``fn`` over one batch element at a time, the results concatenated:
+    the plain version's (B, H, S, S) f32 scores one request at a time."""
+    outs = [fn(*(t[i:i + 1] for t in ts)) for i in range(ts[0].shape[0])]
+    return tuple(torch.cat([o[j] for o in outs]) for j in range(3))
+
+
+def grads_rel(got, want) -> float:
+    return max(max_rel(g.float(), w.float()) for g, w in zip(got, want))
+
+
+def check_bwd_case(torch, fa, randn, case, dtype) -> dict:
+    """One shape and dtype of the backward kernel against its plain
+    version (and, bf16, an f32 oracle), its planted faults, its time
+    beside its bound, the plain version's and SDPA's forward + backward."""
+    ref = fa.ref
+    name, b, sq, skv, h, kh, d, causal, _ = case
+    q = randn(b, sq, h, d, dtype=dtype)
+    k, v = (randn(b, skv, kh, d, dtype=dtype) for _ in range(2))
+    do = randn(b, sq, h, d, dtype=dtype)
+    out, lse = fa.kernel.launch(q, k, v, causal, with_lse=True)
+    got = fa.kernel.launch_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    want = per_batch(torch, lambda *t: ref.attention_bwd_ref(*t, causal),
+                     q, k, v, out, lse, do)
+    r = {"shape": case[:8], "dtype": dtype,
+         "vs_plain": [max_rel(g.float(), w.float())
+                      for g, w in zip(got, want)],
+         "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                            for g, w in zip(got, want))}
+    del want
+    tol = BWD_TOLERANCE[dtype]
+    if dtype == "bfloat16":
+        def oracle(qi, ki, vi, doi):
+            qf, kf, vf = qi.float(), ki.float(), vi.float()
+            return ref.attention_bwd_ref(
+                qf, kf, vf, ref.attention_ref(qf, kf, vf, causal),
+                ref.attention_lse_ref(qf, kf, causal), doi.float(), causal)
+        f32 = per_batch(torch, oracle, q, k, v, do)
+        r["vs_f32_oracle"] = [max_rel(g.float(), w) for g, w in zip(got, f32)]
+        del f32
+    faults = {}
+    g = h // kh
+    if g > 1:
+        ke, ve = (t.repeat_interleave(g, dim=2) for t in (k, v))
+        _, dke, dve = fa.kernel.launch_bwd(q, ke, ve, out, lse, do, causal)
+        faults[FAULT_BWD_GQA] = grads_rel((got[0], dke[:, :, ::g],
+                                           dve[:, :, ::g]), got)
+        del ke, ve, dke, dve
+    if causal:
+        faults[FAULT_BWD_CAUSAL] = grads_rel(
+            fa.kernel.launch_bwd(q, k, v, out, lse, do, False), got)
+    r["planted"] = faults
+    what = (f"flash_attn backward at {name}'s shape (B {b}, Sq {sq}, Skv "
+            f"{skv}, H {h}, K {kh}, D {d}, {dtype}, "
+            f"{'causal' if causal else 'no mask'})")
+    print(f"  {what}: dq, dk, dv vs plain {r['vs_plain']}"
+          + (f", vs the f32 oracle {r['vs_f32_oracle']}"
+             if "vs_f32_oracle" in r else "") + f"; planted {faults}")
+    check(max(r["vs_plain"]) <= tol, f"{what}: kernel vs plain, largest "
+          f"{max(r['vs_plain']):.4g} of max|grad| (tol {tol})")
+    if "vs_f32_oracle" in r:
+        check(max(r["vs_f32_oracle"]) <= tol,
+              f"{what}: kernel vs f32 oracle, largest "
+              f"{max(r['vs_f32_oracle']):.4g} (tol {tol})")
+    for fault, rel in faults.items():
+        check(rel > tol, f"{what}: planted fault ({fault}) reads "
+              f"{rel:.4g}, above the limit {tol}")
+    # times: the backward kernel, the forward with lse, SDPA's forward +
+    # backward, in turns; the plain version one request at a time
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_fwd_bwd():
+        o = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        o.backward(dot)
+
+    runs = {"ms": lambda: fa.kernel.launch_bwd(q, k, v, out, lse, do,
+                                               causal),
+            "fwd_lse_ms": lambda: fa.kernel.launch(q, k, v, causal,
+                                                   with_lse=True),
+            "library_ms": sdpa_fwd_bwd}
+    times = {key: [] for key in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            times[key].append(cuda_ms(runs[key], 10))
+    r.update({key: sum(ts) / len(ts) for key, ts in times.items()})
+    r["turns"] = times
+    r["fwd_bwd_ms"] = r["ms"] + r["fwd_lse_ms"]
+    r["plain_ms"] = cuda_ms(lambda: per_batch(
+        torch, lambda *t: ref.attention_bwd_ref(*t, causal),
+        q, k, v, out, lse, do), 1)
+    r["bound_ms"], r["bound_by"] = bwd_bound_ms(torch, q, k, causal)
+    print(f"  {what}: backward kernel {r['ms']:.4f} ms, forward with lse "
+          f"{r['fwd_lse_ms']:.4f} ms, SDPA forward + backward "
+          f"{r['library_ms']:.4f} ms (in turns: {json.dumps(times)}); plain "
+          f"{r['plain_ms']:.2f} ms; bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']})")
+    return r
+
+
+def train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOP of one training step: 6 N T for the weights' products
+    (forward and backward) plus attention's, 12 D per causal (query, key)
+    pair per head and layer (4 D forward, 8 D backward); no recompute."""
+    pairs = seq * (seq + 1) / 2
+    attn = 12.0 * cfg.resolved_head_dim * pairs * cfg.n_heads * cfg.n_layers
+    return 6.0 * cfg.param_count() * batch * seq + attn * batch
+
+
+def grad_leaves(torch, model, params, batch, attn_fn, fa_ops):
+    """The gradient of ``loss_fn`` (as a flat list) with the attention op
+    swapped for ``attn_fn`` (``None``: the kernels)."""
+    from repro_torch.optim.optimizers import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = None
+    saved = fa_ops.flash_attention
+    if attn_fn is not None:
+        fa_ops.flash_attention = attn_fn
+    try:
+        loss, _ = model.loss_fn(params, batch)
+        loss.backward()
+    finally:
+        fa_ops.flash_attention = saved
+    out = [p.grad.detach().clone() for p in leaves]
+    for p in leaves:
+        p.grad = None
+    return float(loss.detach()), out
+
+
+def phase_train(torch, fa, attn, ssd) -> dict:
+    """Phase 20: the flash_attn backward kernel against its plain version
+    at five shapes; qwen3-0.6b trained at full width and depth through
+    ``Trainer`` with a node failure recovered and an MN dump; gradients
+    through the kernels against the plain attention on an f32 copy."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import config
+    from repro_torch.core.failures import FailureEvent, FailureInjector
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed.context import make_context
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.optim.optimizers import tree_leaves, tree_rebuild
+    from repro_torch.training import trainer as trainer_mod
+    print("phase 20: training -- the flash_attn backward kernel against its "
+          "plain version; qwen3-0.6b trained at full width and depth "
+          "through Trainer (node failure, recovery, MN dump); gradients "
+          "through the kernels against the plain attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory held before the phase: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def randn(*shape, dtype="bfloat16"):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(
+            getattr(torch, dtype))
+
+    t0 = time.perf_counter()
+    out = {"bwd": []}
+    for case in BWD_CASES:
+        for dtype in case[8]:
+            out["bwd"].append(check_bwd_case(torch, fa, randn, case, dtype))
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["bwd_s"] = time.perf_counter() - t0
+
+    # (b) qwen3-0.6b at full width and depth through Trainer
+    cfg = config.get_model_config(TRAIN_ARCH)
+    check(cfg.n_layers == 28 and cfg.d_model == 1024 and cfg.vocab_size
+          == 151936 and cfg.tie_embeddings,
+          f"{TRAIN_ARCH}: the published config (28 layers, d_model 1 024, "
+          f"vocab 151 936, tied embeddings; {cfg.param_count()} parameters)")
+    run = config.RunConfig(
+        model=cfg,
+        shape=config.ShapeConfig("train_4k, batch cut to 4", TRAIN_SEQ,
+                                 TRAIN_BATCH, "train"),
+        mesh=config.MeshConfig((4, 2), ("data", "model")),
+        replication=config.ReplicationConfig(
+            variant="proactive", n_replicas=2, n_buckets=4,
+            log_capacity=TRAIN_LOG_CAPACITY,
+            dump_interval=TRAIN_DUMP_INTERVAL),
+        train=config.TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
+                                 remat="full"))
+    ctx = make_context(run.mesh.shape, run.mesh.axes, device=DEVICE)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    state_bytes = cfg.param_count() * (2 + 4 + 4 + 4)   # bf16 + m, v, master
+    free = shutil.disk_usage(workdir).free
+    print(f"  dump target {workdir}: {free} bytes free, the dump ~"
+          f"{state_bytes} bytes")
+    check(free >= 1.25 * state_bytes, f"room for the MN dump: {free} bytes "
+          f"free for ~{state_bytes} (x 1.25)")
+    real_install = elastic.install_recovered_shard
+    installs = []
+
+    def holed_install(state, specs, engine, result, target_coord):
+        """The trainer's install, handed a state whose failed node's
+        blocks are NaN (a fail-stop loses them): the recovered shard must
+        come from the replica logs alone and equal what the node held."""
+        from repro_torch.core.replication import tree_flatten
+        node = target_coord[-1]
+        holed = [p.detach().clone() for p in tree_leaves(state)]
+        for p, spec in zip(holed, tree_flatten(specs)[0]):
+            for m in range(ctx.model_size):
+                p[elastic._block_slices(tuple(p.shape), spec, ctx,
+                                        {"data": node, "model": m})] = \
+                    float("nan")
+        new = real_install(tree_rebuild(state, holed), specs, engine,
+                           result, target_coord)
+        installs.append(all(torch.equal(a, b.detach()) for a, b in
+                            zip(tree_leaves(new), tree_leaves(state))))
+        return new
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        tr = trainer_mod.Trainer(
+            run, ctx, workdir,
+            injector=FailureInjector([FailureEvent(step=TRAIN_FAIL[0],
+                                                   node=TRAIN_FAIL[1])]))
+        setup_s = time.perf_counter() - t1
+        trainer_mod.install_recovered_shard = holed_install
+        steps, per_step = [], []
+        fa.ops.reset_counts()
+        ssd.ops.reset_counts()
+        dumped = None
+        for i in range(TRAIN_STEPS):
+            f0, b0 = (fa.ops.flash_attention.launches,
+                      fa.ops.flash_attention.bwd_launches)
+            steps += tr.train(1)
+            per_step.append((fa.ops.flash_attention.launches - f0,
+                             fa.ops.flash_attention.bwd_launches - b0))
+            if (i + 1) % TRAIN_DUMP_INTERVAL == 0:
+                dumped = [p.detach().clone()
+                          for p in tree_leaves(tr.state.params)]
+        launches = {"forward": fa.ops.flash_attention.launches,
+                    "backward": fa.ops.flash_attention.bwd_launches,
+                    "forward_by_kernel":
+                        dict(fa.ops.flash_attention.launches_by_kernel),
+                    "ssd_scan": ssd.ops.ssd_scan.launches}
+        peak = torch.cuda.max_memory_allocated()
+        trainer_mod.install_recovered_shard = real_install
+        w0 = time.perf_counter()
+        tr.ckpt.wait()
+        wait_s = time.perf_counter() - w0
+        losses = [s["loss"] for s in steps]
+        walls = [s["wall_s"] for s in steps]
+        print(f"  losses {losses}; step walls (s) {walls}; attention "
+              f"launches per step (forward, backward) {per_step}")
+        check(all(np.isfinite(losses)), "every loss is finite")
+        check(abs(losses[0] - np.log(cfg.vocab_size)) <= 0.5,
+              f"the first loss {losses[0]:.4f} is within 0.5 of ln "
+              f"{cfg.vocab_size} = {np.log(cfg.vocab_size):.4f}")
+        check(all(p == (2 * cfg.n_layers, cfg.n_layers) for p in per_step),
+              f"every step launches the forward kernel {2 * cfg.n_layers} "
+              f"times (the forward and remat's recompute) and the backward "
+              f"{cfg.n_layers} times")
+        check(launches["ssd_scan"] == 0, "ssd_scan is not launched")
+        rec = [e for e in tr.events if e["event"] == "recovery"]
+        check(len(rec) == 1 and rec[0]["stats"]["unrecoverable"] == 0
+              and rec[0]["stats"]["recovered_from_replicas"] > 0,
+              f"node {TRAIN_FAIL[1]} failed at step {TRAIN_FAIL[0]} and "
+              f"was recovered from the replicas: {rec and rec[0]['stats']}")
+        check(installs == [True], "the shard installed on the spare, made "
+              "from the replica logs with the node's blocks lost, is == "
+              "the parameters the node held before the failure")
+        dumps = [e for e in tr.events if e["event"] == "mn_dump"]
+        check(len(dumps) == 1 and tr.ckpt.latest_step() == dumps[0]["step"],
+              f"one MN dump inside the run, at step "
+              f"{dumps and dumps[0]['step']}")
+        r0 = time.perf_counter()
+        restored, extra = tr.ckpt.restore(
+            {"params": tr.state.params, "opt": tr.state.opt_state})
+        restore_s = time.perf_counter() - r0
+        check(all(torch.equal(a, b) for a, b in
+                  zip(tree_leaves(restored["params"]), dumped)),
+              "restore of the dump gives the parameters of its step bit "
+              "for bit")
+        check(restored["opt"]["count"] == dumps[0]["step"] + 1
+              and extra["pipeline_step"] == dumps[0]["step"] + 1,
+              "the dump's optimizer count and pipeline step")
+        del restored, dumped
+        # the replicate step alone, on the trained state (CUDA events)
+        eng = tr.engine
+        rep_ms = cuda_ms(lambda: eng.replicate(
+            tr.state.params, tr.state.logs, tr.state.step,
+            tr.state.params), 3)
+        med = float(np.median(walls[1:]))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
+        out["train"] = {
+            "losses": losses, "step_walls_s": walls,
+            "step_ms_median_2_6": med * 1e3,
+            "tokens_per_s": tokens / med, "peak_bytes": peak,
+            "model_flop_per_step": flops,
+            "model_flop_share_of_989": flops / med / H100_BF16_OPS_PER_S,
+            "replicate_ms": rep_ms,
+            "recovery_wall_s": rec[0]["wall_s"],
+            "recovery_stats": rec[0]["stats"],
+            "dump_snapshot_s": dumps[0]["snapshot_s"],
+            "dump_write_s": tr.ckpt.last_write_s, "dump_wait_s": wait_s,
+            "restore_s": restore_s, "setup_s": setup_s,
+            "log_ring_bytes": sum(t.numel() * t.element_size()
+                                  for t in tr.state.logs.values()),
+            "launches": launches, "launches_per_step": per_step,
+            "params": cfg.param_count()}
+        t = out["train"]
+        print(f"  {TRAIN_ARCH} ({cfg.param_count()} parameters, bf16, AdamW "
+              f"with an f32 master copy, remat full) at batch {TRAIN_BATCH} "
+              f"x {TRAIN_SEQ}: step {t['step_ms_median_2_6']:.1f} ms (median "
+              f"of steps 2-6), {t['tokens_per_s']:.0f} tokens/s, peak "
+              f"{peak} bytes; {flops:.4g} model FLOP a step, "
+              f"{100 * t['model_flop_share_of_989']:.2f}% of 989 TFLOP/s; "
+              f"replicate {rep_ms:.3f} ms (log ring {t['log_ring_bytes']} "
+              f"bytes); recovery {t['recovery_wall_s']:.3f} s; dump "
+              f"snapshot {t['dump_snapshot_s']:.3f} s, write "
+              f"{t['dump_write_s']:.3f} s, restore {restore_s:.3f} s")
+        del tr
+    finally:
+        trainer_mod.install_recovered_shard = real_install
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) gradients at full width, kernels against the plain attention
+    f32cfg = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
+                                 dtype="float32")
+    model = build_model(f32cfg)
+    params = model.init(SEED, device=DEVICE)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    tok = torch.randint(0, cfg.vocab_size, (1, TRAIN_SEQ), generator=gen,
+                        device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    fa.ops.reset_counts()
+    loss_k, g_k = grad_leaves(torch, model, params, batch, None, fa.ops)
+    launches_c = (fa.ops.flash_attention.launches,
+                  fa.ops.flash_attention.bwd_launches)
+    loss_p, g_p = grad_leaves(torch, model, params, batch,
+                              plain_attention(attn), fa.ops)
+    rels = [max_rel(a, b) for a, b in zip(g_k, g_p)]
+    real_bwd = fa.kernel.launch_bwd
+    fa.kernel.launch_bwd = (lambda q, k, v, o, lse, do, causal, **kw:
+                            real_bwd(q, k, v, o, lse, do, False, **kw))
+    try:
+        _, g_bad = grad_leaves(torch, model, params, batch, None, fa.ops)
+    finally:
+        fa.kernel.launch_bwd = real_bwd
+    bad = max(max_rel(a, b) for a, b in zip(g_bad, g_p))
+    out["grads_f32"] = {"layers": TRAIN_F32_LAYERS, "loss_kernel": loss_k,
+                        "loss_plain": loss_p, "max_rel": max(rels),
+                        "planted": {FAULT_BWD_CAUSAL: bad},
+                        "launches": launches_c}
+    print(f"  gradients of loss_fn, {TRAIN_ARCH} f32 at {TRAIN_F32_LAYERS} "
+          f"layers, batch 1 x {TRAIN_SEQ}: kernels vs plain attention, "
+          f"largest leaf {max(rels):.4g} of its max|grad| (losses "
+          f"{loss_k:.6f} / {loss_p:.6f}); planted ({FAULT_BWD_CAUSAL}) "
+          f"{bad:.4g}; launches (forward, backward) {launches_c}")
+    check(launches_c == (2 * TRAIN_F32_LAYERS, TRAIN_F32_LAYERS),
+          "the kernels' route: the forward twice and the backward once a "
+          "layer")
+    check(max(rels) <= TRAIN_GRAD_TOLERANCE, f"gradients through the "
+          f"kernels vs the plain attention: {max(rels):.4g} (tol "
+          f"{TRAIN_GRAD_TOLERANCE})")
+    check(bad > TRAIN_GRAD_TOLERANCE, f"planted fault ({FAULT_BWD_CAUSAL}) "
+          f"reads {bad:.4g}, above the limit {TRAIN_GRAD_TOLERANCE}")
+    # the same on the bf16 weights
+    del g_k, g_p, g_bad
+    bcfg = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS)
+    bmodel = build_model(bcfg)
+    with torch.no_grad():
+        bparams = tree_rebuild(params, [p.detach().to(dtype_of(bcfg))
+                                        for p in tree_leaves(params)])
+    for p in tree_leaves(bparams):
+        p.requires_grad_(True)
+    _, b_k = grad_leaves(torch, bmodel, bparams, batch, None, fa.ops)
+    _, b_p = grad_leaves(torch, bmodel, bparams, batch,
+                         plain_attention(attn), fa.ops)
+    out["grads_bf16"] = {"max_rel": max(max_rel(a.float(), b.float())
+                                        for a, b in zip(b_k, b_p))}
+    print(f"  the same on bf16 weights: largest leaf "
+          f"{out['grads_bf16']['max_rel']:.4g} of its max|grad|")
+    del params, bparams, b_k, b_p, model, bmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measured numbers "
@@ -3066,6 +3542,9 @@ def main(argv=None) -> int:
           "tensor cores and f32 on the CUDA cores, "
           "src/repro_torch/csrc/flash_attn.cu) replaces "
           "src/repro/kernels/flash_attn/kernel.py:82 flash_attention_pallas; "
+          "flash_attn_bwd (CUDA C++, CUDA cores, "
+          "src/repro_torch/csrc/flash_attn_bwd.cu) replaces XLA autodiff of "
+          "src/repro/models/attention.py:123 _blockwise_attention; "
           "ssd_scan (CUDA C++, bf16 as three chunk-parallel passes on the "
           "tensor cores and f32 on the CUDA cores, "
           "src/repro_torch/csrc/ssd_scan.cu) replaces "
@@ -3075,8 +3554,8 @@ def main(argv=None) -> int:
           "_timeline and :1290 _timeline_batch")
     t_start = time.perf_counter()
     build = phase_build([kernel.LIBRARY, lc_kernel.LIBRARY,
-                         fa.kernel.LIBRARY, ssd.kernel.LIBRARY,
-                         stl.kernel.LIBRARY])
+                         fa.kernel.LIBRARY, fa.kernel.BWD_LIBRARY,
+                         ssd.kernel.LIBRARY, stl.kernel.LIBRARY])
     # the five rules and the per-lane one, each on every register depth
     # and on the ring in memory
     check_no_spills(stl.kernel.LIBRARY, "store_timeline_kernel",
@@ -3115,6 +3594,7 @@ def main(argv=None) -> int:
                                  WHISPER_GEN, None)
     vlm = phase_serve_family(torch, serve_mod, fa, attn, 19, VLM_ARCH,
                              VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_F32_LAYERS)
+    train = phase_train(torch, fa, attn, ssd)
 
     entry = {
         "name": "bank_scan", "route": "cuda",
@@ -3230,9 +3710,32 @@ def main(argv=None) -> int:
          "launches": cut[arch]["launches"]} for arch in CUT_ARCHS] + [
         {"path": f"{WHISPER_ARCH} serve, prefill (encoder, decoder, cross)",
          "launches": whisper["launches"]},
-        {"path": f"{VLM_ARCH} serve, prefill", "launches": vlm["launches"]}]
+        {"path": f"{VLM_ARCH} serve, prefill", "launches": vlm["launches"]},
+        {"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps (forward and "
+                 f"remat's recompute)",
+         "launches": train["train"]["launches"]["forward"]}]
     attn_entry["launches"] = sum(p["launches"] for p in attn_entry["paths"])
-    kernels = [entry] + lc_entries + model_entries + [st_entry]
+    bwd_main = train["bwd"][0]
+    bwd_entry = {
+        "name": "flash_attn_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
+        "replaces": "src/repro/models/attention.py:123",
+        "replaces_what": "XLA autodiff of _blockwise_attention (no Pallas "
+                         "kernel has a custom_vjp)",
+        "launches": train["train"]["launches"]["backward"],
+        "max_abs_err": max(r["max_abs_err"] for r in train["bwd"]),
+        "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
+        "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
+        "library_ms": bwd_main["library_ms"],
+        "library_is": "F.scaled_dot_product_attention forward + backward",
+        "fwd_bwd_ms": bwd_main["fwd_bwd_ms"],
+        "tolerance": BWD_TOLERANCE_TEXT,
+        "shapes": [{k: r[k] for k in ("shape", "dtype", "ms", "fwd_lse_ms",
+                                      "fwd_bwd_ms", "library_ms", "plain_ms",
+                                      "bound_ms", "bound_by")}
+                   for r in train["bwd"]],
+    }
+    kernels = [entry] + lc_entries + model_entries + [bwd_entry, st_entry]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
@@ -3247,7 +3750,7 @@ def main(argv=None) -> int:
                        "serving": served_sc, "resilience": resil,
                        "serve_moe": served_moe, "cut_configs": cut,
                        "ycsb": ycsb, "serve_whisper": whisper,
-                       "serve_vlm": vlm, "kernels": kernels},
+                       "serve_vlm": vlm, "train": train, "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

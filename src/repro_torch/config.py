@@ -2,18 +2,24 @@
 ReCXL replication-engine knobs.
 
 Copies of the JAX package's ``config.py``: :class:`ModelConfig`,
-:class:`ShapeConfig` with the four ``SHAPES``, ``shape_applicable``, the
-model registry (configs register themselves when
-:mod:`repro_torch.configs` is imported, which the getters do lazily),
-``VARIANTS`` and :class:`ReplicationConfig`. The mesh, training and run
-configs come with the training stack (ROADMAP slice 4). Configs are
-plain frozen dataclasses, so they hash, print and compare cleanly.
+:class:`ShapeConfig` with the four ``SHAPES``, ``shape_applicable``,
+:class:`MeshConfig` with ``SINGLE_POD`` / ``MULTI_POD``, ``VARIANTS``
+and :class:`ReplicationConfig`, :class:`TrainConfig`, :class:`RunConfig`
+(whose ``fingerprint`` of a run equals the JAX package's), the model
+registry (configs register themselves when :mod:`repro_torch.configs`
+is imported, which the getters do lazily) and ``make_run_config``. On
+one card a mesh names logical nodes (``distributed/context.py``), not
+devices. Configs are plain frozen dataclasses, so they hash, print and
+compare cleanly.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+import dataclasses
+import hashlib
+import json
+from dataclasses import dataclass, field
+from typing import Any, Dict, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Model configuration
@@ -241,6 +247,43 @@ def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]
 
 
 # ---------------------------------------------------------------------------
+# Mesh configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MeshConfig:
+    shape: Tuple[int, ...]
+    axes: Tuple[str, ...]
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def data_parallel(self) -> int:
+        n = 1
+        for ax, s in zip(self.axes, self.shape):
+            if ax in ("data", "pod"):
+                n *= s
+        return n
+
+    @property
+    def model_parallel(self) -> int:
+        n = 1
+        for ax, s in zip(self.axes, self.shape):
+            if ax == "model":
+                n *= s
+        return n
+
+
+SINGLE_POD = MeshConfig(shape=(16, 16), axes=("data", "model"))
+MULTI_POD = MeshConfig(shape=(2, 16, 16), axes=("pod", "data", "model"))
+
+
+# ---------------------------------------------------------------------------
 # Replication (ReCXL) configuration
 # ---------------------------------------------------------------------------
 
@@ -297,6 +340,47 @@ class ReplicationConfig:
 
 
 # ---------------------------------------------------------------------------
+# Optimizer / training configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    optimizer: str = "adamw"         # adamw | adafactor | sgd
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    schedule: str = "cosine"         # cosine | linear | constant
+    remat: str = "full"              # full | selective | none
+    master_dtype: str = "float32"    # optimizer accumulator dtype
+    param_dtype: str = "bfloat16"
+    microbatch: int = 0              # 0 => no gradient accumulation
+    seed: int = 0
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig = TRAIN_4K
+    mesh: MeshConfig = SINGLE_POD
+    replication: ReplicationConfig = field(default_factory=ReplicationConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+    def cell_id(self) -> str:
+        return (f"{self.model.name}::{self.shape.name}::"
+                f"{'x'.join(map(str, self.mesh.shape))}")
+
+    def fingerprint(self) -> str:
+        blob = json.dumps(dataclasses.asdict(self), sort_keys=True,
+                          default=str)
+        return hashlib.sha1(blob.encode()).hexdigest()[:12]
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 
@@ -337,3 +421,15 @@ def list_models() -> Tuple[str, ...]:
 def _ensure_configs_imported() -> None:
     # configs self-register on import; import lazily to avoid cycles.
     import repro_torch.configs  # noqa: F401
+
+
+def make_run_config(arch: str, shape: str = "train_4k",
+                    multi_pod: bool = False,
+                    replication: Optional[ReplicationConfig] = None,
+                    **train_overrides: Any) -> RunConfig:
+    model = get_model_config(arch)
+    mesh = MULTI_POD if multi_pod else SINGLE_POD
+    rep = replication or ReplicationConfig()
+    train = TrainConfig(**train_overrides) if train_overrides else TrainConfig()
+    return RunConfig(model=model, shape=SHAPES[shape], mesh=mesh,
+                     replication=rep, train=train)

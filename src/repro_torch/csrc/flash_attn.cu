@@ -10,6 +10,11 @@
 //   keeps them in VMEM; p = exp(s - m) is rounded to v's type before p . v
 //   out = acc / max(l, 1e-30), rounded to q's type
 //
+// Both kernels can also write each row's log-sum-exp, lse = m + log(l), as
+// f32 into a (B, H, Sq) array (null: not written). The gradient's kernels
+// (flash_attn_bwd.cu) recompute p = exp(s - lse) from it; the serving path
+// passes null and runs as before.
+//
 // NEG_INF is -1e30, not -inf, as in the Pallas kernel, so the masked
 // arithmetic is the same: a masked score gives exp(-1e30 - m) = 0. Every
 // row sees key 0 (the wrapper requires Skv >= Sq when causal), and tiles
@@ -149,8 +154,8 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __device__ __forceinline__ void flash_attn_block(
     const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ out, int sq, int skv, int h,
-    int kh, int causal, float scale) {
+    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+    int sq, int skv, int h, int kh, int causal, float scale) {
   constexpr int kLdQ = D + 4;
   constexpr int kLdK = D + 4;
   constexpr int kCols = D / 16;              // output columns per thread
@@ -282,6 +287,9 @@ __device__ __forceinline__ void flash_attn_block(
     const int row = q0 + ty + 16 * a;
     if (row >= sq) continue;
     const float denom = fmaxf(l[a], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(bi) * h + hi) * sq + row] =
+          m[a] + logf(denom);
     T* o = out + (static_cast<int64_t>(bi) * sq + row) * q_stride
            + static_cast<int64_t>(hi) * D;
 #pragma unroll
@@ -293,9 +301,10 @@ __device__ __forceinline__ void flash_attn_block(
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ out, int sq,
-                  int skv, int h, int kh, int causal, float scale) {
-  flash_attn_block<T, D>(q, k, v, out, sq, skv, h, kh, causal, scale);
+                  const T* __restrict__ v, T* __restrict__ out,
+                  float* __restrict__ lse, int sq, int skv, int h, int kh,
+                  int causal, float scale) {
+  flash_attn_block<T, D>(q, k, v, out, lse, sq, skv, h, kh, causal, scale);
 }
 
 // D = 160: the tiles take 142 336 bytes, so one block fits an SM, and it is
@@ -304,14 +313,15 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_kernel_wide(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int sq,
-                       int skv, int h, int kh, int causal, float scale) {
-  flash_attn_block<T, D>(q, k, v, out, sq, skv, h, kh, causal, scale);
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int sq, int skv, int h, int kh,
+                       int causal, float scale) {
+  flash_attn_block<T, D>(q, k, v, out, lse, sq, skv, h, kh, causal, scale);
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* out, int b,
-           int sq, int skv, int h, int kh, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+           int b, int sq, int skv, int h, int kh, int causal, float scale,
            cudaStream_t stream) {
   constexpr int kSmem = smem_floats<D>() * static_cast<int>(sizeof(float));
   auto kernel = [] {
@@ -324,31 +334,31 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   kernel<<<grid, kThreads, kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, h, kh, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, sq, skv, h, kh,
+      causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_dim(int d, const void* q, const void* k, const void* v, void* out,
-               int b, int sq, int skv, int h, int kh, int causal, float scale,
-               cudaStream_t stream) {
+               float* lse, int b, int sq, int skv, int h, int kh, int causal,
+               float scale, cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch<T, 16>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                           stream);
+      return launch<T, 16>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                           scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                           stream);
+      return launch<T, 32>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                           scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                           stream);
+      return launch<T, 64>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                           scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                            stream);
+      return launch<T, 128>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                            scale, stream);
     case 160:
-      return launch<T, 160>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                            stream);
+      return launch<T, 160>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                            scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -462,8 +472,9 @@ __global__ void __launch_bounds__(32 * kWarps)
 flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out, int sq, int skv, int h,
-                      int kh, int causal, float scale) {
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int sq, int skv, int h, int kh,
+                      int causal, float scale) {
   constexpr int kM = kMTiles<D>;
   constexpr int kRows = 16 * kM;         // q rows per warp
   constexpr int kBQ = kRows * kWarps;
@@ -650,6 +661,9 @@ flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int row = wq0 + 16 * i + g + 8 * r;
       if (row >= sq) continue;
       const float denom = fmaxf(l[i][r], 1e-30f);
+      if (lse != nullptr && t == 0)
+        lse[(static_cast<int64_t>(bi) * h + hi) * sq + row] =
+            m[i][r] + logf(denom);
       __nv_bfloat16* orow = out + (static_cast<int64_t>(bi) * sq + row)
                             * q_stride + static_cast<int64_t>(hi) * D;
 #pragma unroll
@@ -660,9 +674,9 @@ flash_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
-               int sq, int skv, int h, int kh, int causal, float scale,
-               cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out,
+               float* lse, int b, int sq, int skv, int h, int kh, int causal,
+               float scale, cudaStream_t stream) {
   constexpr int kSmem = mma_smem_bytes<D>();
   auto kernel = flash_attn_mma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -674,29 +688,29 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int b,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), sq, skv, h, kh, causal, scale);
+      static_cast<__nv_bfloat16*>(out), lse, sq, skv, h, kh, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int launch_mma_dim(int d, const void* q, const void* k, const void* v,
-                   void* out, int b, int sq, int skv, int h, int kh,
-                   int causal, float scale, cudaStream_t stream) {
+                   void* out, float* lse, int b, int sq, int skv, int h,
+                   int kh, int causal, float scale, cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch_mma<16>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                            stream);
+      return launch_mma<16>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                            scale, stream);
     case 32:
-      return launch_mma<32>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                            stream);
+      return launch_mma<32>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                            scale, stream);
     case 64:
-      return launch_mma<64>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                            stream);
+      return launch_mma<64>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                            scale, stream);
     case 128:
-      return launch_mma<128>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                             stream);
+      return launch_mma<128>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                             scale, stream);
     case 160:
-      return launch_mma<160>(q, k, v, out, b, sq, skv, h, kh, causal, scale,
-                             stream);
+      return launch_mma<160>(q, k, v, out, lse, b, sq, skv, h, kh, causal,
+                             scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -725,10 +739,30 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dim<float>(d, q, k, v, out, b, sq, skv, h, kh, causal,
+    return launch_dim<float>(d, q, k, v, out, nullptr, b, sq, skv, h, kh,
+                             causal, scale, s);
+  if (dtype == 1)
+    return launch_dim<__nv_bfloat16>(d, q, k, v, out, nullptr, b, sq, skv, h,
+                                     kh, causal, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same, also writing each row's log-sum-exp into lse, (b, h, sq) f32
+// device memory: the forward of a call that autograd will differentiate.
+extern "C" int flash_attn_lse_launch(const void* q, const void* k,
+                                     const void* v, void* out, void* lse,
+                                     int b, int sq, int skv, int h, int kh,
+                                     int d, int causal, float scale,
+                                     int dtype, void* stream) {
+  if (!valid_args(q, k, v, out, b, sq, skv, h, kh, causal) || lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (dtype == 0)
+    return launch_dim<float>(d, q, k, v, out, l, b, sq, skv, h, kh, causal,
                              scale, s);
   if (dtype == 1)
-    return launch_dim<__nv_bfloat16>(d, q, k, v, out, b, sq, skv, h, kh,
+    return launch_dim<__nv_bfloat16>(d, q, k, v, out, l, b, sq, skv, h, kh,
                                      causal, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -740,7 +774,20 @@ extern "C" int flash_attn_mma_launch(const void* q, const void* k,
                                      int causal, float scale, void* stream) {
   if (!valid_args(q, k, v, out, b, sq, skv, h, kh, causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_mma_dim(d, q, k, v, out, b, sq, skv, h, kh, causal, scale,
+  return launch_mma_dim(d, q, k, v, out, nullptr, b, sq, skv, h, kh, causal,
+                        scale, static_cast<cudaStream_t>(stream));
+}
+
+// The tensor-core kernel writing lse too.
+extern "C" int flash_attn_mma_lse_launch(const void* q, const void* k,
+                                         const void* v, void* out, void* lse,
+                                         int b, int sq, int skv, int h,
+                                         int kh, int d, int causal,
+                                         float scale, void* stream) {
+  if (!valid_args(q, k, v, out, b, sq, skv, h, kh, causal) || lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mma_dim(d, q, k, v, out, static_cast<float*>(lse), b, sq,
+                        skv, h, kh, causal, scale,
                         static_cast<cudaStream_t>(stream));
 }
 

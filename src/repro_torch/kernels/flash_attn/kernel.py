@@ -1,14 +1,18 @@
 """Build and ctypes binding of the CUDA flash-attention kernels.
 
-The kernels (``src/repro_torch/csrc/flash_attn.cu``) are compiled by
-hand with ``nvcc`` for ``sm_90a`` at first use, through the port's
-shared build helper (:mod:`repro_torch.kernels.nvcc`), into
-``build/repro_torch/libflash_attn-<hash>.so``. Nothing here runs at
-import time. Two kernels live in the library, and the dtype picks one
+The forward kernels (``src/repro_torch/csrc/flash_attn.cu``) and the
+backward's (``csrc/flash_attn_bwd.cu``) are compiled by hand with
+``nvcc`` for ``sm_90a`` at first use, through the port's shared build
+helper (:mod:`repro_torch.kernels.nvcc`), into
+``build/repro_torch/libflash_attn-<hash>.so`` and
+``libflash_attn_bwd-<hash>.so``. Nothing here runs at import time. Two
+forward kernels live in the first library, and the dtype picks one
 (:data:`KERNEL_FOR_DTYPE`): bf16 runs on the tensor cores
 (``flash_attn_mma_launch``), f32 on the CUDA cores
 (``flash_attn_launch``), since TF32 products would miss the f32
-tolerance of 2e-5.
+tolerance of 2e-5. Each also has an entry point that writes the rows'
+log-sum-exp (``*_lse_launch``), which the backward
+(``flash_attn_bwd_launch``: CUDA cores, f32 sums, both dtypes) reads.
 """
 
 from __future__ import annotations
@@ -43,12 +47,36 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.flash_attn_mma_launch.restype = ctypes.c_int
+    lib.flash_attn_lse_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.flash_attn_lse_launch.restype = ctypes.c_int
+    lib.flash_attn_mma_lse_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attn_mma_lse_launch.restype = ctypes.c_int
     lib.flash_attn_error_string.argtypes = [ctypes.c_int]
     lib.flash_attn_error_string.restype = ctypes.c_char_p
 
 
+def _bind_bwd(lib: ctypes.CDLL) -> None:
+    lib.flash_attn_bwd_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.flash_attn_bwd_launch.restype = ctypes.c_int
+    lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
+
+
 LIBRARY = CudaLibrary("flash_attn", _bind)
 load = LIBRARY.load
+BWD_LIBRARY = CudaLibrary("flash_attn_bwd", _bind_bwd)
+load_bwd = BWD_LIBRARY.load
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -91,12 +119,14 @@ def kernel_for(dtype: torch.dtype) -> str:
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool, which: str | None = None) -> torch.Tensor:
+           causal: bool, which: str | None = None, with_lse: bool = False):
     """Attention on the current stream of the tensors' card; returns
-    ``(B, Sq, H, D)`` in q's dtype. ``which`` names the kernel ("mma" or
-    "simt"); by default the dtype's (:func:`kernel_for`), the only
-    choice the public op makes. Checks its inputs; raises
-    ``RuntimeError`` on a non-zero launch status; does not synchronise."""
+    ``(B, Sq, H, D)`` in q's dtype -- or ``(out, lse)`` with
+    ``with_lse``, lse the rows' log-sum-exp ``(B, H, Sq)`` in f32.
+    ``which`` names the kernel ("mma" or "simt"); by default the dtype's
+    (:func:`kernel_for`), the only choice the public op makes. Checks its
+    inputs; raises ``RuntimeError`` on a non-zero launch status; does
+    not synchronise."""
     check_inputs(q, k, v, causal)
     which = which or kernel_for(q.dtype)
     if which == "mma" and q.dtype != torch.bfloat16:
@@ -110,18 +140,65 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     skv, kh = k.shape[1], k.shape[2]
     scale = float(1.0 / np.sqrt(d))
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with on_card(q.device) as stream:
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        if which == "mma":
-            status = lib.flash_attn_mma_launch(
-                *ptrs, b, sq, skv, h, kh, d, int(causal), scale, stream)
+        dims = (b, sq, skv, h, kh, d, int(causal), scale)
+        if which == "mma" and lse is None:
+            status = lib.flash_attn_mma_launch(*ptrs, *dims, stream)
+        elif which == "mma":
+            status = lib.flash_attn_mma_lse_launch(*ptrs, lse.data_ptr(),
+                                                   *dims, stream)
+        elif lse is None:
+            status = lib.flash_attn_launch(*ptrs, *dims, DTYPES[q.dtype],
+                                           stream)
         else:
-            status = lib.flash_attn_launch(
-                *ptrs, b, sq, skv, h, kh, d, int(causal), scale,
-                DTYPES[q.dtype], stream)
+            status = lib.flash_attn_lse_launch(*ptrs, lse.data_ptr(), *dims,
+                                               DTYPES[q.dtype], stream)
     if status != 0:
         msg = lib.flash_attn_error_string(status).decode()
         raise RuntimeError(f"flash_attn {which} launch failed (q "
                            f"{tuple(q.shape)}, k {tuple(k.shape)}, "
                            f"{q.dtype}): CUDA error {status} ({msg})")
-    return out
+    return (out, lse) if with_lse else out
+
+
+def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+               causal: bool, need_dq: bool = True, need_dkv: bool = True):
+    """The gradient of attention on the card: ``(dq, dk, dv)`` in the
+    inputs' dtype, ``None`` for a part not asked for, from the forward's
+    inputs, output and lse (:func:`launch` with ``with_lse``) and the
+    output's gradient ``dout`` (made contiguous here: autograd may hand
+    over a strided one). Raises ``RuntimeError`` on a non-zero launch
+    status; does not synchronise."""
+    check_inputs(q, k, v, causal)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {h}, {sq}) float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    lib = load_bwd()
+    q, k, v, out = aligned16(q), aligned16(k), aligned16(v), aligned16(out)
+    dout, lse = aligned16(dout.to(q.dtype)), lse.contiguous()
+    dq = torch.empty_like(q) if need_dq else None
+    dk = torch.empty_like(k) if need_dkv else None
+    dv = torch.empty_like(v) if need_dkv else None
+    dvec = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    ptr = (lambda t: 0 if t is None else t.data_ptr())
+    with on_card(q.device) as stream:
+        status = lib.flash_attn_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
+            dvec.data_ptr(), b, sq, skv, h, kh, d, int(causal),
+            float(1.0 / np.sqrt(d)), DTYPES[q.dtype], stream)
+    if status != 0:
+        msg = lib.flash_attn_bwd_error_string(status).decode()
+        raise RuntimeError(f"flash_attn backward launch failed (q "
+                           f"{tuple(q.shape)}, k {tuple(k.shape)}, "
+                           f"{q.dtype}): CUDA error {status} ({msg})")
+    return dq, dk, dv

@@ -9,7 +9,8 @@ or raises; a CPU tensor runs the plain version, the port's
 ``ssd_chunked``; other devices raise. There is no override that sends a
 CUDA tensor to the plain version. The kernels compute the forward only:
 on the CUDA route, with grad mode on and an input that requires grad,
-the op raises (the backward comes with training, ROADMAP A7).
+the op raises (its backward kernel is ROADMAP A7b; ``flash_attn`` has
+its backward since the training slice).
 ``ssd_scan.launches`` counts calls
 that launched a kernel (one per call, whatever the passes inside), and
 ``ssd_scan.launches_by_kernel`` splits them by kernel ("mma", "simt"),

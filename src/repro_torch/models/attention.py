@@ -17,7 +17,8 @@ Routing of prefill attention -- causal self-attention (``self_attention``,
 cross-attention (``cross_attention``, no mask, ``Sq != Skv``): a CUDA
 tensor goes through the hand-written flash-attention kernel
 (``kernels/flash_attn``) at every length -- the kernel computes the
-function both plain paths compute, masked or not. A CPU tensor takes
+function both plain paths compute, masked or not, and its backward
+kernel the gradient when autograd asks for one. A CPU tensor takes
 the JAX package's own path (self-attention: full up to
 ``BLOCKWISE_THRESHOLD``, blockwise above; cross-attention: full), so the
 parity tests compare like with like. Decode attention stays plain

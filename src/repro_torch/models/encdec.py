@@ -42,6 +42,8 @@ from repro_torch.models.layers import (
     embedding_init,
     mlp_apply,
     mlp_init,
+    REMAT_MODES,
+    remat_apply,
     rmsnorm,
     rmsnorm_init,
     unembed,
@@ -93,14 +95,35 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # Encoder
 # ---------------------------------------------------------------------------
 
-def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig
-           ) -> torch.Tensor:
+def _remat(remat: str) -> str:
+    """The JAX package's enc-dec rematerializes its layers only under
+    ``remat="full"``; "selective" runs as "none" there, and here."""
+    if remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {remat!r}")
+    return "full" if remat == "full" else "none"
+
+
+def _enc_layer(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + attn.self_attention(p["attn"], h, cfg, causal=False)
+    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+
+
+def _dec_layer(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    x = x + attn.self_attention(p["attn"], h, cfg, causal=True)
+    hc = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+    x = x + attn.cross_attention(p["cross"], hc, enc_out, cfg)
+    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+
+
+def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
+           remat: str = "full") -> torch.Tensor:
     """frames: (B, F, d_model) stub embeddings -> encoder output."""
     x = frames.to(dtype_of(cfg))
     for p in params["enc_layers"]:
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        x = x + attn.self_attention(p["attn"], h, cfg, causal=False)
-        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = remat_apply(_enc_layer, _remat(remat), p, x, cfg)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -108,26 +131,23 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig
 # Decoder: train forward
 # ---------------------------------------------------------------------------
 
-def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {frames (B,F,d), tokens (B,S), labels (B,S)} -> (logits,
     aux), aux 0."""
-    enc_out = encode(params, batch["frames"], cfg)
+    enc_out = encode(params, batch["frames"], cfg, remat)
     x = embed_tokens(params["embed"], batch["tokens"])
     for p in params["layers"]:
-        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        x = x + attn.self_attention(p["attn"], h, cfg, causal=True)
-        hc = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-        x = x + attn.cross_attention(p["cross"], hc, enc_out, cfg)
-        x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = remat_apply(_dec_layer, _remat(remat), p, x, enc_out, cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return (unembed(params["embed"], x, cfg),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = forward(params, batch, cfg)
+    logits, aux = forward(params, batch, cfg, remat)
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     return loss, {"ce_loss": loss, "aux_loss": aux}
 

@@ -10,11 +10,17 @@ package's weights through ``model_zoo.params_from_jax`` instead.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.config import ModelConfig
 
@@ -169,3 +175,36 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# Rematerialization
+# ---------------------------------------------------------------------------
+
+#: The JAX package's ``remat`` modes of ``forward`` / ``loss_fn``.
+REMAT_MODES = ("full", "selective", "none")
+#: What "selective" saves: the products without batch dimensions (every
+#: ``x @ w`` projection), as ``dots_with_no_batch_dims_saveable`` does.
+_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_apply(fn: Callable, remat: str, *args: Any) -> Any:
+    """``fn(*args)`` under the JAX package's ``remat`` mode: ``"full"``
+    keeps only the inputs and recomputes the rest in the backward pass
+    (``jax.checkpoint``); ``"selective"`` also keeps the matmul outputs;
+    ``"none"`` keeps everything. No mode changes a value."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "selective":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_matmuls))
+    raise ValueError(f"remat must be one of {REMAT_MODES}, got {remat!r}")

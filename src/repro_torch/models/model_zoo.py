@@ -5,9 +5,11 @@
 ``init_cache``, as the JAX package's ``models/model_zoo.py`` does.
 ``init`` and ``init_cache`` take a ``device``: ``None`` means the card,
 and raises without one. ``batch_struct`` / ``make_batch`` give a shape
-cell's inputs, and :func:`params_from_jax` turns the JAX package's
-parameter tree into the port's parameters, so both packages can compute
-from the same weights.
+cell's inputs. :func:`params_from_jax` turns the JAX package's
+parameter tree into the port's parameters and :func:`opt_state_from_jax`
+its optimizer state into the port's, so both packages can compute from
+the same weights and state; :func:`params_to_numpy` goes back, to the
+JAX package's stacked layout, so trees compare leaf by leaf.
 """
 
 from __future__ import annotations
@@ -60,8 +62,8 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(
         cfg=cfg,
         init=init,
-        forward=lambda p, b: mod.forward(p, b, cfg),
-        loss_fn=lambda p, b: mod.loss_fn(p, b, cfg),
+        forward=lambda p, b, **kw: mod.forward(p, b, cfg, **kw),
+        loss_fn=lambda p, b, **kw: mod.loss_fn(p, b, cfg, **kw),
         prefill=lambda p, b, **kw: mod.prefill(p, b, cfg, **kw),
         decode_step=lambda p, c, t: mod.decode_step(p, c, t, cfg),
         init_cache=init_cache,
@@ -139,6 +141,22 @@ def _tree(node, device: torch.device):
     return _leaf(node, device)
 
 
+def _from_stacked(cfg: ModelConfig, tree: Dict[str, Any],
+                  device: torch.device) -> Dict[str, Any]:
+    """A parameter-shaped tree of the JAX package (the layer axis leading
+    under ``layers`` / ``enc_layers``) as the port's (lists of per-layer
+    dicts), on ``device``."""
+    def layer(node, i):
+        if isinstance(node, dict):
+            return {k: layer(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    n = {"layers": cfg.n_layers, "enc_layers": cfg.encoder_layers}
+    return {k: ([_tree(layer(v, i), device) for i in range(n[k])]
+                if k in n else _tree(v, device))
+            for k, v in tree.items()}
+
+
 def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], device=None
                     ) -> Dict[str, Any]:
     """The port's parameters from the JAX package's parameter tree of
@@ -147,25 +165,48 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], device=None
     ``device`` (``None``: the card). Every value keeps its type, so both
     packages compute from the same weights."""
     transformer.check_family(cfg)
-    dev = resolve_device(device)
-
-    def layer(node, i):
-        if isinstance(node, dict):
-            return {k: layer(v, i) for k, v in node.items()}
-        return np.asarray(node)[i]
-
-    def stack(name, n):
-        return [_tree(layer(tree[name], i), dev) for i in range(n)]
-
-    out = {
-        "embed": _tree(tree["embed"], dev),
-        "layers": stack("layers", cfg.n_layers),
-        "final_norm": _tree(tree["final_norm"], dev),
-    }
-    if cfg.is_encdec:
-        out["enc_layers"] = stack("enc_layers", cfg.encoder_layers)
-        out["enc_norm"] = _tree(tree["enc_norm"], dev)
+    out = _from_stacked(cfg, tree, resolve_device(device))
     if out["embed"]["tok"].dtype != dtype_of(cfg):
         raise ValueError(f"the tree's embedding is {out['embed']['tok'].dtype}"
                          f", the config says {cfg.dtype}")
     return out
+
+
+def opt_state_from_jax(cfg: ModelConfig, state: Dict[str, Any],
+                       device=None) -> Dict[str, Any]:
+    """The port's optimizer state (``optim/optimizers.py``) from the JAX
+    package's state of ``cfg``'s parameters, on ``device`` (``None``: the
+    card): AdamW's ``m``, ``v`` and ``master``, SGD's ``mom`` unstacked
+    by layer like the parameters; Adafactor's ``vs`` (``vr`` / ``vc`` or
+    ``v`` per leaf) kept in the stacked layout, which the port's
+    Adafactor keeps too; ``count`` a Python int."""
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    for k, v in state.items():
+        if k == "count":
+            out[k] = int(np.asarray(v))
+        elif k == "vs":
+            out[k] = _tree(v, dev)
+        else:
+            out[k] = _from_stacked(cfg, v, dev)
+    return out
+
+
+def params_to_numpy(tree: Any) -> Any:
+    """The port's tree as the JAX package lays it out: nested dicts of
+    host numpy arrays, each list of per-layer dicts stacked on a leading
+    axis. bf16 comes back as f32, which holds it exactly (numpy has no
+    bf16)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        parts = [params_to_numpy(x) for x in tree]
+
+        def stack(*xs):
+            if isinstance(xs[0], dict):
+                return {k: stack(*(x[k] for x in xs)) for k in xs[0]}
+            return np.stack(xs)
+
+        return stack(*parts)
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -35,6 +35,7 @@ from repro_torch.models.layers import (
     embedding_init,
     mlp_apply,
     mlp_init,
+    remat_apply,
     rmsnorm,
     rmsnorm_init,
     unembed,
@@ -144,21 +145,24 @@ def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
     return x
 
 
-def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits (B, S, V), aux_loss)."""
+def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (logits (B, S, V), aux_loss). ``remat`` ("full",
+    "selective", "none") is applied to each layer, as the JAX package
+    applies it to its scan body (``layers.remat_apply``)."""
     x = _embed_inputs(params, batch, cfg)
     aux = torch.zeros((), device=x.device)
     for layer_params in params["layers"]:
-        x, a = layer_apply(layer_params, x, cfg)
+        x, a = remat_apply(layer_apply, remat, layer_params, x, cfg)
         aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return unembed(params["embed"], x, cfg), aux
 
 
-def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+            remat: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    logits, aux = forward(params, batch, cfg)
+    logits, aux = forward(params, batch, cfg, remat=remat)
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     total = loss + MOE_AUX_COEF * aux
     return total, {"ce_loss": loss, "aux_loss": aux}

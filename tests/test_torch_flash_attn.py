@@ -167,8 +167,8 @@ def test_cuda_kernel_matches_plain(case, cuda_device):
 
 
 class FakeLibrary:
-    """Stands in for the built library: records each entry point's
-    arguments and returns ``status``."""
+    """Stands in for the built libraries (forward and backward): records
+    each entry point's arguments and returns ``status``."""
 
     def __init__(self, status=0):
         self.status = status
@@ -182,8 +182,22 @@ class FakeLibrary:
         self.calls.append(("simt", args))
         return self.status
 
+    def flash_attn_mma_lse_launch(self, *args):
+        self.calls.append(("mma-lse", args))
+        return self.status
+
+    def flash_attn_lse_launch(self, *args):
+        self.calls.append(("simt-lse", args))
+        return self.status
+
+    def flash_attn_bwd_launch(self, *args):
+        self.calls.append(("bwd", args))
+        return self.status
+
     def flash_attn_error_string(self, code):
         return b"fake failure"
+
+    flash_attn_bwd_error_string = flash_attn_error_string
 
 
 @contextlib.contextmanager
@@ -197,6 +211,7 @@ def fake_library(monkeypatch):
     lib = FakeLibrary()
     monkeypatch.setattr(fa_ops, "_route", lambda t: "cuda")
     monkeypatch.setattr(kernel, "load", lambda: lib)
+    monkeypatch.setattr(kernel, "load_bwd", lambda: lib)
     monkeypatch.setattr(kernel, "on_card", _no_card)
     return lib
 
@@ -253,26 +268,43 @@ def test_reset_counts():
     fa_ops.reset_counts()
     assert flash_attention.launches == 0
     assert flash_attention.launches_by_kernel == {"mma": 0, "simt": 0}
+    assert flash_attention.bwd_launches == 0
+    assert flash_attention.bwd_launches_by_kernel == {"simt": 0}
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
 def test_cuda_route_refuses_grad(fake_library, which):
-    """The kernel has no backward (ROADMAP A7): on the CUDA route, with
-    grad mode on and an input that requires grad, the op raises before
-    any launch; under ``no_grad`` / ``inference_mode`` the same call
-    launches as before."""
+    """The contract C1 left (ROADMAP C) is now the gradient: on the CUDA
+    route, with grad mode on and an input that requires grad, the op
+    launches the forward entry point that writes lse (once), and
+    ``backward()`` launches the backward entry point once, asking for
+    dq only when q requires grad and for dk / dv only when k or v does;
+    the gradient reaches only the inputs that require it. Under
+    ``no_grad`` / ``inference_mode`` the same call launches the plain
+    forward entry point, as before."""
     t = {n: torch.randn(1, 64, 2, 32) for n in "qkv"}
     t[which].requires_grad_(True)
     total = flash_attention.launches
-    with pytest.raises(RuntimeError, match="A7"):
-        flash_attention(t["q"], t["k"], t["v"], causal=False)
-    assert fake_library.calls == [] and flash_attention.launches == total
+    bwd = flash_attention.bwd_launches
+    out = flash_attention(t["q"], t["k"], t["v"], causal=False)
+    assert out.requires_grad and out.shape == t["q"].shape
+    assert [w for w, _ in fake_library.calls] == ["simt-lse"]
+    assert flash_attention.launches == total + 1
+    assert flash_attention.bwd_launches == bwd
+    out.backward(torch.ones_like(out))
+    [(name, args)] = fake_library.calls[1:]
+    assert name == "bwd" and flash_attention.bwd_launches == bwd + 1
+    assert (args[6] != 0) == (which == "q")                   # dq
+    assert (args[7] != 0) == (args[8] != 0) == (which != "q")  # dk, dv
+    for n in "qkv":
+        assert (t[n].grad is not None) == (n == which)
+    assert t[which].grad.shape == t[which].shape
     with torch.no_grad():
         flash_attention(t["q"], t["k"], t["v"], causal=False)
     with torch.inference_mode():
         flash_attention(t["q"], t["k"], t["v"], causal=True)
-    assert [w for w, _ in fake_library.calls] == ["simt", "simt"]
-    assert flash_attention.launches == total + 2
+    assert [w for w, _ in fake_library.calls[2:]] == ["simt", "simt"]
+    assert flash_attention.launches == total + 3
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -286,3 +318,91 @@ def test_cpu_route_backpropagates(causal):
     for t in (q, k, v):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
         assert float(t.grad.abs().max()) > 0.0
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_grad_route_launches_the_lse_entry(fake_library, dtype):
+    """A call that autograd will differentiate takes the dtype's kernel
+    through its lse entry point, with the lse buffer (B, H, Sq) f32 after
+    the output and otherwise the arguments of the plain entry point."""
+    dt = getattr(torch, dtype)
+    q = torch.zeros(2, 96, 6, 64, dtype=dt, requires_grad=True)
+    k = torch.zeros(2, 160, 3, 64, dtype=dt)
+    by_kernel = dict(flash_attention.launches_by_kernel)
+    out, lse = kernel.launch(q.detach(), k, k.clone(), True, with_lse=True)
+    assert lse.shape == (2, 6, 96) and lse.dtype == torch.float32
+    flash_attention(q, k, k.clone(), causal=True)
+    [(_, a1), (which, args)] = fake_library.calls
+    assert which == ("mma-lse" if dtype == "bfloat16" else "simt-lse")
+    assert args[5:12] == (2, 96, 160, 6, 3, 64, 1)
+    assert args[12] == pytest.approx(1.0 / 8.0, rel=1e-7)
+    assert args[13:] == ((7,) if dtype == "bfloat16"
+                         else (kernel.DTYPES[dt], 7))
+    kind = "mma" if dtype == "bfloat16" else "simt"
+    assert flash_attention.launches_by_kernel[kind] == by_kernel[kind] + 1
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_entry_arguments(fake_library, dtype, causal):
+    """The backward entry point gets q, k, v, the output, lse, a
+    contiguous dout (autograd may pass a strided one), dq / dk / dv and
+    the Dv scratch, the shapes, the mask flag, the f32 scale, the dtype
+    and the stream; dq / dk / dv come back in the inputs' shapes and
+    dtype."""
+    dt = getattr(torch, dtype)
+    q = torch.randn(2, 40, 4, 32).to(dt).requires_grad_(True)
+    k = torch.randn(2, 56, 2, 32).to(dt).requires_grad_(True)
+    v = torch.randn(2, 56, 2, 32).to(dt).requires_grad_(True)
+    out = flash_attention(q, k, v, causal=causal)
+    strided = torch.randn(2, 4, 40, 32).to(dt).permute(0, 2, 1, 3)
+    assert not strided.is_contiguous()
+    out.backward(strided)
+    (name, args) = fake_library.calls[-1]
+    assert name == "bwd"
+    assert args[10:17] == (2, 40, 56, 4, 2, 32, int(causal))
+    assert args[17] == pytest.approx(1.0 / np.sqrt(32), rel=1e-7)
+    assert args[18:] == (kernel.DTYPES[dt], 7)
+    assert args[5] != strided.data_ptr()          # a contiguous copy
+    assert all(a != 0 for a in args[:10])
+    for t in (q, k, v):
+        assert t.grad.shape == t.shape and t.grad.dtype == dt
+
+
+def test_nonzero_backward_status_raises(fake_library):
+    q = torch.randn(1, 64, 2, 32, requires_grad=True)
+    out = flash_attention(q, q.detach(), q.detach(), causal=False)
+    fake_library.status = 9
+    bwd = flash_attention.bwd_launches
+    with pytest.raises(RuntimeError, match="backward launch failed.*9"):
+        out.sum().backward()
+    assert flash_attention.bwd_launches == bwd
+
+
+def test_backward_checks_its_inputs(fake_library):
+    q = torch.zeros(1, 8, 4, 64)
+    k = torch.zeros(1, 8, 2, 64)
+    lse = torch.zeros(1, 4, 8)
+    with pytest.raises(ValueError, match="lse"):
+        kernel.launch_bwd(q, k, k, q, lse[..., :4], q, True)
+    with pytest.raises(ValueError, match="dout"):
+        kernel.launch_bwd(q, k, k, q, lse, q[:, :4], True)
+    assert fake_library.calls == []
+
+
+@pytest.mark.parametrize("case", CUDA_CASES, ids=CUDA_IDS)
+def test_cuda_backward_matches_plain(case, cuda_device):
+    """On the card: the backward kernel's dq, dk, dv against the explicit
+    plain version on the kernel's own lse and output (f32 at 1e-5, bf16
+    at 2e-2 of each gradient's max |value|)."""
+    from repro_torch.kernels.flash_attn.ref import attention_bwd_ref
+    _, (q, k, v), causal, _ = _inputs(case, seed=15)
+    q, k, v = (t.to(cuda_device) for t in (q, k, v))
+    do = torch.randn_like(q.float()).to(q.dtype)
+    out, lse = kernel.launch(q, k, v, causal, with_lse=True)
+    got = kernel.launch_bwd(q, k, v, out, lse, do, causal)
+    want = attention_bwd_ref(q, k, v, out, lse, do, causal)
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
+    for g, w in zip(got, want):
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max())

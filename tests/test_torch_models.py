@@ -15,10 +15,21 @@ probabilities nearly tie, rounding alone can change the choice and the
 token's FFN output by O(1), not by rounding; the change then reaches
 later positions through attention. So for MoE the JAX side's choices and
 their top-k margins (the k-th minus the (k+1)-th probability) are read
-from its own ``jax.lax.top_k`` calls, and the port is held to JAX (a)
-unpinned, on each sequence's positions before the first margin below
-1e-3 at any layer, and (b) pinned to JAX's expert indices (its gates
-still its own), on every position, both under the rules above.
+from its own ``jax.lax.top_k`` calls, and the port's probabilities from
+its own ``top_k_gates`` calls, and the port is held to JAX (a) unpinned,
+on each sequence's positions before the first near tie at any layer --
+where JAX's margin, or the port's margin of JAX's top-k set (the port's
+k-th largest probability among JAX's experts minus its largest among
+the others; negative where the port ranks another expert in), is below
+1e-3; a call ranks the tokens competing for an expert's capacity in its
+flat (sequence, position) order, so a near tie also reaches every later
+sequence of the call -- and (b) pinned to JAX's expert indices (its gates still its
+own), on every position, both under the rules above. In f32 the two
+packages' probabilities agree to rounding, so the port may rank another
+expert in only where JAX's own margin is below 1e-3; in bf16 they round
+the router's input at other points, so a set can flip at a larger JAX
+margin, and only the port's own margin shows it. The prefill / decode
+case of each MoE arch runs over three token draws.
 """
 
 import dataclasses
@@ -59,6 +70,10 @@ RNG = np.random.default_rng(7)
 #: were added: the bf16 MoE case is sensitive to its tokens (a routing
 #: flip at a router margin just above ROUTER_MARGIN, ROADMAP C)
 FAMILY_RNG = np.random.default_rng(21)
+#: token draws of the MoE prefill / decode case: the first from RNG, as
+#: before, the others from generators of their own (the same tokens
+#: whichever tests ran first)
+MOE_DRAWS = 3
 
 
 def _rng(cfg):
@@ -437,6 +452,33 @@ class JaxRouting:
         return list(self.calls)
 
 
+class PortRouting:
+    """The port's own router probabilities, in call order: while it is
+    set up, each ``moe.top_k_gates`` call records its ``probs`` and then
+    routes as before."""
+
+    def __init__(self, monkeypatch):
+        self.probs = []
+        top_k_gates = tmoe.top_k_gates
+
+        def recording(probs, k):
+            self.probs.append(probs.detach().float().numpy())
+            return top_k_gates(probs, k)
+
+        monkeypatch.setattr(tmoe, "top_k_gates", recording)
+
+
+def _margin_of_set(probs, idx):
+    """Per row, the smallest of ``probs`` at the experts ``idx`` (``(T,
+    k)``) minus the largest elsewhere: the margin by which ``probs``
+    choose that top-k set, negative where they rank another expert in."""
+    probs = probs.reshape(idx.shape[0], -1)
+    chosen = np.take_along_axis(probs, idx, axis=-1).min(axis=-1)
+    others = probs.copy()
+    np.put_along_axis(others, idx, -np.inf, axis=-1)
+    return chosen - others.max(axis=-1)
+
+
 def _pin_port_routing(monkeypatch, calls):
     """Pin the port's expert choices to JAX's recorded ones, call by
     call; its gates stay its own probabilities at those experts. Returns
@@ -452,20 +494,32 @@ def _pin_port_routing(monkeypatch, calls):
     return queue
 
 
-def _near_tie_horizon(calls, n_layers, batch, seq):
-    """Per sequence, the first position whose router top-k margin is
-    below ROUTER_MARGIN at any layer (inf if none). The first
-    ``n_layers`` calls are a full-sequence pass over ``seq`` positions;
-    each later group of ``n_layers`` is one decode step."""
+def _near_tie_horizon(calls, n_layers, batch, seq, port_probs=None):
+    """Per sequence, the first position a near tie can reach (inf if
+    none): a router top-k margin below ROUTER_MARGIN at any layer --
+    JAX's margin or, given ``port_probs`` (the port's probabilities of
+    the same calls), the smaller of it and the port's margin of JAX's
+    set. A call ranks each expert's tokens for its capacity in the call's
+    flat (sequence, position) order, so a flip at one token can change
+    which *later* tokens of the call an expert drops: a near tie at
+    sequence b, position s also reaches every later sequence of the call
+    from the call's first position on. The first ``n_layers`` calls are a
+    full-sequence pass over ``seq`` positions; each later group of
+    ``n_layers`` is one decode step."""
     horizon = np.full(batch, np.inf)
-    for c, (_, margin) in enumerate(calls):
+    for c, (idx, margin) in enumerate(calls):
         step = c // n_layers
-        m = margin.reshape(batch, -1)
+        margin = margin.reshape(-1)
+        if port_probs is not None:
+            margin = np.minimum(margin, _margin_of_set(
+                port_probs[c], idx.reshape(margin.shape[0], -1)))
+        near = np.nonzero(margin < ROUTER_MARGIN)[0]
+        if not near.size:
+            continue
         first_pos = 0 if step == 0 else seq + step - 1
-        for b in range(batch):
-            near = np.nonzero(m[b] < ROUTER_MARGIN)[0]
-            if near.size:
-                horizon[b] = min(horizon[b], first_pos + near[0])
+        b, s = divmod(int(near[0]), margin.shape[0] // batch)
+        horizon[b] = min(horizon[b], first_pos + s)
+        horizon[b + 1:] = np.minimum(horizon[b + 1:], first_pos)
     return horizon
 
 
@@ -556,30 +610,65 @@ def test_prefill_and_decode_match_jax(arch, dtype, monkeypatch):
     seq, gen = 48, 4
     toks = _rng(jcfg).integers(0, jcfg.vocab_size, (2, seq)).astype(np.int32)
     stub = _stub_inputs(jcfg, 2)
-    routing = JaxRouting(monkeypatch) if tcfg.is_moe else None
-    jsteps, fed = _jax_steps(jm, jparams, toks, gen, stub)
-    tsteps, tcache = _port_steps(tm, tparams, toks, fed, stub)
-    assert tcache["length"] == seq + gen
-    if routing is None:
+    if not tcfg.is_moe:
+        jsteps, fed = _jax_steps(jm, jparams, toks, gen, stub)
+        tsteps, tcache = _port_steps(tm, tparams, toks, fed, stub)
+        assert tcache["length"] == seq + gen
         for i, (tl, jl) in enumerate(zip(tsteps, jsteps)):
             _check_step(tl, jl, dtype, f"step {i}")
         return
-    calls = routing.read()
-    assert len(calls) == tcfg.n_layers * (gen + 1)
-    horizon = _near_tie_horizon(calls, tcfg.n_layers, toks.shape[0], seq)
+    compared = 0
+    routing = JaxRouting(monkeypatch)
+    for draw in range(MOE_DRAWS):
+        if draw:
+            toks = np.random.default_rng((31, draw)).integers(
+                0, jcfg.vocab_size, (2, seq)).astype(np.int32)
+        compared += _moe_prefill_and_decode(jm, jparams, tm, tparams, toks,
+                                            gen, dtype, routing, monkeypatch,
+                                            f"draw {draw}")
+    if dtype == "float32":
+        assert compared > 0, "some positions precede every near tie"
+
+
+def _moe_prefill_and_decode(jm, jparams, tm, tparams, toks, gen, dtype,
+                            routing, monkeypatch, what):
+    """One token draw of the MoE case: unpinned before each sequence's
+    first near tie (JAX's margins and the port's own, see the
+    docstring), then pinned to JAX's experts everywhere. Returns the
+    number of rows compared unpinned."""
+    tcfg, seq = tm.cfg, toks.shape[1]
+    n_calls = tcfg.n_layers * (gen + 1)
+    done = len(routing.read())
+    jsteps, fed = _jax_steps(jm, jparams, toks, gen)
+    calls = routing.read()[done:]
+    with monkeypatch.context() as mp:
+        port = PortRouting(mp)
+        tsteps, tcache = _port_steps(tm, tparams, toks, fed)
+    assert tcache["length"] == seq + gen
+    assert len(calls) == len(port.probs) == n_calls
+    if dtype == "float32":
+        # f32 agrees to rounding: the port ranks another expert in only
+        # at JAX's own near ties
+        for (idx, margin), probs in zip(calls, port.probs):
+            margin = margin.reshape(-1)
+            own = _margin_of_set(probs, idx.reshape(margin.shape[0], -1))
+            assert np.all((own >= 0) | (margin < ROUTER_MARGIN)), what
+    horizon = _near_tie_horizon(calls, tcfg.n_layers, toks.shape[0], seq,
+                                port.probs)
     compared = 0
     for i, (tl, jl) in enumerate(zip(tsteps, jsteps)):
         pos = np.arange(seq) if i == 0 else np.array([seq + i - 1])
         rows = pos[None, :] < horizon[:, None]
-        compared += _check_step(tl, jl, dtype, f"step {i}, unpinned",
+        compared += _check_step(tl, jl, dtype, f"{what}, step {i}, unpinned",
                                 rows if i == 0 else rows[:, 0])
-    if dtype == "float32":
-        assert compared > 0, "some positions precede every near tie"
-    queue = _pin_port_routing(monkeypatch, calls)
-    tsteps, _ = _port_steps(tm, tparams, toks, fed)
-    assert not queue
+    with monkeypatch.context() as mp:
+        queue = _pin_port_routing(mp, calls)
+        tsteps, _ = _port_steps(tm, tparams, toks, fed)
+        assert not queue
     for i, (tl, jl) in enumerate(zip(tsteps, jsteps)):
-        _check_step(tl, jl, dtype, f"step {i}, pinned to JAX's experts")
+        _check_step(tl, jl, dtype,
+                    f"{what}, step {i}, pinned to JAX's experts")
+    return compared
 
 
 @pytest.mark.parametrize("arch", MOE_SLICE_ARCHS)
