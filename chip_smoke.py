@@ -14,8 +14,9 @@ each hand-written CUDA kernel against its plain PyTorch version:
 1. build ``bank_scan.cu``, ``log_compress.cu``, ``flash_attn.cu``,
    ``flash_attn_bwd.cu``, ``ssd_scan.cu`` and ``store_timeline.cu`` from
    ``src/repro_torch/csrc``, one nvcc each, started together; ptxas
-   reports no spill in any ``store_timeline`` instantiation nor in the
-   three ``flash_attn`` instantiations at head dim 160;
+   reports no spill in any ``store_timeline`` instantiation, in the
+   three ``flash_attn`` instantiations at head dim 160 nor in the
+   ``flash_attn_bwd`` tensor-core kernels at head dims 64 and 128;
 2. kernel against the plain version on the card, ``==`` on all three
    outputs, over real banks at sb in {1, 7, 24, 48, 72, 200, 500}, a
    ragged n, n = 1, padded lanes and the ``[0]`` view of a sub-bank stack,
@@ -165,15 +166,19 @@ each hand-written CUDA kernel against its plain PyTorch version:
     256 positions): 4 prompts of 1 024 positions, 32 greedy tokens each;
     48 launches per prefill; the planted fault: ``patch_embeds``
     ignored; the f32 copy at full width cut to 2 layers;
-20. training: the ``flash_attn`` backward kernel (``flash_attn_bwd.cu``)
-    against its plain version (``attention_bwd_ref``, one request at a
-    time) at qwen3-0.6b's training shape (B 4, S 4 096, H 16, K 8, D
-    128, causal), hymba-1.5b's, whisper-medium's encoder and
-    cross-attention (unmasked, Sq 224 / Skv 1 500) and stablelm-12b's
-    head dim 160, in bf16 (also against an f32 oracle) and, at the last
-    two, f32; planted faults (dK / dV not summed over the GQA group, the
-    causal mask dropped) above the limits; each shape's time beside its
-    bound, the plain version's and SDPA's forward + backward; then
+20. training: the ``flash_attn`` backward kernels (``flash_attn_bwd.cu``:
+    bf16 on the tensor cores, f32 on the CUDA cores) against their plain
+    version (``attention_bwd_ref``, one request at a time) at qwen3-0.6b's
+    training shape (B 4, S 4 096, H 16, K 8, D 128, causal), hymba-1.5b's,
+    whisper-medium's encoder and cross-attention (unmasked, Sq 224 / Skv
+    1 500) and stablelm-12b's head dim 160, in bf16 (also against an f32
+    oracle, and the CUDA-core kernels on the same inputs) and, at the
+    last two, f32; two launches bit-identical;
+    planted faults (dK / dV not summed over the GQA group, the causal
+    mask dropped) above the limits; each shape's time beside its bound,
+    the CUDA-core kernels' on the same bf16 inputs (the tensor-core ones
+    at least 4x faster at qwen3's shape), the plain version's and SDPA's
+    forward + backward; then
     qwen3-0.6b at its published width and depth (28 layers, 0.6e9
     parameters, bf16, AdamW with an f32 master copy, ``remat="full"``)
     trained 6 steps through ``Trainer`` on a logical data 4 x model 2
@@ -181,11 +186,11 @@ each hand-written CUDA kernel against its plain PyTorch version:
     batch 4, node 2 failing at step 3 (recovered from the replica logs,
     the installed shard ``==`` the node's parameters with its blocks
     lost) and one MN dump (restored bit for bit); 56 forward and 28
-    backward launches a step, no ``ssd_scan``; step time, tokens/s, peak
-    memory, model FLOP share, replicate, recovery and dump walls; and the
+    backward launches a step, all 28 on the tensor-core backward, no
+    ``ssd_scan``; step time, tokens/s, peak memory, model FLOP share, replicate, recovery and dump walls; and the
     gradients of ``loss_fn`` through the kernels against the plain
-    attention on an f32 copy cut to 2 layers, with the causal mask
-    dropped in the backward as a planted fault.
+    attention on an f32 copy cut to 2 layers (the CUDA-core backward),
+    with the causal mask dropped in the backward as a planted fault.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -429,9 +434,11 @@ def ptxas_log(lib) -> str:
     return proc.stdout + proc.stderr
 
 
-def check_no_spills(lib, kernel: str, count: int) -> None:
+def check_no_spills(lib, kernel: str, count: int,
+                    most: tuple = (0, 0)) -> None:
     """ptxas compiled ``count`` instantiations of ``kernel`` in ``lib``,
-    none with a byte of spill stores or loads."""
+    none with more than ``most`` (spill store, spill load) bytes: by
+    default none with a byte."""
     log = ptxas_log(lib)
     entries = [e for e in re.findall(r"Compiling entry function '([^']+)'",
                                      log) if kernel in e]
@@ -439,9 +446,12 @@ def check_no_spills(lib, kernel: str, count: int) -> None:
     check(len(entries) == count,
           f"{lib.name}: ptxas compiled {len(entries)} instantiations of "
           f"{kernel}, {count} expected")
-    bad = {e: spills.get(e) for e in entries if spills.get(e) != (0, 0)}
-    check(not bad, f"{lib.name}: 0 bytes of spill stores and loads in each "
-          f"of them" + (f" (spills: {bad})" if bad else ""))
+    bad = {e: spills.get(e) for e in entries
+           if spills.get(e) is None
+           or any(n > m for n, m in zip(spills[e], most))}
+    check(not bad, f"{lib.name}: at most {most[0]} / {most[1]} bytes of "
+          f"spill stores / loads in each of them"
+          + (f" (spills: {bad})" if bad else ""))
 
 
 def phase_kernel_vs_plain(torch, S, Sc, ops, ref) -> float:
@@ -3067,6 +3077,13 @@ BWD_TOLERANCE_TEXT = ("dq, dk, dv each within 1e-5 (f32) / 2e-2 (bf16) of "
 FAULT_BWD_GQA = ("backward: dK / dV of the group's first query head, not "
                  "summed over the GQA group")
 FAULT_BWD_CAUSAL = "backward: the causal mask dropped"
+#: the bf16 backward's tensor-core kernels against its CUDA-core ones on
+#: the same inputs, at qwen3-0.6b's training shape: at least this factor
+BWD_MIN_SPEEDUP = 4.0
+#: the (spill store, spill load) bytes ptxas may give a tensor-core
+#: backward kernel, (kernel, D): the dK / dV kernel at D 32, which ptxas
+#: holds to 128 registers; every other instantiation none
+BWD_MMA_SPILLS = {("flash_attn_bwd_dkdv_mma_kernel", 32): (8, 12)}
 TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_SEQ = 4096                 # train_4k's sequence length
 TRAIN_BATCH = 4                  # train_4k's global batch 256, cut to a card
@@ -3119,14 +3136,26 @@ def check_bwd_case(torch, fa, randn, case, dtype) -> dict:
     do = randn(b, sq, h, d, dtype=dtype)
     out, lse = fa.kernel.launch(q, k, v, causal, with_lse=True)
     got = fa.kernel.launch_bwd(q, k, v, out, lse, do, causal)
+    again = fa.kernel.launch_bwd(q, k, v, out, lse, do, causal)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
     want = per_batch(torch, lambda *t: ref.attention_bwd_ref(*t, causal),
                      q, k, v, out, lse, do)
     r = {"shape": case[:8], "dtype": dtype,
+         "kernel": fa.kernel.bwd_kernel_for(getattr(torch, dtype)),
+         "deterministic": same,
          "vs_plain": [max_rel(g.float(), w.float())
                       for g, w in zip(got, want)],
          "max_abs_err": max(float((g.float() - w.float()).abs().max())
                             for g, w in zip(got, want))}
+    if r["kernel"] != "simt":
+        # the CUDA-core kernels, the yardstick, on the same inputs
+        simt = fa.kernel.launch_bwd(q, k, v, out, lse, do, causal,
+                                    which="simt")
+        r["simt_vs_plain"] = [max_rel(g.float(), w.float())
+                              for g, w in zip(simt, want)]
+        del simt
     del want
     tol = BWD_TOLERANCE[dtype]
     if dtype == "bfloat16":
@@ -3150,14 +3179,20 @@ def check_bwd_case(torch, fa, randn, case, dtype) -> dict:
         faults[FAULT_BWD_CAUSAL] = grads_rel(
             fa.kernel.launch_bwd(q, k, v, out, lse, do, False), got)
     r["planted"] = faults
-    what = (f"flash_attn backward at {name}'s shape (B {b}, Sq {sq}, Skv "
-            f"{skv}, H {h}, K {kh}, D {d}, {dtype}, "
+    what = (f"flash_attn backward ({r['kernel']}) at {name}'s shape (B {b}, "
+            f"Sq {sq}, Skv {skv}, H {h}, K {kh}, D {d}, {dtype}, "
             f"{'causal' if causal else 'no mask'})")
     print(f"  {what}: dq, dk, dv vs plain {r['vs_plain']}"
           + (f", vs the f32 oracle {r['vs_f32_oracle']}"
-             if "vs_f32_oracle" in r else "") + f"; planted {faults}")
+             if "vs_f32_oracle" in r else "")
+          + (f", the CUDA-core kernels vs plain {r['simt_vs_plain']}"
+             if "simt_vs_plain" in r else "") + f"; planted {faults}")
     check(max(r["vs_plain"]) <= tol, f"{what}: kernel vs plain, largest "
           f"{max(r['vs_plain']):.4g} of max|grad| (tol {tol})")
+    if "simt_vs_plain" in r:
+        check(max(r["simt_vs_plain"]) <= tol, f"{what}: the CUDA-core "
+              f"kernels vs plain, largest {max(r['simt_vs_plain']):.4g} "
+              f"(tol {tol})")
     if "vs_f32_oracle" in r:
         check(max(r["vs_f32_oracle"]) <= tol,
               f"{what}: kernel vs f32 oracle, largest "
@@ -3165,8 +3200,10 @@ def check_bwd_case(torch, fa, randn, case, dtype) -> dict:
     for fault, rel in faults.items():
         check(rel > tol, f"{what}: planted fault ({fault}) reads "
               f"{rel:.4g}, above the limit {tol}")
-    # times: the backward kernel, the forward with lse, SDPA's forward +
-    # backward, in turns; the plain version one request at a time
+    check(same, f"{what}: two launches give bit-identical dq, dk, dv")
+    # times: the backward kernels, (bf16) the CUDA-core ones on the same
+    # inputs, the forward with lse, SDPA's forward + backward, in turns;
+    # the plain version one request at a time
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     dot = do.transpose(1, 2)
@@ -3181,18 +3218,30 @@ def check_bwd_case(torch, fa, randn, case, dtype) -> dict:
             "fwd_lse_ms": lambda: fa.kernel.launch(q, k, v, causal,
                                                    with_lse=True),
             "library_ms": sdpa_fwd_bwd}
+    if r["kernel"] != "simt":
+        runs["simt_ms"] = lambda: fa.kernel.launch_bwd(
+            q, k, v, out, lse, do, causal, which="simt")
+    # the split: the prep with the dQ kernel alone, with the dK / dV one
+    runs["dq_ms"] = lambda: fa.kernel.launch_bwd(q, k, v, out, lse, do,
+                                                 causal, need_dkv=False)
+    runs["dkdv_ms"] = lambda: fa.kernel.launch_bwd(q, k, v, out, lse, do,
+                                                   causal, need_dq=False)
     times = {key: [] for key in runs}
     for order in (list(runs), list(runs)[::-1]):
         for key in order:
             times[key].append(cuda_ms(runs[key], 10))
     r.update({key: sum(ts) / len(ts) for key, ts in times.items()})
+    r.setdefault("simt_ms", None)
     r["turns"] = times
     r["fwd_bwd_ms"] = r["ms"] + r["fwd_lse_ms"]
     r["plain_ms"] = cuda_ms(lambda: per_batch(
         torch, lambda *t: ref.attention_bwd_ref(*t, causal),
         q, k, v, out, lse, do), 1)
     r["bound_ms"], r["bound_by"] = bwd_bound_ms(torch, q, k, causal)
-    print(f"  {what}: backward kernel {r['ms']:.4f} ms, forward with lse "
+    print(f"  {what}: backward kernels {r['ms']:.4f} ms (dQ alone "
+          f"{r['dq_ms']:.4f}, dK / dV alone {r['dkdv_ms']:.4f})"
+          + (f", CUDA-core ones {r['simt_ms']:.4f} ms"
+             if r["simt_ms"] is not None else "") + f", forward with lse "
           f"{r['fwd_lse_ms']:.4f} ms, SDPA forward + backward "
           f"{r['library_ms']:.4f} ms (in turns: {json.dumps(times)}); plain "
           f"{r['plain_ms']:.2f} ms; bound {r['bound_ms']:.5f} ms "
@@ -3270,6 +3319,13 @@ def phase_train(torch, fa, attn, ssd) -> dict:
             gc.collect()
             torch.cuda.empty_cache()
     out["bwd_s"] = time.perf_counter() - t0
+    main_case = out["bwd"][0]
+    check(main_case["kernel"] == "mma" and main_case["simt_ms"]
+          >= BWD_MIN_SPEEDUP * main_case["ms"],
+          f"{BWD_CASES[0][0]}: the tensor-core backward "
+          f"{main_case['ms']:.4f} ms is at least {BWD_MIN_SPEEDUP:g}x "
+          f"faster than the CUDA-core one {main_case['simt_ms']:.4f} ms "
+          f"on the same inputs")
 
     # (b) qwen3-0.6b at full width and depth through Trainer
     cfg = config.get_model_config(TRAIN_ARCH)
@@ -3326,16 +3382,20 @@ def phase_train(torch, fa, attn, ssd) -> dict:
                                                    node=TRAIN_FAIL[1])]))
         setup_s = time.perf_counter() - t1
         trainer_mod.install_recovered_shard = holed_install
-        steps, per_step = [], []
+        steps, per_step, per_step_kernel = [], [], []
         fa.ops.reset_counts()
         ssd.ops.reset_counts()
         dumped = None
         for i in range(TRAIN_STEPS):
             f0, b0 = (fa.ops.flash_attention.launches,
                       fa.ops.flash_attention.bwd_launches)
+            k0 = dict(fa.ops.flash_attention.bwd_launches_by_kernel)
             steps += tr.train(1)
             per_step.append((fa.ops.flash_attention.launches - f0,
                              fa.ops.flash_attention.bwd_launches - b0))
+            per_step_kernel.append({
+                n: fa.ops.flash_attention.bwd_launches_by_kernel[n] - c
+                for n, c in k0.items()})
             if (i + 1) % TRAIN_DUMP_INTERVAL == 0:
                 dumped = [p.detach().clone()
                           for p in tree_leaves(tr.state.params)]
@@ -3343,6 +3403,8 @@ def phase_train(torch, fa, attn, ssd) -> dict:
                     "backward": fa.ops.flash_attention.bwd_launches,
                     "forward_by_kernel":
                         dict(fa.ops.flash_attention.launches_by_kernel),
+                    "backward_by_kernel":
+                        dict(fa.ops.flash_attention.bwd_launches_by_kernel),
                     "ssd_scan": ssd.ops.ssd_scan.launches}
         peak = torch.cuda.max_memory_allocated()
         trainer_mod.install_recovered_shard = real_install
@@ -3361,6 +3423,11 @@ def phase_train(torch, fa, attn, ssd) -> dict:
               f"every step launches the forward kernel {2 * cfg.n_layers} "
               f"times (the forward and remat's recompute) and the backward "
               f"{cfg.n_layers} times")
+        check(all(p == {"mma": cfg.n_layers, "simt": 0}
+                  for p in per_step_kernel),
+              f"every step's {cfg.n_layers} backward launches run the "
+              f"tensor-core kernels, none the CUDA-core ones: "
+              f"{per_step_kernel[0]}")
         check(launches["ssd_scan"] == 0, "ssd_scan is not launched")
         rec = [e for e in tr.events if e["event"] == "recovery"]
         check(len(rec) == 1 and rec[0]["stats"]["unrecoverable"] == 0
@@ -3442,6 +3509,7 @@ def phase_train(torch, fa, attn, ssd) -> dict:
     loss_k, g_k = grad_leaves(torch, model, params, batch, None, fa.ops)
     launches_c = (fa.ops.flash_attention.launches,
                   fa.ops.flash_attention.bwd_launches)
+    bwd_kernels_c = dict(fa.ops.flash_attention.bwd_launches_by_kernel)
     loss_p, g_p = grad_leaves(torch, model, params, batch,
                               plain_attention(attn), fa.ops)
     rels = [max_rel(a, b) for a, b in zip(g_k, g_p)]
@@ -3462,9 +3530,10 @@ def phase_train(torch, fa, attn, ssd) -> dict:
           f"largest leaf {max(rels):.4g} of its max|grad| (losses "
           f"{loss_k:.6f} / {loss_p:.6f}); planted ({FAULT_BWD_CAUSAL}) "
           f"{bad:.4g}; launches (forward, backward) {launches_c}")
-    check(launches_c == (2 * TRAIN_F32_LAYERS, TRAIN_F32_LAYERS),
+    check(launches_c == (2 * TRAIN_F32_LAYERS, TRAIN_F32_LAYERS)
+          and bwd_kernels_c == {"mma": 0, "simt": TRAIN_F32_LAYERS},
           "the kernels' route: the forward twice and the backward once a "
-          "layer")
+          "layer, f32 on the CUDA-core backward")
     check(max(rels) <= TRAIN_GRAD_TOLERANCE, f"gradients through the "
           f"kernels vs the plain attention: {max(rels):.4g} (tol "
           f"{TRAIN_GRAD_TOLERANCE})")
@@ -3542,8 +3611,9 @@ def main(argv=None) -> int:
           "tensor cores and f32 on the CUDA cores, "
           "src/repro_torch/csrc/flash_attn.cu) replaces "
           "src/repro/kernels/flash_attn/kernel.py:82 flash_attention_pallas; "
-          "flash_attn_bwd (CUDA C++, CUDA cores, "
-          "src/repro_torch/csrc/flash_attn_bwd.cu) replaces XLA autodiff of "
+          "flash_attn_bwd (CUDA C++, bf16 on the tensor cores and f32 on "
+          "the CUDA cores, src/repro_torch/csrc/flash_attn_bwd.cu) replaces "
+          "XLA autodiff of "
           "src/repro/models/attention.py:123 _blockwise_attention; "
           "ssd_scan (CUDA C++, bf16 as three chunk-parallel passes on the "
           "tensor cores and f32 on the CUDA cores, "
@@ -3563,6 +3633,19 @@ def main(argv=None) -> int:
                     * (len(stl.kernel.register_ring_depths()) + 1))
     # head dim 160: the f32 and bf16 CUDA-core and the tensor-core kernels
     check_no_spills(fa.kernel.LIBRARY, "Li160E", 3)
+    # the backward's tensor-core kernels at every head dim: no spill but
+    # the few bytes ptxas gives the dK / dV kernel at D 32
+    for d in fa.kernel.HEAD_DIMS:
+        for kern in ("flash_attn_bwd_dkdv_mma_kernel",
+                     "flash_attn_bwd_dq_mma_kernel"):
+            check_no_spills(fa.kernel.BWD_LIBRARY, f"{kern}ILi{d}E", 1,
+                            BWD_MMA_SPILLS.get((kern, d), (0, 0)))
+    build["flash_attn_bwd_mma_spills"] = {
+        re.search(r"(flash_attn_bwd_\w+?_mma_kernelILi\d+E)", n).group(1): v
+        for n, v in ptxas_spills(ptxas_log(fa.kernel.BWD_LIBRARY)).items()
+        if "_mma_kernel" in n}
+    print(f"  flash_attn_bwd tensor-core kernels, (spill store, load) bytes: "
+          f"{build['flash_attn_bwd_mma_spills']}")
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
@@ -3723,16 +3806,27 @@ def main(argv=None) -> int:
         "replaces_what": "XLA autodiff of _blockwise_attention (no Pallas "
                          "kernel has a custom_vjp)",
         "launches": train["train"]["launches"]["backward"],
+        "launches_by_kernel": train["train"]["launches"]["backward_by_kernel"],
+        "kernel": bwd_main["kernel"],
+        "kernels": {"mma": "bf16: flash_attn_bwd_dkdv_mma_kernel + "
+                           "flash_attn_bwd_dq_mma_kernel, tensor cores "
+                           "(mma.sync m16n8k16)",
+                    "simt": "f32, and bf16 by name: flash_attn_bwd_dkdv_"
+                            "kernel + flash_attn_bwd_dq_kernel, CUDA cores"},
         "max_abs_err": max(r["max_abs_err"] for r in train["bwd"]),
         "ms": bwd_main["ms"], "plain_ms": bwd_main["plain_ms"],
+        "simt_ms": bwd_main["simt_ms"], "dq_ms": bwd_main["dq_ms"],
+        "dkdv_ms": bwd_main["dkdv_ms"],
         "bound_ms": bwd_main["bound_ms"], "bound_by": bwd_main["bound_by"],
         "library_ms": bwd_main["library_ms"],
         "library_is": "F.scaled_dot_product_attention forward + backward",
         "fwd_bwd_ms": bwd_main["fwd_bwd_ms"],
         "tolerance": BWD_TOLERANCE_TEXT,
-        "shapes": [{k: r[k] for k in ("shape", "dtype", "ms", "fwd_lse_ms",
-                                      "fwd_bwd_ms", "library_ms", "plain_ms",
-                                      "bound_ms", "bound_by")}
+        "shapes": [{k: r[k] for k in ("shape", "dtype", "kernel", "ms",
+                                      "simt_ms", "dq_ms", "dkdv_ms",
+                                      "fwd_lse_ms", "fwd_bwd_ms",
+                                      "library_ms", "plain_ms", "bound_ms",
+                                      "bound_by")}
                    for r in train["bwd"]],
     }
     kernels = [entry] + lc_entries + model_entries + [bwd_entry, st_entry]

@@ -11,8 +11,12 @@ forward kernels live in the first library, and the dtype picks one
 (``flash_attn_mma_launch``), f32 on the CUDA cores
 (``flash_attn_launch``), since TF32 products would miss the f32
 tolerance of 2e-5. Each also has an entry point that writes the rows'
-log-sum-exp (``*_lse_launch``), which the backward
-(``flash_attn_bwd_launch``: CUDA cores, f32 sums, both dtypes) reads.
+log-sum-exp (``*_lse_launch``), which the backward reads. The backward
+library has two kernel pairs too, picked the same way
+(:data:`BWD_KERNEL_FOR_DTYPE`): bf16 on the tensor cores
+(``flash_attn_bwd_mma_launch``), f32 on the CUDA cores with f32 sums
+(``flash_attn_bwd_launch``, which also takes bf16 when asked by name:
+the yardstick the tensor-core pair is timed against).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: The kernel of each dtype: "mma" on the tensor cores, "simt" on the
 #: CUDA cores.
 KERNEL_FOR_DTYPE = {torch.bfloat16: "mma", torch.float32: "simt"}
+#: The backward kernels of each dtype, named as the forward's.
+BWD_KERNEL_FOR_DTYPE = {torch.bfloat16: "mma", torch.float32: "simt"}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -69,6 +75,11 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p]
     lib.flash_attn_bwd_launch.restype = ctypes.c_int
+    lib.flash_attn_bwd_mma_launch.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_void_p]
+    lib.flash_attn_bwd_mma_launch.restype = ctypes.c_int
     lib.flash_attn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
 
@@ -118,6 +129,22 @@ def kernel_for(dtype: torch.dtype) -> str:
     return KERNEL_FOR_DTYPE[dtype]
 
 
+def bwd_kernel_for(dtype: torch.dtype) -> str:
+    """The backward kernels that run ``dtype``: the one place the choice
+    is made."""
+    if dtype not in BWD_KERNEL_FOR_DTYPE:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {dtype}")
+    return BWD_KERNEL_FOR_DTYPE[dtype]
+
+
+def _check_which(which: str, dtype: torch.dtype) -> None:
+    if which == "mma" and dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core kernel takes bfloat16, got "
+                        f"{dtype}")
+    if which not in ("mma", "simt"):
+        raise ValueError(f"no flash_attn kernel {which!r}")
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            causal: bool, which: str | None = None, with_lse: bool = False):
     """Attention on the current stream of the tensors' card; returns
@@ -129,11 +156,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     not synchronise."""
     check_inputs(q, k, v, causal)
     which = which or kernel_for(q.dtype)
-    if which == "mma" and q.dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core kernel takes bfloat16, got "
-                        f"{q.dtype}")
-    if which not in ("mma", "simt"):
-        raise ValueError(f"no flash_attn kernel {which!r}")
+    _check_which(which, q.dtype)
     lib = load()
     q, k, v = aligned16(q), aligned16(k), aligned16(v)
     b, sq, h, d = q.shape
@@ -166,14 +189,19 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
-               causal: bool, need_dq: bool = True, need_dkv: bool = True):
+               causal: bool, need_dq: bool = True, need_dkv: bool = True,
+               which: str | None = None):
     """The gradient of attention on the card: ``(dq, dk, dv)`` in the
     inputs' dtype, ``None`` for a part not asked for, from the forward's
     inputs, output and lse (:func:`launch` with ``with_lse``) and the
     output's gradient ``dout`` (made contiguous here: autograd may hand
-    over a strided one). Raises ``RuntimeError`` on a non-zero launch
+    over a strided one). ``which`` names the kernels ("mma" or "simt");
+    by default the dtype's (:func:`bwd_kernel_for`), the only choice the
+    autograd op makes. Raises ``RuntimeError`` on a non-zero launch
     status; does not synchronise."""
     check_inputs(q, k, v, causal)
+    which = which or bwd_kernel_for(q.dtype)
+    _check_which(which, q.dtype)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError(f"out {tuple(out.shape)} and dout "
                          f"{tuple(dout.shape)} must be q's {tuple(q.shape)}")
@@ -191,14 +219,19 @@ def launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dvec = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     ptr = (lambda t: 0 if t is None else t.data_ptr())
     with on_card(q.device) as stream:
-        status = lib.flash_attn_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
-            dvec.data_ptr(), b, sq, skv, h, kh, d, int(causal),
-            float(1.0 / np.sqrt(d)), DTYPES[q.dtype], stream)
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), dout.data_ptr(), ptr(dq), ptr(dk), ptr(dv),
+                dvec.data_ptr())
+        dims = (b, sq, skv, h, kh, d, int(causal), float(1.0 / np.sqrt(d)))
+        if which == "mma":
+            status = lib.flash_attn_bwd_mma_launch(*ptrs, *dims, stream)
+        else:
+            status = lib.flash_attn_bwd_launch(*ptrs, *dims,
+                                               DTYPES[q.dtype], stream)
     if status != 0:
         msg = lib.flash_attn_bwd_error_string(status).decode()
-        raise RuntimeError(f"flash_attn backward launch failed (q "
-                           f"{tuple(q.shape)}, k {tuple(k.shape)}, "
-                           f"{q.dtype}): CUDA error {status} ({msg})")
+        raise RuntimeError(f"flash_attn backward launch failed ({which} "
+                           f"kernels, q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}, {q.dtype}): CUDA error "
+                           f"{status} ({msg})")
     return dq, dk, dv

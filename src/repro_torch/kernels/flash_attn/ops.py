@@ -23,9 +23,10 @@ every serving path runs.
 ``flash_attention.launches`` counts forward launches and
 ``flash_attention.launches_by_kernel`` splits them by kernel ("mma",
 "simt"); ``flash_attention.bwd_launches`` counts backward launches and
-``flash_attention.bwd_launches_by_kernel`` splits them ("simt": the
-backward runs on the CUDA cores for both dtypes), so a run can show
-which kernels its attention went through.
+``flash_attention.bwd_launches_by_kernel`` splits them the same way
+(bf16 on the tensor cores, "mma"; f32 on the CUDA cores, "simt";
+``kernel.bwd_kernel_for``), so a run can show which kernels its
+attention went through.
 """
 
 from __future__ import annotations
@@ -33,9 +34,6 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attn import kernel
-
-#: The backward kernel: CUDA cores, f32 sums, for both dtypes.
-BWD_KERNEL = "simt"
 
 
 def _route(t: torch.Tensor) -> str:
@@ -68,11 +66,13 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         need_q, need_k, need_v = ctx.needs_input_grad[:3]
+        which = kernel.bwd_kernel_for(q.dtype)
         dq, dk, dv = kernel.launch_bwd(q, k, v, out, lse, dout, ctx.causal,
                                        need_dq=need_q,
-                                       need_dkv=need_k or need_v)
+                                       need_dkv=need_k or need_v,
+                                       which=which)
         flash_attention.bwd_launches += 1
-        flash_attention.bwd_launches_by_kernel[BWD_KERNEL] += 1
+        flash_attention.bwd_launches_by_kernel[which] += 1
         return (dq, dk if need_k else None, dv if need_v else None, None)
 
 
@@ -96,7 +96,7 @@ def reset_counts() -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_kernel = {"mma": 0, "simt": 0}
     flash_attention.bwd_launches = 0
-    flash_attention.bwd_launches_by_kernel = {BWD_KERNEL: 0}
+    flash_attention.bwd_launches_by_kernel = {"mma": 0, "simt": 0}
 
 
 #: Kernel launches since import or :func:`reset_counts` (CPU calls are

@@ -194,6 +194,10 @@ class FakeLibrary:
         self.calls.append(("bwd", args))
         return self.status
 
+    def flash_attn_bwd_mma_launch(self, *args):
+        self.calls.append(("bwd-mma", args))
+        return self.status
+
     def flash_attn_error_string(self, code):
         return b"fake failure"
 
@@ -269,7 +273,7 @@ def test_reset_counts():
     assert flash_attention.launches == 0
     assert flash_attention.launches_by_kernel == {"mma": 0, "simt": 0}
     assert flash_attention.bwd_launches == 0
-    assert flash_attention.bwd_launches_by_kernel == {"simt": 0}
+    assert flash_attention.bwd_launches_by_kernel == {"mma": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("which", ["q", "k", "v"])
@@ -345,28 +349,78 @@ def test_grad_route_launches_the_lse_entry(fake_library, dtype):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_backward_entry_arguments(fake_library, dtype, causal):
-    """The backward entry point gets q, k, v, the output, lse, a
-    contiguous dout (autograd may pass a strided one), dq / dk / dv and
-    the Dv scratch, the shapes, the mask flag, the f32 scale, the dtype
-    and the stream; dq / dk / dv come back in the inputs' shapes and
-    dtype."""
+    """Each dtype reaches its backward entry point: bf16 the tensor-core
+    one (no dtype argument), f32 the CUDA-core one. Each gets q, k, v,
+    the output, lse, a contiguous dout (autograd may pass a strided one),
+    dq / dk / dv and the Dv scratch, the shapes, the mask flag, the f32
+    scale, (f32: the dtype) and the stream; dq / dk / dv come back in the
+    inputs' shapes and dtype, and the backward counter of that kernel
+    moves by one."""
     dt = getattr(torch, dtype)
-    q = torch.randn(2, 40, 4, 32).to(dt).requires_grad_(True)
-    k = torch.randn(2, 56, 2, 32).to(dt).requires_grad_(True)
-    v = torch.randn(2, 56, 2, 32).to(dt).requires_grad_(True)
+    gen = torch.Generator().manual_seed(24)
+    q = torch.randn(2, 40, 4, 32, generator=gen).to(dt).requires_grad_(True)
+    k = torch.randn(2, 56, 2, 32, generator=gen).to(dt).requires_grad_(True)
+    v = torch.randn(2, 56, 2, 32, generator=gen).to(dt).requires_grad_(True)
     out = flash_attention(q, k, v, causal=causal)
-    strided = torch.randn(2, 4, 40, 32).to(dt).permute(0, 2, 1, 3)
+    strided = torch.randn(2, 4, 40, 32, generator=gen).to(dt).permute(
+        0, 2, 1, 3)
     assert not strided.is_contiguous()
+    by_kernel = dict(flash_attention.bwd_launches_by_kernel)
     out.backward(strided)
     (name, args) = fake_library.calls[-1]
-    assert name == "bwd"
+    which = kernel.bwd_kernel_for(dt)
+    assert which == ("mma" if dtype == "bfloat16" else "simt")
+    assert name == ("bwd-mma" if which == "mma" else "bwd")
     assert args[10:17] == (2, 40, 56, 4, 2, 32, int(causal))
     assert args[17] == pytest.approx(1.0 / np.sqrt(32), rel=1e-7)
-    assert args[18:] == (kernel.DTYPES[dt], 7)
+    assert args[18:] == ((7,) if which == "mma"
+                         else (kernel.DTYPES[dt], 7))
     assert args[5] != strided.data_ptr()          # a contiguous copy
     assert all(a != 0 for a in args[:10])
     for t in (q, k, v):
         assert t.grad.shape == t.shape and t.grad.dtype == dt
+    assert flash_attention.bwd_launches_by_kernel == {
+        n: c + (n == which) for n, c in by_kernel.items()}
+
+
+@pytest.mark.parametrize("which", ["mma", "simt"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_backward_kernel_by_name(fake_library, dtype, which):
+    """``launch_bwd(..., which=)``: "simt" on bf16 reaches the CUDA-core
+    entry point with the bf16 dtype code (the timing yardstick), "mma"
+    on f32 raises ``TypeError`` before any launch, and a name that is no
+    kernel raises ``ValueError``."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(24)
+    q = torch.randn(1, 40, 4, 32, generator=gen).to(dt)
+    k = torch.randn(1, 48, 2, 32, generator=gen).to(dt)
+    lse = torch.zeros(1, 4, 40)
+    if which == "mma" and dtype == "float32":
+        with pytest.raises(TypeError, match="bfloat16"):
+            kernel.launch_bwd(q, k, k, q, lse, q, True, which=which)
+        assert fake_library.calls == []
+        return
+    dq, dk, dv = kernel.launch_bwd(q, k, k, q, lse, q, True, which=which)
+    [(name, args)] = fake_library.calls
+    assert name == ("bwd-mma" if which == "mma" else "bwd")
+    assert args[10:17] == (1, 40, 48, 4, 2, 32, 1)
+    assert args[17] == pytest.approx(1.0 / np.sqrt(32), rel=1e-7)
+    assert args[18:] == ((7,) if which == "mma"
+                         else (kernel.DTYPES[dt], 7))
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, k.shape)
+    assert dq.dtype == dk.dtype == dv.dtype == dt
+    with pytest.raises(ValueError, match="no flash_attn kernel"):
+        kernel.launch_bwd(q, k, k, q, lse, q, True, which="wgmma")
+    assert len(fake_library.calls) == 1
+
+
+def test_backward_kernel_for_each_dtype():
+    """The one place the backward's kernel is chosen: bf16 on the tensor
+    cores, f32 on the CUDA cores, other dtypes refused."""
+    assert kernel.bwd_kernel_for(torch.bfloat16) == "mma"
+    assert kernel.bwd_kernel_for(torch.float32) == "simt"
+    with pytest.raises(TypeError):
+        kernel.bwd_kernel_for(torch.float16)
 
 
 def test_nonzero_backward_status_raises(fake_library):
@@ -392,17 +446,26 @@ def test_backward_checks_its_inputs(fake_library):
 
 @pytest.mark.parametrize("case", CUDA_CASES, ids=CUDA_IDS)
 def test_cuda_backward_matches_plain(case, cuda_device):
-    """On the card: the backward kernel's dq, dk, dv against the explicit
+    """On the card: the backward kernels' dq, dk, dv against the explicit
     plain version on the kernel's own lse and output (f32 at 1e-5, bf16
-    at 2e-2 of each gradient's max |value|)."""
+    at 2e-2 of each gradient's max |value|); in bf16 both the tensor-core
+    kernels (the dtype's) and the CUDA-core ones, and two launches of the
+    tensor-core ones are bit-identical."""
     from repro_torch.kernels.flash_attn.ref import attention_bwd_ref
     _, (q, k, v), causal, _ = _inputs(case, seed=15)
     q, k, v = (t.to(cuda_device) for t in (q, k, v))
-    do = torch.randn_like(q.float()).to(q.dtype)
+    gen = torch.Generator().manual_seed(16)
+    do = torch.randn(q.shape, generator=gen).to(cuda_device, q.dtype)
     out, lse = kernel.launch(q, k, v, causal, with_lse=True)
-    got = kernel.launch_bwd(q, k, v, out, lse, do, causal)
     want = attention_bwd_ref(q, k, v, out, lse, do, causal)
     tol = 2e-2 if q.dtype == torch.bfloat16 else 1e-5
-    for g, w in zip(got, want):
-        err = float((g.float() - w.float()).abs().max())
-        assert err <= tol * float(w.float().abs().max())
+    kinds = ["mma", "simt"] if q.dtype == torch.bfloat16 else ["simt"]
+    for which in kinds:
+        got = kernel.launch_bwd(q, k, v, out, lse, do, causal, which=which)
+        for g, w in zip(got, want):
+            err = float((g.float() - w.float()).abs().max())
+            assert err <= tol * float(w.float().abs().max())
+    if "mma" in kinds:
+        first = kernel.launch_bwd(q, k, v, out, lse, do, causal)
+        second = kernel.launch_bwd(q, k, v, out, lse, do, causal)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))

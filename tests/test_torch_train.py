@@ -305,7 +305,7 @@ def _fake_launch(q, k, v, causal, which=None, with_lse=False):
 
 
 def _fake_launch_bwd(q, k, v, out, lse, dout, causal, need_dq=True,
-                     need_dkv=True):
+                     need_dkv=True, which=None):
     dq, dk, dv = attention_bwd_ref(q, k, v, out, lse, dout.contiguous(),
                                    causal)
     return (dq if need_dq else None, dk if need_dkv else None,
@@ -330,7 +330,9 @@ def test_train_step_through_the_kernel_route(monkeypatch):
     n = tcfg.n_layers
     assert fa_ops.flash_attention.launches == 2 * n
     assert fa_ops.flash_attention.bwd_launches == n
-    assert fa_ops.flash_attention.bwd_launches_by_kernel == {"simt": n}
+    which = fa_kernel.bwd_kernel_for(getattr(torch, tcfg.dtype))
+    assert fa_ops.flash_attention.bwd_launches_by_kernel == {
+        "mma": n * (which == "mma"), "simt": n * (which == "simt")}
     assert loss == pytest.approx(want_loss, rel=1e-6)
     diffs = jax.tree.map(_rel, got, want)
     assert max(jax.tree.leaves(diffs)) <= 1e-5
