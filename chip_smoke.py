@@ -190,7 +190,33 @@ each hand-written CUDA kernel against its plain PyTorch version:
     ``ssd_scan``; step time, tokens/s, peak memory, model FLOP share, replicate, recovery and dump walls; and the
     gradients of ``loss_fn`` through the kernels against the plain
     attention on an f32 copy cut to 2 layers (the CUDA-core backward),
-    with the causal mask dropped in the backward as a planted fault.
+    with the causal mask dropped in the backward as a planted fault;
+21. the ssm, hybrid, MoE and enc-dec families trained: the ``ssd_scan``
+    backward kernels (``ssd_scan_bwd.cu``, CUDA cores, f32 sums, no
+    atomics) against their plain version (``ssd_bwd_ref``, from the
+    forward's priors) and the f32 autograd of ``ssd_chunked`` at
+    hymba-1.5b's training shape (b 4, l 4 096, h 50, p 64, n 16, bf16),
+    mamba2-2.7b's (b 2, h 80, n 128, bf16; f32 at b 1) and mamba2's heads
+    over a ragged l 4 000 with an initial state and the final state's
+    gradient (both dtypes); two launches bit-identical; planted faults (dB
+    not summed over the heads, the chunk decay dropped from the reverse
+    walk, the padded tail's seg_last gradient dropped) above the limits;
+    each shape's time beside its bound, the forward's with and without
+    its priors, the plain version's and the plain autograd's; then
+    hymba-1.5b (32 layers, node 2 failing at step 2, recovered ``==``)
+    and mamba2-2.7b (64 layers, batch 2, one log slot) at 4 096 positions,
+    moonshot-v1-16b-a3b at full width cut to 2 layers (batch 2 x 2 048)
+    and whisper-medium whole (batch 8, 1 500 frames, 224 tokens) trained
+    through ``Trainer`` (bf16, AdamW with an f32 master copy, remat full,
+    the data 4 x model 2 mesh, no MN dump), each step's ``flash_attn``
+    and ``ssd_scan`` launches counted (hymba 64 / 32 of each, mamba2 128
+    / 64 ``ssd_scan``, moonshot 4 / 2, whisper 144 / 72 ``flash_attn``),
+    step time, tokens/s, peak memory and (hymba, mamba2) model FLOP share;
+    and the gradients of hymba's and mamba2's ``loss_fn`` on f32 copies cut
+    to 2 layers through the kernels against the plain versions, each leaf
+    in the norm (the elementwise reading and a reference with the SSD
+    backward in f64 printed beside), with dB not summed over the heads
+    planted in the backward.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -3562,6 +3588,640 @@ def phase_train(torch, fa, attn, ssd) -> dict:
     return out
 
 
+#: phase 21: the ssm, hybrid, MoE and enc-dec families trained. The SSD
+#: backward's shapes, (name, b, l, h, p, n, chunk, dtype, with an initial
+#: state and the final state's gradient): hymba-1.5b's and mamba2-2.7b's
+#: training shapes (bf16), mamba2's in f32 at batch 1, and mamba2's heads
+#: over l = 4 000 (a ragged last chunk) with an initial state, both dtypes
+SSD_BWD_CASES = [
+    ("hymba-1.5b train", 4, 4096, 50, 64, 16, 256, "bfloat16", False),
+    ("mamba2-2.7b train", 2, 4096, 80, 64, 128, 256, "bfloat16", False),
+    ("mamba2-2.7b f32", 1, 4096, 80, 64, 128, 256, "float32", False),
+    ("mamba2-2.7b ragged, init_state", 1, 4000, 80, 64, 128, 256,
+     "bfloat16", True),
+    ("mamba2-2.7b ragged, init_state, f32", 1, 4000, 80, 64, 128, 256,
+     "float32", True),
+]
+#: each gradient held to its own max|value|: bf16 at the forward's bf16
+#: limit (the plain version rounds att, x w, Cd and the prior where the
+#: kernel does, and the f32 oracle does not round), f32 at 1e-4
+SSD_BWD_TOLERANCE = {"float32": 1e-4, "bfloat16": 3e-2}
+SSD_BWD_TOLERANCE_TEXT = ("dx, ddt, dA, dB, dC (and dinit) each within 3e-2 "
+                          "(bf16) / 1e-4 (f32) of its own max|value|, "
+                          "against ssd_bwd_ref on the same inputs and the "
+                          "kernel's own priors, and against torch autograd "
+                          "of ssd_chunked on the inputs widened to f32")
+FAULT_SSD_DB = "ssd backward: dB of the first head, not summed over the heads"
+FAULT_SSD_WALK = "ssd backward: the chunk decay dropped from the reverse walk"
+FAULT_SSD_TAIL = "ssd backward: the padded tail chunk's seg_last gradient "\
+                 "dropped"
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+#: the training runs, (arch, layers (None: the published depth), batch,
+#: positions, steps, (step, node) of a fail-stop or None, log slots, log
+#: dtype): hymba-1.5b and mamba2-2.7b whole at train_4k's 4 096 positions,
+#: moonshot-v1-16b-a3b at full width cut to 2 layers, whisper-medium whole
+#: at phase 18's batch, frames and prompt length. hymba's logs are f32:
+#: its A_log, D and dt_bias are f32 leaves, which bf16 logs would round,
+#: and the recovered shard is held ``==`` the lost one. One log slot
+#: where two would not leave room for the activations (mamba2's 2.8e9
+#: parameters: 45 GB of state)
+FAMILY_TRAIN = [
+    ("hymba-1.5b", None, 4, 4096, 4, (2, 2), 1, "float32"),
+    ("mamba2-2.7b", None, 2, 4096, 4, None, 1, "bfloat16"),
+    ("moonshot-v1-16b-a3b", 2, 2, 2048, 3, None, 1, "bfloat16"),
+    ("whisper-medium", None, WHISPER_BATCH, WHISPER_PROMPT, 3, None, 2,
+     "bfloat16"),
+]
+FAMILY_F32_LAYERS = 2
+FAMILY_F32_SEQ = 4096
+#: the first step's loss (bf16, through the kernels) against the loss of
+#: the same weights and batch through the plain versions: a random init
+#: sets the loss's distance from ln vocab (hymba-1.5b's starts ~0.9 above
+#: it), the kernels set this one. Not gated for the MoE family, whose
+#: routing flips between two sound runs (ROADMAP C) move the loss by
+#: more than rounding
+FAMILY_LOSS_TOLERANCE = 1e-2
+#: the f32 2-layer gradients of hymba and mamba2 are held leaf by leaf in
+#: the norm, ||g_kernels - g_plain|| / ||g_plain|| <= TRAIN_GRAD_TOLERANCE:
+#: the elementwise measure phase 20 uses (max|diff| / max|g|) sits at the
+#: f32 floor on these leaves (a bias's gradient is a sum of cancelling
+#: terms over 4 096 positions, and exp(seg_q - seg_k) carries seg's f32
+#: rounding at |seg| in the thousands): the plain versions' own distance
+#: from a reference with the SSD backward in f64 is of the same size, and
+#: the phase prints all three readings
+
+
+def ssd_bwd_bound_ms(torch, x, B, chunk: int, priors) -> tuple:
+    """x, dy, B, C, dt and the priors read once, dx, dB, dC and ddt written
+    once, against the products the gradient needs: per head and chunk
+    2 p + 2 n MACs per allowed (row, key) pair (dP, dx, dC, dB) and 4 p n
+    per position (the walk's term, dCd, dwx, the state's dB), with G = C
+    B^T once per (b, chunk) for all heads; the tail chunk counts its
+    real positions only."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    es = x.element_size()
+    nbytes = ((3 * x.numel() + 4 * B.numel()) * es + 2 * b * l * h * 4
+              + priors.numel() * priors.element_size())
+    chunk = min(chunk, l)
+    sizes = [chunk] * (l // chunk) + ([l % chunk] if l % chunk else [])
+    pairs = sum(q * (q + 1) // 2 for q in sizes)
+    macs = b * (h * (pairs * (2 * p + 2 * n) + 4 * l * p * n) + pairs * n)
+    return bound(nbytes, 2.0 * macs, rate_for(torch, x.dtype))
+
+
+def check_ssd_bwd_case(torch, ssd, ssm_mod, randn, case) -> dict:
+    """One shape and dtype of the SSD backward against its plain version
+    (one request at a time) and the f32 autograd oracle; two launches;
+    the planted faults; its time beside its bound, the forward's with and
+    without the priors, the plain version's and the plain autograd's."""
+    name, b, l, h, p, n, chunk, dtype, with_init = case
+    kernel, ref = ssd.kernel, ssd.ref
+    T = getattr(torch, dtype)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+    x = randn(b, l, h, p, dtype=dtype) * 0.5
+    dt = torch.rand(b, l, h, generator=gen, device=DEVICE) * 0.1 + 0.001
+    A = -torch.arange(1, h + 1, dtype=torch.float32, device=DEVICE)
+    B, C = ((randn(b, l, n, dtype=dtype) * 0.3).to(T) for _ in range(2))
+    dy = randn(b, l, h, p, dtype=dtype)
+    init = ds = None
+    if with_init:
+        init = randn(b, h, p, n, dtype="float32") * 0.1
+        ds = randn(b, h, p, n, dtype="float32")
+    x = x.to(T)
+    y, s, pr = kernel.launch(x, dt, A, B, C, chunk, init, with_priors=True)
+    dinit_dtype = torch.float32 if with_init else None
+
+    def bwd(*args):
+        return kernel.launch_bwd(*args, dinit_dtype=dinit_dtype)
+
+    got = bwd(x, dt, A, B, C, chunk, pr, dy, ds)
+    again = bwd(x, dt, A, B, C, chunk, pr, dy, ds)
+    torch.cuda.synchronize()
+    same = all(a is None or torch.equal(a, c) for a, c in zip(got, again))
+    del again
+
+    def rows(fn):
+        """``fn`` over one request at a time; dA summed over them."""
+        outs = [fn(i) for i in range(b)]
+        return [None if outs[0][j] is None else
+                (sum(o[j] for o in outs) if j == 2
+                 else torch.cat([o[j] for o in outs])) for j in range(6)]
+
+    def sl(i, t):
+        return None if t is None else t[i:i + 1]
+
+    want = rows(lambda i: ref.ssd_bwd_ref(
+        sl(i, x), sl(i, dt), A, sl(i, B), sl(i, C), chunk, sl(i, dy),
+        sl(i, ds), sl(i, init), sl(i, pr)))
+
+    def oracle(i):
+        leaves = [t.detach().float().clone().requires_grad_(True)
+                  for t in (sl(i, x), sl(i, dt), A, sl(i, B), sl(i, C))]
+        s0 = None if init is None else sl(i, init).clone().requires_grad_()
+        yy, ss = ssm_mod.ssd_chunked(*leaves, chunk, s0)
+        loss = (yy * sl(i, dy).float()).sum()
+        if ds is not None:
+            loss = loss + (ss * sl(i, ds)).sum()
+        grads = torch.autograd.grad(loss, leaves + ([s0] if with_init
+                                                    else []))
+        return list(grads) + ([] if with_init else [None])
+
+    auto = rows(oracle)
+    r = {"shape": case[:8], "with_init": with_init, "deterministic": same,
+         "vs_plain": {k: max_rel(g.float(), w.float())
+                      for k, g, w in zip(SSD_GRADS, got, want)
+                      if g is not None},
+         "vs_f32_oracle": {k: max_rel(g.float(), w.float())
+                           for k, g, w in zip(SSD_GRADS, got, auto)
+                           if g is not None},
+         "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                            for g, w in zip(got, want) if g is not None)}
+    del auto
+    tol = SSD_BWD_TOLERANCE[dtype]
+
+    def grads_rel_ssd(bad):
+        return max(max_rel(g.float(), w.float())
+                   for g, w in zip(bad, want) if g is not None)
+
+    faults = {}
+    # dB of head 0 alone, as if the per-head partials were not summed
+    part = kernel.launch_bwd(x[:, :, :1], dt[..., :1], A[:1], B, C, chunk,
+                             pr[:, :1], dy[:, :, :1],
+                             None if ds is None else ds[:, :1])
+    faults[FAULT_SSD_DB] = max_rel(part[3].float(), want[3].float())
+    del part
+    real_walk, real_seg = ref.reverse_walk, ref.seg_to_ddA
+    try:
+        ref.reverse_walk = (lambda decay, U, dstate: real_walk(
+            torch.ones_like(decay), U, dstate))
+        faults[FAULT_SSD_WALK] = grads_rel_ssd(rows(lambda i: ref.ssd_bwd_ref(
+            sl(i, x), sl(i, dt), A, sl(i, B), sl(i, C), chunk, sl(i, dy),
+            sl(i, ds), sl(i, init), sl(i, pr))))
+        ref.reverse_walk = real_walk
+        if l % chunk and ds is not None:
+            # without the final state's gradient the last chunk's seg_last
+            # gradient is 0, and so is this fault
+            def no_tail(dseg, dlast):
+                dlast = dlast.clone()
+                dlast[:, -1] = 0.0
+                return real_seg(dseg, dlast)
+            ref.seg_to_ddA = no_tail
+            faults[FAULT_SSD_TAIL] = grads_rel_ssd(rows(
+                lambda i: ref.ssd_bwd_ref(
+                    sl(i, x), sl(i, dt), A, sl(i, B), sl(i, C), chunk,
+                    sl(i, dy), sl(i, ds), sl(i, init), sl(i, pr))))
+    finally:
+        ref.reverse_walk, ref.seg_to_ddA = real_walk, real_seg
+    r["planted"] = faults
+    what = (f"ssd_scan backward at {name} (b {b}, l {l}, h {h}, p {p}, "
+            f"n {n}, chunk {chunk}, {dtype}"
+            + (", init_state and dstate" if with_init else "") + ")")
+    print(f"  {what}: vs plain {json.dumps(r['vs_plain'])}, vs the f32 "
+          f"autograd oracle {json.dumps(r['vs_f32_oracle'])}; planted "
+          f"{json.dumps(faults)}")
+    for key in ("vs_plain", "vs_f32_oracle"):
+        worst = max(r[key].values())
+        check(worst <= tol, f"{what}: kernel {key.replace('_', ' ')}, "
+              f"largest {worst:.4g} of max|grad| (tol {tol})")
+    for fault, rel in faults.items():
+        check(rel > tol, f"{what}: planted fault ({fault}) reads {rel:.4g}, "
+              f"above the limit {tol}")
+    check(same, f"{what}: two launches give bit-identical gradients")
+    # times: the backward, the forward with and without the priors, in
+    # turns; the plain version and the plain autograd once
+    runs = {"ms": lambda: bwd(x, dt, A, B, C, chunk, pr, dy, ds),
+            "fwd_priors_ms": lambda: kernel.launch(x, dt, A, B, C, chunk,
+                                                   init, with_priors=True),
+            "fwd_ms": lambda: kernel.launch(x, dt, A, B, C, chunk, init)}
+    times = {key: [] for key in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for key in order:
+            times[key].append(cuda_ms(runs[key], 5))
+    r.update({key: sum(ts) / len(ts) for key, ts in times.items()})
+    r["turns"] = times
+    r["plain_ms"] = cuda_ms(lambda: rows(lambda i: ref.ssd_bwd_ref(
+        sl(i, x), sl(i, dt), A, sl(i, B), sl(i, C), chunk, sl(i, dy),
+        sl(i, ds), sl(i, init), sl(i, pr))), 1)
+    r["autograd_ms"] = cuda_ms(lambda: rows(oracle), 1)
+    r["bound_ms"], r["bound_by"] = ssd_bwd_bound_ms(torch, x, B, chunk, pr)
+    print(f"  {what}: backward {r['ms']:.4f} ms, forward with priors "
+          f"{r['fwd_priors_ms']:.4f} ms, without {r['fwd_ms']:.4f} ms (in "
+          f"turns: {json.dumps(times)}); plain backward {r['plain_ms']:.2f} "
+          f"ms, plain autograd forward + backward (f32) "
+          f"{r['autograd_ms']:.2f} ms; bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']})")
+    return r
+
+
+def family_model_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOP of one training step of a decoder (no recompute): 6 N T
+    for the weights' products, attention's 12 D per causal pair per head
+    and layer, and the SSD scan's 2 x 3 x (pairs (n + p) + 2 Q p n) per
+    head and chunk a layer (forward, and twice that backward)."""
+    flops = 6.0 * cfg.param_count() * batch * seq
+    pairs = seq * (seq + 1) / 2
+    if cfg.family != "ssm":
+        flops += 12.0 * cfg.resolved_head_dim * pairs * cfg.n_heads \
+            * cfg.n_layers * batch
+    if cfg.family in ("ssm", "hybrid"):
+        q = cfg.ssm_chunk
+        nc = -(-seq // q)
+        p, n = cfg.ssm_head_dim, cfg.ssm_state
+        per_chunk = q * (q + 1) / 2 * (n + p) + 2 * q * p * n
+        flops += 6.0 * per_chunk * nc * cfg.ssm_n_heads * cfg.n_layers * batch
+    return flops
+
+
+def published_check(cfg, arch: str) -> None:
+    """The published config's widths (and depth where not cut)."""
+    want = {"hymba-1.5b": dict(n_layers=32, d_model=1600, n_heads=25,
+                               ssm_n_heads=50, ssm_state=16,
+                               vocab_size=32001),
+            "mamba2-2.7b": dict(n_layers=64, d_model=2560, ssm_n_heads=80,
+                                ssm_state=128, vocab_size=50280),
+            "moonshot-v1-16b-a3b": dict(n_layers=48, d_model=2048,
+                                        n_experts=64, vocab_size=163840),
+            "whisper-medium": dict(n_layers=24, encoder_layers=24,
+                                   d_model=1024, n_heads=16,
+                                   vocab_size=51865)}[arch]
+    got = {k: getattr(cfg, k) for k in want}
+    check(got == want, f"{arch}: the published config {want}, got {got} "
+          f"({cfg.param_count()} parameters)")
+
+
+def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
+                 batch: int, seq: int, steps: int, fail, log_capacity: int,
+                 log_dtype: str) -> dict:
+    """``arch`` trained ``steps`` steps through ``Trainer`` on the card:
+    bf16, AdamW with an f32 master copy, ``remat="full"``, a logical data
+    4 x model 2 mesh (proactive, N_r 2, 4 buckets), no MN dump; a node's
+    fail-stop at ``fail`` recovered from the replica logs, the installed
+    shard ``==`` the node's parameters. Per step: every loss finite, the
+    kernels' launches counted; the first loss against the plain
+    versions' on the same weights and batch."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import config
+    from repro_torch.core.failures import FailureEvent, FailureInjector
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed.context import make_context
+    from repro_torch.optim.optimizers import tree_leaves, tree_rebuild
+    from repro_torch.training import trainer as trainer_mod
+    published = config.get_model_config(arch)
+    published_check(published, arch)
+    cfg = (published if layers is None
+           else dataclasses.replace(published, n_layers=layers))
+    n_params = cfg.param_count()
+    # the reckoning before the run: bf16 params and grads, f32 master, m, v
+    # (16 B a parameter), the bf16 logs (2 B x N_r x slots a parameter) and
+    # the f32 logits with their gradient
+    state_b = 16 * n_params
+    ring_b = (2 if log_dtype == "bfloat16" else 4) * 2 * log_capacity \
+        * n_params
+    logits_b = 2 * 4 * batch * seq * cfg.vocab_size
+    print(f"  {arch}{'' if layers is None else f' cut to {layers} layers'}: "
+          f"{n_params} parameters; reckoned {state_b / 1e9:.1f} GB of "
+          f"parameters, gradients and AdamW state, {ring_b / 1e9:.1f} GB of "
+          f"replica logs ({log_capacity} slot(s), {log_dtype}), "
+          f"{logits_b / 1e9:.2f} GB of logits and their "
+          f"gradient at batch {batch} x {seq}; "
+          f"{torch.cuda.mem_get_info()[0]} bytes free on the card")
+    run = config.RunConfig(
+        model=cfg,
+        shape=config.ShapeConfig(f"train, batch {batch}", seq, batch,
+                                 "train"),
+        mesh=config.MeshConfig((4, 2), ("data", "model")),
+        replication=config.ReplicationConfig(
+            variant="proactive", n_replicas=2, n_buckets=4,
+            log_capacity=log_capacity, dump_interval=steps + 1,
+            log_dtype=log_dtype),
+        train=config.TrainConfig(total_steps=steps, warmup_steps=2,
+                                 remat="full"))
+    ctx = make_context(run.mesh.shape, run.mesh.axes, device=DEVICE)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train21_")
+    real_install = elastic.install_recovered_shard
+    installs = []
+
+    def holed_install(state, specs, engine, result, target_coord):
+        """As phase 20's: the failed node's blocks NaN before the install,
+        so the shard comes from the replica logs alone."""
+        node = target_coord[-1]
+        from repro_torch.core.replication import tree_flatten
+        holed = [t.detach().clone() for t in tree_leaves(state)]
+        for t, spec in zip(holed, tree_flatten(specs)[0]):
+            for m in range(ctx.model_size):
+                t[elastic._block_slices(tuple(t.shape), spec, ctx,
+                                        {"data": node, "model": m})] = \
+                    float("nan")
+        new = real_install(tree_rebuild(state, holed), specs, engine,
+                           result, target_coord)
+        installs.append(all(torch.equal(a, c.detach()) for a, c in
+                            zip(tree_leaves(new), tree_leaves(state))))
+        return new
+
+    fops, sops = fa.ops.flash_attention, ssd.ops.ssd_scan
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = trainer_mod.Trainer(
+            run, ctx, workdir, injector=FailureInjector(
+                [FailureEvent(step=fail[0], node=fail[1])] if fail else []))
+        setup_s = time.perf_counter() - t0
+        # the first batch's loss through the plain versions, before a step
+        first = tr._to_device(SyntheticTokenPipeline(
+            cfg, run.shape, seed=run.train.seed).next())
+        saved = (fa.ops.flash_attention, ssd.ops.ssd_scan)
+        fa.ops.flash_attention = plain_attention(attn)
+        ssd.ops.ssd_scan = plain_ssd(ssm_mod)
+        try:
+            with torch.no_grad():
+                loss_plain = float(tr.model.loss_fn(tr.state.params,
+                                                    first)[0])
+        finally:
+            fa.ops.flash_attention, ssd.ops.ssd_scan = saved
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        trainer_mod.install_recovered_shard = holed_install
+        fa.ops.reset_counts()
+        ssd.ops.reset_counts()
+        steps_out, per_step = [], []
+        for _ in range(steps):
+            c0 = (fops.launches, fops.bwd_launches,
+                  dict(fops.bwd_launches_by_kernel), sops.launches,
+                  sops.bwd_launches)
+            steps_out += tr.train(1)
+            per_step.append({
+                "flash_attn": (fops.launches - c0[0],
+                               fops.bwd_launches - c0[1]),
+                "flash_attn_bwd_by_kernel": {
+                    k: v - c0[2][k]
+                    for k, v in fops.bwd_launches_by_kernel.items()},
+                "ssd_scan": (sops.launches - c0[3],
+                             sops.bwd_launches - c0[4])})
+        peak = torch.cuda.max_memory_allocated()
+        trainer_mod.install_recovered_shard = real_install
+        losses = [s_["loss"] for s_ in steps_out]
+        walls = [s_["wall_s"] for s_ in steps_out]
+        rec = [e for e in tr.events if e["event"] == "recovery"]
+        dumps = [e for e in tr.events if e["event"] == "mn_dump"]
+        out = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
+               "seq": seq, "params": n_params, "losses": losses,
+               "first_loss_plain": loss_plain,
+               "step_walls_s": walls, "per_step": per_step,
+               "peak_bytes": peak, "setup_s": setup_s,
+               "log_ring_bytes": sum(t.numel() * t.element_size()
+                                     for t in tr.state.logs.values()),
+               "launches": {
+                   "flash_attn": fops.launches,
+                   "flash_attn_bwd": fops.bwd_launches,
+                   "flash_attn_bwd_by_kernel":
+                       dict(fops.bwd_launches_by_kernel),
+                   "ssd_scan": sops.launches,
+                   "ssd_scan_by_kernel": dict(sops.launches_by_kernel),
+                   "ssd_scan_bwd": sops.bwd_launches,
+                   "ssd_scan_bwd_by_kernel":
+                       dict(sops.bwd_launches_by_kernel)}}
+        med = float(np.median(walls[1:]))
+        out["step_ms_median"] = med * 1e3
+        out["tokens_per_s"] = batch * seq / med
+        if cfg.family in ("ssm", "hybrid"):
+            flops = family_model_flops(cfg, batch, seq)
+            out["model_flop_per_step"] = flops
+            out["model_flop_share_of_989"] = flops / med / \
+                H100_BF16_OPS_PER_S
+        if rec:
+            out["recovery_wall_s"] = rec[0]["wall_s"]
+            out["recovery_stats"] = rec[0]["stats"]
+        del tr
+    finally:
+        trainer_mod.install_recovered_shard = real_install
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  {arch}: losses {losses} (the first through the plain versions "
+          f"{loss_plain:.6f}; ln vocab {np.log(cfg.vocab_size):.4f}); step "
+          f"walls (s) {walls}; launches "
+          f"per step {per_step[0]}; step {out['step_ms_median']:.1f} ms "
+          f"(median of steps 2-{steps}), {out['tokens_per_s']:.0f} "
+          f"tokens/s, peak {peak} bytes"
+          + (f", {out['model_flop_per_step']:.4g} model FLOP a step, "
+             f"{100 * out['model_flop_share_of_989']:.2f}% of 989 TFLOP/s"
+             if "model_flop_per_step" in out else "")
+          + (f"; recovery {out['recovery_wall_s']:.3f} s" if rec else ""))
+    check(all(np.isfinite(losses)), f"{arch}: every loss is finite")
+    if not cfg.is_moe:
+        check(abs(losses[0] - loss_plain) <= FAMILY_LOSS_TOLERANCE,
+              f"{arch}: the first loss {losses[0]:.6f} is within "
+              f"{FAMILY_LOSS_TOLERANCE} of the plain versions' "
+              f"{loss_plain:.6f}")
+    n_attn = 0 if cfg.family == "ssm" else (
+        3 * cfg.n_layers if cfg.is_encdec else cfg.n_layers)
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    want = {"flash_attn": (2 * n_attn, n_attn),
+            "flash_attn_bwd_by_kernel": {"mma": n_attn, "simt": 0},
+            "ssd_scan": (2 * n_ssd, n_ssd)}
+    check(all(p_ == want for p_ in per_step),
+          f"{arch}: every step launches flash_attn {2 * n_attn} times "
+          f"forward (with remat's recompute) and {n_attn} backward, all on "
+          f"the tensor-core backward, and ssd_scan {2 * n_ssd} forward and "
+          f"{n_ssd} backward: {per_step}")
+    check(not dumps, f"{arch}: no MN dump inside the run")
+    if fail:
+        check(len(rec) == 1 and rec[0]["stats"]["unrecoverable"] == 0
+              and rec[0]["stats"]["recovered_from_replicas"] > 0,
+              f"{arch}: node {fail[1]} failed at step {fail[0]} and was "
+              f"recovered from the replicas: {rec and rec[0]['stats']}")
+        check(installs == [True], f"{arch}: the shard installed on the "
+              f"spare, made from the replica logs with the node's blocks "
+              f"lost, is == the parameters the node held")
+    return out
+
+
+def f64_backward_ssd(torch, ssd, ssm_mod):
+    """The SSD scan as the plain version forward (f32) with its gradient
+    from ``ssd_bwd_ref`` in f64: a reference for the f32 gradients."""
+    class F64Backward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, dt, A, B, C, chunk, init):
+            ctx.save_for_backward(x, dt, A, B, C)
+            ctx.chunk = chunk
+            return ssm_mod.ssd_chunked(x, dt, A, B, C, chunk, init)
+
+        @staticmethod
+        def backward(ctx, dy, ds):
+            x, dt, A, B, C = ctx.saved_tensors
+            g = ssd.ref.ssd_bwd_ref(
+                *(t.double() for t in (x, dt, A, B, C)), ctx.chunk,
+                dy.double(), None if ds is None else ds.double())
+            return tuple(t.float() for t in g[:5]) + (None, None)
+
+    return (lambda x, dt, A, B, C, chunk=256, init_state=None:
+            F64Backward.apply(x, dt, A, B, C, chunk, init_state))
+
+
+def norm_rel(got, want) -> float:
+    return float((got - want).norm() / want.norm())
+
+
+def family_grads(torch, fa, attn, ssd, ssm_mod, arch: str) -> dict:
+    """The gradients of ``loss_fn`` of an f32 copy of ``arch`` cut to 2
+    layers, through the kernels (the CUDA-core backwards) against through
+    the plain versions (``_blockwise_attention``, ``ssd_chunked``), each
+    leaf in the norm; both against a reference whose SSD backward runs
+    in f64; and with dB of the first head alone planted in the SSD
+    backward."""
+    from repro_torch import config
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = dataclasses.replace(config.get_model_config(arch),
+                              n_layers=FAMILY_F32_LAYERS, dtype="float32")
+    model = build_model(cfg)
+    params = model.init(SEED, device=DEVICE)
+    for p_ in tree_leaves(params):
+        p_.requires_grad_(True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    tok = torch.randint(0, cfg.vocab_size, (1, FAMILY_F32_SEQ),
+                        generator=gen, device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+
+    def grads(swaps):
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        try:
+            for p_ in tree_leaves(params):
+                p_.grad = None
+            loss, _ = model.loss_fn(params, batch)
+            loss.backward()
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        out = [p_.grad.detach().clone() for p_ in tree_leaves(params)]
+        for p_ in tree_leaves(params):
+            p_.grad = None
+        return float(loss.detach()), out
+
+    fa.ops.reset_counts()
+    ssd.ops.reset_counts()
+    loss_k, g_k = grads([])
+    launches = {"flash_attn": (fa.ops.flash_attention.launches,
+                               fa.ops.flash_attention.bwd_launches),
+                "flash_attn_bwd_by_kernel":
+                    dict(fa.ops.flash_attention.bwd_launches_by_kernel),
+                "ssd_scan": (ssd.ops.ssd_scan.launches,
+                             ssd.ops.ssd_scan.bwd_launches),
+                "ssd_scan_by_kernel": dict(ssd.ops.ssd_scan.launches_by_kernel)}
+    loss_p, g_p = grads([(fa.ops, "flash_attention", plain_attention(attn)),
+                         (ssd.ops, "ssd_scan", plain_ssd(ssm_mod))])
+    rels = [norm_rel(a, b) for a, b in zip(g_k, g_p)]
+    _, g_64 = grads([(fa.ops, "flash_attention", plain_attention(attn)),
+                     (ssd.ops, "ssd_scan", f64_backward_ssd(torch, ssd,
+                                                            ssm_mod))])
+    readings = {
+        "kernels_vs_plain_max_rel": max(max_rel(a, b)
+                                        for a, b in zip(g_k, g_p)),
+        "kernels_vs_f64_norm": max(norm_rel(a, b) for a, b in zip(g_k, g_64)),
+        "plain_vs_f64_norm": max(norm_rel(a, b) for a, b in zip(g_p, g_64)),
+        "kernels_vs_f64_max_rel": max(max_rel(a, b)
+                                      for a, b in zip(g_k, g_64)),
+        "plain_vs_f64_max_rel": max(max_rel(a, b)
+                                    for a, b in zip(g_p, g_64))}
+    del g_64
+    real_bwd = ssd.kernel.launch_bwd
+
+    def db_first_head(x, dt, A, B, C, chunk, priors, dy, dstate=None,
+                      **kw):
+        out = list(real_bwd(x, dt, A, B, C, chunk, priors, dy, dstate, **kw))
+        out[3] = real_bwd(x[:, :, :1], dt[..., :1], A[:1], B, C, chunk,
+                          priors[:, :1], dy[:, :, :1],
+                          None if dstate is None else dstate[:, :1])[3]
+        return tuple(out)
+
+    _, g_bad = grads([(ssd.kernel, "launch_bwd", db_first_head)])
+    bad = max(norm_rel(a, b) for a, b in zip(g_bad, g_p))
+    n_attn = 0 if cfg.family == "ssm" else FAMILY_F32_LAYERS
+    out = {"arch": arch, "layers": FAMILY_F32_LAYERS, "seq": FAMILY_F32_SEQ,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "norm_rel": max(rels), "readings": readings,
+           "planted": {FAULT_SSD_DB: bad}, "launches": launches}
+    print(f"  gradients of loss_fn, {arch} f32 at {FAMILY_F32_LAYERS} "
+          f"layers, batch 1 x {FAMILY_F32_SEQ}: kernels vs plain versions, "
+          f"largest leaf {max(rels):.4g} in the norm (losses {loss_k:.6f} / "
+          f"{loss_p:.6f}); elementwise and against the f64-backward "
+          f"reference {json.dumps(readings)}; planted ({FAULT_SSD_DB}) "
+          f"{bad:.4g}; launches {launches}")
+    check(launches["ssd_scan"] == (2 * FAMILY_F32_LAYERS, FAMILY_F32_LAYERS)
+          and launches["ssd_scan_by_kernel"] == {
+              "mma": 0, "simt": 2 * FAMILY_F32_LAYERS}
+          and launches["flash_attn"] == (2 * n_attn, n_attn)
+          and launches["flash_attn_bwd_by_kernel"] == {"mma": 0,
+                                                      "simt": n_attn},
+          f"{arch}: the kernels' route, f32 on the CUDA cores: each forward "
+          f"twice and each backward once a layer")
+    check(max(rels) <= TRAIN_GRAD_TOLERANCE, f"{arch}: gradients through "
+          f"the kernels vs the plain versions, each leaf in the norm: "
+          f"{max(rels):.4g} (tol {TRAIN_GRAD_TOLERANCE})")
+    check(bad > TRAIN_GRAD_TOLERANCE, f"{arch}: planted fault "
+          f"({FAULT_SSD_DB}) reads {bad:.4g}, above the limit "
+          f"{TRAIN_GRAD_TOLERANCE}")
+    del params, g_k, g_p, g_bad, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_families(torch, fa, attn, ssd, ssm_mod) -> dict:
+    """Phase 21: the ssd_scan backward kernel against its plain version
+    at five shapes; hymba-1.5b (a node failure recovered) and mamba2-2.7b
+    trained whole, moonshot-v1-16b-a3b cut in depth and whisper-medium
+    whole, through ``Trainer``; gradients of hymba and mamba2 through the
+    kernels against the plain versions on f32 copies."""
+    print("phase 21: the ssm, hybrid, MoE and enc-dec families trained -- "
+          "the ssd_scan backward kernel against its plain version; "
+          "hymba-1.5b and mamba2-2.7b whole, moonshot-v1-16b-a3b cut in "
+          "depth, whisper-medium whole through Trainer; gradients through "
+          "the kernels against the plain versions")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  device memory held before the phase: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 21)
+
+    def randn(*shape, dtype="bfloat16"):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(
+            getattr(torch, dtype))
+
+    t0 = time.perf_counter()
+    out = {"bwd": []}
+    for case in SSD_BWD_CASES:
+        out["bwd"].append(check_ssd_bwd_case(torch, ssd, ssm_mod, randn,
+                                             case))
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["bwd_s"] = time.perf_counter() - t0
+    print(f"  the backward's shapes: {out['bwd_s']:.1f} s")
+    out["train"] = {}
+    for arch, layers, batch, seq, steps, fail, cap, log_dt in FAMILY_TRAIN:
+        t1 = time.perf_counter()
+        out["train"][arch] = train_family(torch, fa, attn, ssd, ssm_mod,
+                                          arch, layers, batch, seq, steps,
+                                          fail, cap, log_dt)
+        out["train"][arch]["wall_s"] = time.perf_counter() - t1
+        print(f"  {arch}: {out['train'][arch]['wall_s']:.1f} s")
+    out["grads_f32"] = {arch: family_grads(torch, fa, attn, ssd, ssm_mod,
+                                           arch)
+                        for arch in ("hymba-1.5b", "mamba2-2.7b")}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  phase 21: {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measured numbers "
@@ -3615,6 +4275,9 @@ def main(argv=None) -> int:
           "the CUDA cores, src/repro_torch/csrc/flash_attn_bwd.cu) replaces "
           "XLA autodiff of "
           "src/repro/models/attention.py:123 _blockwise_attention; "
+          "ssd_scan_bwd (CUDA C++, CUDA cores, "
+          "src/repro_torch/csrc/ssd_scan_bwd.cu) replaces XLA autodiff of "
+          "src/repro/models/ssm.py:94 ssd_chunked; "
           "ssd_scan (CUDA C++, bf16 as three chunk-parallel passes on the "
           "tensor cores and f32 on the CUDA cores, "
           "src/repro_torch/csrc/ssd_scan.cu) replaces "
@@ -3625,7 +4288,8 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     build = phase_build([kernel.LIBRARY, lc_kernel.LIBRARY,
                          fa.kernel.LIBRARY, fa.kernel.BWD_LIBRARY,
-                         ssd.kernel.LIBRARY, stl.kernel.LIBRARY])
+                         ssd.kernel.LIBRARY, ssd.kernel.BWD_LIBRARY,
+                         stl.kernel.LIBRARY])
     # the five rules and the per-lane one, each on every register depth
     # and on the ring in memory
     check_no_spills(stl.kernel.LIBRARY, "store_timeline_kernel",
@@ -3646,6 +4310,11 @@ def main(argv=None) -> int:
         if "_mma_kernel" in n}
     print(f"  flash_attn_bwd tensor-core kernels, (spill store, load) bytes: "
           f"{build['flash_attn_bwd_mma_spills']}")
+    build["ssd_scan_bwd_spills"] = {
+        n: v for n, v in ptxas_spills(ptxas_log(ssd.kernel.BWD_LIBRARY)).items()
+        if any(v)}
+    print(f"  ssd_scan_bwd instantiations with a spill, (store, load) bytes: "
+          f"{build['ssd_scan_bwd_spills']}")
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
@@ -3678,6 +4347,7 @@ def main(argv=None) -> int:
     vlm = phase_serve_family(torch, serve_mod, fa, attn, 19, VLM_ARCH,
                              VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_F32_LAYERS)
     train = phase_train(torch, fa, attn, ssd)
+    fam = phase_train_families(torch, fa, attn, ssd, ssm_mod)
 
     entry = {
         "name": "bank_scan", "route": "cuda",
@@ -3776,6 +4446,16 @@ def main(argv=None) -> int:
         ("ssd_scan", "ssd", 79, SSD_TOLERANCE))]
     ssd_entry = model_entries[1]
     ssd_entry["launches_by_kernel"] = served["ssd_launches_by_kernel"]
+    ssd_entry["paths"] = [
+        {"path": "hymba-1.5b serve, prefill",
+         "launches": served["launches"]["ssd_scan"]}] + [
+        {"path": f"{arch} train, {len(t['losses'])} steps (forward and "
+                 f"remat's recompute)", "launches": t["launches"]["ssd_scan"]}
+        for arch, t in fam["train"].items() if t["launches"]["ssd_scan"]] + [
+        {"path": f"{arch} f32 at {g['layers']} layers, gradients",
+         "launches": g["launches"]["ssd_scan"][0]}
+        for arch, g in fam["grads_f32"].items()]
+    ssd_entry["launches"] = sum(p["launches"] for p in ssd_entry["paths"])
     for key in ("simt_ms", "f32_ms", "passes_ms"):
         ssd_entry[key] = model_k[f"ssd_{key}"]
     attn_entry = model_entries[0]
@@ -3796,7 +4476,11 @@ def main(argv=None) -> int:
         {"path": f"{VLM_ARCH} serve, prefill", "launches": vlm["launches"]},
         {"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps (forward and "
                  f"remat's recompute)",
-         "launches": train["train"]["launches"]["forward"]}]
+         "launches": train["train"]["launches"]["forward"]}] + [
+        {"path": f"{arch} train, {len(t['losses'])} steps (forward and "
+                 f"remat's recompute)",
+         "launches": t["launches"]["flash_attn"]}
+        for arch, t in fam["train"].items() if t["launches"]["flash_attn"]]
     attn_entry["launches"] = sum(p["launches"] for p in attn_entry["paths"])
     bwd_main = train["bwd"][0]
     bwd_entry = {
@@ -3805,8 +4489,19 @@ def main(argv=None) -> int:
         "replaces": "src/repro/models/attention.py:123",
         "replaces_what": "XLA autodiff of _blockwise_attention (no Pallas "
                          "kernel has a custom_vjp)",
-        "launches": train["train"]["launches"]["backward"],
-        "launches_by_kernel": train["train"]["launches"]["backward_by_kernel"],
+        "launches": train["train"]["launches"]["backward"] + sum(
+            t["launches"]["flash_attn_bwd"] for t in fam["train"].values()),
+        "launches_by_kernel": {
+            k: v + sum(t["launches"]["flash_attn_bwd_by_kernel"][k]
+                       for t in fam["train"].values())
+            for k, v in train["train"]["launches"][
+                "backward_by_kernel"].items()},
+        "paths": [{"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps",
+                   "launches": train["train"]["launches"]["backward"]}] + [
+            {"path": f"{arch} train, {len(t['losses'])} steps",
+             "launches": t["launches"]["flash_attn_bwd"]}
+            for arch, t in fam["train"].items()
+            if t["launches"]["flash_attn_bwd"]],
         "kernel": bwd_main["kernel"],
         "kernels": {"mma": "bf16: flash_attn_bwd_dkdv_mma_kernel + "
                            "flash_attn_bwd_dq_mma_kernel, tensor cores "
@@ -3829,7 +4524,43 @@ def main(argv=None) -> int:
                                       "bound_by")}
                    for r in train["bwd"]],
     }
-    kernels = [entry] + lc_entries + model_entries + [bwd_entry, st_entry]
+    ssd_main = fam["bwd"][0]
+    ssd_bwd_paths = [
+        {"path": f"{arch} train, {len(t['losses'])} steps",
+         "launches": t["launches"]["ssd_scan_bwd"]}
+        for arch, t in fam["train"].items() if t["launches"]["ssd_scan_bwd"]
+    ] + [{"path": f"{arch} f32 at {g['layers']} layers, gradients",
+          "launches": g["launches"]["ssd_scan"][1]}
+         for arch, g in fam["grads_f32"].items()]
+    ssd_bwd_entry = {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:94",
+        "replaces_what": "XLA autodiff of ssd_chunked (no Pallas kernel has "
+                         "a custom_vjp)",
+        "launches": sum(p["launches"] for p in ssd_bwd_paths),
+        "paths": ssd_bwd_paths,
+        "launches_by_kernel": {"simt": sum(
+            t["launches"]["ssd_scan_bwd_by_kernel"]["simt"]
+            for t in fam["train"].values())},
+        "kernels": {"simt": "bf16 and f32: ssd_bwd_chunk_kernel, "
+                            "ssd_bwd_walk_kernel, ssd_bwd_tile_kernel, "
+                            "ssd_bwd_dt_kernel, ssd_bwd_reduce_kernel, "
+                            "ssd_bwd_da_kernel, CUDA cores, f32 sums"},
+        "max_abs_err": max(r["max_abs_err"] for r in fam["bwd"]),
+        "ms": ssd_main["ms"], "plain_ms": ssd_main["plain_ms"],
+        "autograd_ms": ssd_main["autograd_ms"],
+        "bound_ms": ssd_main["bound_ms"], "bound_by": ssd_main["bound_by"],
+        "library_ms": None,
+        "fwd_priors_ms": ssd_main["fwd_priors_ms"],
+        "tolerance": SSD_BWD_TOLERANCE_TEXT,
+        "shapes": [{k: r[k] for k in ("shape", "with_init", "ms",
+                                      "fwd_priors_ms", "fwd_ms", "plain_ms",
+                                      "autograd_ms", "bound_ms", "bound_by")}
+                   for r in fam["bwd"]],
+    }
+    kernels = [entry] + lc_entries + model_entries + [bwd_entry,
+                                                      ssd_bwd_entry, st_entry]
     print(f"total {time.perf_counter() - t_start:.1f} s")
     if args.report:
         os.makedirs(os.path.dirname(os.path.abspath(args.report)),
@@ -3844,7 +4575,8 @@ def main(argv=None) -> int:
                        "serving": served_sc, "resilience": resil,
                        "serve_moe": served_moe, "cut_configs": cut,
                        "ycsb": ycsb, "serve_whisper": whisper,
-                       "serve_vlm": vlm, "train": train, "kernels": kernels},
+                       "serve_vlm": vlm, "train": train,
+                       "train_families": fam, "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -64,6 +64,11 @@
 // two m-tiles a warp, and higher occupancy were each tried on the card and
 // were not faster.
 //
+// Each kernel also has an entry point that writes the state entering each
+// chunk (ssd_scan_priors_launch, ssd_scan_mma_priors_launch): the backward
+// (csrc/ssd_scan_bwd.cu) reads it instead of walking the chunks again. The
+// serving path passes no buffer and runs as before.
+//
 // f32: ssd_scan_kernel, on the CUDA cores with f32 products (TF32 would miss
 // the 1e-5 tolerance). One block of 256 threads owns a (b, h) pair -- 200
 // blocks at hymba-1.5b -- and loops over the chunks itself with the state in
@@ -145,8 +150,8 @@ __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A, const T* __restrict__ B,
                 const T* __restrict__ C, const float* __restrict__ init,
-                T* __restrict__ y, T* __restrict__ state_out, int l, int h,
-                int n, int chunk) {
+                T* __restrict__ y, T* __restrict__ state_out,
+                T* __restrict__ prior_out, int l, int h, int n, int chunk) {
   constexpr int kCols = P / 16;
   constexpr int kStateSums = P * kMaxN / kThreads;
   extern __shared__ float4 smem4[];
@@ -185,6 +190,12 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   for (int ci = 0; ci < n_chunks; ++ci) {
     const int c0 = ci * chunk;
     __syncthreads();            // the previous chunk's state update is done
+    if (prior_out != nullptr) {  // the state entering the chunk, (b, h, nc,
+      T* pr = prior_out + state_off * n_chunks                  // p, n)
+              + static_cast<int64_t>(ci) * P * n;
+      for (int idx = tid; idx < P * n; idx += kThreads)
+        pr[idx] = Num<T>::from_f32(sState[(idx / n) * ldn + idx % n]);
+    }
     for (int t = tid; t < chunk; t += kThreads)
       sDt[t] = c0 + t < l ? dtb[static_cast<int64_t>(c0 + t) * h] : 0.0f;
     __syncthreads();
@@ -347,8 +358,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 template <typename T, int P>
 int launch(const void* x, const float* dt, const float* A, const void* B,
-           const void* C, const float* init, void* y, void* state, int b,
-           int l, int h, int n, int chunk, cudaStream_t stream) {
+           const void* C, const float* init, void* y, void* state,
+           void* prior, int b, int l, int h, int n, int chunk,
+           cudaStream_t stream) {
   const int smem = smem_floats<P>(n, chunk) * static_cast<int>(sizeof(float));
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = ssd_scan_kernel<T, P>;
@@ -358,28 +370,28 @@ int launch(const void* x, const float* dt, const float* A, const void* B,
   kernel<<<dim3(h, b), kThreads, smem, stream>>>(
       static_cast<const T*>(x), dt, A, static_cast<const T*>(B),
       static_cast<const T*>(C), init, static_cast<T*>(y),
-      static_cast<T*>(state), l, h, n, chunk);
+      static_cast<T*>(state), static_cast<T*>(prior), l, h, n, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_p(int p, const void* x, const float* dt, const float* A,
              const void* B, const void* C, const float* init, void* y,
-             void* state, int b, int l, int h, int n, int chunk,
+             void* state, void* prior, int b, int l, int h, int n, int chunk,
              cudaStream_t stream) {
   switch (p) {
     case 16:
-      return launch<T, 16>(x, dt, A, B, C, init, y, state, b, l, h, n, chunk,
-                           stream);
+      return launch<T, 16>(x, dt, A, B, C, init, y, state, prior, b, l, h, n,
+                           chunk, stream);
     case 32:
-      return launch<T, 32>(x, dt, A, B, C, init, y, state, b, l, h, n, chunk,
-                           stream);
+      return launch<T, 32>(x, dt, A, B, C, init, y, state, prior, b, l, h, n,
+                           chunk, stream);
     case 64:
-      return launch<T, 64>(x, dt, A, B, C, init, y, state, b, l, h, n, chunk,
-                           stream);
+      return launch<T, 64>(x, dt, A, B, C, init, y, state, prior, b, l, h, n,
+                           chunk, stream);
     case 128:
-      return launch<T, 128>(x, dt, A, B, C, init, y, state, b, l, h, n, chunk,
-                            stream);
+      return launch<T, 128>(x, dt, A, B, C, init, y, state, prior, b, l, h,
+                            n, chunk, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -949,6 +961,7 @@ struct MmaArgs {
   const float* init;
   bf16* y;
   bf16* state;
+  bf16* prior;            // null: the priors stay in the workspace
   void* workspace;
   int b, l, h, p, n, chunk;
   cudaStream_t stream;
@@ -958,6 +971,7 @@ template <int P, int NK>
 int launch_mma(const MmaArgs& a) {
   Workspace ws;
   workspace_layout(a.b, a.l, a.h, a.p, a.n, a.chunk, a.workspace, &ws);
+  if (a.prior != nullptr) ws.prior = a.prior;
   const int nc = (a.l + a.chunk - 1) / a.chunk;
   const int n_rt = (a.chunk + kRows - 1) / kRows;
   const int smem_a = state_smem_bytes<P, NK>(a.chunk);
@@ -1017,6 +1031,46 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+int simt_launch(const void* x, const float* dt, const float* A,
+                const void* B, const void* C, const float* init, void* y,
+                void* state, void* prior, int b, int l, int h, int p, int n,
+                int chunk, int dtype, cudaStream_t s) {
+  if (b <= 0 || l <= 0 || h <= 0 || n <= 0 || n > kMaxN || chunk <= 0 ||
+      chunk > l || b > 65535 || h > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return launch_p<float>(p, x, dt, A, B, C, init, y, state, prior, b, l, h,
+                           n, chunk, s);
+  if (dtype == 1)
+    return launch_p<__nv_bfloat16>(p, x, dt, A, B, C, init, y, state, prior,
+                                   b, l, h, n, chunk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int mma_launch(const void* x, const float* dt, const float* A, const void* B,
+               const void* C, const float* init, void* y, void* state,
+               void* prior, void* workspace, int b, int l, int h, int p,
+               int n, int chunk, cudaStream_t stream) {
+  if (b <= 0 || l <= 0 || h <= 0 || n <= 0 || n > kMaxN || chunk <= 0 ||
+      chunk > l || b > 65535 || h > 65535 ||
+      static_cast<int64_t>(b) * h > INT_MAX || !aligned16(x) ||
+      !aligned16(B) || !aligned16(C) ||
+      (reinterpret_cast<uintptr_t>(workspace) & 255u) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MmaArgs a{static_cast<const bf16*>(x), dt, A,
+                  static_cast<const bf16*>(B), static_cast<const bf16*>(C),
+                  init, static_cast<bf16*>(y), static_cast<bf16*>(state),
+                  static_cast<bf16*>(prior), workspace, b, l, h, p, n, chunk,
+                  stream};
+  switch (p) {
+    case 16: return launch_mma_nk<16>(a);
+    case 32: return launch_mma_nk<32>(a);
+    case 64: return launch_mma_nk<64>(a);
+    case 128: return launch_mma_nk<128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Launches the scan on `stream` and returns cudaGetLastError() (or
@@ -1030,17 +1084,20 @@ extern "C" int ssd_scan_launch(const void* x, const float* dt, const float* A,
                                const float* init, void* y, void* state, int b,
                                int l, int h, int p, int n, int chunk,
                                int dtype, void* stream) {
-  if (b <= 0 || l <= 0 || h <= 0 || n <= 0 || n > kMaxN || chunk <= 0 ||
-      chunk > l || b > 65535 || h > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_p<float>(p, x, dt, A, B, C, init, y, state, b, l, h, n,
-                           chunk, s);
-  if (dtype == 1)
-    return launch_p<__nv_bfloat16>(p, x, dt, A, B, C, init, y, state, b, l,
-                                   h, n, chunk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return simt_launch(x, dt, A, B, C, init, y, state, nullptr, b, l, h, p, n,
+                     chunk, dtype, static_cast<cudaStream_t>(stream));
+}
+
+// The same, also writing the state entering each chunk to prior (b, h, nc,
+// p, n) of x's type, nc = ceil(l / chunk): what the backward reads.
+extern "C" int ssd_scan_priors_launch(const void* x, const float* dt,
+                                      const float* A, const void* B,
+                                      const void* C, const float* init,
+                                      void* y, void* state, void* prior,
+                                      int b, int l, int h, int p, int n,
+                                      int chunk, int dtype, void* stream) {
+  return simt_launch(x, dt, A, B, C, init, y, state, prior, b, l, h, p, n,
+                     chunk, dtype, static_cast<cudaStream_t>(stream));
 }
 
 // The most shared memory (bytes) one launch needs at these sizes, so the
@@ -1065,25 +1122,26 @@ extern "C" int ssd_scan_mma_launch(const void* x, const float* dt,
                                    void* state, void* workspace, int b, int l,
                                    int h, int p, int n, int chunk,
                                    void* stream) {
-  if (b <= 0 || l <= 0 || h <= 0 || n <= 0 || n > kMaxN || chunk <= 0 ||
-      chunk > l || b > 65535 || h > 65535 ||
-      static_cast<int64_t>(b) * h > INT_MAX || !aligned16(x) ||
-      !aligned16(B) || !aligned16(C) ||
-      (reinterpret_cast<uintptr_t>(workspace) & 255u) != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const MmaArgs a{static_cast<const bf16*>(x), dt, A,
-                  static_cast<const bf16*>(B), static_cast<const bf16*>(C),
-                  init, static_cast<bf16*>(y), static_cast<bf16*>(state),
-                  workspace, b, l, h, p, n, chunk,
-                  static_cast<cudaStream_t>(stream)};
-  switch (p) {
-    case 16: return launch_mma_nk<16>(a);
-    case 32: return launch_mma_nk<32>(a);
-    case 64: return launch_mma_nk<64>(a);
-    case 128: return launch_mma_nk<128>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return mma_launch(x, dt, A, B, C, init, y, state, nullptr, workspace, b, l,
+                    h, p, n, chunk, static_cast<cudaStream_t>(stream));
 }
+
+// The same, with the state entering each chunk (rounded to bf16, as pass (c)
+// reads it) written to prior, (b, h, nc, p, nk) bf16 with nk = n padded to
+// 16, 32, 64 or 128 (zeros past n): what the backward reads.
+extern "C" int ssd_scan_mma_priors_launch(const void* x, const float* dt,
+                                          const float* A, const void* B,
+                                          const void* C, const float* init,
+                                          void* y, void* state, void* prior,
+                                          void* workspace, int b, int l,
+                                          int h, int p, int n, int chunk,
+                                          void* stream) {
+  return mma_launch(x, dt, A, B, C, init, y, state, prior, workspace, b, l,
+                    h, p, n, chunk, static_cast<cudaStream_t>(stream));
+}
+
+// The padded state width of the tensor-core passes' priors (nk).
+extern "C" int ssd_scan_mma_prior_width(int n) { return nk_for(n); }
 
 // Bytes of the tensor-core passes' workspace at these sizes.
 extern "C" long long ssd_scan_mma_workspace_bytes(int b, int l, int h, int p,

@@ -22,16 +22,3 @@ def on_card(dev: torch.device) -> Iterator[int]:
     with torch.cuda.device(dev):
         yield torch.cuda.current_stream(dev).cuda_stream
 
-
-def refuse_grad(op: str, *tensors) -> None:
-    """Raise when grad mode is on and one of ``tensors`` (``None``s
-    skipped) requires grad: for a kernel that computes the forward only
-    (``ssd_scan``), an output written through ctypes would silently carry
-    no gradient back to its inputs. Its backward kernel is ROADMAP A7b."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{op}: the CUDA kernel has no backward yet (ROADMAP A7b, the "
-            f"ssd_scan backward); call it under torch.no_grad() or "
-            f"torch.inference_mode(), or on CPU tensors, whose plain "
-            f"version autograd differentiates")

@@ -16,10 +16,17 @@ and on the CPU (``--device cpu``)::
         --reduced --steps 20 --mesh 4x2 --fail-node 2 --fail-step 10 \\
         --device cpu
 
+``--arch`` takes every registered config: on the card the attention's
+and the SSD scan's gradients go through their hand-written backward
+kernels (hymba-1.5b, mamba2-2.7b), MoE and enc-dec configs through the
+attention's (moonshot-v1-16b-a3b, whisper-medium).
+
 The JAX launcher's flags, with ``--device`` (default: the card) in place
 of ``--host-devices``: the mesh is ``MeshContext`` of logical nodes on
 one device (``distributed/context.py``), not a set of devices, so
 ``--mesh 4x2`` means 4 data nodes x 2 model ranks whatever the device.
+``--log-capacity`` sets the replica log slots per node (the default's 8
+do not fit beside a billion-parameter model's state on one card).
 """
 
 from __future__ import annotations
@@ -55,6 +62,9 @@ def main(argv=None) -> None:
     ap.add_argument("--n-replicas", type=int, default=3)
     ap.add_argument("--n-buckets", type=int, default=8)
     ap.add_argument("--dump-interval", type=int, default=50)
+    ap.add_argument("--log-capacity", type=int,
+                    default=ReplicationConfig.log_capacity,
+                    help="replica log slots (steps) per node")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--workdir", default="/tmp/recxl_train")
     ap.add_argument("--fail-node", type=int, default=-1)
@@ -79,7 +89,8 @@ def main(argv=None) -> None:
         mesh=mesh_cfg,
         replication=ReplicationConfig(
             variant=args.variant, n_replicas=max(n_rep, 1),
-            n_buckets=args.n_buckets, dump_interval=args.dump_interval),
+            n_buckets=args.n_buckets, dump_interval=args.dump_interval,
+            log_capacity=args.log_capacity),
         train=TrainConfig(total_steps=args.steps, learning_rate=args.lr,
                           warmup_steps=max(args.steps // 10, 1)),
     )

@@ -126,8 +126,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     diff = seg[:, :, :, None, :] - seg[:, :, None, :, :]  # (b, nc, q, k, h)
     ii = torch.arange(chunk, device=x.device)
     tri = ii[:, None] >= ii[None, :]
-    # a select, never a multiply: exp(diff) is inf above the diagonal
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff), 0.0)
+    # a select, never a multiply: exp(diff) is inf above the diagonal. The
+    # select comes before the exp, so that the gradient above the diagonal
+    # is 0 and not 0 * inf = NaN (the reference selects after it, and its
+    # autodiff gives NaN for dt and A at strong decay: ROADMAP C3)
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                                  float("-inf")))
     att = G[:, :, :, :, None] * decay * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", att.to(x.dtype), xc)
 

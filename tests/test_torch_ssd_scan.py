@@ -10,6 +10,13 @@ within ten times that. The CUDA kernels run only on the card: their
 tests skip here, and ``chip_smoke.py`` holds them against the plain
 version there. The wrapper (which kernel a call takes, the arguments each
 C entry point gets, the counters) is tested here with a fake library.
+
+The backward's plain version (``ref.py::ssd_bwd_ref``, the formulas of
+the backward kernel) is held against torch autograd of the port's
+``ssd_chunked`` in f64 and against ``jax.grad`` of the reference's
+``ssd_chunked`` on the same inputs, with an initial state and the final
+state's gradient too: each gradient within 1e-5 (f32) / 3e-2 (bf16) of
+its max |value|.
 """
 
 import contextlib
@@ -18,12 +25,14 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels.ssd_scan.ops import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import ssd_ref as jax_ssd_ref
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
-from repro_torch.kernels.ssd_scan import kernel, ssd_ref, ssd_scan
+from repro_torch.kernels.ssd_scan import (kernel, ssd_bwd_ref,
+                                          ssd_priors_ref, ssd_ref, ssd_scan)
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.ssm import ssd_chunked
 
@@ -250,9 +259,9 @@ def test_cuda_kernel_new_cases(case, kind, cuda_device):
 
 
 class FakeLibrary:
-    """Stands in for the built library: records each launch's arguments
-    and returns ``status``; reports ``smem`` bytes of shared memory and a
-    workspace of ``ws_bytes``."""
+    """Stands in for the built libraries (forward and backward): records
+    each launch's arguments and returns ``status``; reports ``smem``
+    bytes of shared memory and a workspace of ``ws_bytes``."""
 
     def __init__(self, status=0, smem=1024, ws_bytes=4096):
         self.status, self.smem, self.ws_bytes = status, smem, ws_bytes
@@ -267,6 +276,28 @@ class FakeLibrary:
         self.calls.append(("simt", args))
         return self.status
 
+    def ssd_scan_mma_priors_launch(self, *args):
+        self.calls.append(("mma-priors", args))
+        return self.status
+
+    def ssd_scan_priors_launch(self, *args):
+        self.calls.append(("simt-priors", args))
+        return self.status
+
+    def ssd_scan_mma_prior_width(self, n):
+        return 16 if n <= 16 else 32 if n <= 32 else 64 if n <= 64 else 128
+
+    def ssd_scan_bwd_launch(self, *args):
+        self.calls.append(("bwd", args))
+        return self.status
+
+    def ssd_scan_bwd_smem_bytes(self, p, n, chunk, l):
+        return self.smem
+
+    def ssd_scan_bwd_workspace_bytes(self, *args):
+        self.ws_asked.append(("bwd",) + args)
+        return self.ws_bytes
+
     def ssd_scan_mma_smem_bytes(self, p, n, chunk):
         return self.smem
 
@@ -280,6 +311,8 @@ class FakeLibrary:
     def ssd_scan_error_string(self, code):
         return b"fake failure"
 
+    ssd_scan_bwd_error_string = ssd_scan_error_string
+
 
 @contextlib.contextmanager
 def _no_card(dev):
@@ -292,6 +325,7 @@ def fake_library(monkeypatch):
     lib = FakeLibrary()
     monkeypatch.setattr(ssd_ops, "_route", lambda t: "cuda")
     monkeypatch.setattr(kernel, "load", lambda: lib)
+    monkeypatch.setattr(kernel, "load_bwd", lambda: lib)
     monkeypatch.setattr(kernel, "on_card", _no_card)
     return lib
 
@@ -383,38 +417,124 @@ def test_cuda_core_kernel_runs_bf16_by_name(fake_library):
 def test_cpu_calls_count_nothing():
     total = ssd_scan.launches
     by_kernel = dict(ssd_scan.launches_by_kernel)
+    bwd = ssd_scan.bwd_launches
     for dtype in ("bfloat16", "float32"):
-        ssd_scan(*_zeros(1, 64, 2, 16, 8, dtype), chunk=32)
+        x, dt, A, B, C = _zeros(1, 64, 2, 16, 8, dtype)
+        y, _ = ssd_scan(x.requires_grad_(True), dt, A, B, C, chunk=32)
+        y.float().sum().backward()
     assert ssd_scan.launches == total
     assert ssd_scan.launches_by_kernel == by_kernel
+    assert ssd_scan.bwd_launches == bwd
 
 
 def test_reset_counts():
     ssd_ops.reset_counts()
     assert ssd_scan.launches == 0
     assert ssd_scan.launches_by_kernel == {"mma": 0, "simt": 0}
+    assert ssd_scan.bwd_launches == 0
+    assert ssd_scan.bwd_launches_by_kernel == {"simt": 0}
 
 
 @pytest.mark.parametrize("which", ["x", "dt", "B", "init_state"])
 def test_cuda_route_refuses_grad(fake_library, which):
-    """The kernels have no backward (ROADMAP A7): on the CUDA route, with
-    grad mode on and an input that requires grad (the initial state
-    too), the op raises before any launch; under ``no_grad`` /
-    ``inference_mode`` the same call launches as before."""
+    """The contract C1 left (ROADMAP C) is now the gradient: on the CUDA
+    route, with grad mode on and an input that requires grad (the
+    initial state too), the op launches the forward entry point that
+    writes the priors (once), and ``backward()`` launches the backward
+    entry point once, with output buffers only for the inputs that
+    require a gradient (ddt and dA are computed inside in any case); the
+    gradient reaches only those inputs. Under ``no_grad`` /
+    ``inference_mode`` the same call launches the plain forward entry
+    point, as before, and no backward."""
     x, dt, A, B, C = _zeros(1, 64, 2, 32, 16, "float32")
     t = {"x": x, "dt": dt, "B": B, "init_state": torch.zeros(1, 2, 32, 16)}
     t[which].requires_grad_(True)
     args = (t["x"], t["dt"], A, t["B"], C)
-    total = ssd_scan.launches
-    with pytest.raises(RuntimeError, match="A7"):
-        ssd_scan(*args, chunk=32, init_state=t["init_state"])
-    assert fake_library.calls == [] and ssd_scan.launches == total
+    total, bwd = ssd_scan.launches, ssd_scan.bwd_launches
+    y, s = ssd_scan(*args, chunk=32, init_state=t["init_state"])
+    assert y.requires_grad and s.requires_grad
+    [(name, fargs)] = fake_library.calls
+    assert name == "simt-priors" and fargs[5] == t["init_state"].data_ptr()
+    assert ssd_scan.launches == total + 1 and ssd_scan.bwd_launches == bwd
+    (y.sum() + s.sum()).backward()
+    [(name, bargs)] = fake_library.calls[1:]
+    assert name == "bwd" and bargs[5] == fargs[8]          # the priors
+    assert bargs[6] == 16 and bargs[-2] == kernel.DTYPES[torch.float32]
+    assert bargs[-8:-2] == (1, 64, 2, 32, 16, 32)
+    assert bargs[8] is not None                            # dstate
+    outs = dict(zip(GRAD_NAMES, bargs[9:15]))
+    for name, ptr in outs.items():
+        assert (ptr is not None) == (name == which), name
+    assert ssd_scan.bwd_launches == bwd + 1
+    assert ssd_scan.bwd_launches_by_kernel["simt"] >= 1
+    for name, tensor in t.items():
+        assert (tensor.grad is not None) == (name == which), name
+    assert t[which].grad.shape == t[which].shape
+    assert t[which].grad.dtype == t[which].dtype
     with torch.no_grad():
         ssd_scan(*args, chunk=32, init_state=t["init_state"])
     with torch.inference_mode():
         ssd_scan(*args, chunk=32, init_state=t["init_state"])
-    assert [w for w, _ in fake_library.calls] == ["simt", "simt"]
-    assert ssd_scan.launches == total + 2
+    assert [w for w, _ in fake_library.calls[2:]] == ["simt", "simt"]
+    assert ssd_scan.launches == total + 3
+    assert ssd_scan.bwd_launches == bwd + 1
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_grad_route_launches_the_priors_entry(fake_library, dtype):
+    """A call that autograd will differentiate takes the dtype's kernel
+    through its priors entry point: the priors buffer (b, h, nc, p, w),
+    w = n on the CUDA cores and n padded to 16 on the tensor cores,
+    after the state and otherwise the arguments of the plain entry
+    point; the backward reads that buffer with its width, takes y's
+    gradient in x's dtype and, with the final state unused, no dstate."""
+    x, dt, A, B, C = _zeros(2, 100, 3, 16, 8, dtype)
+    by_kernel = dict(ssd_scan.launches_by_kernel)
+    y, s, priors = kernel.launch(x, dt, A, B, C, 32, with_priors=True)
+    w = 16 if dtype == "bfloat16" else 8
+    assert priors.shape == (2, 3, 4, 16, w) and priors.dtype == x.dtype
+    [(which, args)] = fake_library.calls
+    assert which == ("mma-priors" if dtype == "bfloat16" else "simt-priors")
+    assert args[8] == priors.data_ptr()
+    fake_library.calls.clear()
+    y, _ = ssd_scan(x.requires_grad_(True), dt, A, B, C, chunk=32)
+    assert ssd_scan.launches_by_kernel == {
+        k: c + (k == kernel.kernel_for(x.dtype)) for k, c in by_kernel.items()}
+    (y.float() * 2.0).sum().backward()
+    [(_, fargs), (name, bargs)] = fake_library.calls
+    assert name == "bwd" and bargs[5] == fargs[8] and bargs[6] == w
+    assert bargs[8] is None                                # dstate unused
+    assert bargs[9] is not None and bargs[10:15] == (None,) * 5
+    assert fake_library.ws_asked[-1] == ("bwd", 2, 100, 3, 16, 8, 32)
+    assert bargs[-2] == kernel.DTYPES[x.dtype]
+    assert x.grad.shape == x.shape and x.grad.dtype == x.dtype
+
+
+def test_bwd_checks_before_any_launch(fake_library):
+    """What the backward does not take raises before its launch: priors
+    of another shape, width or dtype, a dy or dstate of another shape,
+    too much shared memory; a non-zero status raises with its code."""
+    x, dt, A, B, C = _zeros(1, 64, 2, 32, 16, "float32")
+    pr = torch.zeros(1, 2, 2, 32, 16)
+    dy = torch.zeros_like(x)
+    bad = [dict(priors=pr[:, :, :1]), dict(priors=pr[..., :8]),
+           dict(priors=pr.bfloat16()), dict(dy=dy[:, :32]),
+           dict(dstate=torch.zeros(1, 2, 32, 8))]
+    for kw in bad:
+        a = dict(priors=pr, dy=dy, dstate=None)
+        a.update(kw)
+        with pytest.raises(ValueError):
+            kernel.launch_bwd(x, dt, A, B, C, 32, a["priors"], a["dy"],
+                              a["dstate"])
+    fake_library.smem = kernel.MAX_SMEM_BYTES + 4
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.launch_bwd(x, dt, A, B, C, 32, pr, dy)
+    assert fake_library.calls == []
+    fake_library.smem, fake_library.status = 1024, 11
+    with pytest.raises(RuntimeError, match="CUDA error 11"):
+        kernel.launch_bwd(x, dt, A, B, C, 32, pr, dy)
+    with pytest.raises(TypeError):
+        kernel.bwd_kernel_for(torch.float16)
 
 
 def test_cpu_route_backpropagates():
@@ -433,3 +553,198 @@ def test_cpu_route_backpropagates():
     for t in (x, dt, A, B, C, s0):
         assert t.grad is not None and bool(torch.isfinite(t.grad).all())
         assert float(t.grad.abs().max()) > 0.0
+
+
+# ---------------------------------------------------------------------------
+# The backward: its plain version against autograd and jax.grad
+# ---------------------------------------------------------------------------
+
+GRAD_NAMES = ("x", "dt", "A", "B", "C", "init_state")
+
+
+def _grad_inputs(case, seed, with_init):
+    """The case's inputs (``_inputs``) and, from the same generator, y's
+    gradient and, ``with_init``, an initial state and the final state's
+    gradient, as numpy arrays."""
+    jx, tx, chunk, tol = _inputs(case, seed)
+    b, l, h, p, n = case[:5]
+    rng = np.random.default_rng(seed + 100)
+    extra = {"dy": rng.standard_normal((b, l, h, p)).astype(np.float32)}
+    if with_init:
+        extra["init_state"] = (rng.standard_normal((b, h, p, n))
+                               * 0.1).astype(np.float32)
+        extra["dstate"] = rng.standard_normal((b, h, p, n)).astype(
+            np.float32)
+    return jx, tx, chunk, tol, extra
+
+
+def _autograd_grads(tx, chunk, extra, dtype):
+    """Gradients of ``sum(y dy) + sum(state dstate)`` by torch autograd of
+    the port's ``ssd_chunked`` on ``dtype`` copies of the inputs (x, B, C
+    kept in their own type when ``dtype`` is None)."""
+    leaves = {k: (v.to(dtype) if dtype is not None else v)
+              .detach().clone().requires_grad_(True) for k, v in tx.items()}
+    init = None
+    if "init_state" in extra:
+        init = torch.from_numpy(extra["init_state"]).to(
+            dtype or torch.float32).requires_grad_(True)
+        leaves["init_state"] = init
+    y, s = ssd_chunked(leaves["x"], leaves["dt"], leaves["A"], leaves["B"],
+                       leaves["C"], chunk, init)
+    loss = (y.double() * torch.from_numpy(extra["dy"]).double()).sum()
+    if "dstate" in extra:
+        loss = loss + (s.double()
+                       * torch.from_numpy(extra["dstate"]).double()).sum()
+    loss.backward()
+    return {k: leaves[k].grad for k in GRAD_NAMES if k in leaves}
+
+
+def _jax_grads(jx, chunk, extra):
+    names = ["x", "dt", "A", "B", "C"] + (["init_state"] if "init_state"
+                                          in extra else [])
+    args = [jx[k] for k in names[:5]]
+    if "init_state" in extra:
+        args.append(jnp.asarray(extra["init_state"]))
+
+    def loss(*a):
+        init = a[5] if len(a) > 5 else None
+        y, s = jax_ssd_chunked(*a[:5], chunk, init_state=init)
+        out = jnp.sum(y.astype(jnp.float32) * extra["dy"])
+        if "dstate" in extra:
+            out = out + jnp.sum(s.astype(jnp.float32) * extra["dstate"])
+        return out
+
+    grads = jax.grad(loss, argnums=tuple(range(len(args))))(*args)
+    return dict(zip(names, grads))
+
+
+def _ref_grads(tx, chunk, extra, priors=None):
+    init = dstate = None
+    if "init_state" in extra:
+        init = torch.from_numpy(extra["init_state"])
+        dstate = torch.from_numpy(extra["dstate"])
+    dy = torch.from_numpy(extra["dy"]).to(tx["x"].dtype)
+    got = ssd_bwd_ref(tx["x"], tx["dt"], tx["A"], tx["B"], tx["C"], chunk,
+                      dy, dstate, init, priors)
+    return {k: g for k, g in zip(GRAD_NAMES, got) if g is not None}
+
+
+def _grad_rel(got, want) -> float:
+    got, want = _np(got).astype(np.float64), _np(want).astype(np.float64)
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)),
+                                                 1e-30))
+
+
+@pytest.mark.parametrize("with_init", [False, True], ids=["zero", "init"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=IDS)
+def test_bwd_ref_matches_autograd_and_jax_grad(case, with_init):
+    """``ssd_bwd_ref`` gives each gradient of the chunked scan within 1e-5
+    (f32) / 3e-2 (bf16) of its max |value| against torch autograd of the
+    port's ``ssd_chunked`` (f64 for the f32 cases, the inputs' own type
+    for bf16) and against ``jax.grad`` of the reference's ``ssd_chunked``
+    on the same inputs; with an initial state, the final state's gradient
+    flows in and the initial state's out."""
+    jx, tx, chunk, tol, extra = _grad_inputs(case, 31, with_init)
+    got = _ref_grads(tx, chunk, extra)
+    assert set(got) == set(GRAD_NAMES[:5 + with_init])
+    for k, g in got.items():
+        want = tx[k].dtype if k != "init_state" else torch.float32
+        assert g.dtype == want and g.shape == (
+            tx[k].shape if k != "init_state" else extra[k].shape), k
+    f32 = case[-1] == "float32"
+    oracle = _autograd_grads(tx, chunk, extra,
+                             torch.float64 if f32 else None)
+    jgrads = _jax_grads(jx, chunk, extra)
+    for k, g in got.items():
+        assert _grad_rel(g, oracle[k]) <= tol, ("autograd", k)
+        assert _grad_rel(g, jgrads[k]) <= tol, ("jax.grad", k)
+
+
+@pytest.mark.parametrize("chunk", [16, 40, 96])
+def test_bwd_ref_padded_tail_and_given_priors(chunk):
+    """l = 96 at chunks that leave a padded tail (40) or none: the tail's
+    seg_last terms flow into the real positions before it; the priors
+    the forward kernel would write (``ssd_priors_ref``) give the same
+    gradients as priors recomputed inside."""
+    case = (2, 96, 3, 16, 8, chunk, "float32")
+    _, tx, _, _, extra = _grad_inputs(case, 32, True)
+    init = torch.from_numpy(extra["init_state"])
+    priors = ssd_priors_ref(tx["x"], tx["dt"], tx["A"], tx["B"], tx["C"],
+                            chunk, init)
+    assert priors.shape == (2, 3, -(-96 // chunk), 16, 8)
+    assert torch.equal(priors[:, :, 0], init)
+    got = _ref_grads(tx, chunk, extra, priors=priors)
+    again = _ref_grads(tx, chunk, extra)
+    oracle = _autograd_grads(tx, chunk, extra, torch.float64)
+    for k, g in got.items():
+        assert torch.equal(g, again[k]), k
+        assert _grad_rel(g, oracle[k]) <= 1e-5, k
+
+
+def test_bwd_ref_strong_decay_gives_no_nan():
+    """A = -50 overflows exp(seg_q - seg_k) above the diagonal. The mask
+    is a select, so no NaN reaches a gradient of ``ssd_bwd_ref`` nor of
+    the port's ``ssd_chunked``, which selects before the exp; the
+    reference's ``ssd_chunked`` selects after it, and ``jax.grad`` gives
+    NaN for dt and A there (ROADMAP C3), while its y and its other
+    gradients agree."""
+    jx, tx, _, _, extra = _grad_inputs((1, 256, 2, 16, 16, 256, "float32"),
+                                       33, False)
+    tx["A"] = torch.tensor([-50.0, -1.0])
+    tx["dt"] = torch.full_like(tx["dt"], 0.1)
+    jx["A"], jx["dt"] = jnp.asarray(tx["A"].numpy()), jnp.asarray(
+        tx["dt"].numpy())
+    got = _ref_grads(tx, 256, extra)
+    oracle = _autograd_grads(tx, 256, extra, torch.float64)
+    jgrads = _jax_grads(jx, 256, extra)
+    for k, g in got.items():
+        assert bool(torch.isfinite(g).all()), k
+        assert _grad_rel(g, oracle[k]) <= 1e-5, k
+        if k in ("dt", "A"):
+            assert bool(np.isnan(np.asarray(jgrads[k])).any()), k
+        else:
+            assert _grad_rel(g, jgrads[k]) <= 1e-5, k
+
+
+# (b, l, h, p, n, chunk, dtype), with an initial state and dstate or not
+BWD_CUDA_CASES = [
+    ((2, 128, 4, 16, 32, 32, "float32"), False),
+    ((1, 96, 2, 64, 128, 32, "float32"), True),       # unaligned l
+    ((1, 128, 2, 32, 32, 32, "bfloat16"), False),
+    ((2, 300, 3, 64, 16, 128, "bfloat16"), True),     # ragged last chunk
+    ((1, 100, 2, 128, 5, 48, "float32"), True),       # n = 5, chunk 48
+]
+
+
+@pytest.mark.parametrize("case,with_init", BWD_CUDA_CASES,
+                         ids=["f32", "unaligned-l", "bf16", "ragged-bf16",
+                              "n5"])
+def test_cuda_backward_matches_plain(case, with_init, cuda_device):
+    """The backward kernels through the op on the card against
+    ``ssd_bwd_ref`` on the CPU from the same inputs: each gradient within
+    1e-5 (f32) / 3e-2 (bf16) of its max |value|; one backward launch;
+    two launches bit-identical."""
+    _, tx, chunk, tol, extra = _grad_inputs(case, 34, with_init)
+    want = _ref_grads(tx, chunk, extra)
+    leaves = {k: v.to(cuda_device).requires_grad_(True)
+              for k, v in tx.items()}
+    init = dstate = None
+    if with_init:
+        init = torch.from_numpy(extra["init_state"]).to(
+            cuda_device).requires_grad_(True)
+        leaves["init_state"] = init
+        dstate = torch.from_numpy(extra["dstate"]).to(cuda_device)
+    dy = torch.from_numpy(extra["dy"]).to(cuda_device, tx["x"].dtype)
+    bwd = ssd_scan.bwd_launches
+    y, s = ssd_scan(leaves["x"], leaves["dt"], leaves["A"], leaves["B"],
+                    leaves["C"], chunk=chunk, init_state=init)
+    grads = torch.autograd.grad(
+        [y, s] if with_init else [y], list(leaves.values()),
+        [dy, dstate.to(s.dtype)] if with_init else [dy], retain_graph=True)
+    again = torch.autograd.grad(
+        [y, s] if with_init else [y], list(leaves.values()),
+        [dy, dstate.to(s.dtype)] if with_init else [dy])
+    assert ssd_scan.bwd_launches == bwd + 2
+    for name, g, g2 in zip(leaves, grads, again):
+        assert torch.equal(g, g2), name
+        assert _grad_rel(g.cpu(), want[name]) <= tol, name

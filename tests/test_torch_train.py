@@ -21,10 +21,13 @@
   magnitude, so a rounding-level gradient difference moves a parameter
   by up to ~lr where the gradient is near 0), lr within 1e-6.
 * The train step through the kernel route, with the kernels' launches
-  replaced by the plain versions (their forward with lse and
-  ``attention_bwd_ref``): under ``remat="full"`` every layer launches
-  the forward twice and the backward once a step, and the gradients
-  equal the CPU route's within f32 rounding.
+  replaced by the plain versions (attention's forward with lse and
+  ``attention_bwd_ref``; the SSD scan's ``ssd_chunked`` with
+  ``ssd_priors_ref`` and ``ssd_bwd_ref``), for qwen3 (attention),
+  hymba (attention and SSD in every layer) and mamba2 (SSD): under
+  ``remat="full"`` every layer launches each forward twice and each
+  backward once a step, and the loss and gradients equal the CPU
+  route's within f32 rounding.
 """
 
 import dataclasses
@@ -51,9 +54,13 @@ from repro_torch.kernels.flash_attn import ops as fa_ops
 from repro_torch.kernels.flash_attn.ref import (attention_bwd_ref,
                                                 attention_lse_ref,
                                                 attention_ref)
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_bwd_ref, ssd_priors_ref
 from repro_torch.models import attention as tattn
 from repro_torch.models import build_model
 from repro_torch.models.model_zoo import params_from_jax, params_to_numpy
+from repro_torch.models.ssm import ssd_chunked
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.training.steps import (init_train_state, make_eval_step,
                                         make_train_step)
@@ -312,31 +319,65 @@ def _fake_launch_bwd(q, k, v, out, lse, dout, causal, need_dq=True,
             dv if need_dkv else None)
 
 
-def test_train_step_through_the_kernel_route(monkeypatch):
+def _fake_ssd_launch(x, dt, A, B, C, chunk, init_state=None, which=None,
+                     with_priors=False):
+    chunk = min(chunk, x.shape[1])
+    y, state = ssd_chunked(x, dt, A, B, C, chunk, init_state)
+    if not with_priors:
+        return y, state
+    return y, state, ssd_priors_ref(x, dt, A, B, C, chunk, init_state)
+
+
+def _fake_ssd_launch_bwd(x, dt, A, B, C, chunk, priors, dy, dstate=None,
+                         dinit_dtype=None, need=(True,) * 5):
+    grads = ssd_bwd_ref(x, dt, A, B, C, chunk, dy.contiguous(), dstate,
+                        None, priors)
+    return tuple(g if n else None for g, n in zip(grads[:5], need)) + (None,)
+
+
+#: one arch per kind of mixer: attention, attention + SSD, SSD
+KERNEL_ROUTE_ARCHS = ["qwen3-0.6b", "hymba-1.5b", "mamba2-2.7b"]
+
+
+@pytest.mark.parametrize("arch", KERNEL_ROUTE_ARCHS)
+def test_train_step_through_the_kernel_route(monkeypatch, arch):
     """The card's path of a train step on CPU tensors: every attention
-    takes the op's CUDA route (``_on_card``), whose launches are the
-    plain versions. With ``remat="full"`` each layer launches the forward
-    twice (the step's forward and the recompute) and the backward once;
-    loss and gradients equal the CPU route's within f32 rounding."""
-    *_, tcfg, tm, tparams = _models("qwen3-0.6b")
-    nb = _batch(tcfg, seq=24)
+    and every SSD scan takes its op's CUDA route, whose launches are the
+    plain versions. With ``remat="full"`` each layer launches each
+    forward twice (the step's forward and the recompute) and each
+    backward once; with ``remat="none"`` each once; loss and gradients
+    equal the CPU route's within f32 rounding."""
+    *_, tcfg, tm, tparams = _models(arch)
+    nb = _batch(tcfg, seq=40)
     want_loss, want = _port_grads(tm, tparams, nb)
     monkeypatch.setattr(tattn, "_on_card", lambda t: True)
     monkeypatch.setattr(fa_ops, "_route", lambda t: "cuda")
     monkeypatch.setattr(fa_kernel, "launch", _fake_launch)
     monkeypatch.setattr(fa_kernel, "launch_bwd", _fake_launch_bwd)
+    monkeypatch.setattr(ssd_ops, "_route", lambda t: "cuda")
+    monkeypatch.setattr(ssd_kernel, "launch", _fake_ssd_launch)
+    monkeypatch.setattr(ssd_kernel, "launch_bwd", _fake_ssd_launch_bwd)
     fa_ops.reset_counts()
+    ssd_ops.reset_counts()
     loss, got = _port_grads(tm, tparams, nb, remat="full")
     n = tcfg.n_layers
-    assert fa_ops.flash_attention.launches == 2 * n
-    assert fa_ops.flash_attention.bwd_launches == n
+    n_attn = 0 if tcfg.family == "ssm" else n
+    n_ssd = n if tcfg.family in ("ssm", "hybrid") else 0
+    assert fa_ops.flash_attention.launches == 2 * n_attn
+    assert fa_ops.flash_attention.bwd_launches == n_attn
     which = fa_kernel.bwd_kernel_for(getattr(torch, tcfg.dtype))
     assert fa_ops.flash_attention.bwd_launches_by_kernel == {
-        "mma": n * (which == "mma"), "simt": n * (which == "simt")}
+        "mma": n_attn * (which == "mma"), "simt": n_attn * (which == "simt")}
+    assert ssd_ops.ssd_scan.launches == 2 * n_ssd
+    assert ssd_ops.ssd_scan.bwd_launches == n_ssd
+    assert ssd_ops.ssd_scan.bwd_launches_by_kernel == {"simt": n_ssd}
     assert loss == pytest.approx(want_loss, rel=1e-6)
     diffs = jax.tree.map(_rel, got, want)
     assert max(jax.tree.leaves(diffs)) <= 1e-5
     fa_ops.reset_counts()
+    ssd_ops.reset_counts()
     _port_grads(tm, tparams, nb, remat="none")
-    assert fa_ops.flash_attention.launches == n
-    assert fa_ops.flash_attention.bwd_launches == n
+    assert fa_ops.flash_attention.launches == n_attn
+    assert fa_ops.flash_attention.bwd_launches == n_attn
+    assert ssd_ops.ssd_scan.launches == n_ssd
+    assert ssd_ops.ssd_scan.bwd_launches == n_ssd

@@ -12,6 +12,7 @@ variant's arithmetic in the same order: all four give ``==`` losses.
 The launcher and the quickstart run on the CPU too.
 """
 
+import re
 import shutil
 import tempfile
 
@@ -208,6 +209,22 @@ def test_train_launcher_on_the_cpu(capsys, workdir):
     assert "qwen3-0.6b-reduced" in out and "device cpu" in out
     assert "'event': 'recovery'" in out and "'unrecoverable': 0" in out
     assert "step    10 loss" in out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "whisper-medium"])
+def test_train_launcher_on_every_family(capsys, workdir, arch):
+    """The launcher takes the ssm and enc-dec families too: eleven steps
+    of the reduced config on the CPU, the first and the last printed,
+    both losses finite."""
+    train_launcher.main(["--arch", arch, "--reduced", "--steps", "11",
+                         "--mesh", "4x2", "--seq-len", "32",
+                         "--global-batch", "4", "--workdir", workdir,
+                         "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert f"{arch}-reduced" in out and "device cpu" in out
+    steps = {int(a): float(b) for a, b in
+             re.findall(r"step +(\d+) loss (\S+)", out)}
+    assert set(steps) == {0, 10} and all(np.isfinite(list(steps.values())))
 
 
 def test_quickstart_on_the_cpu(capsys):
