@@ -1841,7 +1841,10 @@ class RoutingTape:
     keeps each call's (expert indices, top-k margin) in call order (the
     margin is the k-th minus the (k+1)-th probability); ``pin(calls)``
     makes each call take the recorded indices, its gates its own
-    probabilities there, renormalized; ``swap(fn)`` puts ``fn`` in."""
+    probabilities there, renormalized (detached from the graph with
+    ``detach_gates``, a planted fault), and ``queue`` holds the calls
+    not yet taken; a call past the tape's end raises; ``swap(fn)`` puts
+    ``fn`` in."""
 
     def __init__(self, torch, moe):
         self.torch, self.moe, self.own = torch, moe, moe.top_k_gates
@@ -1869,13 +1872,18 @@ class RoutingTape:
         with self.swap(recording):
             yield calls
 
-    def pin(self, calls):
-        queue = [idx for idx, _ in calls]
+    def pin(self, calls, detach_gates: bool = False):
+        queue = self.queue = [idx for idx, _ in calls]
 
         def pinned(probs, k):
+            if not queue:
+                raise SmokeFailure(f"routing tape of {len(calls)} calls "
+                                   f"exhausted: the pinned run makes more "
+                                   f"top_k_gates calls than the recorded one")
             idx = queue.pop(0)
             gate = probs.gather(-1, idx)
-            return gate / gate.sum(dim=-1, keepdim=True), idx
+            gate = gate / gate.sum(dim=-1, keepdim=True)
+            return (gate.detach() if detach_gates else gate), idx
 
         return self.swap(pinned)
 
@@ -3612,10 +3620,17 @@ SSD_BWD_TOLERANCE_TEXT = ("dx, ddt, dA, dB, dC (and dinit) each within 3e-2 "
                           "kernel's own priors, and against torch autograd "
                           "of ssd_chunked on the inputs widened to f32")
 FAULT_SSD_DB = "ssd backward: dB of the first head, not summed over the heads"
-FAULT_SSD_WALK = "ssd backward: the chunk decay dropped from the reverse walk"
+FAULT_SSD_WALK = ("ssd backward: the chunk decay taken as 1 in the reverse "
+                  "walk")
 FAULT_SSD_TAIL = "ssd backward: the padded tail chunk's seg_last gradient "\
                  "dropped"
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+#: the (spill store, spill load) bytes ptxas may give the tensor-core
+#: backward's rows kernel, in any of its 16 (p, n padding) instantiations:
+#: it holds dC's accumulators beside G, D and dP, and ptxas spills 4-32
+#: bytes in 7 of them (hymba's p 64 / n 16 and mamba2's p 64 / n 128
+#: among them); its chunk and keys kernels none
+SSD_BWD_ROWS_SPILLS = (32, 48)
 #: the training runs, (arch, layers (None: the published depth), batch,
 #: positions, steps, (step, node) of a fail-stop or None, log slots, log
 #: dtype): hymba-1.5b and mamba2-2.7b whole at train_4k's 4 096 positions,
@@ -3634,12 +3649,27 @@ FAMILY_TRAIN = [
 ]
 FAMILY_F32_LAYERS = 2
 FAMILY_F32_SEQ = 4096
+#: the f32 2-layer gradient checks, (arch, positions): hymba-1.5b and
+#: mamba2-2.7b at train_4k's 4 096, moonshot-v1-16b-a3b at its training
+#: run's 2 048 with its routing pinned to the plain run's (recorded over
+#: the plain run's forward and backward: remat's recompute routes again),
+#: whisper-medium (2 encoder and 2 decoder layers) at phase 18's 1 500
+#: frames and 224-token prompt
+FAMILY_GRAD_ARCHS = (("hymba-1.5b", FAMILY_F32_SEQ),
+                     ("mamba2-2.7b", FAMILY_F32_SEQ),
+                     ("moonshot-v1-16b-a3b", 2048),
+                     ("whisper-medium", WHISPER_PROMPT))
+FAULT_CROSS_BWD_CAUSAL = "backward: the cross-attention under a causal mask"
+FAULT_MOE_GATES_DETACHED = ("moe: the combine's gates detached (their "
+                            "gradient dropped)")
 #: the first step's loss (bf16, through the kernels) against the loss of
 #: the same weights and batch through the plain versions: a random init
 #: sets the loss's distance from ln vocab (hymba-1.5b's starts ~0.9 above
-#: it), the kernels set this one. Not gated for the MoE family, whose
-#: routing flips between two sound runs (ROADMAP C) move the loss by
-#: more than rounding
+#: it), the kernels set this one. For the MoE family, whose routing flips
+#: between two sound runs (ROADMAP C) move the loss by more than rounding,
+#: the kernels' loss is taken with the routing pinned to the plain run's
+#: (``RoutingTape``), under ``no_grad`` on the same weights and batch; the
+#: unpinned first step's loss and the flips are printed beside it
 FAMILY_LOSS_TOLERANCE = 1e-2
 #: the f32 2-layer gradients of hymba and mamba2 are held leaf by leaf in
 #: the norm, ||g_kernels - g_plain|| / ||g_plain|| <= TRAIN_GRAD_TOLERANCE:
@@ -3654,10 +3684,11 @@ FAMILY_LOSS_TOLERANCE = 1e-2
 def ssd_bwd_bound_ms(torch, x, B, chunk: int, priors) -> tuple:
     """x, dy, B, C, dt and the priors read once, dx, dB, dC and ddt written
     once, against the products the gradient needs: per head and chunk
-    2 p + 2 n MACs per allowed (row, key) pair (dP, dx, dC, dB) and 4 p n
-    per position (the walk's term, dCd, dwx, the state's dB), with G = C
-    B^T once per (b, chunk) for all heads; the tail chunk counts its
-    real positions only."""
+    2 p MACs per allowed (row, key) pair (dP, dx) and 4 p n per position
+    (the walk's term, dCd, dwx, the state's dB); per (b, chunk) 3 n per
+    pair for G = C B^T, dC = D B and dB = D^T C, with D the sum of dG over
+    the heads (B and C do not depend on the head); the tail chunk counts
+    its real positions only."""
     b, l, h, p = x.shape
     n = B.shape[-1]
     es = x.element_size()
@@ -3666,7 +3697,7 @@ def ssd_bwd_bound_ms(torch, x, B, chunk: int, priors) -> tuple:
     chunk = min(chunk, l)
     sizes = [chunk] * (l // chunk) + ([l % chunk] if l % chunk else [])
     pairs = sum(q * (q + 1) // 2 for q in sizes)
-    macs = b * (h * (pairs * (2 * p + 2 * n) + 4 * l * p * n) + pairs * n)
+    macs = b * (h * (pairs * 2 * p + 4 * l * p * n) + 3 * pairs * n)
     return bound(nbytes, 2.0 * macs, rate_for(torch, x.dtype))
 
 
@@ -3692,8 +3723,8 @@ def check_ssd_bwd_case(torch, ssd, ssm_mod, randn, case) -> dict:
     y, s, pr = kernel.launch(x, dt, A, B, C, chunk, init, with_priors=True)
     dinit_dtype = torch.float32 if with_init else None
 
-    def bwd(*args):
-        return kernel.launch_bwd(*args, dinit_dtype=dinit_dtype)
+    def bwd(*args, fault=None):
+        return kernel.launch_bwd(*args, dinit_dtype=dinit_dtype, fault=fault)
 
     got = bwd(x, dt, A, B, C, chunk, pr, dy, ds)
     again = bwd(x, dt, A, B, C, chunk, pr, dy, ds)
@@ -3751,33 +3782,21 @@ def check_ssd_bwd_case(torch, ssd, ssm_mod, randn, case) -> dict:
                              None if ds is None else ds[:, :1])
     faults[FAULT_SSD_DB] = max_rel(part[3].float(), want[3].float())
     del part
-    real_walk, real_seg = ref.reverse_walk, ref.seg_to_ddA
-    try:
-        ref.reverse_walk = (lambda decay, U, dstate: real_walk(
-            torch.ones_like(decay), U, dstate))
-        faults[FAULT_SSD_WALK] = grads_rel_ssd(rows(lambda i: ref.ssd_bwd_ref(
-            sl(i, x), sl(i, dt), A, sl(i, B), sl(i, C), chunk, sl(i, dy),
-            sl(i, ds), sl(i, init), sl(i, pr))))
-        ref.reverse_walk = real_walk
-        if l % chunk and ds is not None:
-            # without the final state's gradient the last chunk's seg_last
-            # gradient is 0, and so is this fault
-            def no_tail(dseg, dlast):
-                dlast = dlast.clone()
-                dlast[:, -1] = 0.0
-                return real_seg(dseg, dlast)
-            ref.seg_to_ddA = no_tail
-            faults[FAULT_SSD_TAIL] = grads_rel_ssd(rows(
-                lambda i: ref.ssd_bwd_ref(
-                    sl(i, x), sl(i, dt), A, sl(i, B), sl(i, C), chunk,
-                    sl(i, dy), sl(i, ds), sl(i, init), sl(i, pr))))
-    finally:
-        ref.reverse_walk, ref.seg_to_ddA = real_walk, real_seg
+    # the walk's decay and the tail's seg_last gradient broken inside the
+    # dtype's own kernels (``ssd_scan_bwd_planted_launch``)
+    faults[FAULT_SSD_WALK] = grads_rel_ssd(bwd(
+        x, dt, A, B, C, chunk, pr, dy, ds, fault="walk"))
+    if l % chunk and ds is not None:
+        # without the final state's gradient the last chunk's seg_last
+        # gradient is 0, and so is this fault
+        faults[FAULT_SSD_TAIL] = grads_rel_ssd(bwd(
+            x, dt, A, B, C, chunk, pr, dy, ds, fault="tail"))
     r["planted"] = faults
     what = (f"ssd_scan backward at {name} (b {b}, l {l}, h {h}, p {p}, "
             f"n {n}, chunk {chunk}, {dtype}"
             + (", init_state and dstate" if with_init else "") + ")")
-    print(f"  {what}: vs plain {json.dumps(r['vs_plain'])}, vs the f32 "
+    print(f"  {what}, {kernel.bwd_kernel_for(T)} kernels: vs plain "
+          f"{json.dumps(r['vs_plain'])}, vs the f32 "
           f"autograd oracle {json.dumps(r['vs_f32_oracle'])}; planted "
           f"{json.dumps(faults)}")
     for key in ("vs_plain", "vs_f32_oracle"):
@@ -3790,10 +3809,16 @@ def check_ssd_bwd_case(torch, ssd, ssm_mod, randn, case) -> dict:
     check(same, f"{what}: two launches give bit-identical gradients")
     # times: the backward, the forward with and without the priors, in
     # turns; the plain version and the plain autograd once
+    r["kernel"] = kernel.bwd_kernel_for(T)
     runs = {"ms": lambda: bwd(x, dt, A, B, C, chunk, pr, dy, ds),
             "fwd_priors_ms": lambda: kernel.launch(x, dt, A, B, C, chunk,
                                                    init, with_priors=True),
             "fwd_ms": lambda: kernel.launch(x, dt, A, B, C, chunk, init)}
+    if r["kernel"] == "mma":
+        # the CUDA-core kernels on the same bf16 inputs: the yardstick
+        runs["simt_ms"] = lambda: kernel.launch_bwd(
+            x, dt, A, B, C, chunk, pr, dy, ds, dinit_dtype=dinit_dtype,
+            which="simt")
     times = {key: [] for key in runs}
     for order in (list(runs), list(runs)[::-1]):
         for key in order:
@@ -3805,7 +3830,14 @@ def check_ssd_bwd_case(torch, ssd, ssm_mod, randn, case) -> dict:
         sl(i, ds), sl(i, init), sl(i, pr))), 1)
     r["autograd_ms"] = cuda_ms(lambda: rows(oracle), 1)
     r["bound_ms"], r["bound_by"] = ssd_bwd_bound_ms(torch, x, B, chunk, pr)
-    print(f"  {what}: backward {r['ms']:.4f} ms, forward with priors "
+    if "simt_ms" in r:
+        check(r["ms"] < r["simt_ms"], f"{what}: the tensor-core backward "
+              f"({r['ms']:.4f} ms) is faster than the CUDA-core one on the "
+              f"same inputs ({r['simt_ms']:.4f} ms)")
+    print(f"  {what}: backward ({r['kernel']}) {r['ms']:.4f} ms"
+          + (f", the CUDA-core kernels on the same inputs "
+             f"{r['simt_ms']:.4f} ms" if "simt_ms" in r else "")
+          + f", forward with priors "
           f"{r['fwd_priors_ms']:.4f} ms, without {r['fwd_ms']:.4f} ms (in "
           f"turns: {json.dumps(times)}); plain backward {r['plain_ms']:.2f} "
           f"ms, plain autograd forward + backward (f32) "
@@ -3859,13 +3891,15 @@ def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
     fail-stop at ``fail`` recovered from the replica logs, the installed
     shard ``==`` the node's parameters. Per step: every loss finite, the
     kernels' launches counted; the first loss against the plain
-    versions' on the same weights and batch."""
+    versions' on the same weights and batch (an MoE's with its routing
+    pinned to the plain run's)."""
     import shutil
     import tempfile
 
     import numpy as np
 
     from repro_torch import config
+    from repro_torch.models import moe
     from repro_torch.core.failures import FailureEvent, FailureInjector
     from repro_torch.data import SyntheticTokenPipeline
     from repro_torch.distributed import elastic
@@ -3938,13 +3972,29 @@ def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
         saved = (fa.ops.flash_attention, ssd.ops.ssd_scan)
         fa.ops.flash_attention = plain_attention(attn)
         ssd.ops.ssd_scan = plain_ssd(ssm_mod)
+        tape = RoutingTape(torch, moe)
         try:
-            with torch.no_grad():
+            with torch.no_grad(), tape.record() as plain_calls:
                 loss_plain = float(tr.model.loss_fn(tr.state.params,
                                                     first)[0])
         finally:
             fa.ops.flash_attention, ssd.ops.ssd_scan = saved
-        del first
+        pinned = None
+        if cfg.is_moe:
+            # the same batch through the kernels, unpinned (the flips) and
+            # pinned to the plain run's experts (the gate)
+            with torch.no_grad(), tape.record() as kernel_calls:
+                loss_unpinned = float(tr.model.loss_fn(tr.state.params,
+                                                       first)[0])
+            with torch.no_grad(), tape.pin(plain_calls):
+                loss_pinned = float(tr.model.loss_fn(tr.state.params,
+                                                     first)[0])
+            pinned = {"loss": loss_pinned, "loss_unpinned": loss_unpinned,
+                      "tape_calls": len(plain_calls),
+                      "tape_left": len(tape.queue),
+                      "route_flips": route_flips(plain_calls, kernel_calls)}
+            del kernel_calls
+        del first, plain_calls
         gc.collect()
         torch.cuda.empty_cache()
         trainer_mod.install_recovered_shard = holed_install
@@ -3954,7 +4004,7 @@ def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
         for _ in range(steps):
             c0 = (fops.launches, fops.bwd_launches,
                   dict(fops.bwd_launches_by_kernel), sops.launches,
-                  sops.bwd_launches)
+                  sops.bwd_launches, dict(sops.bwd_launches_by_kernel))
             steps_out += tr.train(1)
             per_step.append({
                 "flash_attn": (fops.launches - c0[0],
@@ -3963,7 +4013,10 @@ def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
                     k: v - c0[2][k]
                     for k, v in fops.bwd_launches_by_kernel.items()},
                 "ssd_scan": (sops.launches - c0[3],
-                             sops.bwd_launches - c0[4])})
+                             sops.bwd_launches - c0[4]),
+                "ssd_scan_bwd_by_kernel": {
+                    k: v - c0[5][k]
+                    for k, v in sops.bwd_launches_by_kernel.items()}})
         peak = torch.cuda.max_memory_allocated()
         trainer_mod.install_recovered_shard = real_install
         losses = [s_["loss"] for s_ in steps_out]
@@ -3972,7 +4025,7 @@ def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
         dumps = [e for e in tr.events if e["event"] == "mn_dump"]
         out = {"arch": arch, "layers": cfg.n_layers, "batch": batch,
                "seq": seq, "params": n_params, "losses": losses,
-               "first_loss_plain": loss_plain,
+               "first_loss_plain": loss_plain, "first_loss_pinned": pinned,
                "step_walls_s": walls, "per_step": per_step,
                "peak_bytes": peak, "setup_s": setup_s,
                "log_ring_bytes": sum(t.numel() * t.element_size()
@@ -4004,6 +4057,13 @@ def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
         shutil.rmtree(workdir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    if pinned is not None:
+        print(f"  {arch}: the first batch through the kernels with the "
+              f"routing pinned to the plain run's ({pinned['tape_calls']} "
+              f"top_k_gates calls, {pinned['tape_left']} left): loss "
+              f"{pinned['loss']:.6f}; unpinned {pinned['loss_unpinned']:.6f} "
+              f"(routing flips {json.dumps(pinned['route_flips'])}); the "
+              f"first step's {losses[0]:.6f}")
     print(f"  {arch}: losses {losses} (the first through the plain versions "
           f"{loss_plain:.6f}; ln vocab {np.log(cfg.vocab_size):.4f}); step "
           f"walls (s) {walls}; launches "
@@ -4015,9 +4075,18 @@ def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
              if "model_flop_per_step" in out else "")
           + (f"; recovery {out['recovery_wall_s']:.3f} s" if rec else ""))
     check(all(np.isfinite(losses)), f"{arch}: every loss is finite")
-    if not cfg.is_moe:
+    if pinned is None:
         check(abs(losses[0] - loss_plain) <= FAMILY_LOSS_TOLERANCE,
               f"{arch}: the first loss {losses[0]:.6f} is within "
+              f"{FAMILY_LOSS_TOLERANCE} of the plain versions' "
+              f"{loss_plain:.6f}")
+    else:
+        check(pinned["tape_calls"] > 0 and pinned["tape_left"] == 0,
+              f"{arch}: the pinned run took each of the plain run's "
+              f"{pinned['tape_calls']} routings once")
+        check(abs(pinned["loss"] - loss_plain) <= FAMILY_LOSS_TOLERANCE,
+              f"{arch}: the first batch's loss through the kernels, routing "
+              f"pinned, {pinned['loss']:.6f} is within "
               f"{FAMILY_LOSS_TOLERANCE} of the plain versions' "
               f"{loss_plain:.6f}")
     n_attn = 0 if cfg.family == "ssm" else (
@@ -4025,12 +4094,13 @@ def train_family(torch, fa, attn, ssd, ssm_mod, arch: str, layers,
     n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     want = {"flash_attn": (2 * n_attn, n_attn),
             "flash_attn_bwd_by_kernel": {"mma": n_attn, "simt": 0},
-            "ssd_scan": (2 * n_ssd, n_ssd)}
+            "ssd_scan": (2 * n_ssd, n_ssd),
+            "ssd_scan_bwd_by_kernel": {"mma": n_ssd, "simt": 0}}
     check(all(p_ == want for p_ in per_step),
           f"{arch}: every step launches flash_attn {2 * n_attn} times "
-          f"forward (with remat's recompute) and {n_attn} backward, all on "
-          f"the tensor-core backward, and ssd_scan {2 * n_ssd} forward and "
-          f"{n_ssd} backward: {per_step}")
+          f"forward (with remat's recompute) and {n_attn} backward, and "
+          f"ssd_scan {2 * n_ssd} forward and {n_ssd} backward, both "
+          f"backwards all on their tensor-core kernels: {per_step}")
     check(not dumps, f"{arch}: no MN dump inside the run")
     if fail:
         check(len(rec) == 1 and rec[0]["stats"]["unrecoverable"] == 0
@@ -4069,36 +4139,63 @@ def norm_rel(got, want) -> float:
     return float((got - want).norm() / want.norm())
 
 
-def family_grads(torch, fa, attn, ssd, ssm_mod, arch: str) -> dict:
+def family_grads(torch, fa, attn, ssd, ssm_mod, arch: str, seq: int) -> dict:
     """The gradients of ``loss_fn`` of an f32 copy of ``arch`` cut to 2
-    layers, through the kernels (the CUDA-core backwards) against through
-    the plain versions (``_blockwise_attention``, ``ssd_chunked``), each
-    leaf in the norm; both against a reference whose SSD backward runs
-    in f64; and with dB of the first head alone planted in the SSD
-    backward."""
+    layers (an enc-dec's encoder too), batch 1 x ``seq``, through the
+    kernels (the CUDA-core backwards) against through the plain versions
+    (``_blockwise_attention``, ``ssd_chunked``), each leaf in the norm;
+    an MoE's kernel runs pinned to the plain run's routing, recorded over
+    its forward and backward, and the tape must be taken exactly; an SSD
+    arch's readings also against a reference whose SSD backward runs in
+    f64. Planted faults, each read the same way: the SSD backward's dB of
+    the first head alone (ssm, hybrid); the attention backward's causal
+    mask dropped (every arch with causal attention); the cross-attention
+    backward under a causal mask (enc-dec); the MoE gates detached."""
     from repro_torch import config
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
+    from repro_torch.models.model_zoo import make_batch
     from repro_torch.optim.optimizers import tree_leaves
-    cfg = dataclasses.replace(config.get_model_config(arch),
-                              n_layers=FAMILY_F32_LAYERS, dtype="float32")
+    published = config.get_model_config(arch)
+    cut = dict(n_layers=FAMILY_F32_LAYERS, dtype="float32")
+    if published.is_encdec:
+        cut["encoder_layers"] = FAMILY_F32_LAYERS
+    cfg = dataclasses.replace(published, **cut)
+    ssd_arch = cfg.family in ("ssm", "hybrid")
     model = build_model(cfg)
     params = model.init(SEED, device=DEVICE)
     for p_ in tree_leaves(params):
         p_.requires_grad_(True)
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
-    tok = torch.randint(0, cfg.vocab_size, (1, FAMILY_F32_SEQ),
-                        generator=gen, device=DEVICE, dtype=torch.int32)
-    batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    if ssd_arch:
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+        tok = torch.randint(0, cfg.vocab_size, (1, seq), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+        batch = {"tokens": tok, "labels": torch.roll(tok, -1, dims=1)}
+    else:
+        batch = make_batch(cfg, config.ShapeConfig("f32 gradients", seq, 1,
+                                                   "train"),
+                           seed=SEED + 5, device=DEVICE)
+    tape = RoutingTape(torch, moe)
+    plain_calls = []
 
-    def grads(swaps):
+    def grads(swaps, detach_gates=False):
+        """Loss and gradients with ``swaps`` in place; the plain run (no
+        tape yet) records the routing, every other run is pinned to it."""
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
         for mod, name, fn in swaps:
             setattr(mod, name, fn)
+        routing = (tape.pin(plain_calls, detach_gates) if plain_calls
+                   else tape.record())
         try:
             for p_ in tree_leaves(params):
                 p_.grad = None
-            loss, _ = model.loss_fn(params, batch)
-            loss.backward()
+            with routing as calls:
+                loss, _ = model.loss_fn(params, batch)
+                loss.backward()
+            if not plain_calls and calls:
+                plain_calls.extend(calls)
+            elif plain_calls:
+                check(not tape.queue, f"{arch}: the pinned run took each of "
+                      f"the {len(plain_calls)} recorded routings once")
         finally:
             for mod, name, fn in saved:
                 setattr(mod, name, fn)
@@ -4107,6 +4204,9 @@ def family_grads(torch, fa, attn, ssd, ssm_mod, arch: str) -> dict:
             p_.grad = None
         return float(loss.detach()), out
 
+    plain = [(fa.ops, "flash_attention", plain_attention(attn)),
+             (ssd.ops, "ssd_scan", plain_ssd(ssm_mod))]
+    loss_p, g_p = grads(plain)
     fa.ops.reset_counts()
     ssd.ops.reset_counts()
     loss_k, g_k = grads([])
@@ -4116,77 +4216,113 @@ def family_grads(torch, fa, attn, ssd, ssm_mod, arch: str) -> dict:
                     dict(fa.ops.flash_attention.bwd_launches_by_kernel),
                 "ssd_scan": (ssd.ops.ssd_scan.launches,
                              ssd.ops.ssd_scan.bwd_launches),
-                "ssd_scan_by_kernel": dict(ssd.ops.ssd_scan.launches_by_kernel)}
-    loss_p, g_p = grads([(fa.ops, "flash_attention", plain_attention(attn)),
-                         (ssd.ops, "ssd_scan", plain_ssd(ssm_mod))])
+                "ssd_scan_by_kernel": dict(ssd.ops.ssd_scan.launches_by_kernel),
+                "ssd_scan_bwd_by_kernel":
+                    dict(ssd.ops.ssd_scan.bwd_launches_by_kernel)}
     rels = [norm_rel(a, b) for a, b in zip(g_k, g_p)]
-    _, g_64 = grads([(fa.ops, "flash_attention", plain_attention(attn)),
-                     (ssd.ops, "ssd_scan", f64_backward_ssd(torch, ssd,
-                                                            ssm_mod))])
-    readings = {
-        "kernels_vs_plain_max_rel": max(max_rel(a, b)
-                                        for a, b in zip(g_k, g_p)),
-        "kernels_vs_f64_norm": max(norm_rel(a, b) for a, b in zip(g_k, g_64)),
-        "plain_vs_f64_norm": max(norm_rel(a, b) for a, b in zip(g_p, g_64)),
-        "kernels_vs_f64_max_rel": max(max_rel(a, b)
-                                      for a, b in zip(g_k, g_64)),
-        "plain_vs_f64_max_rel": max(max_rel(a, b)
-                                    for a, b in zip(g_p, g_64))}
-    del g_64
-    real_bwd = ssd.kernel.launch_bwd
+    readings = {"kernels_vs_plain_max_rel": max(max_rel(a, b)
+                                                for a, b in zip(g_k, g_p))}
+    if ssd_arch:
+        _, g_64 = grads([plain[0], (ssd.ops, "ssd_scan",
+                                    f64_backward_ssd(torch, ssd, ssm_mod))])
+        readings.update({
+            "kernels_vs_f64_norm": max(norm_rel(a, b)
+                                       for a, b in zip(g_k, g_64)),
+            "plain_vs_f64_norm": max(norm_rel(a, b)
+                                     for a, b in zip(g_p, g_64)),
+            "kernels_vs_f64_max_rel": max(max_rel(a, b)
+                                          for a, b in zip(g_k, g_64)),
+            "plain_vs_f64_max_rel": max(max_rel(a, b)
+                                        for a, b in zip(g_p, g_64))})
+        del g_64
+    del g_k
 
-    def db_first_head(x, dt, A, B, C, chunk, priors, dy, dstate=None,
-                      **kw):
-        out = list(real_bwd(x, dt, A, B, C, chunk, priors, dy, dstate, **kw))
-        out[3] = real_bwd(x[:, :, :1], dt[..., :1], A[:1], B, C, chunk,
-                          priors[:, :1], dy[:, :, :1],
-                          None if dstate is None else dstate[:, :1])[3]
-        return tuple(out)
+    def planted(swaps, detach_gates=False):
+        _, g_bad = grads(swaps, detach_gates)
+        return max(norm_rel(a, b) for a, b in zip(g_bad, g_p))
 
-    _, g_bad = grads([(ssd.kernel, "launch_bwd", db_first_head)])
-    bad = max(norm_rel(a, b) for a, b in zip(g_bad, g_p))
-    n_attn = 0 if cfg.family == "ssm" else FAMILY_F32_LAYERS
-    out = {"arch": arch, "layers": FAMILY_F32_LAYERS, "seq": FAMILY_F32_SEQ,
+    faults = {}
+    if ssd_arch:
+        real_ssd_bwd = ssd.kernel.launch_bwd
+
+        def db_first_head(x, dt, A, B, C, chunk, priors, dy, dstate=None,
+                          **kw):
+            out = list(real_ssd_bwd(x, dt, A, B, C, chunk, priors, dy,
+                                    dstate, **kw))
+            out[3] = real_ssd_bwd(x[:, :, :1], dt[..., :1], A[:1], B, C,
+                                  chunk, priors[:, :1], dy[:, :, :1],
+                                  None if dstate is None
+                                  else dstate[:, :1])[3]
+            return tuple(out)
+
+        faults[FAULT_SSD_DB] = planted([(ssd.kernel, "launch_bwd",
+                                         db_first_head)])
+    real_bwd = fa.kernel.launch_bwd
+    if cfg.family != "ssm":
+        faults[FAULT_BWD_CAUSAL] = planted([(
+            fa.kernel, "launch_bwd",
+            lambda q, k, v, o, lse, do, causal, **kw:
+                real_bwd(q, k, v, o, lse, do, False, **kw))])
+    if cfg.is_encdec:
+        faults[FAULT_CROSS_BWD_CAUSAL] = planted([(
+            fa.kernel, "launch_bwd",
+            lambda q, k, v, o, lse, do, causal, **kw:
+                real_bwd(q, k, v, o, lse, do,
+                         causal or q.shape[1] != k.shape[1], **kw))])
+    if cfg.is_moe:
+        faults[FAULT_MOE_GATES_DETACHED] = planted([], detach_gates=True)
+    n_attn = 0 if cfg.family == "ssm" else (
+        3 * FAMILY_F32_LAYERS if cfg.is_encdec else FAMILY_F32_LAYERS)
+    n_ssd = FAMILY_F32_LAYERS if ssd_arch else 0
+    out = {"arch": arch, "layers": FAMILY_F32_LAYERS, "seq": seq,
            "loss_kernel": loss_k, "loss_plain": loss_p,
            "norm_rel": max(rels), "readings": readings,
-           "planted": {FAULT_SSD_DB: bad}, "launches": launches}
+           "routing_tape_calls": len(plain_calls),
+           "planted": faults, "launches": launches}
     print(f"  gradients of loss_fn, {arch} f32 at {FAMILY_F32_LAYERS} "
-          f"layers, batch 1 x {FAMILY_F32_SEQ}: kernels vs plain versions, "
-          f"largest leaf {max(rels):.4g} in the norm (losses {loss_k:.6f} / "
-          f"{loss_p:.6f}); elementwise and against the f64-backward "
-          f"reference {json.dumps(readings)}; planted ({FAULT_SSD_DB}) "
-          f"{bad:.4g}; launches {launches}")
-    check(launches["ssd_scan"] == (2 * FAMILY_F32_LAYERS, FAMILY_F32_LAYERS)
-          and launches["ssd_scan_by_kernel"] == {
-              "mma": 0, "simt": 2 * FAMILY_F32_LAYERS}
+          f"layers, batch 1 x {seq}: kernels vs plain versions, largest "
+          f"leaf {max(rels):.4g} in the norm (losses {loss_k:.6f} / "
+          f"{loss_p:.6f}); {json.dumps(readings)}"
+          + (f"; routing pinned to the plain run's {len(plain_calls)} "
+             f"top_k_gates calls (forward and remat's recompute)"
+             if cfg.is_moe else "")
+          + f"; planted {json.dumps(faults)}; launches {launches}")
+    check(launches["ssd_scan"] == (2 * n_ssd, n_ssd)
+          and launches["ssd_scan_by_kernel"] == {"mma": 0, "simt": 2 * n_ssd}
+          and launches["ssd_scan_bwd_by_kernel"] == {"mma": 0, "simt": n_ssd}
           and launches["flash_attn"] == (2 * n_attn, n_attn)
           and launches["flash_attn_bwd_by_kernel"] == {"mma": 0,
                                                       "simt": n_attn},
           f"{arch}: the kernels' route, f32 on the CUDA cores: each forward "
           f"twice and each backward once a layer")
+    if cfg.is_moe:
+        check(len(plain_calls) > 0, f"{arch}: the routing tape recorded "
+              f"{len(plain_calls)} top_k_gates calls")
     check(max(rels) <= TRAIN_GRAD_TOLERANCE, f"{arch}: gradients through "
           f"the kernels vs the plain versions, each leaf in the norm: "
           f"{max(rels):.4g} (tol {TRAIN_GRAD_TOLERANCE})")
-    check(bad > TRAIN_GRAD_TOLERANCE, f"{arch}: planted fault "
-          f"({FAULT_SSD_DB}) reads {bad:.4g}, above the limit "
-          f"{TRAIN_GRAD_TOLERANCE}")
-    del params, g_k, g_p, g_bad, model
+    for fault, bad in faults.items():
+        check(bad > TRAIN_GRAD_TOLERANCE, f"{arch}: planted fault ({fault}) "
+              f"reads {bad:.4g}, above the limit {TRAIN_GRAD_TOLERANCE}")
+    del params, g_p, model
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def phase_train_families(torch, fa, attn, ssd, ssm_mod) -> dict:
-    """Phase 21: the ssd_scan backward kernel against its plain version
-    at five shapes; hymba-1.5b (a node failure recovered) and mamba2-2.7b
-    trained whole, moonshot-v1-16b-a3b cut in depth and whisper-medium
-    whole, through ``Trainer``; gradients of hymba and mamba2 through the
-    kernels against the plain versions on f32 copies."""
+    """Phase 21: the ssd_scan backward kernels (bf16 on the tensor cores,
+    f32 on the CUDA cores) against their plain version at five shapes;
+    hymba-1.5b (a node failure recovered) and mamba2-2.7b trained whole,
+    moonshot-v1-16b-a3b cut in depth and whisper-medium whole, through
+    ``Trainer``; gradients of hymba, mamba2, moonshot (routing pinned) and
+    whisper through the kernels against the plain versions on f32
+    copies."""
     print("phase 21: the ssm, hybrid, MoE and enc-dec families trained -- "
-          "the ssd_scan backward kernel against its plain version; "
+          "the ssd_scan backward kernels against their plain version; "
           "hymba-1.5b and mamba2-2.7b whole, moonshot-v1-16b-a3b cut in "
-          "depth, whisper-medium whole through Trainer; gradients through "
-          "the kernels against the plain versions")
+          "depth, whisper-medium whole through Trainer; gradients of all "
+          "four through the kernels against the plain versions")
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  device memory held before the phase: "
@@ -4215,8 +4351,8 @@ def phase_train_families(torch, fa, attn, ssd, ssm_mod) -> dict:
         out["train"][arch]["wall_s"] = time.perf_counter() - t1
         print(f"  {arch}: {out['train'][arch]['wall_s']:.1f} s")
     out["grads_f32"] = {arch: family_grads(torch, fa, attn, ssd, ssm_mod,
-                                           arch)
-                        for arch in ("hymba-1.5b", "mamba2-2.7b")}
+                                           arch, seq)
+                        for arch, seq in FAMILY_GRAD_ARCHS}
     out["phase_s"] = time.perf_counter() - t0
     print(f"  phase 21: {out['phase_s']:.1f} s")
     return out
@@ -4275,8 +4411,9 @@ def main(argv=None) -> int:
           "the CUDA cores, src/repro_torch/csrc/flash_attn_bwd.cu) replaces "
           "XLA autodiff of "
           "src/repro/models/attention.py:123 _blockwise_attention; "
-          "ssd_scan_bwd (CUDA C++, CUDA cores, "
-          "src/repro_torch/csrc/ssd_scan_bwd.cu) replaces XLA autodiff of "
+          "ssd_scan_bwd (CUDA C++, bf16 on the tensor cores and f32 on the "
+          "CUDA cores, src/repro_torch/csrc/ssd_scan_bwd.cu) replaces XLA "
+          "autodiff of "
           "src/repro/models/ssm.py:94 ssd_chunked; "
           "ssd_scan (CUDA C++, bf16 as three chunk-parallel passes on the "
           "tensor cores and f32 on the CUDA cores, "
@@ -4310,6 +4447,13 @@ def main(argv=None) -> int:
         if "_mma_kernel" in n}
     print(f"  flash_attn_bwd tensor-core kernels, (spill store, load) bytes: "
           f"{build['flash_attn_bwd_mma_spills']}")
+    # the SSD backward's tensor-core kernels at every (p, n padding): none
+    # spills but the rows kernel, by at most SSD_BWD_ROWS_SPILLS bytes
+    for kern, most in (("ssd_bwd_chunk_mma_kernel", (0, 0)),
+                       ("ssd_bwd_keys_mma_kernel", (0, 0)),
+                       ("ssd_bwd_rows_mma_kernel", SSD_BWD_ROWS_SPILLS)):
+        check_no_spills(ssd.kernel.BWD_LIBRARY, kern,
+                        len(ssd.kernel.HEAD_DIMS) * 4, most)
     build["ssd_scan_bwd_spills"] = {
         n: v for n, v in ptxas_spills(ptxas_log(ssd.kernel.BWD_LIBRARY)).items()
         if any(v)}
@@ -4454,7 +4598,8 @@ def main(argv=None) -> int:
         for arch, t in fam["train"].items() if t["launches"]["ssd_scan"]] + [
         {"path": f"{arch} f32 at {g['layers']} layers, gradients",
          "launches": g["launches"]["ssd_scan"][0]}
-        for arch, g in fam["grads_f32"].items()]
+        for arch, g in fam["grads_f32"].items()
+        if g["launches"]["ssd_scan"][0]]
     ssd_entry["launches"] = sum(p["launches"] for p in ssd_entry["paths"])
     for key in ("simt_ms", "f32_ms", "passes_ms"):
         ssd_entry[key] = model_k[f"ssd_{key}"]
@@ -4531,7 +4676,8 @@ def main(argv=None) -> int:
         for arch, t in fam["train"].items() if t["launches"]["ssd_scan_bwd"]
     ] + [{"path": f"{arch} f32 at {g['layers']} layers, gradients",
           "launches": g["launches"]["ssd_scan"][1]}
-         for arch, g in fam["grads_f32"].items()]
+         for arch, g in fam["grads_f32"].items()
+         if g["launches"]["ssd_scan"][1]]
     ssd_bwd_entry = {
         "name": "ssd_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
@@ -4540,23 +4686,34 @@ def main(argv=None) -> int:
                          "a custom_vjp)",
         "launches": sum(p["launches"] for p in ssd_bwd_paths),
         "paths": ssd_bwd_paths,
-        "launches_by_kernel": {"simt": sum(
-            t["launches"]["ssd_scan_bwd_by_kernel"]["simt"]
-            for t in fam["train"].values())},
-        "kernels": {"simt": "bf16 and f32: ssd_bwd_chunk_kernel, "
+        "launches_by_kernel": {
+            k: sum(t["launches"]["ssd_scan_bwd_by_kernel"][k]
+                   for t in fam["train"].values())
+            + sum(g["launches"]["ssd_scan_bwd_by_kernel"][k]
+                  for g in fam["grads_f32"].values())
+            for k in ("mma", "simt")},
+        "kernels": {"mma": "bf16: ssd_bwd_chunk_mma_kernel, "
+                           "ssd_bwd_walk_kernel, ssd_bwd_rows_mma_kernel, "
+                           "ssd_bwd_keys_mma_kernel, ssd_bwd_dt_kernel, "
+                           "ssd_bwd_reduce_mma_kernel, ssd_bwd_da_kernel; "
+                           "tensor cores (mma.sync m16n8k16), the products "
+                           "with B and C once per head group",
+                    "simt": "f32, and bf16 by name: ssd_bwd_chunk_kernel, "
                             "ssd_bwd_walk_kernel, ssd_bwd_tile_kernel, "
                             "ssd_bwd_dt_kernel, ssd_bwd_reduce_kernel, "
                             "ssd_bwd_da_kernel, CUDA cores, f32 sums"},
         "max_abs_err": max(r["max_abs_err"] for r in fam["bwd"]),
         "ms": ssd_main["ms"], "plain_ms": ssd_main["plain_ms"],
+        "simt_ms": ssd_main["simt_ms"], "kernel": ssd_main["kernel"],
         "autograd_ms": ssd_main["autograd_ms"],
         "bound_ms": ssd_main["bound_ms"], "bound_by": ssd_main["bound_by"],
         "library_ms": None,
         "fwd_priors_ms": ssd_main["fwd_priors_ms"],
         "tolerance": SSD_BWD_TOLERANCE_TEXT,
-        "shapes": [{k: r[k] for k in ("shape", "with_init", "ms",
-                                      "fwd_priors_ms", "fwd_ms", "plain_ms",
-                                      "autograd_ms", "bound_ms", "bound_by")}
+        "shapes": [{k: r.get(k) for k in ("shape", "with_init", "kernel",
+                                          "ms", "simt_ms", "fwd_priors_ms",
+                                          "fwd_ms", "plain_ms", "autograd_ms",
+                                          "bound_ms", "bound_by")}
                    for r in fam["bwd"]],
     }
     kernels = [entry] + lc_entries + model_entries + [bwd_entry,

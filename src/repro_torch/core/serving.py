@@ -260,7 +260,7 @@ class ScenarioServer:
 
         # async queue (guarded by _cond; the worker serves via the
         # synchronous path, so _cond is never held across device work).
-        # Queue entries are (spec, future, deadline-or-None); the
+        # Queue entries are (spec, future, deadline-or-None, enqueued); the
         # watchdog thread expires deadlines, respawns a dead worker and
         # fails a wedged flush -- its counters live in _wd_stats, also
         # guarded by _cond (the watchdog never takes _lock, so there is
@@ -272,6 +272,9 @@ class ScenarioServer:
         self._watchdog: Optional[threading.Thread] = None
         self._flush_started: Optional[float] = None
         self._flush_batch: List[tuple] = []
+        # set when the watchdog fails a wedged flush, cleared when that
+        # flush returns: the daemon serves nothing queued meanwhile
+        self._wedged = False
         self._wd_stats: Dict[str, int] = {
             "submit_timeouts": 0, "worker_restarts": 0,
             "watchdog_flush_failures": 0,
@@ -895,6 +898,7 @@ class ScenarioServer:
                     with self._cond:
                         self._flush_started = None
                         self._flush_batch = []
+                        self._wedged = False
                 for entry, res in zip(batch, results):
                     if not entry[1].done():
                         entry[1].set_result(res)
@@ -906,6 +910,7 @@ class ScenarioServer:
                     self._worker = None
                 self._flush_started = None
                 self._flush_batch = []
+                self._wedged = False
                 self._cond.notify_all()
 
     def _watchdog_loop(self) -> None:
@@ -955,6 +960,7 @@ class ScenarioServer:
                     stuck = self._flush_batch
                     self._flush_started = None
                     self._flush_batch = []
+                    self._wedged = True
                     self._wd_stats["watchdog_flush_failures"] += 1
                     for e in stuck:
                         if not e[1].done():
@@ -962,6 +968,20 @@ class ScenarioServer:
                                 f"serve flush exceeded watchdog_ms="
                                 f"{self.watchdog_ms} (daemon wedged; "
                                 f"{len(stuck)} queries failed)"))
+                if self._wedged:
+                    # queued behind the wedged flush: nothing serves
+                    # them until it returns, so each fails once it has
+                    # waited watchdog_ms, as the flush's own did
+                    late = [e for e in self._queue
+                            if (now - e[3]) * 1e3 > self.watchdog_ms]
+                    for e in late:
+                        self._queue.remove(e)
+                        if not e[1].done():
+                            e[1].set_exception(TimeoutError(
+                                f"submit({e[0].workload!r}, "
+                                f"{e[0].config!r}) queued behind a flush "
+                                f"that exceeded watchdog_ms="
+                                f"{self.watchdog_ms} (daemon wedged)"))
                 self._cond.wait(0.02)
 
     # -- observability -----------------------------------------------------

@@ -28,8 +28,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 #: No fast-math: ``--use_fast_math`` implies ``-ftz=true`` and approximate
 #: division, and every kernel here must keep IEEE arithmetic (and
 #: subnormals) to stay bit-identical to its plain version.
+#: ``--split-compile=8`` compiles a source's kernels in parallel (the
+#: ssd_scan backward's 120 kernels: ~54 s on the card's host
+#: against ~131 s in one thread).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+              "--split-compile=8")
 
 
 def nvcc() -> str:

@@ -13,10 +13,13 @@ writes the state entering each chunk (``*_priors_launch``), which the
 backward reads.
 
 The backward (``csrc/ssd_scan_bwd.cu``) is built the same way into
-``libssd_scan_bwd-<hash>.so``: one set of kernels on the CUDA cores with
-f32 sums for both dtypes (:data:`BWD_KERNEL_FOR_DTYPE`), six launches
-behind ``ssd_scan_bwd_launch`` with a workspace allocated here, no
-atomics.
+``libssd_scan_bwd-<hash>.so``, with two routes picked by dtype
+(:data:`BWD_KERNEL_FOR_DTYPE`): bf16 on the tensor cores
+(``ssd_scan_bwd_mma_launch``, seven launches, the products with B and C
+once per head group), f32 on the CUDA cores (``ssd_scan_bwd_launch``,
+six launches, f32 products; it also runs bf16 when asked by name, the
+yardstick the tensor-core route is timed against). Both take a
+workspace allocated here and use no atomics.
 """
 
 from __future__ import annotations
@@ -34,12 +37,17 @@ MAX_STATE = 128
 MAX_GRID_YZ = 65535              # b and h index the grid's y and z axes
 MAX_SMEM_BYTES = 227 * 1024
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: The faults :func:`launch_bwd` can plant for the check on the card
+#: (``ssd_scan_bwd_planted_launch``): every chunk decay taken as 1 in the
+#: reverse walk, or the last chunk's seg_last gradient dropped.
+PLANTED_FAULTS = {"walk": 1, "tail": 2}
 #: The kernel of each dtype: "mma" on the tensor cores, "simt" on the
 #: CUDA cores.
 KERNEL_FOR_DTYPE = {torch.bfloat16: "mma", torch.float32: "simt"}
-#: The backward kernels of each dtype: both on the CUDA cores ("simt");
-#: their tensor-core redesign is ROADMAP B7.
-BWD_KERNEL_FOR_DTYPE = {torch.bfloat16: "simt", torch.float32: "simt"}
+#: The backward kernels of each dtype: "mma" on the tensor cores, "simt"
+#: on the CUDA cores (f32 products: TF32 or bf16 would miss the f32
+#: gradient check).
+BWD_KERNEL_FOR_DTYPE = {torch.bfloat16: "mma", torch.float32: "simt"}
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -73,6 +81,16 @@ def _bind_bwd(lib: ctypes.CDLL) -> None:
     lib.ssd_scan_bwd_workspace_bytes.restype = ctypes.c_longlong
     lib.ssd_scan_bwd_smem_bytes.argtypes = [i32] * 4
     lib.ssd_scan_bwd_smem_bytes.restype = i32
+    lib.ssd_scan_bwd_mma_launch.argtypes = ([ptr] * 6 + [i32] + [ptr] * 9
+                                            + [i32] * 6 + [ptr])
+    lib.ssd_scan_bwd_mma_launch.restype = i32
+    lib.ssd_scan_bwd_planted_launch.argtypes = ([ptr] * 6 + [i32] + [ptr] * 9
+                                                + [i32] * 9 + [ptr])
+    lib.ssd_scan_bwd_planted_launch.restype = i32
+    lib.ssd_scan_bwd_mma_workspace_bytes.argtypes = [i32] * 6
+    lib.ssd_scan_bwd_mma_workspace_bytes.restype = ctypes.c_longlong
+    lib.ssd_scan_bwd_mma_smem_bytes.argtypes = [i32] * 4
+    lib.ssd_scan_bwd_mma_smem_bytes.restype = i32
     lib.ssd_scan_bwd_error_string.argtypes = [i32]
     lib.ssd_scan_bwd_error_string.restype = ctypes.c_char_p
 
@@ -210,7 +228,8 @@ def launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                priors: torch.Tensor, dy: torch.Tensor,
                dstate: Optional[torch.Tensor] = None,
                dinit_dtype: Optional[torch.dtype] = None,
-               need: Tuple[bool, ...] = (True,) * 5):
+               need: Tuple[bool, ...] = (True,) * 5,
+               which: Optional[str] = None, fault: Optional[str] = None):
     """The gradient of the chunked scan on the card: ``(dx, ddt, dA, dB,
     dC, dinit)`` in the dtypes of x, dt, A, B, C and ``dinit_dtype``,
     from the forward's inputs, its ``priors`` (:func:`launch` with
@@ -218,10 +237,23 @@ def launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     may hand over a strided one) and the final state's ``dstate`` (None:
     unused). ``need`` flags the first five (x, dt, A, B, C); a part not
     asked for is None, and ``dinit`` is None without ``dinit_dtype`` (no
-    initial state, or none that needs a gradient). Checks its inputs;
-    raises ``RuntimeError`` on a non-zero launch status; does not
-    synchronise."""
+    initial state, or none that needs a gradient). ``which`` names the
+    kernels ("mma" or "simt"); by default the dtype's
+    (:func:`bwd_kernel_for`), the only choice the public op makes.
+    ``fault`` (a key of :data:`PLANTED_FAULTS`) plants that fault in the
+    kernels, for the check on the card that it shows in the gradients;
+    the op never passes one. Checks its inputs; raises ``RuntimeError`` on
+    a non-zero launch status; does not synchronise."""
     check_inputs(x, dt, A, B, C, chunk, None)
+    which = which or bwd_kernel_for(x.dtype)
+    if which == "mma" and x.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core backward takes bfloat16, got "
+                        f"{x.dtype}")
+    if which not in ("mma", "simt"):
+        raise ValueError(f"no ssd_scan backward kernel {which!r}")
+    if fault is not None and fault not in PLANTED_FAULTS:
+        raise ValueError(f"no planted ssd_scan backward fault {fault!r}")
+    mma = which == "mma"
     b, l, h, p = x.shape
     n = B.shape[-1]
     chunk = min(chunk, l)
@@ -237,14 +269,15 @@ def launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"dstate must be {(b, h, p, n)}, got "
                          f"{tuple(dstate.shape)}")
     lib = load_bwd()
-    smem = lib.ssd_scan_bwd_smem_bytes(p, n, chunk, l)
+    smem = (lib.ssd_scan_bwd_mma_smem_bytes if mma
+            else lib.ssd_scan_bwd_smem_bytes)(p, n, chunk, l)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"the backward at chunk {chunk}, p={p}, n={n}, "
                          f"l={l} needs {smem} bytes of shared memory, more "
                          f"than {MAX_SMEM_BYTES}")
     dev = x.device
     x, B, C = aligned16(x), aligned16(B), aligned16(C)
-    dy, priors = aligned16(dy.to(x.dtype)), priors.contiguous()
+    dy, priors = aligned16(dy.to(x.dtype)), aligned16(priors)
     dtf, Af = dt.float().contiguous(), A.float().contiguous()
     dsf = None if dstate is None else dstate.float().contiguous()
     f32 = dict(dtype=torch.float32, device=dev)
@@ -255,18 +288,25 @@ def launch_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             torch.empty_like(B) if need_B else None,
             torch.empty_like(C) if need_C else None,
             torch.empty((b, h, p, n), **f32) if dinit_dtype else None)
-    nbytes = lib.ssd_scan_bwd_workspace_bytes(b, l, h, p, n, chunk)
+    nbytes = (lib.ssd_scan_bwd_mma_workspace_bytes if mma
+              else lib.ssd_scan_bwd_workspace_bytes)(b, l, h, p, n, chunk)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     ptr = (lambda t: None if t is None else t.data_ptr())
-    with on_card(dev) as stream:
-        status = lib.ssd_scan_bwd_launch(
-            x.data_ptr(), dtf.data_ptr(), Af.data_ptr(), B.data_ptr(),
+    args = (x.data_ptr(), dtf.data_ptr(), Af.data_ptr(), B.data_ptr(),
             C.data_ptr(), priors.data_ptr(), priors.shape[4], dy.data_ptr(),
-            ptr(dsf), *map(ptr, outs), ws.data_ptr(), b, l, h, p, n, chunk,
-            DTYPES[x.dtype], stream)
+            ptr(dsf), *map(ptr, outs), ws.data_ptr(), b, l, h, p, n, chunk)
+    with on_card(dev) as stream:
+        if fault is not None:
+            status = lib.ssd_scan_bwd_planted_launch(
+                *args, DTYPES[x.dtype], int(mma), PLANTED_FAULTS[fault],
+                stream)
+        elif mma:
+            status = lib.ssd_scan_bwd_mma_launch(*args, stream)
+        else:
+            status = lib.ssd_scan_bwd_launch(*args, DTYPES[x.dtype], stream)
     if status != 0:
         msg = lib.ssd_scan_bwd_error_string(status).decode()
-        raise RuntimeError(f"ssd_scan backward launch failed (x "
+        raise RuntimeError(f"ssd_scan backward {which} launch failed (x "
                            f"{tuple(x.shape)}, n={n}, chunk={chunk}, "
                            f"{x.dtype}): CUDA error {status} ({msg})")
     dx, ddt, dA, dB, dC, dinit = outs

@@ -22,9 +22,10 @@ serving path runs.
 ``ssd_scan.launches`` counts forward launches (one per call, whatever
 the passes inside) and ``ssd_scan.launches_by_kernel`` splits them by
 kernel ("mma", "simt"); ``ssd_scan.bwd_launches`` counts backward
-launches and ``ssd_scan.bwd_launches_by_kernel`` splits them the same
-way (``kernel.bwd_kernel_for``), so a run can show which kernels its
-scan went through.
+launches (one per call, whatever the kernels inside) and
+``ssd_scan.bwd_launches_by_kernel`` splits them the same way
+(``kernel.bwd_kernel_for``: bf16 "mma", f32 "simt"), so a run can show
+which kernels its scan went through.
 """
 
 from __future__ import annotations
@@ -103,7 +104,7 @@ def reset_counts() -> None:
     ssd_scan.launches = 0
     ssd_scan.launches_by_kernel = {"mma": 0, "simt": 0}
     ssd_scan.bwd_launches = 0
-    ssd_scan.bwd_launches_by_kernel = {"simt": 0}
+    ssd_scan.bwd_launches_by_kernel = {"mma": 0, "simt": 0}
 
 
 #: Kernel launches since import or :func:`reset_counts` (CPU calls are

@@ -485,6 +485,24 @@ def test_watchdog_fails_wedged_flush():
         assert srv.stats()["watchdog_flush_failures"] >= 1
 
 
+def test_watchdog_fails_entries_queued_behind_a_wedged_flush():
+    """A submit that arrives after the daemon wedged in a flush is not in
+    that flush's batch: it fails with the watchdog's error all the same
+    once it has waited ``watchdog_ms``, not at the caller's timeout."""
+    with server(batch_cells=8, watchdog_ms=100) as srv:
+        srv._lock.acquire()
+        try:
+            first = srv.submit(WARM_GRID[0])
+            with pytest.raises(TimeoutError, match="watchdog"):
+                first.result(timeout=30)
+            late = srv.submit(WARM_GRID[1])
+            with pytest.raises(TimeoutError, match="watchdog"):
+                late.result(timeout=30)
+        finally:
+            srv._lock.release()
+        assert srv.stats()["watchdog_flush_failures"] == 1
+
+
 def test_close_drains_or_fails_pending_deterministically():
     srv = server(batch_cells=8)
     srv._lock.acquire()

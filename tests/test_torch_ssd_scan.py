@@ -291,11 +291,25 @@ class FakeLibrary:
         self.calls.append(("bwd", args))
         return self.status
 
+    def ssd_scan_bwd_mma_launch(self, *args):
+        self.calls.append(("bwd-mma", args))
+        return self.status
+
+    def ssd_scan_bwd_planted_launch(self, *args):
+        self.calls.append(("bwd-planted", args))
+        return self.status
+
     def ssd_scan_bwd_smem_bytes(self, p, n, chunk, l):
         return self.smem
 
+    ssd_scan_bwd_mma_smem_bytes = ssd_scan_bwd_smem_bytes
+
     def ssd_scan_bwd_workspace_bytes(self, *args):
         self.ws_asked.append(("bwd",) + args)
+        return self.ws_bytes
+
+    def ssd_scan_bwd_mma_workspace_bytes(self, *args):
+        self.ws_asked.append(("bwd-mma",) + args)
         return self.ws_bytes
 
     def ssd_scan_mma_smem_bytes(self, p, n, chunk):
@@ -432,7 +446,7 @@ def test_reset_counts():
     assert ssd_scan.launches == 0
     assert ssd_scan.launches_by_kernel == {"mma": 0, "simt": 0}
     assert ssd_scan.bwd_launches == 0
-    assert ssd_scan.bwd_launches_by_kernel == {"simt": 0}
+    assert ssd_scan.bwd_launches_by_kernel == {"mma": 0, "simt": 0}
 
 
 @pytest.mark.parametrize("which", ["x", "dt", "B", "init_state"])
@@ -487,7 +501,9 @@ def test_grad_route_launches_the_priors_entry(fake_library, dtype):
     w = n on the CUDA cores and n padded to 16 on the tensor cores,
     after the state and otherwise the arguments of the plain entry
     point; the backward reads that buffer with its width, takes y's
-    gradient in x's dtype and, with the final state unused, no dstate."""
+    gradient in x's dtype and, with the final state unused, no dstate:
+    bf16 through the tensor-core entry point (no dtype code), f32 the
+    CUDA-core one."""
     x, dt, A, B, C = _zeros(2, 100, 3, 16, 8, dtype)
     by_kernel = dict(ssd_scan.launches_by_kernel)
     y, s, priors = kernel.launch(x, dt, A, B, C, 32, with_priors=True)
@@ -502,11 +518,15 @@ def test_grad_route_launches_the_priors_entry(fake_library, dtype):
         k: c + (k == kernel.kernel_for(x.dtype)) for k, c in by_kernel.items()}
     (y.float() * 2.0).sum().backward()
     [(_, fargs), (name, bargs)] = fake_library.calls
-    assert name == "bwd" and bargs[5] == fargs[8] and bargs[6] == w
+    entry = "bwd-mma" if dtype == "bfloat16" else "bwd"
+    assert name == entry and bargs[5] == fargs[8] and bargs[6] == w
     assert bargs[8] is None                                # dstate unused
     assert bargs[9] is not None and bargs[10:15] == (None,) * 5
-    assert fake_library.ws_asked[-1] == ("bwd", 2, 100, 3, 16, 8, 32)
-    assert bargs[-2] == kernel.DTYPES[x.dtype]
+    assert fake_library.ws_asked[-1] == (entry, 2, 100, 3, 16, 8, 32)
+    if dtype == "bfloat16":
+        assert bargs[-7:] == (2, 100, 3, 16, 8, 32, 7)
+    else:
+        assert bargs[-2] == kernel.DTYPES[x.dtype]
     assert x.grad.shape == x.shape and x.grad.dtype == x.dtype
 
 
@@ -535,6 +555,151 @@ def test_bwd_checks_before_any_launch(fake_library):
         kernel.launch_bwd(x, dt, A, B, C, 32, pr, dy)
     with pytest.raises(TypeError):
         kernel.bwd_kernel_for(torch.float16)
+
+
+@pytest.mark.parametrize("p", kernel.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_bwd_dtype_picks_the_kernels_and_their_arguments(fake_library, p,
+                                                         dtype):
+    """bf16's backward takes the tensor-core entry point, f32's the
+    CUDA-core one (``bwd_kernel_for``): each with the forward's inputs,
+    the priors and their width, dy, dstate, the six gradient buffers, a
+    workspace of the size its own entry point asks for, the shapes, the
+    chunk and the stream; the CUDA-core one also with its dtype code."""
+    x, dt, A, B, C = _zeros(2, 96, 3, p, 16, dtype)
+    assert kernel.bwd_kernel_for(x.dtype) == (
+        "mma" if dtype == "bfloat16" else "simt")
+    pr = torch.zeros(2, 3, 3, p, 16, dtype=x.dtype)
+    dy = torch.zeros_like(x)
+    ds = torch.zeros(2, 3, p, 16)
+    grads = kernel.launch_bwd(x, dt, A, B, C, 32, pr, dy, ds,
+                              dinit_dtype=torch.float32)
+    [(name, args)] = fake_library.calls
+    entry = "bwd-mma" if dtype == "bfloat16" else "bwd"
+    assert name == entry
+    assert fake_library.ws_asked == [(entry, 2, 96, 3, p, 16, 32)]
+    assert args[0] == x.data_ptr() and args[5] == pr.data_ptr()
+    assert args[6] == 16 and args[7] == dy.data_ptr()
+    assert args[8] == ds.data_ptr()
+    assert args[9:15] == tuple(g.data_ptr() for g in grads)
+    assert isinstance(args[15], int) and args[15] != 0     # the workspace
+    tail = (2, 96, 3, p, 16, 32)
+    if entry == "bwd-mma":
+        assert args[16:] == tail + (7,)
+    else:
+        assert args[16:] == tail + (kernel.DTYPES[x.dtype], 7)
+    assert [g.dtype for g in grads] == [x.dtype, torch.float32,
+                                        torch.float32, x.dtype, x.dtype,
+                                        torch.float32]
+
+
+@pytest.mark.parametrize("which", ["mma", "simt"])
+def test_bwd_either_kernel_runs_bf16_by_name(fake_library, which):
+    """bf16 reaches both backward routes by name: the tensor-core one (its
+    default) and the CUDA-core one, the yardstick it is timed against."""
+    x, dt, A, B, C = _zeros(1, 64, 2, 32, 16, "bfloat16")
+    pr = torch.zeros(1, 2, 2, 32, 16, dtype=torch.bfloat16)
+    kernel.launch_bwd(x, dt, A, B, C, 32, pr, torch.zeros_like(x),
+                      which=which)
+    [(name, args)] = fake_library.calls
+    if which == "mma":
+        assert name == "bwd-mma" and args[-7:] == (1, 64, 2, 32, 16, 32, 7)
+    else:
+        assert name == "bwd" and args[-2] == kernel.DTYPES[torch.bfloat16]
+
+
+@pytest.mark.parametrize("status", [1, 700])
+def test_bwd_mma_nonzero_status_raises(fake_library, status):
+    """A non-zero status of the tensor-core backward raises with its code
+    and the route's name."""
+    fake_library.status = status
+    x, dt, A, B, C = _zeros(1, 64, 2, 32, 16, "bfloat16")
+    pr = torch.zeros(1, 2, 2, 32, 16, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match=f"mma launch failed .* CUDA "
+                                           f"error {status}"):
+        kernel.launch_bwd(x, dt, A, B, C, 32, pr, torch.zeros_like(x))
+    assert [name for name, _ in fake_library.calls] == ["bwd-mma"]
+
+
+def test_bwd_mma_takes_only_bf16(fake_library):
+    """The tensor-core backward refuses f32 and an unknown name, and too
+    much shared memory, before any launch."""
+    x, dt, A, B, C = _zeros(1, 64, 2, 32, 16, "float32")
+    pr = torch.zeros(1, 2, 2, 32, 16)
+    with pytest.raises(TypeError):
+        kernel.launch_bwd(x, dt, A, B, C, 32, pr, torch.zeros_like(x),
+                          which="mma")
+    xb, dtb, Ab, Bb, Cb = _zeros(1, 64, 2, 32, 16, "bfloat16")
+    prb = pr.bfloat16()
+    with pytest.raises(ValueError):
+        kernel.launch_bwd(xb, dtb, Ab, Bb, Cb, 32, prb, torch.zeros_like(xb),
+                          which="wgmma")
+    fake_library.smem = kernel.MAX_SMEM_BYTES + 4
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.launch_bwd(xb, dtb, Ab, Bb, Cb, 32, prb, torch.zeros_like(xb))
+    assert fake_library.calls == []
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_grad_route_counts_the_backward_by_kernel(fake_library, dtype):
+    """One backward of the op moves ``bwd_launches`` by one and
+    ``bwd_launches_by_kernel`` by one on the dtype's kernels only."""
+    x, dt, A, B, C = _zeros(1, 64, 2, 16, 8, dtype)
+    bwd = ssd_scan.bwd_launches
+    by_kernel = dict(ssd_scan.bwd_launches_by_kernel)
+    y, _ = ssd_scan(x.requires_grad_(True), dt, A, B, C, chunk=32)
+    y.float().sum().backward()
+    which = kernel.bwd_kernel_for(x.dtype)
+    assert ssd_scan.bwd_launches == bwd + 1
+    assert ssd_scan.bwd_launches_by_kernel == {
+        k: c + (k == which) for k, c in by_kernel.items()}
+
+
+def test_library_file_name_hashes_its_source_and_the_flags(monkeypatch):
+    """A library's file name is ``lib<name>-<hash>.so``, the hash over its
+    source and :data:`NVCC_FLAGS`: two libraries of one source share a
+    file, and other flags make another. Nothing is compiled here."""
+    from repro_torch.kernels import nvcc
+    lib = kernel.BWD_LIBRARY
+    same = nvcc.CudaLibrary("ssd_scan_bwd", lambda _: None)
+    assert same.source == lib.source and same.path() == lib.path()
+    assert lib.path().name.startswith("libssd_scan_bwd-")
+    assert lib.path() != kernel.LIBRARY.path()
+    before = lib.path()
+    monkeypatch.setattr(nvcc, "NVCC_FLAGS",
+                        tuple(f for f in nvcc.NVCC_FLAGS
+                              if not f.startswith("--split-compile")))
+    assert lib.path() != before
+
+
+@pytest.mark.parametrize("fault", sorted(kernel.PLANTED_FAULTS))
+@pytest.mark.parametrize("which", ["mma", "simt"])
+def test_bwd_planted_fault_reaches_its_entry_point(fake_library, which,
+                                                    fault):
+    """A planted fault goes to ``ssd_scan_bwd_planted_launch`` on either
+    route: the route's arguments and workspace, then the dtype code, the
+    route (1 on the tensor cores) and the fault's code; an unknown fault
+    is refused before any launch, and a non-zero status raises."""
+    x, dt, A, B, C = _zeros(1, 64, 2, 32, 16, "bfloat16")
+    pr = torch.zeros(1, 2, 2, 32, 16, dtype=torch.bfloat16)
+    dy = torch.zeros_like(x)
+    kernel.launch_bwd(x, dt, A, B, C, 32, pr, dy, which=which, fault=fault)
+    [(name, args)] = fake_library.calls
+    entry = "bwd-mma" if which == "mma" else "bwd"
+    assert name == "bwd-planted"
+    assert fake_library.ws_asked == [(entry, 1, 64, 2, 32, 16, 32)]
+    assert args[0] == x.data_ptr() and args[7] == dy.data_ptr()
+    assert args[16:] == (1, 64, 2, 32, 16, 32,
+                         kernel.DTYPES[torch.bfloat16], int(which == "mma"),
+                         kernel.PLANTED_FAULTS[fault], 7)
+    with pytest.raises(ValueError, match="planted"):
+        kernel.launch_bwd(x, dt, A, B, C, 32, pr, dy, which=which,
+                          fault="decay")
+    fake_library.status = 5
+    with pytest.raises(RuntimeError, match="CUDA error 5"):
+        kernel.launch_bwd(x, dt, A, B, C, 32, pr, dy, which=which,
+                          fault=fault)
+    assert len(fake_library.calls) == 2
 
 
 def test_cpu_route_backpropagates():
@@ -722,8 +887,9 @@ BWD_CUDA_CASES = [
 def test_cuda_backward_matches_plain(case, with_init, cuda_device):
     """The backward kernels through the op on the card against
     ``ssd_bwd_ref`` on the CPU from the same inputs: each gradient within
-    1e-5 (f32) / 3e-2 (bf16) of its max |value|; one backward launch;
-    two launches bit-identical."""
+    1e-5 (f32) / 3e-2 (bf16) of its max |value|; one backward launch,
+    on the dtype's kernels (bf16 the tensor-core route); two launches
+    bit-identical. bf16 also through the CUDA-core route by name."""
     _, tx, chunk, tol, extra = _grad_inputs(case, 34, with_init)
     want = _ref_grads(tx, chunk, extra)
     leaves = {k: v.to(cuda_device).requires_grad_(True)
@@ -736,6 +902,8 @@ def test_cuda_backward_matches_plain(case, with_init, cuda_device):
         dstate = torch.from_numpy(extra["dstate"]).to(cuda_device)
     dy = torch.from_numpy(extra["dy"]).to(cuda_device, tx["x"].dtype)
     bwd = ssd_scan.bwd_launches
+    by_kernel = dict(ssd_scan.bwd_launches_by_kernel)
+    which = kernel.bwd_kernel_for(tx["x"].dtype)
     y, s = ssd_scan(leaves["x"], leaves["dt"], leaves["A"], leaves["B"],
                     leaves["C"], chunk=chunk, init_state=init)
     grads = torch.autograd.grad(
@@ -745,6 +913,20 @@ def test_cuda_backward_matches_plain(case, with_init, cuda_device):
         [y, s] if with_init else [y], list(leaves.values()),
         [dy, dstate.to(s.dtype)] if with_init else [dy])
     assert ssd_scan.bwd_launches == bwd + 2
+    assert ssd_scan.bwd_launches_by_kernel == {
+        k: c + 2 * (k == which) for k, c in by_kernel.items()}
     for name, g, g2 in zip(leaves, grads, again):
         assert torch.equal(g, g2), name
         assert _grad_rel(g.cpu(), want[name]) <= tol, name
+    if which == "mma":
+        x, dt, A, B, C = (leaves[k].detach() for k in ("x", "dt", "A", "B",
+                                                       "C"))
+        _, _, pr = kernel.launch(x, dt, A, B, C, chunk,
+                                 None if init is None else init.detach(),
+                                 with_priors=True)
+        simt = kernel.launch_bwd(
+            x, dt, A, B, C, chunk, pr, dy, dstate,
+            dinit_dtype=torch.float32 if with_init else None, which="simt")
+        for name, g in zip(GRAD_NAMES, simt):
+            if g is not None:
+                assert _grad_rel(g.cpu(), want[name]) <= tol, name

@@ -370,7 +370,9 @@ def test_train_step_through_the_kernel_route(monkeypatch, arch):
         "mma": n_attn * (which == "mma"), "simt": n_attn * (which == "simt")}
     assert ssd_ops.ssd_scan.launches == 2 * n_ssd
     assert ssd_ops.ssd_scan.bwd_launches == n_ssd
-    assert ssd_ops.ssd_scan.bwd_launches_by_kernel == {"simt": n_ssd}
+    which = ssd_kernel.bwd_kernel_for(getattr(torch, tcfg.dtype))
+    assert ssd_ops.ssd_scan.bwd_launches_by_kernel == {
+        "mma": n_ssd * (which == "mma"), "simt": n_ssd * (which == "simt")}
     assert loss == pytest.approx(want_loss, rel=1e-6)
     diffs = jax.tree.map(_rel, got, want)
     assert max(jax.tree.leaves(diffs)) <= 1e-5
