@@ -216,7 +216,26 @@ each hand-written CUDA kernel against its plain PyTorch version:
     to 2 layers through the kernels against the plain versions, each leaf
     in the norm (the elementwise reading and a reference with the SSD
     backward in f64 printed beside), with dB not summed over the heads
-    planted in the backward.
+    planted in the backward;
+22. the one-card launch paths: (a) phase 7's YCSB store on a logical
+    (pod 2, data 2, model 2) mesh with ``cross_pod_replicas`` (the
+    (pod, data) ring of 4, numbered pod-major; N_r 2, 2 log slots, a
+    12.8 GB ring): after 3 steps every slot ``==`` a direct construction
+    (``torch.roll`` of the payloads over the ring), each of the 4 ring
+    nodes recovered ``==`` its block, the JAX package's fault (the data
+    coordinate taken as the ring index, ROADMAP C5) planted and caught,
+    and the replicate step timed beside the data-only ring's; (b)
+    ``examples/train_100m_ft`` (the 100M qwen3-family model, 14 layers)
+    through its entry point on the card, 60 steps of batch 8 x 128
+    (cut from its 300), node 1 failing at step 20: the fail and recovery events, the
+    installed shard ``==`` the node's parameters with its blocks lost,
+    the last 10 losses below the first 10, 28 forward and 14 backward
+    ``flash_attn`` launches a step on the tensor cores, the step's
+    median; (c) ``launch/dryrun.py`` over every arch x shape cell on both
+    logical production meshes on ``meta`` (no cell may error), then the
+    counted FLOPs of phases 20 and 21's qwen3, hymba and mamba2 steps
+    over the step times measured in this run, as a share of 989 TFLOP/s,
+    with qwen3's count held to a closed form.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -4358,6 +4377,371 @@ def phase_train_families(torch, fa, attn, ssd, ssm_mod) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the one-card launch paths -- the cross-pod replica ring, the
+# 100M fault-tolerant training example, the dry-run
+# ---------------------------------------------------------------------------
+
+#: the cross-pod ring: phase 7's YCSB store on a (pod 2, data 2, model 2)
+#: mesh, the (pod, data) ring of 4 nodes; N_r 2 and 2 log slots keep the
+#: ring at 12.8 GB (phase 7's N_r 3 x 8 slots over this mesh's 4x wider
+#: blocks would be 38.4 GB)
+POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+POD_REPLICAS = 2
+POD_LOG_CAPACITY = 2
+POD_STEPS = 3
+#: train_100m_ft at its own width (seq 128, batch 8): the run's steps,
+#: cut from the example's 300 to keep the phase near 90 s beside the
+#: dry-run's 60-70 s (a step takes 170-240 ms on the card: host-bound)
+EX100M_STEPS = 60
+EX100M_SEQ, EX100M_BATCH = 128, 8
+#: the dry-run's worker processes (one per host core of the chip machine)
+DRYRUN_WORKERS = 8
+#: the counted matmul FLOPs of qwen3's step against the closed form:
+#: both count integer products (exact in f64 far below 2^53 per term), so
+#: the limit only covers the order of the f64 sum
+DRYRUN_FLOP_TOLERANCE = 1e-9
+
+
+def qwen3_step_flops(cfg, batch: int, seq: int) -> dict:
+    """Closed form of a qwen3 train step's products under remat "full":
+    2 x matmul parameters x tokens x passes -- the forward, the
+    backward's two (dX, dW) and remat's recompute, which stops at the
+    last product the backward needs, so each layer's last matmul (the
+    MLP's down projection) runs 3 times and every other 4; the tied
+    unembedding 3 (no recompute) -- plus attention's 4 D per causal pair
+    and head forward (twice: remat) and 10 D backward."""
+    d, hd, h, kv = (cfg.d_model, cfg.resolved_head_dim, cfg.n_heads,
+                    cfg.n_kv_heads)
+    per_layer = d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * cfg.d_ff
+    tokens = batch * seq
+    mm = 2.0 * tokens * (cfg.n_layers * (4 * per_layer - d * cfg.d_ff)
+                         + 3 * d * cfg.vocab_size)
+    pairs = seq * (seq + 1) // 2 * batch
+    attn = (4 + 4 + 10) * hd * pairs * h * cfg.n_layers
+    return {"matmul": mm, "attention": float(attn), "total": mm + attn}
+
+
+def cross_pod_ring(torch) -> dict:
+    """(a): phase 7's state on the (2, 2, 2) pod mesh with
+    ``cross_pod_replicas``: the logs against a direct construction, each
+    ring node recovered == its block, the data-index fault caught, the
+    replicate step beside the data-only ring's."""
+    from repro_torch.config import ReplicationConfig
+    from repro_torch.core.recovery import reassemble_shard, recover_node
+    from repro_torch.core.replication import ReplicationEngine
+    from repro_torch.distributed.context import P, make_context
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    store = torch.rand((YCSB_FIELDS, YCSB_RECORDS, FIELD_WORDS),
+                       generator=gen, device=dev)
+    state = {f"field{i}": store[i] for i in range(YCSB_FIELDS)}
+    specs = {k: P(("pod", "data"), None) for k in state}
+    ctx = make_context(*POD_MESH, device=DEVICE)
+
+    def engine(cross: bool, n_replicas: int):
+        return ReplicationEngine(ReplicationConfig(
+            log_dtype="float32", cross_pod_replicas=cross,
+            n_replicas=n_replicas, log_capacity=POD_LOG_CAPACITY), ctx,
+            specs, state)
+
+    eng = engine(True, POD_REPLICAS)
+    n = eng.n_nodes
+    check(eng.repl_axes == ("pod", "data") and n == 4,
+          f"the cross-pod ring joins (pod, data): {n} ring nodes")
+    logs = eng.init_logs()
+    ring_bytes = sum(t.numel() * t.element_size() for t in logs.values())
+    for t in range(POD_STEPS):
+        ycsb_update(torch, list(state.values()), gen)
+        logs, state = eng.replicate(state, logs, t, state)
+    torch.cuda.synchronize()
+    # the direct construction: ring node s, rank r holds node (s - o_r)'s
+    # payload in the step's slot, ts = the step, valid
+    slot = (POD_STEPS - 1) % POD_LOG_CAPACITY
+    payload = eng._ring(eng.payloads(state))
+    lv = eng._ring(logs["values"])
+    ok = True
+    for r in range(POD_REPLICAS):
+        for b in range(eng.layout.n_buckets):
+            off = eng._offsets(b)[r]
+            ok &= torch.equal(lv[:, :, r, slot, b],
+                              torch.roll(payload[:, :, b], off, dims=0))
+    ok &= bool((eng._ring(logs["ts"])[:, :, :, slot] == POD_STEPS - 1).all()
+               and eng._ring(logs["valid"])[:, :, :, slot].all())
+    check(ok, f"after {POD_STEPS} steps every slot of ring node s, rank r "
+          f"holds the payload of ring node (s - o_r) % {n} (torch.roll "
+          f"over the pod-major ring), ts {POD_STEPS - 1}, valid; log ring "
+          f"{ring_bytes} bytes")
+    rows = YCSB_RECORDS // n
+    exact = []
+    for s in range(n):
+        coord = eng.node_coord(s)
+        res = recover_node(eng, logs, eng.shard_directory(),
+                           failed_coord=coord)
+        per_model = reassemble_shard(eng, res)
+        exact.append(res.stats.unrecoverable == 0 and all(
+            torch.equal(eng.unflatten(per_model[m])[k],
+                        v[rows * s:rows * (s + 1)])
+            for m in range(ctx.model_size) for k, v in state.items()))
+    check(all(exact), f"each of the {n} ring nodes (pod, data) recovers "
+          f"== its block of the state, at both model coordinates")
+    # the JAX package's fault: the data coordinate taken as the ring index
+    eng.ring_index = lambda coord: coord[-1]
+    res = recover_node(eng, logs, eng.shard_directory(),
+                       failed_coord=(1, 1))
+    got = eng.unflatten(reassemble_shard(eng, res)[0])
+    caught = not torch.equal(got["field0"], state["field0"][3 * rows:])
+    del eng.ring_index
+    check(caught, "planted fault: recovery that takes the data coordinate "
+          "as the ring index returns pod 0's block for ring node 3 (pod 1, "
+          "data 1), and the shard check reads it")
+    del logs, payload, lv
+    torch.cuda.empty_cache()
+    # the replicate step, N_r 1 on both rings (the data-only ring of 2
+    # nodes takes no more), and the cross-pod ring at N_r 2
+    times = {}
+    for label, cross, nr in (("cross-pod ring, N_r 1", True, 1),
+                             ("data-only ring, N_r 1", False, 1),
+                             (f"cross-pod ring, N_r {POD_REPLICAS}", True,
+                              POD_REPLICAS)):
+        e = engine(cross, nr)
+        lg = e.init_logs()
+        step = [0]
+
+        def rep():
+            e.replicate(state, lg, step[0], state)
+            step[0] += 1
+
+        times[label] = cuda_ms(rep, 5)
+        del lg
+        torch.cuda.empty_cache()
+    print(f"  replicate step (CUDA events, mean of 5): "
+          f"{json.dumps({k: round(v, 4) for k, v in times.items()})} ms")
+    return {"ring_nodes": n, "ring_bytes": ring_bytes, "replicate_ms": times}
+
+
+def example_100m(torch, fa, ssd) -> dict:
+    """(b): ``examples/train_100m_ft`` at its width through its entry
+    point, on the card."""
+    import numpy as np
+
+    from repro_torch.distributed import elastic
+    from repro_torch.examples import train_100m_ft as ex
+    from repro_torch.optim.optimizers import tree_leaves, tree_rebuild
+    from repro_torch.training import trainer as trainer_mod
+
+    cfg = ex.MODEL_100M
+    real_install = elastic.install_recovered_shard
+    installs = []
+
+    def holed_install(state, specs, engine, result, target_coord):
+        """As phase 20's: the failed node's blocks NaN before the install."""
+        from repro_torch.core.replication import tree_flatten
+        ctx = engine.ctx
+        holed = [p.detach().clone() for p in tree_leaves(state)]
+        for p, spec in zip(holed, tree_flatten(specs)[0]):
+            for m in range(ctx.model_size):
+                p[elastic._block_slices(tuple(p.shape), spec, ctx,
+                                        {"data": target_coord[-1],
+                                         "model": m})] = float("nan")
+        new = real_install(tree_rebuild(state, holed), specs, engine,
+                           result, target_coord)
+        installs.append(all(torch.equal(a, b.detach()) for a, b in
+                            zip(tree_leaves(new), tree_leaves(state))))
+        return new
+
+    fops = fa.ops.flash_attention
+    try:
+        trainer_mod.install_recovered_shard = holed_install
+        fa.ops.reset_counts()
+        ssd.ops.reset_counts()
+        t0 = time.perf_counter()
+        tr, hist = ex.train(EX100M_STEPS, EX100M_SEQ, EX100M_BATCH)
+        wall = time.perf_counter() - t0
+        launches = {"forward": fops.launches, "backward": fops.bwd_launches,
+                    "forward_by_kernel": dict(fops.launches_by_kernel),
+                    "backward_by_kernel": dict(fops.bwd_launches_by_kernel),
+                    "ssd_scan": ssd.ops.ssd_scan.launches}
+    finally:
+        trainer_mod.install_recovered_shard = real_install
+    losses = [h["loss"] for h in hist]
+    walls = [h["wall_s"] for h in hist]
+    med = float(np.median(walls[1:]))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    events = [e for e in tr.events if e["event"] in ("fail", "recovery")]
+    print(f"  {cfg.name} ({cfg.param_count()} parameters), {EX100M_STEPS} "
+          f"steps of batch {EX100M_BATCH} x {EX100M_SEQ} in {wall:.1f} s; "
+          f"step {med * 1e3:.2f} ms (median of steps 2-{EX100M_STEPS}); "
+          f"events {events}")
+    check(all(np.isfinite(losses)), "every loss is finite")
+    rec = [e for e in events if e["event"] == "recovery"]
+    check([e["event"] for e in events] == ["fail", "recovery"]
+          and rec[0]["recovered"] == ex.FAIL_NODE
+          and rec[0]["step"] == EX100M_STEPS // 3
+          and rec[0]["stats"]["unrecoverable"] == 0,
+          f"node {ex.FAIL_NODE} failed at step {EX100M_STEPS // 3} and was "
+          f"recovered from the replicas: {rec and rec[0]['stats']}")
+    check(installs == [True], "the shard installed on the spare, made from "
+          "the replica logs with the node's blocks lost, is == the "
+          "parameters the node held before the failure")
+    check(last < first, f"the mean of the last 10 losses {last:.4f} is "
+          f"below that of the first 10 {first:.4f}")
+    per_step = (2 * cfg.n_layers, cfg.n_layers)
+    check((launches["forward"], launches["backward"])
+          == (EX100M_STEPS * per_step[0], EX100M_STEPS * per_step[1])
+          and launches["forward_by_kernel"]["simt"] == 0
+          and launches["backward_by_kernel"]["simt"] == 0
+          and launches["ssd_scan"] == 0,
+          f"flash_attn launched {launches['forward']} forward and "
+          f"{launches['backward']} backward times, {per_step} a step (the "
+          f"forward and remat's recompute; the backward), all on the "
+          f"tensor cores (bf16, 'mma')")
+    return {"steps": EX100M_STEPS, "wall_s": wall, "step_ms_median": med * 1e3,
+            "losses_first10_mean": first, "losses_last10_mean": last,
+            "events": events, "launches": launches,
+            "params": cfg.param_count(), "tokens_per_s":
+            EX100M_SEQ * EX100M_BATCH / med}
+
+
+def start_dryrun(train_times: dict) -> dict:
+    """(c), started: ``launch/dryrun.py`` over every cell on both logical
+    meshes through its entry point (``DRYRUN_WORKERS`` processes), and
+    the costs of phases 20 and 21's training steps in a pool beside it;
+    both on meta, so they run on the host's cores while the card works."""
+    import multiprocessing
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch import config
+    from repro_torch.launch import dryrun
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(ROOT, "src")] + ([env["PYTHONPATH"]]
+                                       if env.get("PYTHONPATH") else []))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--workers",
+         str(DRYRUN_WORKERS), "--out", out_dir], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env)
+    pool = ProcessPoolExecutor(len(train_times), mp_context=multiprocessing
+                               .get_context("spawn"))
+    futures = {arch: pool.submit(dryrun.run_cell, arch, config.ShapeConfig(
+        f"train, {b} x {s}", s, b, "train"), False, save=False)
+        for arch, (b, s, _) in train_times.items()}
+    return {"proc": proc, "pool": pool, "futures": futures,
+            "out_dir": out_dir, "t0": time.perf_counter(),
+            "train_times": train_times}
+
+
+def finish_dryrun(started: dict) -> dict:
+    """(c), finished: every record's status (no cell may error), then the
+    training steps' counted FLOPs over their measured times, as a share
+    of 989 TFLOP/s, with qwen3's count held to a closed form."""
+    import shutil
+
+    from repro_torch import config
+    from repro_torch.launch import dryrun
+
+    proc, pool = started["proc"], started["pool"]
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+        costs = {a: f.result(timeout=600)
+                 for a, f in started["futures"].items()}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        pool.shutdown(cancel_futures=True)
+    wall = time.perf_counter() - started["t0"]
+    for line in stdout.splitlines():
+        if line.startswith("["):
+            print(f"  {line}")
+    out_dir = started["out_dir"]
+    records = []
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name), encoding="utf-8") as fh:
+            records.append(json.load(fh))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    status = {s: sum(r["status"] == s for r in records)
+              for s in ("ok", "skipped", "error")}
+    n_cells = 2 * len(dryrun.ASSIGNED_ARCHS) * len(config.SHAPES)
+    check(proc.returncode == 0 and status["error"] == 0
+          and len(records) == n_cells,
+          f"dry-run of {len(records)} of {n_cells} cells on meta in "
+          f"{wall:.1f} s ({DRYRUN_WORKERS} workers, beside the cross-pod "
+          f"ring on the card): {status} {stderr.strip()[-300:]}")
+    share = {}
+    for arch, (batch, seq, step_ms) in started["train_times"].items():
+        r = costs[arch]
+        check(r["status"] == "ok", f"{arch}: the cost of its training step "
+              f"at batch {batch} x {seq}: {r.get('error')}")
+        flops = r["cost"]["flops_global"]
+        share[arch] = {"batch": batch, "seq": seq, "flops": flops,
+                       "bytes": r["cost"]["bytes_global"],
+                       "step_ms": step_ms,
+                       "share_of_989": flops / (step_ms * 1e-3)
+                       / H100_BF16_OPS_PER_S,
+                       "roofline_ms": max(r["roofline_one_card"]["flops_ms"],
+                                          r["roofline_one_card"]["bytes_ms"])}
+        print(f"  {arch} at batch {batch} x {seq}: {flops:.6g} FLOP and "
+              f"{share[arch]['bytes']:.6g} bytes counted a step; over the "
+              f"{step_ms:.1f} ms step measured in this run "
+              f"{100 * share[arch]['share_of_989']:.2f}% of 989 TFLOP/s "
+              f"(one-card roofline {share[arch]['roofline_ms']:.2f} ms)")
+        if arch == TRAIN_ARCH:
+            cf = qwen3_step_flops(config.get_model_config(arch), batch, seq)
+            rel = abs(flops - cf["total"]) / cf["total"]
+            check(rel <= DRYRUN_FLOP_TOLERANCE,
+                  f"{arch}: the counted FLOPs {flops:.6g} == the closed "
+                  f"form {cf['total']:.6g} (matmuls {cf['matmul']:.6g}, "
+                  f"attention {cf['attention']:.6g}; relative difference "
+                  f"{rel:.3g} <= {DRYRUN_FLOP_TOLERANCE:g})")
+    return {"wall_s": wall, "status": status,
+            "records": [{k: r.get(k) for k in ("arch", "shape", "mesh",
+                                               "status", "cost", "memory",
+                                               "replication", "wall_s")}
+                        for r in records],
+            "train_flop_share": share}
+
+
+def phase_launch_paths(torch, fa, ssd, train, fam) -> dict:
+    """Phase 22: the cross-pod replica ring at full width, the 100M
+    fault-tolerant training example on the card, and the dry-run."""
+    print("phase 22: the one-card launch paths -- the cross-pod replica "
+          "ring, train_100m_ft on the card, the dry-run on meta")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    times = {TRAIN_ARCH: (TRAIN_BATCH, TRAIN_SEQ,
+                          train["train"]["step_ms_median_2_6"])}
+    for arch, t in fam["train"].items():
+        if arch in ("hymba-1.5b", "mamba2-2.7b"):
+            times[arch] = (t["batch"], t["seq"], t["step_ms_median"])
+    t0 = time.perf_counter()
+    started = start_dryrun(times)
+    try:
+        out["cross_pod"] = cross_pod_ring(torch)
+    except BaseException:
+        started["proc"].kill()
+        started["proc"].wait()
+        started["pool"].shutdown(cancel_futures=True)
+        raise
+    t1 = time.perf_counter()
+    out["dryrun"] = finish_dryrun(started)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    out["train_100m_ft"] = example_100m(torch, fa, ssd)
+    t3 = time.perf_counter()
+    out["wall_s"] = {"cross_pod": t1 - t0, "dryrun_wait": t2 - t1,
+                     "train_100m_ft": t3 - t2}
+    walls = {k: round(v, 1) for k, v in out["wall_s"].items()}
+    print(f"  phase 22 walls (s): {json.dumps(walls)}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measured numbers "
@@ -4492,6 +4876,8 @@ def main(argv=None) -> int:
                              VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_F32_LAYERS)
     train = phase_train(torch, fa, attn, ssd)
     fam = phase_train_families(torch, fa, attn, ssd, ssm_mod)
+    launch = phase_launch_paths(torch, fa, ssd, train, fam)
+    ex100m = launch["train_100m_ft"]
 
     entry = {
         "name": "bank_scan", "route": "cuda",
@@ -4625,7 +5011,10 @@ def main(argv=None) -> int:
         {"path": f"{arch} train, {len(t['losses'])} steps (forward and "
                  f"remat's recompute)",
          "launches": t["launches"]["flash_attn"]}
-        for arch, t in fam["train"].items() if t["launches"]["flash_attn"]]
+        for arch, t in fam["train"].items() if t["launches"]["flash_attn"]] + [
+        {"path": f"train_100m_ft, {ex100m['steps']} steps (forward and "
+                 f"remat's recompute)",
+         "launches": ex100m["launches"]["forward"]}]
     attn_entry["launches"] = sum(p["launches"] for p in attn_entry["paths"])
     bwd_main = train["bwd"][0]
     bwd_entry = {
@@ -4635,10 +5024,12 @@ def main(argv=None) -> int:
         "replaces_what": "XLA autodiff of _blockwise_attention (no Pallas "
                          "kernel has a custom_vjp)",
         "launches": train["train"]["launches"]["backward"] + sum(
-            t["launches"]["flash_attn_bwd"] for t in fam["train"].values()),
+            t["launches"]["flash_attn_bwd"] for t in fam["train"].values())
+        + ex100m["launches"]["backward"],
         "launches_by_kernel": {
             k: v + sum(t["launches"]["flash_attn_bwd_by_kernel"][k]
                        for t in fam["train"].values())
+            + ex100m["launches"]["backward_by_kernel"][k]
             for k, v in train["train"]["launches"][
                 "backward_by_kernel"].items()},
         "paths": [{"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps",
@@ -4646,7 +5037,9 @@ def main(argv=None) -> int:
             {"path": f"{arch} train, {len(t['losses'])} steps",
              "launches": t["launches"]["flash_attn_bwd"]}
             for arch, t in fam["train"].items()
-            if t["launches"]["flash_attn_bwd"]],
+            if t["launches"]["flash_attn_bwd"]] + [
+            {"path": f"train_100m_ft, {ex100m['steps']} steps",
+             "launches": ex100m["launches"]["backward"]}],
         "kernel": bwd_main["kernel"],
         "kernels": {"mma": "bf16: flash_attn_bwd_dkdv_mma_kernel + "
                            "flash_attn_bwd_dq_mma_kernel, tensor cores "
@@ -4733,7 +5126,8 @@ def main(argv=None) -> int:
                        "serve_moe": served_moe, "cut_configs": cut,
                        "ycsb": ycsb, "serve_whisper": whisper,
                        "serve_vlm": vlm, "train": train,
-                       "train_families": fam, "kernels": kernels},
+                       "train_families": fam, "launch_paths": launch,
+                       "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

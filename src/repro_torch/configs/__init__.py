@@ -22,3 +22,17 @@ from repro_torch.configs import (  # noqa: F401
     starcoder2_15b,
     whisper_medium,
 )
+
+#: the architectures of the dry-run's cells, in the JAX package's order
+ASSIGNED_ARCHS = (
+    "internvl2-26b",
+    "qwen3-0.6b",
+    "deepseek-67b",
+    "stablelm-12b",
+    "starcoder2-15b",
+    "mamba2-2.7b",
+    "grok-1-314b",
+    "moonshot-v1-16b-a3b",
+    "whisper-medium",
+    "hymba-1.5b",
+)

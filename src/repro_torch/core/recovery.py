@@ -148,19 +148,27 @@ def recover_node(engine: ReplicationEngine,
     dumped-log fallback). Returns the recovered shard contents, on the
     ring's device; the caller applies them to a rebuilt state
     (:mod:`repro_torch.distributed.elastic`).
+
+    The directory, the replica targets and ``stats.failed_node`` count
+    ring indices (``engine.ring_index``), and each target's logs are
+    read at its own coordinate (``engine.node_coord``). On the
+    cross-pod ring the JAX package takes the data coordinate as the
+    ring index and raises ``IndexError`` (ROADMAP C5); without that ring
+    the two agree.
     """
     msg_log: List[Tuple[MsgType, Any]] = []
     host = host_index(logs)
-    failed_data = failed_coord[-1]
+    failed = engine.ring_index(failed_coord)
+    pod = failed_coord[0] if len(failed_coord) > 1 else 0
     n_nodes = engine.n_nodes
 
     # -- Algorithm 1, part 1: clear the failed node as a "sharer"
     # (drop it from every replica set in the directory).
-    cleared = directory.remove_failed_replica(failed_data)
+    cleared = directory.remove_failed_replica(failed)
 
     # -- Algorithm 1, part 2: for every shard the failed node owned,
     # fetch the latest logged version from its replicas.
-    owned = directory.owned_by(failed_data)
+    owned = directory.owned_by(failed)
     msg_log.append((MsgType.INIT_RECOV, {"failed": failed_coord}))
 
     shards: Dict[int, RecoveredShard] = {}
@@ -175,10 +183,10 @@ def recover_node(engine: ReplicationEngine,
         # engine offsets define which rank r maps to which replica node
         offs = engine._offsets(bucket)
         for r, off in enumerate(offs):
-            t = (failed_data + off) % n_nodes
-            if t == failed_data or t not in reps:
+            t = (failed + off) % n_nodes
+            if t == failed or t not in reps:
                 continue              # never ask the failed node (SS V.A)
-            t_coord = failed_coord[:-1] + (t,)
+            t_coord = engine.node_coord(t, pod)
             versions = algorithm2_versions(engine, host, t_coord, r, bucket)
             msg_log.append((MsgType.FETCH_LATEST_VERS_RESP,
                             {"from": t, "n_versions": len(versions)}))
@@ -207,7 +215,7 @@ def recover_node(engine: ReplicationEngine,
     msg_log.append((MsgType.RECOV_END, {}))
 
     stats = RecoveryStats(
-        failed_node=failed_data,
+        failed_node=failed,
         shared_entries_cleared=cleared,
         owned_entries=len(owned),
         recovered_from_replicas=n_from_replicas,
@@ -240,7 +248,8 @@ def recover_node_parity(engine: ReplicationEngine,
     del specs                         # the engine holds the same specs
     G = engine.rep.parity_group
     host = host_index(logs)
-    failed = failed_coord[-1]
+    failed = engine.ring_index(failed_coord)
+    pod = failed_coord[0] if len(failed_coord) > 1 else 0
     group = failed // G
     members = [m for m in range(group * G, (group + 1) * G) if m != failed]
     axes = engine.mesh_axes
@@ -254,7 +263,7 @@ def recover_node_parity(engine: ReplicationEngine,
     n_unrec = 0
     for b in range(nb):
         holder = engine.parity_holder(group, b)
-        h_coord = failed_coord[:-1] + (holder,)
+        h_coord = engine.node_coord(holder, pod)
         best_ts, best_slot = -1, None
         for slot in range(engine.rep.log_capacity):
             ok, ts = True, -1
@@ -274,7 +283,7 @@ def recover_node_parity(engine: ReplicationEngine,
                              b).double()
         for node in members:
             for m in range(n_model):
-                coord = _lead_index(axes, failed_coord[:-1] + (node,), m)
+                coord = _lead_index(axes, engine.node_coord(node, pod), m)
                 lost[m] -= payload[coord + (b,)].double()
         shards[b] = RecoveredShard(b, best_ts, f"parity@node{holder}",
                                    lost.float())

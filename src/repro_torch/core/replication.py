@@ -17,6 +17,12 @@ it: ``values (*nodes, N_r, capacity, n_buckets, bucket_len)``, ``ts`` and
 ``(s, (s + off) % n)`` delivers node ``d`` the payload of node
 ``(d - off) % n``: that is ``torch.roll(x, off)`` along the ``data``
 dimension, written here straight into the ring slot as two slice copies.
+With ``cross_pod_replicas`` on a mesh with a ``pod`` axis the ring is
+``("pod", "data")`` joined, numbered pod-major (``pod * n_data + data``)
+as ``ppermute`` over the axis tuple numbers it: the two leading
+dimensions are viewed as one and rolled together. :meth:`node_coord`
+and :meth:`ring_index` map ring indices to node coordinates and back,
+for recovery and the trainer.
 The VAL carries the same step from every node, so its reception writes
 ``ts = step`` and ``valid = True`` into the slot.
 
@@ -139,11 +145,18 @@ class ReplicationEngine:
         self.rep = rep
         self.ctx = ctx
         self.mesh_axes = ctx.axis_names
+        # replication runs along the data axis (one ring per pod) unless
+        # cross_pod_replicas joins (pod, data) into one ring
         if rep.cross_pod_replicas and "pod" in self.mesh_axes:
-            raise NotImplementedError(
-                "the cross-pod ('pod', 'data') replica ring is not ported "
-                "yet (ROADMAP.md, slice 2)")
-        self.n_nodes = ctx.shape["data"]
+            if self.mesh_axes.index("data") != \
+                    self.mesh_axes.index("pod") + 1:
+                raise ValueError(
+                    f"the cross-pod ring needs 'pod' and 'data' adjacent, "
+                    f"pod first; the axes are {self.mesh_axes}")
+            self.repl_axes: Tuple[str, ...] = ("pod", "data")
+        else:
+            self.repl_axes = ("data",)
+        self.n_nodes = int(np.prod([ctx.shape[a] for a in self.repl_axes]))
         if rep.is_replicating and rep.n_replicas >= self.n_nodes:
             raise ValueError("n_replicas must be < replication ring size")
         self.param_specs = param_specs
@@ -159,8 +172,38 @@ class ReplicationEngine:
         return self.ctx.axis_sizes
 
     @property
-    def _data_dim(self) -> int:
-        return self.mesh_axes.index("data")
+    def _ring_dim(self) -> int:
+        """The ring's dimension in a :meth:`_ring` view."""
+        return self.mesh_axes.index(self.repl_axes[0])
+
+    def _ring(self, t: torch.Tensor) -> torch.Tensor:
+        """``t (*nodes, ...)`` with the ring axes as one dimension: a
+        view, pod-major over (pod, data) as ``ppermute`` over the axis
+        tuple numbers the joined ring."""
+        if len(self.repl_axes) == 1:
+            return t
+        d = self._ring_dim
+        return t.view(t.shape[:d] + (self.n_nodes,) + t.shape[d + 2:])
+
+    def node_coord(self, ring: int, pod: int = 0) -> Tuple[int, ...]:
+        """Ring index -> the node's ``(pod?, data)`` coordinate. Without
+        the cross-pod ring each pod has a ring of its own: ``pod`` says
+        which."""
+        if not 0 <= ring < self.n_nodes:
+            raise ValueError(f"ring index {ring} not in [0, {self.n_nodes})")
+        if len(self.repl_axes) == 2:
+            return divmod(ring, self.ctx.shape["data"])
+        return (pod, ring) if "pod" in self.ctx.batch_axes else (ring,)
+
+    def ring_index(self, coord: Sequence[int]) -> int:
+        """A node's ``(pod?, data)`` coordinate -> its ring index."""
+        coord = tuple(coord)
+        if len(coord) != len(self.ctx.batch_axes):
+            raise ValueError(f"a node coordinate names "
+                             f"{self.ctx.batch_axes}, got {coord}")
+        if len(self.repl_axes) == 2:
+            return coord[-2] * self.ctx.shape["data"] + coord[-1]
+        return coord[-1]
 
     def _layout(self, global_params: Any, specs: Any) -> EngineLayout:
         mesh_shape = self.ctx.shape
@@ -440,16 +483,16 @@ class ReplicationEngine:
         step = int(step)
         slot = step % self.rep.log_capacity
         nb = self.layout.n_buckets
-        d = self._data_dim
-        payload = self.payloads(updates)
-        lv, lt, lg = logs["values"], logs["ts"], logs["valid"]
+        d = self._ring_dim
+        payload = self._ring(self.payloads(updates))
+        lv, lt, lg = (self._ring(logs[k]) for k in ("values", "ts", "valid"))
 
         if self.rep.mode == "parity":
             # psum over each group, then member 0 forwards the parity to
             # the bucket's holder; every other node receives zeros.
             groups = self.parity_groups()
             g = self.rep.parity_group
-            shape = [1] * len(self._lead)
+            shape = [1] * (payload.dim() - 2)
             shape[d] = self.n_nodes
             for b in range(nb):
                 src = payload[..., b, :].float()

@@ -20,6 +20,14 @@ forward runs again in the backward pass and launches again. Under
 ``no_grad`` / ``inference_mode`` the forward launches without lse, as
 every serving path runs.
 
+:func:`flash_attention_meta` is the kernels' route on meta tensors
+(``launch/costing.py``'s shapes-only pass): two shape-only ops,
+``torch.ops.repro_torch.flash_attention_fwd`` / ``_bwd``, so a cost pass
+sees each launch as one op, and :func:`attention_cost` is what one
+launch moves and computes, the count of ``chip_smoke.py``'s
+``attn_bound_ms`` / ``bwd_bound_ms``. They launch nothing and are not
+counted.
+
 ``flash_attention.launches`` counts forward launches and
 ``flash_attention.launches_by_kernel`` splits them by kernel ("mma",
 "simt"); ``flash_attention.bwd_launches`` counts backward launches and
@@ -31,6 +39,8 @@ attention went through.
 
 from __future__ import annotations
 
+from typing import Dict, Sequence
+
 import torch
 
 from repro_torch.kernels.flash_attn import kernel
@@ -41,6 +51,110 @@ def _route(t: torch.Tensor) -> str:
         raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
                          f"{t.device}")
     return t.device.type
+
+
+# ---------------------------------------------------------------------------
+# The meta route: one shape-only op per launch, and its cost
+# ---------------------------------------------------------------------------
+
+def attention_cost(q_shape: Sequence[int], k_shape: Sequence[int],
+                   causal: bool, itemsize: int, backward: bool = False,
+                   with_lse: bool = False) -> Dict[str, float]:
+    """FLOPs and bytes of one launch on q ``(B, Sq, H, D)`` and k / v
+    ``(B, Skv, K, D)``: 4 D operations a head per allowed (query, key)
+    pair forward (q.k and p.v), 10 D backward (s, dP, dV, dK, dQ), over
+    the exact causal pairs (right-aligned); forward q, k, v read and out
+    (and the f32 lse when asked) written once, backward q, k, v, out,
+    dout, lse read and dq, dk, dv written once. ``exp`` of each pair is
+    the transcendentals (twice backward, which forms P again)."""
+    b, sq, h, d = q_shape
+    skv, kh = k_shape[1], k_shape[2]
+    q_n, k_n = b * sq * h * d, b * skv * kh * d
+    if causal:
+        off = skv - sq
+        pairs = sum(min(i + off + 1, skv) for i in range(sq))
+    else:
+        pairs = sq * skv
+    pairs *= b * h
+    lse = b * h * sq * 4
+    if backward:
+        return {"flops": 10.0 * d * pairs, "transcendentals": float(pairs),
+                "bytes": float((4 * q_n + 4 * k_n) * itemsize + lse)}
+    return {"flops": 4.0 * d * pairs, "transcendentals": float(pairs),
+            "bytes": float((2 * q_n + 2 * k_n) * itemsize
+                           + (lse if with_lse else 0))}
+
+
+def _meta_fwd(q, k, v, causal: bool, with_lse: bool):
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b, h, sq) if with_lse else (0,),
+                        dtype=torch.float32))
+
+
+def _meta_bwd(q, k, v, out, lse, dout, causal: bool):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+if not hasattr(torch.ops.repro_torch, "flash_attention_fwd"):
+    _LIB = torch.library.Library("repro_torch", "FRAGMENT")
+    _LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, "
+                "bool causal, bool with_lse) -> (Tensor, Tensor)")
+    _LIB.define("flash_attention_bwd(Tensor q, Tensor k, Tensor v, "
+                "Tensor out, Tensor lse, Tensor dout, bool causal) "
+                "-> (Tensor, Tensor, Tensor)")
+    _LIB.impl("flash_attention_fwd", _meta_fwd, "Meta")
+    _LIB.impl("flash_attention_bwd", _meta_bwd, "Meta")
+
+
+def _fwd_cost(args) -> Dict[str, float]:
+    q, k, _, causal, with_lse = args
+    return attention_cost(q.shape, k.shape, causal, q.element_size(),
+                          with_lse=with_lse)
+
+
+def _bwd_cost(args) -> Dict[str, float]:
+    q, k = args[0], args[1]
+    return attention_cost(q.shape, k.shape, args[6], q.element_size(),
+                          backward=True)
+
+
+#: op -> its cost from the op's arguments, for ``launch/costing.py``
+KERNEL_COSTS = {torch.ops.repro_torch.flash_attention_fwd.default: _fwd_cost,
+                torch.ops.repro_torch.flash_attention_bwd.default: _bwd_cost}
+
+
+class _MetaFlashAttention(torch.autograd.Function):
+    """The kernels' route on meta tensors: shapes only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = torch.ops.repro_torch.flash_attention_fwd(
+            q, k, v, causal, True)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = torch.ops.repro_torch.flash_attention_bwd(
+            *ctx.saved_tensors, dout, ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True) -> torch.Tensor:
+    """:func:`flash_attention`'s kernel route on meta tensors: one
+    shape-only op a launch, forward (with lse when autograd will ask for
+    the gradient) and backward, as the CUDA route launches them."""
+    if q.device.type != "meta":
+        raise ValueError(f"flash_attention_meta takes meta tensors, got "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _MetaFlashAttention.apply(q, k, v, causal)
+    return torch.ops.repro_torch.flash_attention_fwd(q, k, v, causal,
+                                                     False)[0]
 
 
 def _forward(q, k, v, causal: bool, with_lse: bool):

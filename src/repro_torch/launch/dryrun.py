@@ -1,0 +1,358 @@
+"""Dry-run: prove the distribution config is coherent, and count what a
+step costs, without computing anything.
+
+For every (architecture x input-shape) cell that ``shape_applicable``
+admits, on both production meshes (16x16 single-pod and 2x16x16
+multi-pod, logical nodes), build the model, the train state and the
+replication engine on the ``meta`` device -- shapes and dtypes, no
+storage: the counterpart of the JAX package's ``ShapeDtypeStruct``
+lowering -- and record:
+
+* per-node bytes of the parameters, the optimizer state and the log
+  ring, from the sharding specs (``distributed/sharding.py``) and the
+  engine's layout;
+* the step's global FLOPs, bytes and transcendentals, counted op by op
+  as it runs on ``meta`` (``launch/costing.py``);
+* the replication traffic of one train step from the engine's layout:
+  each node sends its payload to N_r replicas (the JAX package's
+  ``collective-permute`` split);
+* ``model_params`` and ``active_params``;
+* the one-card roofline: the step's FLOPs over 989 TFLOP/s (dense
+  bf16) and its bytes over 3.35 TB/s (HBM3), the NVIDIA H100 80GB HBM3
+  at 700 W. One card has no link, so no link time is modelled.
+
+One JSON record per cell goes to ``--out`` (default
+``build/dryrun/``, which ``.gitignore`` lists). This entry point runs on
+``meta`` by design: it computes nothing, so it needs no card.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --workers 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import multiprocessing
+import os
+import time
+import traceback
+from concurrent.futures import ProcessPoolExecutor
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch import kernels
+from repro_torch.config import (
+    ReplicationConfig,
+    RunConfig,
+    SHAPES,
+    ShapeConfig,
+    TrainConfig,
+    get_model_config,
+    shape_applicable,
+)
+from repro_torch.configs import ASSIGNED_ARCHS
+from repro_torch.core.replication import ReplicationEngine, tree_flatten
+from repro_torch.distributed.context import MeshContext
+from repro_torch.distributed.sharding import param_specs
+from repro_torch.launch.costing import step_cost
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import attention
+from repro_torch.models.model_zoo import batch_struct, build_model
+from repro_torch.training.steps import (ServeState, init_train_state,
+                                        make_serve_fns, make_train_step)
+
+ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
+                                    ".."))
+ARTIFACT_DIR = os.path.join(ROOT, "build", "dryrun")
+
+# Roofline constants of the card the port runs on
+CARD = "NVIDIA H100 80GB HBM3 / 700 W"
+PEAK_FLOPS = 989e12          # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12             # HBM3 bytes/s
+
+META = torch.device("meta")
+
+
+def train_config_for(arch: str) -> TrainConfig:
+    """AdamW by default; Adafactor for models whose AdamW state cannot
+    fit at 256 nodes (>= 60B parameters), as in the JAX package."""
+    if get_model_config(arch).param_count() > 60e9:
+        return TrainConfig(optimizer="adafactor")
+    return TrainConfig(optimizer="adamw")
+
+
+def _shape(shape) -> ShapeConfig:
+    """A shape cell by name, or the :class:`ShapeConfig` given."""
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def _meta_batch(cfg, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    return {k: torch.empty(s.shape, dtype=s.dtype, device=META)
+            for k, s in batch_struct(cfg, shape).items()}
+
+
+def _tensors_only(tree: Any) -> Any:
+    """``tree`` without its non-tensor leaves (the optimizer's step
+    count)."""
+    if isinstance(tree, dict):
+        return {k: _tensors_only(v) for k, v in tree.items()
+                if isinstance(v, (dict, list, tuple, torch.Tensor))}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tensors_only(x) for x in tree)
+    return tree
+
+
+def per_node_bytes(tree: Any, specs: Any, ctx: MeshContext) -> int:
+    """Bytes one node holds of ``tree`` laid out by ``specs``: each
+    leaf's block, padded as GSPMD pads an uneven dimension."""
+    total = 0
+    sizes = ctx.shape
+    for leaf, spec in zip(tree_flatten(tree)[0], tree_flatten(specs)[0]):
+        if not isinstance(leaf, torch.Tensor):
+            continue
+        shape = list(leaf.shape)
+        for d, ax in enumerate(spec):
+            if ax is None:
+                continue
+            axes = ax if isinstance(ax, tuple) else (ax,)
+            div = int(np.prod([sizes[a] for a in axes]))
+            shape[d] = -(-shape[d] // div)
+        total += int(np.prod(shape)) * leaf.element_size()
+    return total
+
+
+def build_cell(arch: str, shape_name, multi_pod: bool,
+               variant: str = "proactive",
+               model_cfg=None) -> Dict[str, Any]:
+    """Build one cell on ``meta``: the context, the model and its
+    parameters, and the step with its arguments (``fn``, ``args``), plus
+    the train state and engine for a train cell. ``shape_name`` names a
+    cell of ``SHAPES`` or is a :class:`ShapeConfig`; ``model_cfg``
+    replaces the registered config (a reduced one, in tests)."""
+    model_cfg = model_cfg or get_model_config(arch)
+    shape = _shape(shape_name)
+    ok, why = shape_applicable(model_cfg, shape)
+    if not ok:
+        raise ValueError(f"cell skipped by design: {why}")
+    rep = ReplicationConfig(variant=variant, log_capacity=2)
+    tc = train_config_for(arch) if model_cfg.name == arch else TrainConfig()
+    run = RunConfig(model=model_cfg, shape=shape, replication=rep, train=tc)
+    ctx = make_production_mesh(multi_pod=multi_pod, device=META)
+    model = build_model(model_cfg)
+    params = model.init(0, device=META)
+    specs = param_specs(params, model_cfg, ctx)
+    cell: Dict[str, Any] = {"run": run, "ctx": ctx, "model": model,
+                            "params": params, "specs": specs,
+                            "engine": None}
+    if shape.kind == "train":
+        engine = (ReplicationEngine(rep, ctx, specs, params)
+                  if rep.is_replicating else None)
+        state = init_train_state(run, model, 0, engine, params=params)
+        cell.update(engine=engine, state=state, step="train_step",
+                    fn=make_train_step(run, model, engine),
+                    args=(state, _meta_batch(model_cfg, shape)))
+    elif shape.kind == "prefill":
+        prefill_fn, _ = make_serve_fns(model)
+        cell.update(step="prefill_step", fn=torch.no_grad()(prefill_fn),
+                    args=(params, _meta_batch(model_cfg, shape)))
+    else:
+        _, decode_fn = make_serve_fns(model)
+        b = shape.global_batch
+        with torch.no_grad():
+            if model_cfg.is_encdec:
+                # the cache holds seq_len - 1 tokens, so the step's new
+                # token is the cache's last position
+                pre = _meta_batch(model_cfg, dataclasses.replace(
+                    shape, kind="prefill", seq_len=shape.seq_len - 1))
+                with kernels.on_meta():
+                    _, cache = model.prefill(params, pre,
+                                             max_len=shape.seq_len)
+            else:
+                cache = model.init_cache(b, shape.seq_len, device=META)
+        tokens = torch.empty((b,), dtype=torch.int32, device=META)
+        cell.update(step="serve_step", fn=torch.no_grad()(decode_fn),
+                    args=(params, ServeState(cache=cache, tokens=tokens)))
+    return cell
+
+
+def run_cell(arch: str, shape_name, multi_pod: bool,
+             variant: str = "proactive", save: bool = True,
+             out_dir: str = ARTIFACT_DIR,
+             model_cfg=None) -> Dict[str, Any]:
+    """Build and cost one cell; returns (and saves) its record.
+
+    Attention and the SSD scan are counted by the kernels' formula
+    (``launch/costing.py``'s flash accounting): on the card every
+    prefill and training attention and SSD scan runs in the kernels."""
+    t0 = time.time()
+    model_cfg = model_cfg or get_model_config(arch)
+    shape = _shape(shape_name)
+    record: Dict[str, Any] = {
+        "arch": arch, "shape": shape.name,
+        "mesh": "2x16x16" if multi_pod else "16x16",
+        "variant": variant, "device": "meta",
+    }
+    ok, why = shape_applicable(model_cfg, shape)
+    if not ok:
+        record.update(status="skipped", reason=why)
+        if save:
+            _save(record, out_dir)
+        return record
+    try:
+        cell = build_cell(arch, shape_name, multi_pod, variant, model_cfg)
+        ctx, engine = cell["ctx"], cell["engine"]
+        n_nodes = int(np.prod(ctx.axis_sizes))
+        t_build = time.time() - t0
+        cost = step_cost(cell["fn"], *cell["args"], flash_accounting=True)
+        memory = {"params_bytes_per_node": per_node_bytes(
+            cell["params"], cell["specs"], ctx)}
+        replication = None
+        if "state" in cell:
+            opt = _tensors_only(cell["state"].opt_state)
+            memory["opt_state_bytes_per_node"] = per_node_bytes(
+                opt, param_specs(opt, model_cfg, ctx), ctx)
+        if engine is not None:
+            lay = engine.layout
+            es = torch.empty((), dtype=engine.log_dtype).element_size()
+            n_lead = len(ctx.axis_sizes)
+            memory["log_ring_bytes_per_node"] = sum(
+                int(np.prod(s.shape[n_lead:])) * torch.empty(
+                    (), dtype=s.dtype).element_size()
+                for s in engine.log_struct().values())
+            payload = lay.n_buckets * lay.bucket_len * es
+            sends = 1 if engine.rep.mode == "parity" else \
+                engine.rep.n_replicas
+            replication = {
+                "ring_axes": list(engine.repl_axes),
+                "ring_nodes": engine.n_nodes,
+                "payload_bytes_per_node": payload,
+                "send_bytes_per_node_per_step": payload * sends,
+                "send_bytes_global_per_step": payload * sends * n_nodes,
+            }
+        flops, nbytes = cost["flops"], cost["bytes"]
+        record.update({
+            "status": "ok",
+            "step": cell["step"],
+            "mesh_shape": list(ctx.axis_sizes),
+            "n_nodes": n_nodes,
+            "build_s": round(t_build, 2),
+            "memory": memory,
+            "cost": {
+                "flops_global": flops,
+                "bytes_global": nbytes,
+                "transcendentals_global": cost["transcendentals"],
+                "eltwise_flops_global": cost["eltwise_flops"],
+                "kernel_calls": cost["kernel_calls"],
+            },
+            "replication": replication,
+            "roofline_one_card": {
+                "card": CARD, "peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW,
+                "flops_ms": flops / PEAK_FLOPS * 1e3,
+                "bytes_ms": nbytes / HBM_BW * 1e3,
+            },
+            "attention_pair_walks": sorted(
+                attention.n_pair_scan_lengths(model_cfg, shape)),
+            "model_params": model_cfg.param_count(),
+            "active_params": model_cfg.active_param_count(),
+            "tokens": shape.tokens if shape.kind != "decode"
+            else shape.global_batch,
+        })
+    except Exception as e:  # noqa: BLE001 -- a failed cell IS the finding
+        record["status"] = "error"
+        record["error"] = f"{type(e).__name__}: {e}"
+        record["traceback"] = traceback.format_exc()[-2000:]
+    record["wall_s"] = round(time.time() - t0, 2)
+    if save:
+        _save(record, out_dir)
+    return record
+
+
+def _save(record: Dict[str, Any], out_dir: str) -> None:
+    os.makedirs(out_dir, exist_ok=True)
+    name = (f"dryrun_{record['arch']}_{record['shape']}_"
+            f"{record['mesh'].replace('x', '-')}.json")
+    with open(os.path.join(out_dir, name), "w") as f:
+        json.dump(record, f, indent=1)
+
+
+def format_record(r: Dict[str, Any]) -> str:
+    """One line per record, as the JAX package's dry-run prints it."""
+    if r["status"] == "ok":
+        c = r["cost"]
+        extra = (f"flops={c['flops_global']:.3e} "
+                 f"bytes={c['bytes_global']:.3e} "
+                 f"params/node={r['memory']['params_bytes_per_node']:.3e}B "
+                 f"{r['wall_s']}s")
+    elif r["status"] == "error":
+        extra = r["error"][:120]
+    else:
+        extra = r["reason"][:80]
+    return (f"[{r['status']:7s}] {r['arch']:22s} {r['shape']:12s} "
+            f"{r['mesh']:8s} {extra}")
+
+
+def _cost_rank(cell) -> tuple:
+    """Sort key putting the cells that take longest to count first:
+    train before prefill before decode, and the SSD families (whose
+    plain scan runs chunk by chunk) before the others."""
+    arch, shape, _ = cell
+    kind = ("train", "prefill", "decode").index(_shape(shape).kind)
+    return kind, get_model_config(arch).family not in ("ssm", "hybrid")
+
+
+def run_all(archs=ASSIGNED_ARCHS, shapes=tuple(SHAPES),
+            meshes=(False, True), workers: int = 1,
+            **kw) -> List[Dict[str, Any]]:
+    """Every (arch, shape, mesh) cell, in that order; ``workers`` > 1
+    spreads the cells over that many processes (each a fresh
+    interpreter: the cells are independent and CPU-bound)."""
+    cells = [(a, s, mp) for a in archs for s in shapes for mp in meshes]
+    if workers > 1:
+        pool = ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        with pool:
+            # the costliest cells first, so none starts last
+            futures = {c: pool.submit(run_cell, *c, **kw)
+                       for c in sorted(cells, key=_cost_rank)}
+            results = [futures[c].result() for c in cells]
+    else:
+        results = [run_cell(*c, **kw) for c in cells]
+    for r in results:
+        print(format_record(r), flush=True)
+    return results
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="all",
+                    help="architecture id or 'all'")
+    ap.add_argument("--shape", default="all",
+                    help="shape cell name or 'all'")
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--variant", default="proactive")
+    ap.add_argument("--out", default=ARTIFACT_DIR)
+    ap.add_argument("--no-save", action="store_true")
+    ap.add_argument("--workers", type=int, default=1,
+                    help="processes to spread the cells over")
+    args = ap.parse_args(argv)
+    archs = list(ASSIGNED_ARCHS) if args.arch == "all" else [args.arch]
+    shapes = list(SHAPES) if args.shape == "all" else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    results = run_all(archs, shapes, meshes, workers=args.workers,
+                      variant=args.variant,
+                      save=not args.no_save, out_dir=args.out)
+    n = {s: sum(r["status"] == s for r in results)
+         for s in ("ok", "skipped", "error")}
+    print(f"\ndry-run: {n['ok']} ok, {n['skipped']} skipped-by-design, "
+          f"{n['error']} errors")
+    return 1 if n["error"] else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

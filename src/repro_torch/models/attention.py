@@ -21,7 +21,9 @@ function both plain paths compute, masked or not, and its backward
 kernel the gradient when autograd asks for one. A CPU tensor takes
 the JAX package's own path (self-attention: full up to
 ``BLOCKWISE_THRESHOLD``, blockwise above; cross-attention: full), so the
-parity tests compare like with like. Decode attention stays plain
+parity tests compare like with like. A meta tensor takes the plain
+path too, or, inside ``kernels.on_meta()``, the kernel's shape-only
+route (``launch/costing.py``). Decode attention stays plain
 torch: the JAX package has no kernel for it. All paths accumulate
 softmax statistics in f32.
 """
@@ -33,6 +35,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models.layers import (
@@ -227,6 +230,30 @@ def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # Public entry points
 # ---------------------------------------------------------------------------
 
+def n_pair_scan_lengths(cfg, shape) -> frozenset:
+    """Trip counts of the blockwise-attention pair walks a given (arch,
+    shape) cell runs on the plain path above ``BLOCKWISE_THRESHOLD``
+    (the JAX package's scan lengths, which its cost pass marks
+    VMEM-resident; here the lengths of the ``_causal_pairs`` loops):
+    the causal self-attention's lower triangle and the non-causal
+    (encoder) walk, for the sequence and, for an enc-dec config, the
+    frames."""
+    out = set()
+    seqs = [shape.seq_len]
+    if cfg.is_encdec:
+        seqs.append(cfg.n_frames)
+    for s in seqs:
+        if s <= BLOCKWISE_THRESHOLD:
+            continue
+        nq = -(-s // Q_BLOCK)
+        nk = -(-s // KV_BLOCK)
+        # causal lower-triangle count (self-attn; offset 0)
+        causal_pairs = sum(min(i + 1, nk) for i in range(nq))
+        out.add(causal_pairs)
+        out.add(nq * nk)        # non-causal (encoder) variant
+    return frozenset(out)
+
+
 def _on_card(t: torch.Tensor) -> bool:
     """Whether attention over ``t`` takes the kernel: a CUDA tensor."""
     return t.device.type == "cuda"
@@ -239,6 +266,8 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     blockwise or the full path."""
     if _on_card(q):
         return flash_ops.flash_attention(q, k, v, causal=causal)
+    if kernels.ON_META and q.device.type == "meta":
+        return flash_ops.flash_attention_meta(q, k, v, causal=causal)
     if use_blockwise:
         return _blockwise_attention(q, k, v, causal=causal)
     return _full_attention(q, k, v, causal=causal)

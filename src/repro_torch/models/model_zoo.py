@@ -26,6 +26,16 @@ from repro_torch.models import encdec, transformer
 from repro_torch.models.layers import dtype_of
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that places what the initializers make on the
+    ``meta`` device: torch has no meta generator, and the random fills
+    of a meta tensor draw nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -46,10 +56,12 @@ def build_model(cfg: ModelConfig) -> Model:
 
     def init(seed: int = 0, device=None) -> Dict[str, Any]:
         """Random weights from ``torch.Generator(device).manual_seed(seed)``,
-        made on ``device`` (``None``: the card)."""
+        made on ``device`` (``None``: the card). On ``"meta"`` only their
+        shapes and dtypes (``launch/dryrun.py``)."""
         dev = resolve_device(device)
-        return mod.init_params(torch.Generator(device=dev).manual_seed(seed),
-                               cfg)
+        gen = (_MetaGenerator() if dev.type == "meta"
+               else torch.Generator(device=dev))
+        return mod.init_params(gen.manual_seed(seed), cfg)
 
     def init_cache(batch: int, max_len: int, device=None) -> Dict[str, Any]:
         if cfg.is_encdec:

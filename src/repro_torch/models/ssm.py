@@ -4,7 +4,9 @@ The JAX package's ``models/ssm.py`` on torch tensors. Prefill uses the
 chunked SSD algorithm: within-chunk quadratic (matmul form) plus an
 across-chunk linear recurrence. On a CUDA tensor ``ssm_apply`` runs the
 scan through the hand-written kernel (``kernels/ssd_scan``); on a CPU
-tensor through :func:`ssd_chunked`, the plain version. Decode is the
+tensor through :func:`ssd_chunked`, the plain version; a meta tensor
+through the plain version or, inside ``kernels.on_meta()``, the
+kernel's shape-only route (``launch/costing.py``). Decode is the
 O(1) recurrent state update, plain torch.
 
 Projections stay separate matrices (z, x, B, C, dt), with a single B/C
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import kernels
 from repro_torch.config import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import Params, dense_init, dtype_of
@@ -180,8 +183,10 @@ def ssm_apply(params: Params, u: torch.Tensor, cfg: ModelConfig,
     xs = xr.reshape(bsz, l, nh, p)
     dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])
     A = -torch.exp(params["A_log"])
-    y, state = ssd_ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=cfg.ssm_chunk,
-                                init_state=init_state)
+    scan = ssd_ops.ssd_scan
+    if xs.device.type == "meta":           # shapes only: launch/costing.py
+        scan = ssd_ops.ssd_scan_meta if kernels.ON_META else ssd_chunked
+    y, state = scan(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
     y = y + xs * params["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(bsz, l, di)
     y = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps)

@@ -198,12 +198,15 @@ class Trainer:
                 "the WB data-loss case the paper fixes)")
         cm = self.detector.configuration_manager()
         t0 = time.perf_counter()
+        # the detector and the directory count ring nodes; the state and
+        # the logs are laid out by node coordinate (pod?, data)
+        coord = self.engine.node_coord(failed_node)
         result = recover_node(self.engine, self.state.logs, self.directory,
-                              failed_coord=(failed_node,))
+                              failed_coord=coord)
         with torch.no_grad():
             params = install_recovered_shard(
                 self.state.params, self.specs, self.engine, result,
-                target_coord=(failed_node,))
+                target_coord=coord)
         for p in tree_leaves(params):
             p.requires_grad_(True)
         self.state = self.state._replace(params=params)

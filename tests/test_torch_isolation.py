@@ -38,7 +38,9 @@ from repro_torch.kernels.flash_attn import ops as FA_ops
 from repro_torch.kernels.ssd_scan import kernel as SSD_kernel
 from repro_torch.kernels.ssd_scan import ops as SSD_ops
 from repro_torch.core.serving import ScenarioServer
+from repro_torch.examples import train_100m_ft as T100m
 from repro_torch.examples import ycsb_kv as TYcsb
+from repro_torch.launch import mesh as TMesh
 from repro_torch.launch import serve as TServe
 from repro_torch.launch import serve_scenarios as TServeScenarios
 from repro_torch.models import attention as TA
@@ -86,6 +88,8 @@ MODULES = [
     "repro_torch.examples", "repro_torch.examples.ycsb_kv",
     "repro_torch.examples.protocol_sim", "repro_torch.models.encdec",
     "repro_torch.configs.whisper_medium", "repro_torch.configs.internvl2_26b",
+    "repro_torch.examples.train_100m_ft", "repro_torch.launch.mesh",
+    "repro_torch.launch.costing", "repro_torch.launch.dryrun",
     "chip_smoke",
 ]
 SPECS = TSc.sweep_grid(workloads=("ycsb",), configs=("wb", "proactive"))
@@ -166,6 +170,9 @@ def no_cuda():
                          gen=2),
     lambda: TServe.serve("internvl2-26b", reduced=True, prompt_len=8,
                          gen=2),
+    lambda: T100m.main(["--steps", "3"]),
+    lambda: TMesh.make_production_mesh(),
+    lambda: TMesh.make_local_mesh(2),
 ], ids=["simulate_batch", "slowdown_table", "run_grid", "simulate_grid",
         "run_sweep", "device_args", "sub_device_args", "run_fault_scenario",
         "ReplicationEngine", "recovery_sweep", "recovery_time_batch",
@@ -173,7 +180,8 @@ def no_cuda():
         "make_batch", "params_from_jax", "serve", "ScenarioServer",
         "run_grid_sharded", "serve_scenarios", "moe_build_model.init",
         "moe_serve", "ycsb_kv", "encdec_build_model.init", "encdec_serve",
-        "vlm_serve"])
+        "vlm_serve", "train_100m_ft", "make_production_mesh",
+        "make_local_mesh"])
 def test_entry_points_default_to_cuda_and_raise(no_cuda, entry):
     with pytest.raises(RuntimeError, match="CUDA"):
         entry()

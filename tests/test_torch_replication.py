@@ -54,26 +54,38 @@ TSPECS = {"w1": P("data", "model"), "w2": P("model", "data"),
           "scale": P(None)}
 
 
-def _engines(mesh, state, **rep):
+#: the same state on the (pod 2, data 2, model 2) mesh: the node
+#: dimensions are sharded over the joined (pod, data) axes, pod-major,
+#: so ring node s holds the blocks node s holds on the (4, 2) mesh.
+POD_JSPECS = {"w1": JP(("pod", "data"), "model"),
+              "w2": JP("model", ("pod", "data")), "scale": JP(None)}
+POD_TSPECS = {"w1": P(("pod", "data"), "model"),
+              "w2": P("model", ("pod", "data")), "scale": P(None)}
+POD_AXES = ("pod", "data", "model")
+
+
+def _engines(mesh, state, pod=False, **rep):
     rep.setdefault("log_dtype", "float32")
+    jspecs, tspecs = (POD_JSPECS, POD_TSPECS) if pod else (JSPECS, TSPECS)
     jparams = {k: jax.device_put(jnp.asarray(v),
-                                 NamedSharding(mesh, JSPECS[k]))
+                                 NamedSharding(mesh, jspecs[k]))
                for k, v in state.items()}
     jeng = JEngine(JRC(**rep), jax_make_context(mesh),
-                   {k: JSPECS[k] for k in state}, jparams)
-    ctx = make_context((4, 2), ("data", "model"), device="cpu")
+                   {k: jspecs[k] for k in state}, jparams)
+    ctx = (make_context((2, 2, 2), POD_AXES, device="cpu") if pod else
+           make_context((4, 2), ("data", "model"), device="cpu"))
     tparams = {k: torch.from_numpy(v.copy()) for k, v in state.items()}
     teng = ReplicationEngine(ReplicationConfig(**rep), ctx,
-                             {k: TSPECS[k] for k in state}, tparams)
+                             {k: tspecs[k] for k in state}, tparams)
     return jeng, jparams, teng, tparams
 
 
-def _run(mesh, update, n_steps=N_STEPS, state=None, **rep):
+def _run(mesh, update, n_steps=N_STEPS, state=None, pod=False, **rep):
     """Both engines after ``n_steps`` of ``x -> update(x)``; returns
     (jax engine, jax params, jax logs, port engine, port params, port
     logs)."""
     state = _state() if state is None else state
-    jeng, jp, teng, tp = _engines(mesh, state, **rep)
+    jeng, jp, teng, tp = _engines(mesh, state, pod=pod, **rep)
 
     @jax.jit
     def step(params, logs, step_no):
@@ -308,12 +320,176 @@ def test_writethrough_and_none_noop():
         assert all(torch.equal(out[k], before[k]) for k in before)
 
 
-def test_cross_pod_ring_not_ported():
-    ctx = make_context((2, 2, 2), ("pod", "data", "model"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ReplicationEngine(ReplicationConfig(cross_pod_replicas=True,
-                                            n_replicas=1), ctx,
-                          {"w": P("data")}, {"w": torch.zeros(8)})
+# ---------------------------------------------------------------------------
+# The cross-pod ring: (pod, data) joined into one ring of 4 nodes
+# ---------------------------------------------------------------------------
+
+POD_CASES = [(v, c, True) for v in VARIANTS for c in (True, False)] \
+    + [("proactive", c, False) for c in (True, False)]
+
+
+@pytest.fixture(scope="module")
+def pod_runs(pod_mesh8):
+    return {(v, c, x): _run(pod_mesh8, lambda t: t * 1.5 + 1.0, pod=True,
+                            variant=v, coalescing=c, cross_pod_replicas=x,
+                            n_replicas=2 if x else 1, n_buckets=2,
+                            log_capacity=3)
+            for v, c, x in POD_CASES}
+
+
+@pytest.mark.parametrize("variant,coalescing,cross", POD_CASES)
+def test_pod_mesh_log_ring_matches_jax(pod_runs, variant, coalescing,
+                                       cross):
+    """The port's ring on the (2, 2, 2) pod mesh is ``==`` the JAX
+    engine's after three steps: with ``cross_pod_replicas`` over the
+    joined (pod, data) ring of 4, numbered pod-major; without it each
+    pod's own ring of 2 (N_r 1)."""
+    jeng, _, jl, teng, _, tl = pod_runs[(variant, coalescing, cross)]
+    assert teng.repl_axes == jeng.repl_axes
+    assert teng.n_nodes == jeng.n_nodes == (4 if cross else 2)
+    for k in ("values", "ts", "valid"):
+        want = np.asarray(jl[k])
+        assert tuple(tl[k].shape) == want.shape == teng.log_struct()[k].shape
+        assert np.array_equal(tl[k].numpy(), want), k
+
+
+def _recover_ring_node(teng, tl, coord):
+    return R.recover_node(teng, tl, teng.shard_directory(),
+                          failed_coord=coord)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("coalescing", [True, False])
+def test_cross_pod_recover_each_ring_node(pod_runs, variant, coalescing):
+    """Every ring node (pod, data) recovers ``==`` its true block of the
+    state: the oracle of ``test_recover_exact_all_variants``, since the
+    JAX package cannot recover over this ring (ROADMAP C5)."""
+    _, _, _, teng, tp, tl = pod_runs[(variant, coalescing, True)]
+    for ring in range(4):
+        coord = teng.node_coord(ring)
+        assert coord == divmod(ring, 2) and teng.ring_index(coord) == ring
+        res = _recover_ring_node(teng, tl, coord)
+        assert res.stats.unrecoverable == 0 and res.stats.failed_node == ring
+        for s in res.shards.values():
+            r = int(s.source.split(":")[1].split("@")[0])
+            target = (ring + teng._offsets(s.bucket)[r]) % 4
+            assert s.source == f"replica:{r}@node{target}"
+        per_model = R.reassemble_shard(teng, res)
+        for m in range(2):
+            tree = teng.unflatten(per_model[m])
+            for k, want in _truth(tp, ring, m).items():
+                assert np.array_equal(tree[k].numpy(), want), (ring, k, m)
+
+
+def test_pod_mesh_without_cross_pod_recovers_like_jax(pod_runs):
+    """Without ``cross_pod_replicas`` each pod keeps its own ring, and
+    the port's recovery on a pod mesh is the JAX package's: the same
+    ``RecoveryResult`` for every (pod, data), and the true block."""
+    for c in (True, False):
+        jeng, _, jl, teng, tp, tl = pod_runs[("proactive", c, False)]
+        for pod in range(2):
+            for data in range(2):
+                res = R.recover_node(teng, tl, teng.shard_directory(),
+                                     failed_coord=(pod, data))
+                ref = JR.recover_node(jeng, jl, JDir(2, jeng.layout.n_buckets,
+                                                     1),
+                                      failed_coord=(pod, data))
+                _same_result(res, ref)
+                assert res.stats.unrecoverable == 0
+                tree = teng.unflatten(R.reassemble_shard(teng, res)[1])
+                for k, want in _truth(tp, 2 * pod + data, 1).items():
+                    assert np.array_equal(tree[k].numpy(), want), k
+
+
+def test_reference_cannot_recover_over_joined_ring_contract(pod_runs):
+    """ROADMAP C5, pinned: the JAX package replicates over the joined
+    ring but its ``recover_node`` takes the data coordinate as the ring
+    index and indexes the data axis (size 2) with a ring index, so it
+    raises ``IndexError`` for every node. If this test fails, the
+    reference has been fixed, and the port's recovery can be held
+    ``==`` to it."""
+    jeng, _, jl, _, _, _ = pod_runs[("proactive", False, True)]
+    for pod in range(2):
+        for data in range(2):
+            with pytest.raises(IndexError):
+                JR.recover_node(jeng, jl, JDir(4, jeng.layout.n_buckets, 2),
+                                failed_coord=(pod, data))
+
+
+def test_planted_data_index_fault_fails_the_shard_check(pod_runs,
+                                                        monkeypatch):
+    """Recovery that takes the data coordinate as the ring index, as the
+    JAX package does, recovers pod 1's nodes from pod 0's logs: the
+    shard check must see it."""
+    _, _, _, teng, tp, tl = pod_runs[("proactive", False, True)]
+    monkeypatch.setattr(teng, "ring_index", lambda coord: coord[-1])
+    for data in range(2):
+        res = _recover_ring_node(teng, tl, (1, data))
+        tree = teng.unflatten(R.reassemble_shard(teng, res)[0])
+        assert not np.array_equal(tree["w1"].numpy(),
+                                  _truth(tp, 2 + data, 0)["w1"])
+
+
+def test_ring_coordinates():
+    """Ring index <-> (pod?, data): pod-major on the joined ring, the
+    data coordinate otherwise; the joined ring needs pod and data
+    adjacent, pod first."""
+    w = {"w": torch.zeros(8, 4)}
+    rep = ReplicationConfig(cross_pod_replicas=True, n_replicas=1)
+    eng = ReplicationEngine(rep, make_context((2, 3, 2), POD_AXES,
+                                              device="cpu"),
+                            {"w": P(("pod", "data"))},
+                            {"w": torch.zeros(12, 4)})
+    assert eng.repl_axes == ("pod", "data") and eng.n_nodes == 6
+    assert [eng.node_coord(r) for r in range(6)] == \
+        [(0, 0), (0, 1), (0, 2), (1, 0), (1, 1), (1, 2)]
+    assert [eng.ring_index(eng.node_coord(r)) for r in range(6)] == \
+        list(range(6))
+    with pytest.raises(ValueError):
+        eng.node_coord(6)
+    with pytest.raises(ValueError):
+        eng.ring_index((1,))
+    own = ReplicationEngine(dataclasses.replace(rep,
+                                                cross_pod_replicas=False),
+                            make_context((2, 4, 2), POD_AXES, device="cpu"),
+                            {"w": P("data")}, w)
+    assert own.repl_axes == ("data",) and own.n_nodes == 4
+    assert own.node_coord(3, pod=1) == (1, 3) and own.ring_index((1, 3)) == 3
+    flat = ReplicationEngine(rep, make_context((4, 2), ("data", "model"),
+                                               device="cpu"),
+                             {"w": P("data")}, w)
+    assert flat.repl_axes == ("data",) and flat.node_coord(2) == (2,)
+    with pytest.raises(ValueError, match="adjacent"):
+        ReplicationEngine(rep, make_context((2, 2, 2),
+                                            ("pod", "model", "data"),
+                                            device="cpu"),
+                          {"w": P("data")}, w)
+
+
+def test_cross_pod_parity_ring_and_recovery(pod_mesh8):
+    """Parity mode over the joined ring (``parity_group`` 2: groups of
+    ring nodes {0, 1} and {2, 3}, holders outside the group): the ring
+    is ``==`` the JAX engine's, and every ring node recovers its true
+    block at the parity test's atol=1e-4."""
+    state = {k: v for k, v in _state().items() if k != "scale"}
+    jeng, jp, jl, teng, tp, tl = _run(
+        pod_mesh8, lambda x: x * 1.25 + 0.5, state=state, pod=True,
+        variant="proactive", n_replicas=1, n_buckets=2, log_capacity=2,
+        mode="parity", parity_group=2, cross_pod_replicas=True)
+    assert teng.parity_groups() == jeng.parity_groups() == [[0, 1], [2, 3]]
+    for k in ("values", "ts", "valid"):
+        assert np.array_equal(tl[k].numpy(), np.asarray(jl[k])), k
+    specs = {k: POD_TSPECS[k] for k in tp}
+    for ring in range(4):
+        res = R.recover_node_parity(teng, tl, tp, specs,
+                                    failed_coord=teng.node_coord(ring))
+        assert res.stats.unrecoverable == 0 and res.stats.failed_node == ring
+        per_model = R.reassemble_shard(teng, res)
+        for m in range(2):
+            tree = teng.unflatten(per_model[m])
+            for k in ("w1", "w2"):
+                np.testing.assert_allclose(tree[k].numpy(),
+                                           _truth(tp, ring, m)[k], atol=1e-4)
 
 
 @pytest.fixture(scope="module")

@@ -12,6 +12,7 @@ variant's arithmetic in the same order: all four give ``==`` losses.
 The launcher and the quickstart run on the CPU too.
 """
 
+import dataclasses
 import re
 import shutil
 import tempfile
@@ -232,3 +233,28 @@ def test_quickstart_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "'event': 'recovery'" in out and "'unrecoverable': 0" in out
     assert "step  30" in out
+
+
+def test_cross_pod_ring_recovery_identical_to_unfailed_run(workdir):
+    """The Trainer on a (pod 2, data 2, model 2) mesh with
+    ``cross_pod_replicas``: the detector and the directory count the
+    joined ring's 4 nodes, ring node 3 (pod 1, data 1) fails at step 5,
+    and the recovered parameters ``==`` an unfailed run's."""
+    cfg = dataclasses.replace(
+        _run_cfg(cross_pod_replicas=True),
+        mesh=TC.MeshConfig((2, 2, 2), ("pod", "data", "model")))
+    ctx = make_context((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    t1 = Trainer(cfg, ctx, workdir + "/a")
+    assert t1.engine.repl_axes == ("pod", "data")
+    assert t1.engine.n_nodes == t1.detector.n_nodes == 4
+    t1.train(8)
+    inj = FailureInjector([FailureEvent(step=5, node=3)])
+    t2 = Trainer(cfg, ctx, workdir + "/b", injector=inj)
+    t2.train(8)
+    rec = [e for e in t2.events if e["event"] == "recovery"]
+    assert len(rec) == 1 and rec[0]["recovered"] == 3
+    assert rec[0]["stats"]["failed_node"] == 3
+    assert rec[0]["stats"]["unrecoverable"] == 0
+    for a, b in zip(tree_leaves(t1.state.params),
+                    tree_leaves(t2.state.params)):
+        assert torch.equal(a, b)
