@@ -235,7 +235,22 @@ each hand-written CUDA kernel against its plain PyTorch version:
     logical production meshes on ``meta`` (no cell may error), then the
     counted FLOPs of phases 20 and 21's qwen3, hymba and mamba2 steps
     over the step times measured in this run, as a share of 989 TFLOP/s,
-    with qwen3's count held to a closed form.
+    with qwen3's count held to a closed form;
+23. the rank-aware path (``torch.distributed``) in a one-rank ``nccl``
+    group (``file://`` rendezvous under the build directory): (a) phase
+    7 again through the rank-aware engine and recovery (the REPL / VAL
+    ``ppermute``s as the collectives' local copies, the recovery's
+    index ``all_reduce`` and value broadcasts through NCCL) and the
+    rank's ``log_compress`` dump and restore at 8 and 4 bits: the ring,
+    both recoveries and both dumps ``==`` phase 7's, compress /
+    decompress 2 / 2 launches, the replicate step beside phase 7's; (b)
+    qwen3-0.6b at phase 20's exact configuration through the rank-aware
+    ``Trainer`` (data-parallel, the gradient summed by NCCL in flat f32
+    buckets): the six losses and the installed shard ``==`` phase 20's,
+    56 forward and 28 backward ``flash_attn`` launches a step, the
+    ``all_reduce`` ms a step and the step's median beside phase 20's;
+    (c) with more than one card, ``min(count, 4)`` ranks on ``nccl``
+    (not run on one card: printed as such).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -248,6 +263,7 @@ sees no CUDA device, or when the repo's sources are missing.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import gc
@@ -883,31 +899,34 @@ def phase_fault_scenarios(Sc) -> dict:
 
 def ycsb_update(torch, fields, gen) -> None:
     """One step of YCSB updates: in each field, a seeded set of records
-    is rewritten with new values (UPDATES_PER_FIELD per field)."""
+    is rewritten with new values (UPDATES_PER_FIELD distinct records per
+    field, so no two writes race and a rerun is bit-identical)."""
     for f in fields:
-        rows = torch.randint(0, YCSB_RECORDS, (UPDATES_PER_FIELD,),
-                             generator=gen, device=f.device)
+        rows = torch.randperm(YCSB_RECORDS, generator=gen,
+                              device=f.device)[:UPDATES_PER_FIELD]
         f[rows] = torch.rand((UPDATES_PER_FIELD, FIELD_WORDS), generator=gen,
                              device=f.device)
 
 
-def phase_paper_width(torch, lc, lc_ref) -> dict:
-    print(f"phase 7: paper width -- {PAPER_NODES} CNs, N_r = 3, the YCSB "
-          f"store of {YCSB_RECORDS} records x {YCSB_FIELDS} fields")
+def paper_width_loop(torch, ctx) -> dict:
+    """Phase 7's run on node context ``ctx``: the seeded YCSB store of 16
+    CNs replicated for 10 steps (N_r 3), the failures of
+    ``PAPER_FAILURES`` recovered from the replica logs, each recovery
+    checked against the store's true rows. Every per-node tensor covers
+    the context's nodes (all 16 without a process group)."""
     from repro_torch.config import ReplicationConfig
     from repro_torch.core.recovery import reassemble_shard, recover_node
     from repro_torch.core.replication import ReplicationEngine
     from repro_torch.core.scenarios import estimate_scenario_downtime
-    from repro_torch.distributed.context import P, make_context
+    from repro_torch.distributed.context import P
 
-    dev = torch.device(DEVICE)
+    dev = ctx.device
     gen = torch.Generator(device=dev).manual_seed(SEED)
     store = torch.rand((YCSB_FIELDS, YCSB_RECORDS, FIELD_WORDS),
                        generator=gen, device=dev)
     base = store.clone()                 # the last dump: the step-0 state
     state = {f"field{i}": store[i] for i in range(YCSB_FIELDS)}
     specs = {k: P("data", None) for k in state}
-    ctx = make_context((PAPER_NODES,), ("data",))
     engine = ReplicationEngine(ReplicationConfig(log_dtype="float32"), ctx,
                                specs, state)
     lay = engine.layout
@@ -918,12 +937,11 @@ def phase_paper_width(torch, lc, lc_ref) -> dict:
     logs = engine.init_logs()
     ring_bytes = sum(t.numel() * t.element_size() for t in logs.values())
     check(logs["values"].numel() * 4
-          == PAPER_NODES * 3 * 8 * 8 * lay.bucket_len * 4,
+          == ctx.nodes_per_rank * 3 * 8 * 8 * lay.bucket_len * 4,
           f"log ring {ring_bytes} bytes on the card "
           f"({tuple(logs['values'].shape)} f32 values + ts + valid)")
     # the engine coalesces, so the directory names its actual targets
     directory = engine.shard_directory()
-    lc.compress.launches = lc.decompress.launches = 0
     update_ms, step_ms, recoveries = [], [], []
     torch.cuda.synchronize()
     t_loop = time.perf_counter()
@@ -961,8 +979,27 @@ def phase_paper_width(torch, lc, lc_ref) -> dict:
               f"{est.total_ms:.4f} ms")
         recoveries.append({"step": t, "node": node, "wall_ms": wall_ms,
                            "n_versions": n_versions,
-                           "downtime_ms": est.total_ms})
-    loop_ms = (time.perf_counter() - t_loop) * 1e3
+                           "downtime_ms": est.total_ms, "result": res})
+    return {"engine": engine, "logs": logs, "store": store, "base": base,
+            "ring_bytes": ring_bytes, "step_ms": step_ms,
+            "update_ms": update_ms, "recoveries": recoveries,
+            "loop_ms": (time.perf_counter() - t_loop) * 1e3}
+
+
+def phase_paper_width(torch, lc, lc_ref) -> tuple:
+    """Phase 7; returns its numbers and, apart, what phase 23(a) holds
+    its rank-aware run against (the ring, the recoveries, the dumps)."""
+    print(f"phase 7: paper width -- {PAPER_NODES} CNs, N_r = 3, the YCSB "
+          f"store of {YCSB_RECORDS} records x {YCSB_FIELDS} fields")
+    from repro_torch.distributed.context import make_context
+
+    lc.compress.launches = lc.decompress.launches = 0
+    run = paper_width_loop(torch, make_context((PAPER_NODES,), ("data",)))
+    store, base = run["store"], run["base"]
+    ring_bytes, step_ms = run["ring_bytes"], run["step_ms"]
+    update_ms, loop_ms = run["update_ms"], run["loop_ms"]
+    recoveries = [{k: v for k, v in r.items() if k != "result"}
+                  for r in run["recoveries"]]
     rec_ms = sum(r["wall_ms"] for r in recoveries)
     print(f"  replicate: {json.dumps([round(x, 4) for x in step_ms])} ms "
           f"per step (CUDA events); mean of steps 1-9 "
@@ -973,13 +1010,10 @@ def phase_paper_width(torch, lc, lc_ref) -> dict:
           f"{loop_ms - sum(step_ms) - sum(update_ms) - rec_ms:.2f} ms")
 
     # the log dump: the 500 MB state against its base, through the kernels
-    values, flat_base = store.reshape(-1), base.reshape(-1)
+    values, flat_base = node_rows(store, run["engine"].ctx), \
+        node_rows(base, run["engine"].ctx)
     n = values.numel()
-    dumps = {}
-    for bits in (8, 4):
-        codes, scales = lc.compress(values, flat_base, bits=bits)
-        rec = lc.decompress(codes, scales, flat_base, n)
-        dumps[bits] = (codes, scales, rec)
+    dumps = log_dumps(lc, values, flat_base)
     launches = (lc.compress.launches, lc.decompress.launches)
     check(launches == (2, 2), f"the dump launched compress {launches[0]} "
           f"and decompress {launches[1]} times")
@@ -1033,7 +1067,28 @@ def phase_paper_width(torch, lc, lc_ref) -> dict:
           f"{out['bound_ms']:.5f} ms ({out['bound_by']})")
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     print(f"  peak device memory {out['peak_bytes']} bytes")
-    return out
+    keep = {"logs": run["logs"], "dumps": dumps, "step_ms": step_ms,
+            "results": [r["result"] for r in run["recoveries"]]}
+    return out, keep
+
+
+def node_rows(store, ctx):
+    """The flat state of the context's nodes: each field's rows of those
+    nodes (every row without a process group)."""
+    rows = YCSB_RECORDS // PAPER_NODES
+    lo = ctx.local_starts[0] * rows
+    return store[:, lo:lo + ctx.local_sizes[0] * rows].reshape(-1)
+
+
+def log_dumps(lc, values, base) -> dict:
+    """The MN dump of ``values`` against ``base`` at 8 and 4 bits and its
+    restore, through the kernels: bits -> (codes, scales, restored)."""
+    dumps = {}
+    for bits in (8, 4):
+        codes, scales = lc.compress(values, base, bits=bits)
+        dumps[bits] = (codes, scales,
+                       lc.decompress(codes, scales, base, values.numel()))
+    return dumps
 
 
 def block_max(lc, err):
@@ -3332,11 +3387,68 @@ def grad_leaves(torch, model, params, batch, attn_fn, fa_ops):
     return float(loss.detach()), out
 
 
-def phase_train(torch, fa, attn, ssd) -> dict:
-    """Phase 20: the flash_attn backward kernel against its plain version
-    at five shapes; qwen3-0.6b trained at full width and depth through
-    ``Trainer`` with a node failure recovered and an MN dump; gradients
-    through the kernels against the plain attention on an f32 copy."""
+def emulate_data_parallel(torch, tr, world: int):
+    """Phase 23(c)'s reference on one card: each step's gradient made as
+    ``world`` ranks make it -- the gradient of each rank's rows apart, in
+    bf16 as a rank's backward leaves it, times the rank's weight 1 /
+    world, summed in f32 and rounded back to bf16 -- in place of the
+    whole batch's. Only the order of the f32 sum differs from NCCL's.
+    Patches ``tr``'s step; returns the function that undoes it."""
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.training import steps
+    model = tr.model
+    real_loss, real_clip = model.loss_fn, steps.clip_by_global_norm
+    seen = {}
+
+    def loss_fn(params, batch, **kw):
+        seen.update(params=params, batch=batch, kw=kw)
+        return real_loss(params, batch, **kw)
+
+    def clip(grads, max_norm):
+        params, batch, kw = seen["params"], seen["batch"], seen["kw"]
+        if "mask" in batch:
+            raise SmokeFailure("the emulation weighs every rank 1 / world: "
+                               "a masked batch needs the token shares")
+        leaves = tree_leaves(params)
+        rows = next(iter(batch.values())).shape[0] // world
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        for r in range(world):
+            part = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()}
+            for p in leaves:
+                p.grad = None
+            loss, _ = real_loss(params, part, **kw)
+            loss.backward()
+            for a, p in zip(acc, leaves):
+                if p.grad is not None:
+                    a.add_(p.grad.float().mul_(1.0 / world))
+        for p in leaves:
+            p.grad = None
+        for g, a in zip(tree_leaves(grads), acc):
+            g.copy_(a)
+        return real_clip(grads, max_norm)
+
+    object.__setattr__(model, "loss_fn", loss_fn)
+    steps.clip_by_global_norm = clip
+
+    def undo():
+        object.__setattr__(model, "loss_fn", real_loss)
+        steps.clip_by_global_norm = real_clip
+    return undo
+
+
+def train_qwen3(torch, fa, ssd, group, device=DEVICE,
+                emulate_world: int = 0) -> tuple:
+    """qwen3-0.6b at full width and depth through ``Trainer`` on the
+    logical (data 4, model 2) mesh, a node failure recovered from the
+    replica logs (the installed shard checked against the node's lost
+    blocks) and one MN dump restored: phase 20 on one card (``group``
+    None), phase 23(b) through the rank-aware path (a process group),
+    phase 23(c)'s reference with ``emulate_world`` ranks' gradient
+    rounding (:func:`emulate_data_parallel`). Returns the run's numbers and a host copy of the parameters just
+    after the install. Through a group it also times each step's
+    gradient ``all_reduce`` (CUDA events around
+    ``collectives.all_reduce_sum``)."""
     import shutil
     import tempfile
 
@@ -3344,43 +3456,10 @@ def phase_train(torch, fa, attn, ssd) -> dict:
 
     from repro_torch import config
     from repro_torch.core.failures import FailureEvent, FailureInjector
-    from repro_torch.distributed import elastic
+    from repro_torch.distributed import collectives, elastic
     from repro_torch.distributed.context import make_context
-    from repro_torch.models import build_model
-    from repro_torch.models.layers import dtype_of
     from repro_torch.optim.optimizers import tree_leaves, tree_rebuild
     from repro_torch.training import trainer as trainer_mod
-    print("phase 20: training -- the flash_attn backward kernel against its "
-          "plain version; qwen3-0.6b trained at full width and depth "
-          "through Trainer (node failure, recovery, MN dump); gradients "
-          "through the kernels against the plain attention")
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"  device memory held before the phase: "
-          f"{torch.cuda.memory_allocated()} bytes")
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-
-    def randn(*shape, dtype="bfloat16"):
-        return torch.randn(*shape, generator=gen, device=DEVICE).to(
-            getattr(torch, dtype))
-
-    t0 = time.perf_counter()
-    out = {"bwd": []}
-    for case in BWD_CASES:
-        for dtype in case[8]:
-            out["bwd"].append(check_bwd_case(torch, fa, randn, case, dtype))
-            gc.collect()
-            torch.cuda.empty_cache()
-    out["bwd_s"] = time.perf_counter() - t0
-    main_case = out["bwd"][0]
-    check(main_case["kernel"] == "mma" and main_case["simt_ms"]
-          >= BWD_MIN_SPEEDUP * main_case["ms"],
-          f"{BWD_CASES[0][0]}: the tensor-core backward "
-          f"{main_case['ms']:.4f} ms is at least {BWD_MIN_SPEEDUP:g}x "
-          f"faster than the CUDA-core one {main_case['simt_ms']:.4f} ms "
-          f"on the same inputs")
-
-    # (b) qwen3-0.6b at full width and depth through Trainer
     cfg = config.get_model_config(TRAIN_ARCH)
     check(cfg.n_layers == 28 and cfg.d_model == 1024 and cfg.vocab_size
           == 151936 and cfg.tie_embeddings,
@@ -3397,7 +3476,8 @@ def phase_train(torch, fa, attn, ssd) -> dict:
             dump_interval=TRAIN_DUMP_INTERVAL),
         train=config.TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
                                  remat="full"))
-    ctx = make_context(run.mesh.shape, run.mesh.axes, device=DEVICE)
+    ctx = make_context(run.mesh.shape, run.mesh.axes, device=device,
+                       group=group)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     state_bytes = cfg.param_count() * (2 + 4 + 4 + 4)   # bf16 + m, v, master
     free = shutil.disk_usage(workdir).free
@@ -3405,8 +3485,19 @@ def phase_train(torch, fa, attn, ssd) -> dict:
           f"{state_bytes} bytes")
     check(free >= 1.25 * state_bytes, f"room for the MN dump: {free} bytes "
           f"free for ~{state_bytes} (x 1.25)")
+    from repro_torch.training import steps as steps_mod
     real_install = elastic.install_recovered_shard
-    installs = []
+    real_reduce = collectives.all_reduce_sum
+    real_clip = steps_mod.clip_by_global_norm
+    installs, installed, reduce_ms = [], [], []
+
+    def timed_reduce(*args, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        real_reduce(*args, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        reduce_ms.append(ev[0].elapsed_time(ev[1]))
 
     def holed_install(state, specs, engine, result, target_coord):
         """The trainer's install, handed a state whose failed node's
@@ -3424,6 +3515,7 @@ def phase_train(torch, fa, attn, ssd) -> dict:
                            result, target_coord)
         installs.append(all(torch.equal(a, b.detach()) for a, b in
                             zip(tree_leaves(new), tree_leaves(state))))
+        installed.extend(p.detach().cpu() for p in tree_leaves(new))
         return new
 
     try:
@@ -3434,7 +3526,10 @@ def phase_train(torch, fa, attn, ssd) -> dict:
             injector=FailureInjector([FailureEvent(step=TRAIN_FAIL[0],
                                                    node=TRAIN_FAIL[1])]))
         setup_s = time.perf_counter() - t1
+        undo = (emulate_data_parallel(torch, tr, emulate_world)
+                if emulate_world else lambda: None)
         trainer_mod.install_recovered_shard = holed_install
+        collectives.all_reduce_sum = timed_reduce
         steps, per_step, per_step_kernel = [], [], []
         fa.ops.reset_counts()
         ssd.ops.reset_counts()
@@ -3460,7 +3555,12 @@ def phase_train(torch, fa, attn, ssd) -> dict:
                         dict(fa.ops.flash_attention.bwd_launches_by_kernel),
                     "ssd_scan": ssd.ops.ssd_scan.launches}
         peak = torch.cuda.max_memory_allocated()
+        undo()
         trainer_mod.install_recovered_shard = real_install
+        collectives.all_reduce_sum = real_reduce
+        check((len(reduce_ms) == TRAIN_STEPS) == (group is not None),
+              f"the gradient all_reduce ran {len(reduce_ms)} times in "
+              f"{TRAIN_STEPS} steps")
         w0 = time.perf_counter()
         tr.ckpt.wait()
         wait_s = time.perf_counter() - w0
@@ -3472,14 +3572,17 @@ def phase_train(torch, fa, attn, ssd) -> dict:
         check(abs(losses[0] - np.log(cfg.vocab_size)) <= 0.5,
               f"the first loss {losses[0]:.4f} is within 0.5 of ln "
               f"{cfg.vocab_size} = {np.log(cfg.vocab_size):.4f}")
-        check(all(p == (2 * cfg.n_layers, cfg.n_layers) for p in per_step),
-              f"every step launches the forward kernel {2 * cfg.n_layers} "
-              f"times (the forward and remat's recompute) and the backward "
-              f"{cfg.n_layers} times")
-        check(all(p == {"mma": cfg.n_layers, "simt": 0}
+        passes = 1 + emulate_world       # the whole batch, then each rank's
+        check(all(p == (2 * cfg.n_layers * passes, cfg.n_layers * passes)
+                  for p in per_step),
+              f"every step launches the forward kernel "
+              f"{2 * cfg.n_layers * passes} times (the forward and remat's "
+              f"recompute, {passes} pass(es)) and the backward "
+              f"{cfg.n_layers * passes} times")
+        check(all(p == {"mma": cfg.n_layers * passes, "simt": 0}
                   for p in per_step_kernel),
-              f"every step's {cfg.n_layers} backward launches run the "
-              f"tensor-core kernels, none the CUDA-core ones: "
+              f"every step's {cfg.n_layers * passes} backward launches run "
+              f"the tensor-core kernels, none the CUDA-core ones: "
               f"{per_step_kernel[0]}")
         check(launches["ssd_scan"] == 0, "ssd_scan is not launched")
         rec = [e for e in tr.events if e["event"] == "recovery"]
@@ -3514,8 +3617,9 @@ def phase_train(torch, fa, attn, ssd) -> dict:
         med = float(np.median(walls[1:]))
         tokens = TRAIN_BATCH * TRAIN_SEQ
         flops = train_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
-        out["train"] = {
-            "losses": losses, "step_walls_s": walls,
+        out = {
+            "losses": losses, "all_reduce_ms": reduce_ms,
+            "step_walls_s": walls,
             "step_ms_median_2_6": med * 1e3,
             "tokens_per_s": tokens / med, "peak_bytes": peak,
             "model_flop_per_step": flops,
@@ -3530,7 +3634,7 @@ def phase_train(torch, fa, attn, ssd) -> dict:
                                   for t in tr.state.logs.values()),
             "launches": launches, "launches_per_step": per_step,
             "params": cfg.param_count()}
-        t = out["train"]
+        t = out
         print(f"  {TRAIN_ARCH} ({cfg.param_count()} parameters, bf16, AdamW "
               f"with an f32 master copy, remat full) at batch {TRAIN_BATCH} "
               f"x {TRAIN_SEQ}: step {t['step_ms_median_2_6']:.1f} ms (median "
@@ -3543,10 +3647,59 @@ def phase_train(torch, fa, attn, ssd) -> dict:
               f"{t['dump_write_s']:.3f} s, restore {restore_s:.3f} s")
         del tr
     finally:
+        steps_mod.clip_by_global_norm = real_clip
         trainer_mod.install_recovered_shard = real_install
+        collectives.all_reduce_sum = real_reduce
         shutil.rmtree(workdir, ignore_errors=True)
+    return out, installed
+
+
+def phase_train(torch, fa, attn, ssd) -> tuple:
+    """Phase 20: the flash_attn backward kernel against its plain version
+    at five shapes; qwen3-0.6b trained at full width and depth through
+    ``Trainer`` with a node failure recovered and an MN dump; gradients
+    through the kernels against the plain attention on an f32 copy.
+    Returns the phase's numbers and the host copy of the parameters just
+    after the install (phase 23(b) holds its own against it)."""
+    from repro_torch import config
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.optim.optimizers import tree_leaves, tree_rebuild
+    print("phase 20: training -- the flash_attn backward kernel against its "
+          "plain version; qwen3-0.6b trained at full width and depth "
+          "through Trainer (node failure, recovery, MN dump); gradients "
+          "through the kernels against the plain attention")
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"  device memory held before the phase: "
+          f"{torch.cuda.memory_allocated()} bytes")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def randn(*shape, dtype="bfloat16"):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(
+            getattr(torch, dtype))
+
+    t0 = time.perf_counter()
+    out = {"bwd": []}
+    for case in BWD_CASES:
+        for dtype in case[8]:
+            out["bwd"].append(check_bwd_case(torch, fa, randn, case, dtype))
+            gc.collect()
+            torch.cuda.empty_cache()
+    out["bwd_s"] = time.perf_counter() - t0
+    main_case = out["bwd"][0]
+    check(main_case["kernel"] == "mma" and main_case["simt_ms"]
+          >= BWD_MIN_SPEEDUP * main_case["ms"],
+          f"{BWD_CASES[0][0]}: the tensor-core backward "
+          f"{main_case['ms']:.4f} ms is at least {BWD_MIN_SPEEDUP:g}x "
+          f"faster than the CUDA-core one {main_case['simt_ms']:.4f} ms "
+          f"on the same inputs")
+
+    # (b) qwen3-0.6b at full width and depth through Trainer
+    out["train"], installed = train_qwen3(torch, fa, ssd, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = config.get_model_config(TRAIN_ARCH)
 
     # (c) gradients at full width, kernels against the plain attention
     f32cfg = dataclasses.replace(cfg, n_layers=TRAIN_F32_LAYERS,
@@ -3612,7 +3765,7 @@ def phase_train(torch, fa, attn, ssd) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t0
-    return out
+    return out, installed
 
 
 #: phase 21: the ssm, hybrid, MoE and enc-dec families trained. The SSD
@@ -4459,16 +4612,21 @@ def cross_pod_ring(torch) -> dict:
     # the direct construction: ring node s, rank r holds node (s - o_r)'s
     # payload in the step's slot, ts = the step, valid
     slot = (POD_STEPS - 1) % POD_LOG_CAPACITY
-    payload = eng._ring(eng.payloads(state))
-    lv = eng._ring(logs["values"])
+
+    def ring(t):
+        """``t (pod, data, ...)`` with (pod, data) as one pod-major dim."""
+        return t.flatten(0, 1)
+
+    payload = ring(eng.payloads(state))
+    lv = ring(logs["values"])
     ok = True
     for r in range(POD_REPLICAS):
         for b in range(eng.layout.n_buckets):
             off = eng._offsets(b)[r]
             ok &= torch.equal(lv[:, :, r, slot, b],
                               torch.roll(payload[:, :, b], off, dims=0))
-    ok &= bool((eng._ring(logs["ts"])[:, :, :, slot] == POD_STEPS - 1).all()
-               and eng._ring(logs["valid"])[:, :, :, slot].all())
+    ok &= bool((ring(logs["ts"])[:, :, :, slot] == POD_STEPS - 1).all()
+               and ring(logs["valid"])[:, :, :, slot].all())
     check(ok, f"after {POD_STEPS} steps every slot of ring node s, rank r "
           f"holds the payload of ring node (s - o_r) % {n} (torch.roll "
           f"over the pod-major ring), ts {POD_STEPS - 1}, valid; log ring "
@@ -4706,6 +4864,308 @@ def finish_dryrun(started: dict) -> dict:
             "train_flop_share": share}
 
 
+def start_group(torch):
+    """Phase 23's one-rank process group: ``nccl`` on the card (``gloo``
+    when ``DEVICE`` is the CPU), from a ``file://`` rendezvous under the
+    build directory."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.context import node_group
+    path = os.path.join(ROOT, "build", "repro_torch", f"pg-{os.getpid()}")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    group = node_group(DEVICE, init_method=f"file://{path}", world_size=1,
+                       rank=0, timeout_s=300)
+    atexit.register(lambda: dist.is_initialized()
+                    and dist.destroy_process_group())
+    nccl = (".".join(map(str, torch.cuda.nccl.version()))
+            if dist.get_backend(group) == "nccl" else None)
+    print(f"phase 23: the rank-aware path -- backend "
+          f"{dist.get_backend(group)}, NCCL {nccl}, world "
+          f"{dist.get_world_size(group)}, rank {dist.get_rank(group)}")
+    return group, {"backend": dist.get_backend(group), "nccl": nccl,
+                   "world": dist.get_world_size(group),
+                   "rank": dist.get_rank(group), "rendezvous": path}
+
+
+def same_recovery(torch, a, b) -> bool:
+    """Two ``RecoveryResult``s equal: stats, messages, shards bit for
+    bit."""
+    return (a.failed == b.failed and a.stats == b.stats
+            and a.message_log == b.message_log
+            and set(a.shards) == set(b.shards)
+            and all((a.shards[k].ts, a.shards[k].source)
+                    == (b.shards[k].ts, b.shards[k].source)
+                    and torch.equal(a.shards[k].values, b.shards[k].values)
+                    for k in a.shards))
+
+
+def phase_ranks_mechanism(torch, lc, group, seven) -> dict:
+    """Phase 23(a): phase 7 through the rank-aware engine, recovery and
+    the rank's dump, held ``==`` phase 7's (``seven``: its ring,
+    recoveries and dumps)."""
+    from repro_torch.distributed.context import make_context
+    print(f"phase 23(a): phase 7 through the rank-aware engine -- "
+          f"{PAPER_NODES} CNs, N_r 3, the YCSB store, {PAPER_STEPS} steps, "
+          f"failures {PAPER_FAILURES} (step: node)")
+    ctx = make_context((PAPER_NODES,), ("data",), device=DEVICE, group=group)
+    lc.compress.launches = lc.decompress.launches = 0
+    run = paper_width_loop(torch, ctx)
+    dumps = log_dumps(lc, node_rows(run["store"], ctx),
+                      node_rows(run["base"], ctx))
+    launches = (lc.compress.launches, lc.decompress.launches)
+    print(f"  launches by kernel: log_compress.compress {launches[0]}, "
+          f"log_compress.decompress {launches[1]}")
+    check(launches == (2, 2), f"the rank's dump and restore launched "
+          f"compress {launches[0]} and decompress {launches[1]} times")
+    check(ctx.nodes_per_rank == PAPER_NODES and all(
+        torch.equal(run["logs"][k], seven["logs"][k])
+        for k in ("values", "ts", "valid")),
+          f"the rank's ring (all {ctx.nodes_per_rank} nodes, "
+          f"{run['ring_bytes']} bytes) == phase 7's, bit for bit")
+    check(len(run["recoveries"]) == len(seven["results"]) and all(
+        same_recovery(torch, r["result"], want) for r, want in
+        zip(run["recoveries"], seven["results"])),
+          "both recoveries (stats, messages, shards) == phase 7's")
+    check(all(torch.equal(x, y) for bits in (8, 4)
+              for x, y in zip(dumps[bits], seven["dumps"][bits])),
+          "the rank's dump at 8 and 4 bits (codes, scales) and its "
+          "restore == phase 7's")
+    mean = sum(run["step_ms"][1:]) / (len(run["step_ms"]) - 1)
+    mean7 = sum(seven["step_ms"][1:]) / (len(seven["step_ms"]) - 1)
+    print(f"  replicate: {json.dumps([round(x, 4) for x in run['step_ms']])}"
+          f" ms per step (CUDA events); mean of steps 1-9 {mean:.4f} ms, "
+          f"phase 7's {mean7:.4f} ms in this run ({mean / mean7:.4f}x); "
+          f"{card_line()}")
+    # the replicate step alone on the final state, in turns: the engine
+    # without a group on phase 7's ring and the one-rank group's on this
+    # ring (one code path; the group adds no collective at world 1)
+    from repro_torch.config import ReplicationConfig
+    from repro_torch.core.replication import ReplicationEngine
+    eng = run["engine"]
+    state = {f"field{i}": run["store"][i] for i in range(YCSB_FIELDS)}
+    one = ReplicationEngine(ReplicationConfig(log_dtype="float32"),
+                            make_context((PAPER_NODES,), ("data",),
+                                         device=DEVICE),
+                            eng.param_specs, state)
+    turns = {"no group": [], "one-rank group": []}
+    for label in ("no group", "one-rank group", "one-rank group",
+                  "no group"):
+        e, logs = ((one, seven["logs"]) if label == "no group"
+                   else (eng, run["logs"]))
+        turns[label].append(cuda_ms(
+            lambda: e.replicate(state, logs, PAPER_STEPS, state), 5))
+    shown = {k: [round(x, 4) for x in v] for k, v in turns.items()}
+    print(f"  the replicate step alone, in turns (no group, one-rank "
+          f"group, one-rank group, no group; CUDA events, mean of 5 "
+          f"each): "
+          f"{json.dumps(shown)} ms")
+    return {"step_ms": run["step_ms"], "replicate_mean_ms": mean,
+            "phase7_replicate_mean_ms": mean7, "ratio": mean / mean7,
+            "replicate_turns_ms": turns,
+            "launches": launches, "ring_bytes": run["ring_bytes"],
+            "recovery_wall_ms": [r["wall_ms"] for r in run["recoveries"]],
+            "loop_ms": run["loop_ms"]}
+
+
+def phase_ranks_train(torch, fa, ssd, group, twenty, installed20) -> dict:
+    """Phase 23(b): qwen3-0.6b at phase 20's configuration through the
+    rank-aware ``Trainer``; its losses and installed shard ``==`` phase
+    20's (``twenty``, ``installed20``). Were they not, phase 20's run
+    is repeated once to show whether the one-card run is itself
+    bit-stable, and (b) is held within the distance the two show."""
+    print("phase 23(b): qwen3-0.6b at phase 20's configuration through the "
+          "rank-aware Trainer (data-parallel, the gradient summed in flat "
+          "f32 buckets by the group)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, installed = train_qwen3(torch, fa, ssd, group)
+
+    def dist(losses, params):
+        loss_d = max(abs(a - b) for a, b in zip(losses, twenty["losses"]))
+        par_d = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(params, installed20))
+        return loss_d, par_d
+
+    d23 = dist(got["losses"], installed)
+    out = {"losses": got["losses"], "phase20_losses": twenty["losses"],
+           "distance": d23, "all_reduce_ms": got["all_reduce_ms"],
+           "step_ms_median": got["step_ms_median_2_6"],
+           "phase20_step_ms_median": twenty["step_ms_median_2_6"],
+           "launches_per_step": got["launches_per_step"],
+           "launches": got["launches"],
+           "replicate_ms": got["replicate_ms"],
+           "recovery_stats": got["recovery_stats"],
+           "peak_bytes": got["peak_bytes"]}
+    check(len(installed) == len(installed20), f"one install of "
+          f"{len(installed)} parameters, as in phase 20")
+    if d23 == (0.0, 0.0):
+        print("  ok  the six losses and the installed shard (every "
+              "parameter just after the install) == phase 20's, bit for "
+              "bit")
+    else:
+        print(f"  not bit-identical to phase 20 (loss, parameter distance "
+              f"{d23}): phase 20's run again, to read its own distance")
+        del installed
+        gc.collect()
+        torch.cuda.empty_cache()
+        again, installed_again = train_qwen3(torch, fa, ssd, None)
+        d20 = dist(again["losses"], installed_again)
+        out["phase20_rerun_distance"] = d20
+        check(d20 != (0.0, 0.0) and d23[0] <= d20[0] and d23[1] <= d20[1],
+              f"phase 20 is not bit-stable (two runs {d20} apart), and "
+              f"(b) is within that distance: {d23}")
+    red = got["all_reduce_ms"]
+    print(f"  all_reduce {json.dumps([round(x, 4) for x in red])} ms a "
+          f"step (CUDA events; mean of steps 2-6 "
+          f"{sum(red[1:]) / (len(red) - 1):.4f} ms); step median "
+          f"{out['step_ms_median']:.1f} ms, phase 20's "
+          f"{out['phase20_step_ms_median']:.1f} ms in this run "
+          f"({out['step_ms_median'] / out['phase20_step_ms_median']:.4f}x);"
+          f" {card_line()}")
+    out["all_reduce_mean_ms"] = sum(red[1:]) / (len(red) - 1)
+    return out
+
+
+#: phase 23(c): the data-parallel losses over several cards against one
+#: card's run with the ranks' gradient rounding emulated
+#: (:func:`emulate_data_parallel`; only the order of the f32 sum
+#: differs), relative (tests/test_torch_distributed.py's bf16 limit)
+DP_LOSS_RTOL = 1e-4
+
+
+def multi_card_rank(rank: int, world: int, rendezvous: str,
+                    ref_losses: list, out_paths: list) -> None:
+    """One rank of phase 23(c), on card ``rank``: phase 7 on this card
+    without a group (the reference), then through a ``world``-rank
+    ``nccl`` group, its part of the ring and both recoveries held ``==``
+    the reference's; then phase 20's training through the group, its
+    losses held within ``DP_LOSS_RTOL`` of one card's run with the ranks'
+    rounding emulated (``ref_losses``)."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    dev = f"cuda:{rank}"
+    torch.cuda.set_device(rank)
+    from repro_torch.distributed.context import make_context, node_group
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    one = paper_width_loop(torch, make_context((PAPER_NODES,), ("data",),
+                                               device=dev))
+    group = node_group(dev, init_method=f"file://{rendezvous}",
+                       world_size=world, rank=rank, timeout_s=600)
+    ctx = make_context((PAPER_NODES,), ("data",), device=dev, group=group)
+    run = paper_width_loop(torch, ctx)
+    lo, k = ctx.local_starts[0], ctx.nodes_per_rank
+    check(all(torch.equal(run["logs"][key], one["logs"][key][lo:lo + k])
+              for key in ("values", "ts", "valid")),
+          f"rank {rank}: its {k} nodes' ring == the ring without a group "
+          f"at those nodes, bit for bit")
+    check(len(run["recoveries"]) == len(one["recoveries"]) and all(
+        same_recovery(torch, r["result"], w["result"])
+        for r, w in zip(run["recoveries"], one["recoveries"])),
+          f"rank {rank}: both recoveries (stats, messages, shards) == the "
+          f"run's without a group")
+    rep_ms = {label: sum(r["step_ms"][1:]) / (len(r["step_ms"]) - 1)
+              for label, r in (("group", run), ("no_group", one))}
+    del run, one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t, _ = train_qwen3(torch, fa, ssd, group, device=dev)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(t["losses"], ref_losses))
+    check(rel <= DP_LOSS_RTOL, f"rank {rank}: the losses within "
+          f"{rel:.3g} (rel) of one card's with the ranks' rounding "
+          f"emulated, limit {DP_LOSS_RTOL}")
+    with open(out_paths[rank], "w", encoding="utf-8") as fh:
+        json.dump({"rank": rank, "losses": t["losses"], "loss_rel": rel,
+                   "replicate_ms_mean_1_9": rep_ms,
+                   "step_ms_median": t["step_ms_median_2_6"],
+                   "all_reduce_ms": t["all_reduce_ms"]}, fh)
+    torch.distributed.destroy_process_group()
+
+
+def phase_ranks_multi(torch, fa, ssd, one_losses) -> dict:
+    """Phase 23(c): with more than one card, ``min(count, 4)`` ranks on
+    ``nccl``, each one process on its own card, against phase 20's
+    training on card 0 with the ranks' gradient rounding emulated; the
+    distance to the plain run's losses (``one_losses``) is printed."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(json.dumps({"multi_card": "not run: 1 card"}))
+        return {"multi_card": "not run: 1 card"}
+    world = min(n, 4)
+    print(f"phase 23(c): {world} ranks on {world} cards (nccl); first "
+          f"its reference, phase 20 on card 0 with {world} ranks' "
+          f"gradient rounding emulated")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emul, _ = train_qwen3(torch, fa, ssd, None, emulate_world=world)
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    emul_rel = rel(emul["losses"], one_losses)
+    print(f"  the emulation's losses {emul_rel:.3g} (rel) from the plain "
+          f"run's")
+    build = os.path.join(ROOT, "build", "repro_torch")
+    os.makedirs(build, exist_ok=True)
+    rendezvous = os.path.join(build, f"pg-multi-{os.getpid()}")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    outs = [os.path.join(build, f"multi_card_rank{r}.json")
+            for r in range(world)]
+    # the parent's one-rank group and its card stay out of the way
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        multi_card_rank, args=(world, rendezvous, list(emul["losses"]),
+                               outs),
+        nprocs=world, join=True, start_method="spawn")
+    res = []
+    for path in outs:
+        with open(path, encoding="utf-8") as fh:
+            res.append(json.load(fh))
+    check(all(r["losses"] == res[0]["losses"] for r in res),
+          f"every rank printed the same losses: {res[0]['losses']}")
+    for r in res:
+        red = r["all_reduce_ms"]
+        rm = r["replicate_ms_mean_1_9"]
+        print(f"  rank {r['rank']}: phase 7's replicate step (mean of "
+              f"steps 1-9, CUDA events) {rm['group']:.4f} ms through the "
+              f"group, {rm['no_group']:.4f} ms for all 16 nodes on this "
+              f"card alone; loss rel {r['loss_rel']:.3g} to the emulation, "
+              f"{rel(r['losses'], one_losses):.3g} to the plain run; step "
+              f"median {r['step_ms_median']:.1f} ms, all_reduce mean of "
+              f"steps 2-6 {sum(red[1:]) / (len(red) - 1):.4f} ms; "
+              f"{card_line()}")
+    return {"multi_card": {
+        "world": world, "ranks": res, "emulated_losses": emul["losses"],
+        "emulated_rel_to_plain": emul_rel,
+        "ranks_rel_to_plain": [rel(r["losses"], one_losses) for r in res],
+        "wall_s": time.perf_counter() - t0}}
+
+
+def multi_card_only(torch, fa, ssd) -> int:
+    """``--multi-card-only``: phase 20's training on card 0 without a
+    group (the reference losses), then phase 23(c) alone."""
+    check(torch.cuda.device_count() > 1,
+          f"--multi-card-only: {torch.cuda.device_count()} cards, needs 2+")
+    print("phase 20 (the reference of phase 23(c)): qwen3-0.6b trained on "
+          "card 0 without a group")
+    one, _ = train_qwen3(torch, fa, ssd, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = phase_ranks_multi(torch, fa, ssd, one["losses"])
+    print(json.dumps({"reference": {
+        "losses": one["losses"],
+        "step_ms_median": one["step_ms_median_2_6"]}, **out}))
+    print(f"card: {card_line()}")
+    return 0
+
+
 def phase_launch_paths(torch, fa, ssd, train, fam) -> dict:
     """Phase 22: the cross-pod replica ring at full width, the 100M
     fault-tolerant training example on the card, and the dry-run."""
@@ -4746,6 +5206,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measured numbers "
                     "as JSON to this path")
+    ap.add_argument("--multi-card-only", action="store_true",
+                    help="with more than one card: build the kernels, "
+                    "train phase 20's qwen3-0.6b on card 0 for the "
+                    "reference losses and run phase 23(c) alone")
     args = ap.parse_args(argv)
 
     import torch
@@ -4843,6 +5307,8 @@ def main(argv=None) -> int:
         if any(v)}
     print(f"  ssd_scan_bwd instantiations with a spill, (store, load) bytes: "
           f"{build['ssd_scan_bwd_spills']}")
+    if args.multi_card_only:
+        return multi_card_only(torch, fa, ssd)
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
@@ -4852,7 +5318,11 @@ def main(argv=None) -> int:
     torch.cuda.reset_peak_memory_stats()
     err5 = phase_compress_vs_plain(torch, lc, lc_ref)
     faults = phase_fault_scenarios(Sc)
-    paper = phase_paper_width(torch, lc, lc_ref)
+    paper, seven = phase_paper_width(torch, lc, lc_ref)
+    group, ranks = start_group(torch)
+    ranks["mechanism"] = phase_ranks_mechanism(torch, lc, group, seven)
+    del seven
+    gc.collect()
     torch.cuda.empty_cache()
     model_k = phase_model_kernels_vs_plain(torch, fa, ssd, attn, ssm_mod)
     torch.cuda.empty_cache()
@@ -4874,10 +5344,18 @@ def main(argv=None) -> int:
                                  WHISPER_GEN, None)
     vlm = phase_serve_family(torch, serve_mod, fa, attn, 19, VLM_ARCH,
                              VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_F32_LAYERS)
-    train = phase_train(torch, fa, attn, ssd)
+    train, train_installed = phase_train(torch, fa, attn, ssd)
+    ranks["train"] = phase_ranks_train(torch, fa, ssd, group, train["train"],
+                                       train_installed)
+    del train_installed
+    gc.collect()
     fam = phase_train_families(torch, fa, attn, ssd, ssm_mod)
     launch = phase_launch_paths(torch, fa, ssd, train, fam)
     ex100m = launch["train_100m_ft"]
+    ranks["multi_card"] = phase_ranks_multi(torch, fa, ssd,
+                                            train["train"]["losses"])
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
 
     entry = {
         "name": "bank_scan", "route": "cuda",
@@ -4952,7 +5430,12 @@ def main(argv=None) -> int:
         "name": f"log_compress.{op}", "route": "cuda",
         "source": "src/repro_torch/csrc/log_compress.cu",
         "replaces": f"src/repro/kernels/log_compress/kernel.py:{line}",
-        "launches": paper["launches"][i],
+        "launches": (paper["launches"][i]
+                     + ranks["mechanism"]["launches"][i]),
+        "paths": [{"path": "phase 7: the paper-width dump",
+                   "launches": paper["launches"][i]},
+                  {"path": "phase 23(a): the rank's dump, rank-aware path",
+                   "launches": ranks["mechanism"]["launches"][i]}],
         "max_abs_err": max(err5, paper["max_abs_err"]),
         "ms": paper[f"{op}_ms"], "plain_ms": paper[f"{op}_plain_ms"],
         "bound_ms": paper["bound_ms"], "bound_by": paper["bound_by"],
@@ -5007,7 +5490,10 @@ def main(argv=None) -> int:
         {"path": f"{VLM_ARCH} serve, prefill", "launches": vlm["launches"]},
         {"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps (forward and "
                  f"remat's recompute)",
-         "launches": train["train"]["launches"]["forward"]}] + [
+         "launches": train["train"]["launches"]["forward"]},
+        {"path": f"{TRAIN_ARCH} train through the rank-aware Trainer, "
+                 f"{TRAIN_STEPS} steps (phase 23(b))",
+         "launches": ranks["train"]["launches"]["forward"]}] + [
         {"path": f"{arch} train, {len(t['losses'])} steps (forward and "
                  f"remat's recompute)",
          "launches": t["launches"]["flash_attn"]}
@@ -5025,11 +5511,13 @@ def main(argv=None) -> int:
                          "kernel has a custom_vjp)",
         "launches": train["train"]["launches"]["backward"] + sum(
             t["launches"]["flash_attn_bwd"] for t in fam["train"].values())
-        + ex100m["launches"]["backward"],
+        + ex100m["launches"]["backward"]
+        + ranks["train"]["launches"]["backward"],
         "launches_by_kernel": {
             k: v + sum(t["launches"]["flash_attn_bwd_by_kernel"][k]
                        for t in fam["train"].values())
             + ex100m["launches"]["backward_by_kernel"][k]
+            + ranks["train"]["launches"]["backward_by_kernel"][k]
             for k, v in train["train"]["launches"][
                 "backward_by_kernel"].items()},
         "paths": [{"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps",
@@ -5039,7 +5527,10 @@ def main(argv=None) -> int:
             for arch, t in fam["train"].items()
             if t["launches"]["flash_attn_bwd"]] + [
             {"path": f"train_100m_ft, {ex100m['steps']} steps",
-             "launches": ex100m["launches"]["backward"]}],
+             "launches": ex100m["launches"]["backward"]},
+            {"path": f"{TRAIN_ARCH} train through the rank-aware Trainer, "
+                     f"{TRAIN_STEPS} steps (phase 23(b))",
+             "launches": ranks["train"]["launches"]["backward"]}],
         "kernel": bwd_main["kernel"],
         "kernels": {"mma": "bf16: flash_attn_bwd_dkdv_mma_kernel + "
                            "flash_attn_bwd_dq_mma_kernel, tensor cores "
@@ -5127,6 +5618,7 @@ def main(argv=None) -> int:
                        "ycsb": ycsb, "serve_whisper": whisper,
                        "serve_vlm": vlm, "train": train,
                        "train_families": fam, "launch_paths": launch,
+                       "ranks": ranks,
                        "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")

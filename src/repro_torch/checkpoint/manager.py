@@ -85,7 +85,14 @@ def _from_host(arr: np.ndarray, template: Any) -> Any:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    """The MN tier under ``directory``; with ``rank`` (a data-parallel
+    run), this rank's own part, ``<directory>/rank<rank>``: each rank
+    dumps what it holds and restores from its own directory."""
+
+    def __init__(self, directory: str, keep: int = 3,
+                 rank: Optional[int] = None):
+        if rank is not None:
+            directory = os.path.join(directory, f"rank{int(rank):05d}")
         self.dir = directory
         self.keep = keep
         os.makedirs(directory, exist_ok=True)

@@ -23,6 +23,14 @@ it. At the paper's width that ring is 19.2 GB, so the port copies only
 the same rule, and reads only the winning ``values`` slices, which stay
 on the ring's device. Results are the same, ``n_versions`` in the
 message log included.
+
+Across ranks (a rank-aware engine, :mod:`repro_torch.core.replication`)
+each rank walks Algorithm 2 over the replica nodes it holds, the small
+``(n_versions, ts, slot)`` table is summed over ranks
+(:func:`repro_torch.distributed.collectives.gather_rows`), so every rank
+-- the recovering one included -- picks the same latest valid version a
+bucket, and the rank holding it broadcasts its values. Every rank
+returns the same :class:`RecoveryResult`, ``==`` the one-card one.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from repro_torch.core.protocol import (
 )
 from repro_torch.core.replication import ReplicationEngine
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives
 
 
 @dataclasses.dataclass
@@ -131,6 +140,40 @@ def _lead_index(axes: Sequence[str], node_coord: Tuple[int, ...],
     return tuple(out)
 
 
+def _walk_replicas(engine: ReplicationEngine, logs: Dict[str, torch.Tensor],
+                   queries: Sequence[Tuple[int, int, int, Tuple[int, ...]]]
+                   ) -> np.ndarray:
+    """Algorithm 2 for each ``(bucket, rank, ring node, coordinate)``
+    query: ``(n_versions, ts, slot)`` of the latest valid version, rows
+    of an int64 table. Across ranks each rank walks the nodes it holds
+    and the table is summed over ranks (the JAX recovery walks its host
+    copy of the global ring, ``src/repro/core/recovery.py:133``)."""
+    host = host_index(logs)
+    rows = np.zeros((len(queries), 3), np.int64)   # 0 rows: never asked
+    for i, (bucket, r, _, coord) in enumerate(queries):
+        local = engine.local_coord(coord)
+        if local is None:
+            continue
+        versions = algorithm2_versions(engine, host, local, r, bucket)
+        if versions:
+            rows[i] = (len(versions),) + versions[0]
+    return collectives.gather_rows(rows, engine.ctx)
+
+
+def _fetch(engine: ReplicationEngine, logs: Dict[str, torch.Tensor],
+           coord: Tuple[int, ...], rank: int, slot: int,
+           bucket: int) -> torch.Tensor:
+    """:func:`fetch_version` of the node at ``coord``, read on the rank
+    that holds it and broadcast to every rank."""
+    local = engine.local_coord(coord)
+    vals = (None if local is None else
+            fetch_version(engine, logs, local, rank, slot, bucket))
+    return collectives.share(
+        vals, engine.owner_rank(coord),
+        (engine.ctx.model_size, engine.layout.bucket_len),
+        logs["values"].dtype, engine.ctx)
+
+
 # ---------------------------------------------------------------------------
 # Algorithm 1: directory + memory repair
 # ---------------------------------------------------------------------------
@@ -154,10 +197,11 @@ def recover_node(engine: ReplicationEngine,
     read at its own coordinate (``engine.node_coord``). On the
     cross-pod ring the JAX package takes the data coordinate as the
     ring index and raises ``IndexError`` (ROADMAP C5); without that ring
-    the two agree.
+    the two agree. Across ranks (the JAX package's ``recover_node``,
+    ``src/repro/core/recovery.py:119``) every rank runs it on its own
+    logs and returns the same result.
     """
     msg_log: List[Tuple[MsgType, Any]] = []
-    host = host_index(logs)
     failed = engine.ring_index(failed_coord)
     pod = failed_coord[0] if len(failed_coord) > 1 else 0
     n_nodes = engine.n_nodes
@@ -167,31 +211,34 @@ def recover_node(engine: ReplicationEngine,
     cleared = directory.remove_failed_replica(failed)
 
     # -- Algorithm 1, part 2: for every shard the failed node owned,
-    # fetch the latest logged version from its replicas.
+    # fetch the latest logged version from its replicas. The engine's
+    # offsets say which replica rank r maps to which replica node; the
+    # failed node is never asked (SS V.A).
     owned = directory.owned_by(failed)
+    queries = [[(bucket, r, (failed + off) % n_nodes,
+                 engine.node_coord((failed + off) % n_nodes, pod))
+                for r, off in enumerate(engine._offsets(bucket))
+                if (failed + off) % n_nodes != failed
+                and (failed + off) % n_nodes in directory.replicas_of(
+                    node, bucket)]
+               for (node, bucket) in owned]
+    found = iter(_walk_replicas(engine, logs,
+                                [x for qs in queries for x in qs]))
     msg_log.append((MsgType.INIT_RECOV, {"failed": failed_coord}))
 
     shards: Dict[int, RecoveredShard] = {}
     n_from_replicas = n_from_dump = n_unrec = 0
-
-    for (node, bucket) in owned:
+    for (node, bucket), qs in zip(owned, queries):
         reps = directory.replicas_of(node, bucket)
         fetch = FetchLatestVers(addrs=(bucket,))
         msg_log.append((MsgType.FETCH_LATEST_VERS,
                         {"to": reps, "msg": fetch}))
         candidates: List[Tuple[int, Tuple[Tuple[int, ...], int, int], str]] = []
-        # engine offsets define which rank r maps to which replica node
-        offs = engine._offsets(bucket)
-        for r, off in enumerate(offs):
-            t = (failed + off) % n_nodes
-            if t == failed or t not in reps:
-                continue              # never ask the failed node (SS V.A)
-            t_coord = engine.node_coord(t, pod)
-            versions = algorithm2_versions(engine, host, t_coord, r, bucket)
+        for (_, r, t, t_coord), row in zip(qs, found):
+            n_versions, ts, slot = (int(x) for x in row)
             msg_log.append((MsgType.FETCH_LATEST_VERS_RESP,
-                            {"from": t, "n_versions": len(versions)}))
-            if versions:
-                ts, slot = versions[0]
+                            {"from": t, "n_versions": n_versions}))
+            if n_versions:
                 candidates.append((ts, (t_coord, r, slot),
                                    f"replica:{r}@node{t}"))
         if candidates:
@@ -199,7 +246,7 @@ def recover_node(engine: ReplicationEngine,
             # the latest across any replica wins.
             candidates.sort(key=lambda c: -c[0])
             ts, (t_coord, r, slot), src = candidates[0]
-            vals = fetch_version(engine, logs, t_coord, r, slot, bucket)
+            vals = _fetch(engine, logs, t_coord, r, slot, bucket)
             shards[bucket] = RecoveredShard(bucket, ts, src, vals)
             n_from_replicas += 1
         elif mn_dump is not None and bucket in mn_dump:
@@ -230,6 +277,25 @@ def recover_node(engine: ReplicationEngine,
 # Parity (erasure-coded) recovery -- beyond-paper mode
 # ---------------------------------------------------------------------------
 
+def _newest_parity(engine: ReplicationEngine, host: Dict[str, np.ndarray],
+                   coord: Tuple[int, ...], bucket: int) -> Tuple[int, int]:
+    """``(ts, slot)`` of the newest parity version of ``bucket`` valid at
+    every model coordinate of the holder at (local) ``coord``; ts -1
+    when there is none."""
+    best_ts, best_slot = -1, 0
+    for slot in range(engine.rep.log_capacity):
+        ok, ts = True, -1
+        for m in range(engine.ctx.model_size):
+            idx = _lead_index(engine.mesh_axes, coord, m) + (0, slot, bucket)
+            if not host["valid"][idx]:
+                ok = False
+                break
+            ts = int(host["ts"][idx])
+        if ok and ts > best_ts:
+            best_ts, best_slot = ts, slot
+    return best_ts, best_slot
+
+
 def recover_node_parity(engine: ReplicationEngine,
                         logs: Dict[str, torch.Tensor],
                         state: Any, specs: Any,
@@ -241,50 +307,64 @@ def recover_node_parity(engine: ReplicationEngine,
     laid out by ``specs`` (the engine's). The subtraction runs in f64 on
     the state's device, as the JAX package runs it in f64 on the host.
     Tolerates one failure per parity group (vs. N_r-1 anywhere for copy
-    mode) at G x N_r less log memory.
+    mode) at G x N_r less log memory. Across ranks the holder's rank
+    walks its log, and the parity version and each survivor's packed
+    state are broadcast from the ranks that hold them, so every rank
+    subtracts in the one-card order (the JAX package's
+    ``recover_node_parity``, ``src/repro/core/recovery.py:203``).
     """
     if engine.rep.mode != "parity":
         raise ValueError("recover_node_parity needs a parity-mode engine")
     del specs                         # the engine holds the same specs
     G = engine.rep.parity_group
-    host = host_index(logs)
     failed = engine.ring_index(failed_coord)
     pod = failed_coord[0] if len(failed_coord) > 1 else 0
     group = failed // G
-    members = [m for m in range(group * G, (group + 1) * G) if m != failed]
-    axes = engine.mesh_axes
+    members = [engine.node_coord(m, pod)
+               for m in range(group * G, (group + 1) * G) if m != failed]
+    nb = engine.layout.n_buckets
+    holders = [engine.node_coord(engine.parity_holder(group, b), pod)
+               for b in range(nb)]
+    # the newest valid parity version of each bucket, walked by the
+    # holder's rank (Algorithm 2 over one log)
+    host = host_index(logs)
+    rows = np.full((nb, 2), 0, np.int64)
+    for b, h_coord in enumerate(holders):
+        local = engine.local_coord(h_coord)
+        if local is not None:
+            best = _newest_parity(engine, host, local, b)
+            rows[b] = (best[0] + 1, best[1])
+    rows = collectives.gather_rows(rows, engine.ctx)
+    # each survivor's packed state, (n_model, n_buckets, bucket_len), from
+    # the rank that holds it
+    payload = engine.payloads(state)          # (*local nodes, nb, bl)
     n_model = engine.ctx.model_size
-    payload = engine.payloads(state)          # (*nodes, n_buckets, bl)
+    axes = engine.mesh_axes
+    survivors = []
+    for coord in members:
+        local = engine.local_coord(coord)
+        block = None if local is None else torch.stack([
+            payload[_lead_index(axes, local, m)] for m in range(n_model)])
+        survivors.append(collectives.share(
+            block, engine.owner_rank(coord),
+            (n_model, nb, engine.layout.bucket_len), payload.dtype,
+            engine.ctx))
 
     shards: Dict[int, RecoveredShard] = {}
     msg_log: List[Tuple[MsgType, Any]] = [
         (MsgType.INIT_RECOV, {"failed": failed_coord, "mode": "parity"})]
-    nb = engine.layout.n_buckets
     n_unrec = 0
-    for b in range(nb):
-        holder = engine.parity_holder(group, b)
-        h_coord = engine.node_coord(holder, pod)
-        best_ts, best_slot = -1, None
-        for slot in range(engine.rep.log_capacity):
-            ok, ts = True, -1
-            for m in range(n_model):
-                coord = _lead_index(axes, h_coord, m)
-                if not host["valid"][coord + (0, slot, b)]:
-                    ok = False
-                    break
-                ts = int(host["ts"][coord + (0, slot, b)])
-            if ok and ts > best_ts:
-                best_ts, best_slot = ts, slot
-        if best_slot is None:
+    for b, h_coord in enumerate(holders):
+        best_ts, best_slot = int(rows[b, 0]) - 1, int(rows[b, 1])
+        if best_ts < 0:
             n_unrec += 1
             continue
         # subtract the survivors' contributions
-        lost = fetch_version(engine, logs, h_coord, 0, best_slot,
-                             b).double()
-        for node in members:
+        lost = _fetch(engine, logs, h_coord, 0, best_slot, b).double()
+        for block in survivors:
             for m in range(n_model):
-                coord = _lead_index(axes, engine.node_coord(node, pod), m)
-                lost[m] -= payload[coord + (b,)].double()
+                lost[m] -= block[m, b].double()
+        holder = engine.parity_holder(group, b)
         shards[b] = RecoveredShard(b, best_ts, f"parity@node{holder}",
                                    lost.float())
         msg_log.append((MsgType.FETCH_LATEST_VERS_RESP,

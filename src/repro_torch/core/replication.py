@@ -1,4 +1,4 @@
-"""The ReCXL replication engine on one card.
+"""The ReCXL replication engine, on one card and across ranks.
 
 The JAX package's ``core/replication.py`` maps the paper's write
 replication onto a device mesh: each node's per-step state-shard update
@@ -13,16 +13,16 @@ On one card the node axes are the leading dimensions of every per-node
 tensor, in the context's axis order (:mod:`repro_torch.distributed.context`),
 and the log ring is laid out as the JAX package's ``log_struct`` gives
 it: ``values (*nodes, N_r, capacity, n_buckets, bucket_len)``, ``ts`` and
-``valid (*nodes, N_r, capacity, n_buckets)``. A ``ppermute`` with pairs
-``(s, (s + off) % n)`` delivers node ``d`` the payload of node
-``(d - off) % n``: that is ``torch.roll(x, off)`` along the ``data``
-dimension, written here straight into the ring slot as two slice copies.
-With ``cross_pod_replicas`` on a mesh with a ``pod`` axis the ring is
-``("pod", "data")`` joined, numbered pod-major (``pod * n_data + data``)
-as ``ppermute`` over the axis tuple numbers it: the two leading
-dimensions are viewed as one and rolled together. :meth:`node_coord`
-and :meth:`ring_index` map ring indices to node coordinates and back,
-for recovery and the trainer.
+``valid (*nodes, N_r, capacity, n_buckets)``. ``replicate`` runs the
+JAX region's collectives (:mod:`repro_torch.distributed.collectives`)
+over the nodes taken in joined, pod-major order (``pod * n_data +
+data``, as ``ppermute`` over the axis tuple numbers them): a
+``ppermute`` with pairs ``(s, (s + off) % n)`` on each ring delivers
+node ``d`` the payload of node ``(d - off) % n``, written straight into
+the ring slot. With ``cross_pod_replicas`` on a mesh with a ``pod``
+axis the ring is ``("pod", "data")`` joined; otherwise each pod has a
+ring of its own. :meth:`node_coord` and :meth:`ring_index` map ring
+indices to node coordinates and back, for recovery and the trainer.
 The VAL carries the same step from every node, so its reception writes
 ``ts = step`` and ``valid = True`` into the slot.
 
@@ -41,12 +41,26 @@ of ``parity_group`` nodes outside the group.
 
 Unlike the JAX engine, which returns a new ring each step, the port
 writes the ring in place: at the paper's width the ring is 19.2 GB.
+
+**Across ranks.** With a rank-aware context (a ``torch.distributed``
+group, :func:`repro_torch.distributed.context.node_group`) each rank
+holds a block of whole nodes, and every per-node tensor -- the ring,
+the payloads, :meth:`ReplicationEngine.local_blocks` -- covers only
+those: ``values (*local nodes, N_r, capacity, n_buckets, bucket_len)``
+(the ring is 19.2 GB / world a rank at paper width). The same
+collectives then move data between ranks: in each ``ppermute`` the
+pairs whose nodes one rank holds are slice copies and the rest one
+``batch_isend_irecv``; each replica rank's VAL follows once its REPLs
+arrived, and a node's ``ts`` / ``valid`` are written only where a VAL
+was received; parity is a grouped ``psum`` and a ``ppermute`` to the
+holder. Without a group every pair is local and no ``torch.distributed``
+call is made. The three variants still write one ring.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, NamedTuple, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +68,7 @@ import torch
 from repro_torch.config import ReplicationConfig
 from repro_torch.core import replica_groups
 from repro_torch.core.directory import ShardDirectory
+from repro_torch.distributed import collectives
 from repro_torch.distributed.context import MeshContext, P
 
 LogState = Dict[str, torch.Tensor]
@@ -102,18 +117,6 @@ class TensorSpec(NamedTuple):
     """Shape and dtype of one log-ring tensor (``jax.ShapeDtypeStruct``)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
-
-
-def _roll_into(dst: torch.Tensor, src: torch.Tensor, off: int,
-               dim: int) -> None:
-    """``dst[...] = torch.roll(src, off, dim)`` without a temporary."""
-    n = src.shape[dim]
-    off %= n
-    if off == 0:
-        dst.copy_(src)
-        return
-    dst.narrow(dim, off, n - off).copy_(src.narrow(dim, 0, n - off))
-    dst.narrow(dim, 0, off).copy_(src.narrow(dim, n - off, off))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,25 +168,21 @@ class ReplicationEngine:
         self._global_shapes = tuple(tuple(x.shape) for x in leaves)
         self.layout = self._layout(global_params, param_specs)
         self.log_dtype = getattr(torch, rep.log_dtype)
+        if rep.is_replicating and \
+                ctx.axis_names[:len(ctx.batch_axes)] != ctx.batch_axes:
+            raise ValueError(f"the node axes {ctx.batch_axes} must lead, "
+                             f"pod first; the axes are {ctx.axis_names}")
+        self._group_sum = None
+        if rep.is_replicating and rep.mode == "parity":
+            self._group_sum = collectives.GroupSum(ctx, [
+                [base + n for n in g] for base in self._ring_bases()
+                for g in self.parity_groups()])
 
     # ------------------------------------------------------------------
     @property
     def _lead(self) -> Tuple[int, ...]:
-        return self.ctx.axis_sizes
-
-    @property
-    def _ring_dim(self) -> int:
-        """The ring's dimension in a :meth:`_ring` view."""
-        return self.mesh_axes.index(self.repl_axes[0])
-
-    def _ring(self, t: torch.Tensor) -> torch.Tensor:
-        """``t (*nodes, ...)`` with the ring axes as one dimension: a
-        view, pod-major over (pod, data) as ``ppermute`` over the axis
-        tuple numbers the joined ring."""
-        if len(self.repl_axes) == 1:
-            return t
-        d = self._ring_dim
-        return t.view(t.shape[:d] + (self.n_nodes,) + t.shape[d + 2:])
+        """The leading node dimensions of this rank's tensors."""
+        return self.ctx.local_sizes
 
     def node_coord(self, ring: int, pod: int = 0) -> Tuple[int, ...]:
         """Ring index -> the node's ``(pod?, data)`` coordinate. Without
@@ -204,6 +203,35 @@ class ReplicationEngine:
         if len(self.repl_axes) == 2:
             return coord[-2] * self.ctx.shape["data"] + coord[-1]
         return coord[-1]
+
+    def _ring_bases(self) -> List[int]:
+        """Joined (pod-major) index of each ring's node 0: one ring over
+        every node on the joined ring, else one a pod."""
+        n_all = self.ctx.n_nodes
+        return list(range(0, n_all, self.n_nodes))
+
+    def joined_index(self, coord: Sequence[int]) -> int:
+        """A node's ``(pod?, data)`` coordinate -> its joined, pod-major
+        index over every node (the rank layout's numbering)."""
+        coord = tuple(coord)
+        if len(coord) == 2:
+            return coord[0] * self.ctx.shape["data"] + coord[1]
+        return coord[-1]
+
+    def local_coord(self, coord: Sequence[int]
+                    ) -> Optional[Tuple[int, ...]]:
+        """A node's coordinate within this rank's block of the node
+        axes (indexes the rank's logs and payloads), or None when
+        another rank holds the node."""
+        if self.ctx.local_node(self.joined_index(coord)) is None:
+            return None
+        starts = dict(zip(self.mesh_axes, self.ctx.local_starts))
+        return tuple(c - starts[a]
+                     for a, c in zip(self.ctx.batch_axes, coord))
+
+    def owner_rank(self, coord: Sequence[int]) -> int:
+        """The rank holding the node at ``coord``."""
+        return self.ctx.owner(self.joined_index(coord))
 
     def _layout(self, global_params: Any, specs: Any) -> EngineLayout:
         mesh_shape = self.ctx.shape
@@ -318,7 +346,8 @@ class ReplicationEngine:
     # ------------------------------------------------------------------
 
     def local_blocks(self, leaf: torch.Tensor, spec: P) -> torch.Tensor:
-        """Every node's block of a global leaf: ``(*nodes, *local_shape)``.
+        """Every node's block of a global leaf: ``(*nodes, *local_shape)``
+        (with a rank-aware context, this rank's nodes only).
 
         Dimension ``d`` sharded over axes ``(a, b)`` is cut into
         ``size(a) x size(b)`` blocks, major to minor, after zero padding
@@ -352,7 +381,12 @@ class ReplicationEngine:
         for i, a in enumerate(self.mesh_axes):
             if a not in axis_dim:
                 x = x.unsqueeze(i)
-        return x.expand(self._lead + tuple(x.shape[len(self._lead):]))
+        lead = self.ctx.axis_sizes
+        x = x.expand(lead + tuple(x.shape[len(lead):]))
+        for d, (start, n) in enumerate(zip(self.ctx.local_starts,
+                                           self.ctx.local_sizes)):
+            x = x.narrow(d, start, n)     # this rank's nodes (all: a view)
+        return x
 
     def _fill_bucket(self, dst: torch.Tensor, blocks: Sequence[torch.Tensor],
                      bucket: int, n_lead: int) -> None:
@@ -442,6 +476,14 @@ class ReplicationEngine:
         tgt_group = (group + shift) % n_groups
         return tgt_group * g + (h // 7) % g
 
+    def _perm(self, off: int) -> List[Tuple[int, int]]:
+        """The REPL ``ppermute``'s pairs by ``off`` over joined node
+        indices: every ring rolled by ``off`` (the JAX engine's
+        ``_perm``, ``src/repro/core/replication.py:259``, per ring)."""
+        n = self.n_nodes
+        return [(base + s, base + (s + off) % n)
+                for base in self._ring_bases() for s in range(n)]
+
     def _offsets(self, bucket: int) -> Tuple[int, ...]:
         b = 0 if self.rep.coalescing else bucket
         return replica_groups.replica_offsets(b, self.rep.n_replicas,
@@ -477,51 +519,77 @@ class ReplicationEngine:
         state. ``logs`` is updated in place and returned;
         ``commit_value`` is returned as is (the JAX engine ties it to the
         replication's completion, which program order gives here).
+
+        The JAX region (``src/repro/core/replication.py:298-414``) with
+        its ``ppermute`` / ``psum`` as collectives over this rank's nodes
+        (every node without a group), node-major (``(nodes, [model,]
+        ...)``), the ring written in place through views.
         """
         if not self.rep.is_replicating:
             return logs, commit_value
         step = int(step)
+        ctx = self.ctx
         slot = step % self.rep.log_capacity
         nb = self.layout.n_buckets
-        d = self._ring_dim
-        payload = self._ring(self.payloads(updates))
-        lv, lt, lg = (self._ring(logs[k]) for k in ("values", "ts", "valid"))
+        k = ctx.nodes_per_rank
+        n_batch = len(ctx.batch_axes)
+
+        def nodes(t: torch.Tensor) -> torch.Tensor:
+            return t.view((k,) + tuple(t.shape[n_batch:]))
+
+        payload = nodes(self.payloads(updates))
+        lv, lt, lg = (nodes(logs[key]) for key in ("values", "ts", "valid"))
 
         if self.rep.mode == "parity":
             # psum over each group, then member 0 forwards the parity to
             # the bucket's holder; every other node receives zeros.
+            lo = ctx.rank * k
             groups = self.parity_groups()
-            g = self.rep.parity_group
-            shape = [1] * (payload.dim() - 2)
-            shape[d] = self.n_nodes
             for b in range(nb):
-                src = payload[..., b, :].float()
-                par = src.unflatten(d, (len(groups), g)).sum(dim=d + 1)
-                recv = torch.zeros_like(src)
-                is_holder = torch.zeros(self.n_nodes, dtype=torch.bool,
-                                        device=src.device)
-                for gi in range(len(groups)):
-                    h = self.parity_holder(gi, b)
-                    recv.select(d, h).copy_(par.select(d, gi))
-                    is_holder[h] = True
-                is_holder = is_holder.reshape(shape)
+                par = self._group_sum(payload[..., b, :].float())
+                perm = [(base + g[0], base + self.parity_holder(gi, b))
+                        for base in self._ring_bases()
+                        for gi, g in enumerate(groups)]
+                recv = torch.empty_like(par)
+                collectives.ppermute(par, recv, perm, ctx)
                 lv[..., 0, slot, b, :] = recv.to(lv.dtype)
+                holder = torch.zeros(k, dtype=torch.bool)
+                for _, t in perm:
+                    if ctx.owner(t) == ctx.rank:
+                        holder[t - lo] = True
+                holder = holder.to(lt.device).reshape(
+                    (k,) + (1,) * (lt.dim() - 4))
                 lt[..., 0, slot, b] = torch.where(
-                    is_holder, torch.full_like(lt[..., 0, slot, b], step),
+                    holder, torch.full_like(lt[..., 0, slot, b], step),
                     lt[..., 0, slot, b])
-                lg[..., 0, slot, b] = is_holder
+                lg[..., 0, slot, b] = holder
             return logs, commit_value
 
-        # REPL: deposit each (rank, bucket) payload into the ring slot
-        # (allocation); VAL: the step into ts and the valid bit.
+        # REPL: every (rank, bucket) payload into the ring slot
+        # (allocation); then that rank's VAL: the step, whose reception
+        # writes ts and sets the valid bit.
+        ts = torch.full(tuple(lt.shape[:-3]) + (nb,), step,
+                        dtype=lt.dtype, device=lt.device)
         for r in range(self._nr):
             if self.rep.coalescing:
-                _roll_into(lv[..., r, slot, :, :], payload,
-                           self._offsets(0)[r], d)
+                collectives.ppermute(payload, lv[..., r, slot, :, :],
+                                     self._perm(self._offsets(0)[r]), ctx)
             else:
                 for b in range(nb):
-                    _roll_into(lv[..., r, slot, b, :], payload[..., b, :],
-                               self._offsets(b)[r], d)
-            lt[..., r, slot, :] = step
-            lg[..., r, slot, :] = True
+                    collectives.ppermute(payload[..., b, :],
+                                         lv[..., r, slot, b, :],
+                                         self._perm(self._offsets(b)[r]),
+                                         ctx)
+            vals = ([(slice(None), self._offsets(0)[r])]
+                    if self.rep.coalescing else
+                    [(b, self._offsets(b)[r]) for b in range(nb)])
+            for b, off in vals:
+                got = collectives.ppermute(ts[..., b], lt[..., r, slot, b],
+                                           self._perm(off), ctx)
+                valid = lg[..., r, slot, b]
+                if bool(got.all()):
+                    valid.fill_(True)
+                else:
+                    valid.copy_(got.to(valid.device).reshape(
+                        (k,) + (1,) * (valid.dim() - 1)).expand_as(valid))
         return logs, commit_value

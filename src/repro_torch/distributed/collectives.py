@@ -1,0 +1,228 @@
+"""The collectives of the ReCXL region across ranks.
+
+The JAX package's ``ReplicationEngine.replicate`` runs inside
+``shard_map`` and moves data with three ``jax.lax`` calls
+(``src/repro/core/replication.py``): ``ppermute`` for REPL, VAL and the
+parity forward, and a grouped ``psum`` for parity. Its recovery copies
+the global ring to the host, and its ``Trainer`` lets GSPMD sum the
+gradient of a batch-sharded loss. Here each is a ``torch.distributed``
+call over a rank-aware :class:`~repro_torch.distributed.context.MeshContext`.
+
+Tensors here are node-major: the first dimension is this rank's
+``ctx.nodes_per_rank`` nodes, in joined (pod-major) order. A
+permutation names nodes by their joined index, as ``ppermute`` names
+the devices along its axes. Every rank computes the same plan from the
+same permutation, so sends and receives always pair up.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed.context import MeshContext
+
+#: flat f32 gradient buckets of about this many bytes, one
+#: ``all_reduce`` each (qwen3-0.6b's gradient is ~38 of them). The size
+#: is not tuned: on one card the step's reduce is bound by the ~750 small
+#: launches of its casts, concatenations and copies back (PERF.md), not
+#: by the number of buckets, and no other size was tried.
+GRAD_BUCKET_BYTES = 64 << 20
+
+
+def _global(ctx: MeshContext, rank: int) -> int:
+    return dist.get_global_rank(ctx.group, rank)
+
+
+def _runs(pairs: Sequence[Tuple[int, int]]) -> List[Tuple[int, int, int]]:
+    """``(src, dst)`` index pairs merged into ``(src0, dst0, n)`` runs in
+    which both sides count up by one."""
+    out: List[List[int]] = []
+    for s, t in pairs:
+        if out and (s, t) == (out[-1][0] + out[-1][2],
+                              out[-1][1] + out[-1][2]):
+            out[-1][2] += 1
+        else:
+            out.append([s, t, 1])
+    return [tuple(r) for r in out]
+
+
+def ppermute(x: torch.Tensor, out: torch.Tensor,
+             perm: Sequence[Tuple[int, int]], ctx: MeshContext
+             ) -> torch.Tensor:
+    """``out = jax.lax.ppermute(x, axis, perm)`` over joined node indices.
+
+    Stands for the REPL ``ppermute``s (``src/repro/core/replication.py``
+    :363 coalesced, :374 per bucket), the VAL's (:395, :403) and the
+    parity forward (:333). ``out`` (node-major, any strides, e.g. a slot
+    of the log ring) is written in place: pairs whose source and target
+    this rank holds become slice copies, merged into runs; the rest go
+    in one ``dist.batch_isend_irecv`` of one message per peer rank. Local
+    nodes no pair targets get zeros, as ``ppermute`` gives them. Returns
+    the bool mask of the local nodes that received, on the host."""
+    k, me = ctx.nodes_per_rank, ctx.rank
+    lo = me * k
+    local: List[Tuple[int, int]] = []
+    sends: Dict[int, List[int]] = {}
+    recvs: Dict[int, List[int]] = {}
+    got = [False] * k
+    for s, t in sorted(perm):
+        src_rank, dst_rank = ctx.owner(s), ctx.owner(t)
+        if dst_rank == me:
+            got[t - lo] = True
+            if src_rank == me:
+                local.append((s - lo, t - lo))
+            else:
+                recvs.setdefault(src_rank, []).append(t - lo)
+        elif src_rank == me:
+            sends.setdefault(dst_rank, []).append(s - lo)
+    ops, bufs = [], []
+    for peer, idx in sorted(sends.items()):
+        buf = x.index_select(0, torch.tensor(idx, device=x.device))
+        ops.append(dist.P2POp(dist.isend, buf, _global(ctx, peer),
+                              ctx.group))
+    for peer, idx in sorted(recvs.items()):
+        buf = torch.empty((len(idx),) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        ops.append(dist.P2POp(dist.irecv, buf, _global(ctx, peer),
+                              ctx.group))
+        bufs.append((idx, buf))
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+    for s, t, n in _runs(local):
+        out.narrow(0, t, n).copy_(x.narrow(0, s, n))
+    for i, _, n in _runs([(i, i) for i in range(k) if not got[i]]):
+        out.narrow(0, i, n).zero_()
+    for r in reqs:
+        r.wait()
+    for idx, buf in bufs:
+        for j, i in enumerate(idx):
+            out[i].copy_(buf[j])
+    return torch.tensor(got, dtype=torch.bool)
+
+
+class GroupSum:
+    """``jax.lax.psum(x, axis, axis_index_groups=groups)``
+    (``src/repro/core/replication.py:329``, the parity shard's sum).
+
+    ``groups`` are lists of joined node indices. Where the groups this
+    rank meets are all its own, of one size and in node order (always
+    without a group), each is one row of a single reduction over
+    ``(group, member)``. Otherwise a group this rank holds alone is
+    summed here, in node order, and a group spread over ranks is summed
+    here over its local nodes and then with ``dist.all_reduce`` over a
+    process group of those ranks, created once (every rank builds the
+    same ``GroupSum``, so ``new_group`` runs everywhere in the same
+    order), one call per rank set."""
+
+    def __init__(self, ctx: MeshContext, groups: Sequence[Sequence[int]]):
+        self.ctx = ctx
+        self.groups = [list(g) for g in groups]
+        self.subgroups: Dict[Tuple[int, ...], object] = {}
+        for g in self.groups:
+            ranks = tuple(sorted({ctx.owner(n) for n in g}))
+            if len(ranks) > 1 and ranks not in self.subgroups:
+                self.subgroups[ranks] = dist.new_group(
+                    [_global(ctx, r) for r in ranks])
+        lo = ctx.rank * ctx.nodes_per_rank
+        met = [g for g in self.groups if any(ctx.owner(n) == ctx.rank
+                                             for n in g)]
+        sizes = {len(g) for g in met}
+        self.tile = (sizes.pop() if len(sizes) == 1 and
+                     [n - lo for g in met for n in g]
+                     == list(range(ctx.nodes_per_rank)) else 0)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """``x (nodes, ...)`` -> each local node's group sum."""
+        if self.tile:
+            g = self.tile
+            total = x.unflatten(0, (x.shape[0] // g, g)).sum(dim=1)
+            return total.repeat_interleave(g, dim=0)
+        ctx = self.ctx
+        lo = ctx.rank * ctx.nodes_per_rank
+        out = torch.empty_like(x)
+        spread: Dict[Tuple[int, ...], list] = {}   # rank set -> parts
+        for g in self.groups:
+            mine = [n - lo for n in g if ctx.owner(n) == ctx.rank]
+            if not mine:
+                continue
+            part = x[mine[0]].clone()
+            for i in mine[1:]:
+                part += x[i]
+            ranks = tuple(sorted({ctx.owner(n) for n in g}))
+            if len(ranks) > 1:
+                spread.setdefault(ranks, []).append((mine, part))
+                continue
+            for i in mine:
+                out[i] = part
+        for ranks in sorted(spread):
+            parts = spread[ranks]
+            stacked = torch.stack([p for _, p in parts])
+            dist.all_reduce(stacked, group=self.subgroups[ranks])
+            for (mine, _), total in zip(parts, stacked):
+                for i in mine:
+                    out[i] = total
+        return out
+
+
+def gather_rows(rows: np.ndarray, ctx: MeshContext) -> np.ndarray:
+    """Small host indices from the ranks that hold them: each rank
+    fills the rows of its own nodes and leaves the others 0, and the sum
+    over ranks (one ``all_reduce`` of int64) is the whole table on every
+    rank, the recovering rank included. Stands for the JAX recovery's
+    host copy of the global ring's ``ts`` / ``valid``
+    (``src/repro/core/recovery.py:133``, ``:219``), which Algorithm 2
+    walks (``:72``)."""
+    if ctx.group is None:
+        return rows
+    t = torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(ctx.device)
+    dist.all_reduce(t, group=ctx.group)
+    return t.cpu().numpy()
+
+
+def share(x: Optional[torch.Tensor], src: int, shape: Tuple[int, ...],
+          dtype: torch.dtype, ctx: MeshContext) -> torch.Tensor:
+    """Rank ``src``'s tensor ``x`` on every rank (``dist.broadcast``);
+    the others pass ``None`` and the shape and dtype to receive. Stands
+    for the JAX recovery's read of a replica's logged version from the
+    global ring (``src/repro/core/recovery.py:178``)."""
+    if ctx.group is None:
+        return x
+    buf = (x.contiguous() if ctx.rank == src else
+           torch.empty(shape, dtype=dtype, device=ctx.device))
+    dist.broadcast(buf, src=_global(ctx, src), group=ctx.group)
+    return buf
+
+
+def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
+                   ctx: MeshContext) -> None:
+    """Every tensor <- the sum over ranks of ``scale`` x the tensor, in
+    place, through flat f32 buckets of ``GRAD_BUCKET_BYTES`` (one
+    ``dist.all_reduce`` a bucket, not one a leaf). Stands for the sum
+    that GSPMD puts into the gradient of a loss whose batch is sharded
+    ``P(batch_axes, ...)`` (``src/repro/training/trainer.py:109-116``).
+    A bf16 leaf goes through f32 and back: exact at ``scale`` 1 on one
+    rank."""
+    bucket: List[torch.Tensor] = []
+    size = 0
+
+    def flush() -> None:
+        flat = torch.cat([t.reshape(-1).float() for t in bucket])
+        if scale != 1.0:
+            flat.mul_(scale)
+        dist.all_reduce(flat, group=ctx.group)
+        off = 0
+        for t in bucket:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+
+    for t in tensors:
+        bucket.append(t)
+        size += t.numel() * 4
+        if size >= GRAD_BUCKET_BYTES:
+            flush()
+            bucket, size = [], 0
+    if bucket:
+        flush()

@@ -9,14 +9,28 @@ no mesh. A :class:`MeshContext` names the node axes and their sizes --
 those axes as its leading dimensions, in that order, on ``device``.
 Partition specs (:class:`P`) name which axes shard which dimension of a
 global tensor, as ``jax.sharding.PartitionSpec`` does.
+
+Across processes a context also carries a ``torch.distributed`` process
+group (:func:`node_group`): each of its ``world`` ranks holds a block of
+whole nodes -- ``nodes_per_rank`` consecutive nodes of the joined
+(``pod``, ``data``) axes, numbered pod-major as the replication ring
+numbers them, with all of each node's ``model`` positions -- and every
+per-node tensor of that rank carries only its own nodes
+(``local_sizes``). The JAX package's ``shard_map`` regions map onto the
+collectives of :mod:`repro_torch.distributed.collectives`. Without a
+group the context holds every node, as on one card.
 """
 
 from __future__ import annotations
 
+import datetime
+import os
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -42,11 +56,40 @@ class MeshContext:
     batch_axes: Tuple[str, ...]      # axes that identify a node (pod?, data)
     model_axis: Optional[str]        # tensor-parallel axis within a node
     device: torch.device
+    group: Any = None                # torch.distributed group, or None
+    world: int = 1
+    rank: int = 0
+    local_sizes: Tuple[int, ...] = ()   # this rank's block of each axis
+    local_starts: Tuple[int, ...] = ()  # ... and where it starts
+
+    def __post_init__(self) -> None:
+        if not self.local_sizes:          # no group: every node is local
+            object.__setattr__(self, "local_sizes", tuple(self.axis_sizes))
+            object.__setattr__(self, "local_starts",
+                               (0,) * len(self.axis_sizes))
 
     @property
     def shape(self) -> Dict[str, int]:
         """Axis name -> size, like ``jax.sharding.Mesh.shape``."""
         return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def n_nodes(self) -> int:
+        """Nodes of the joined (pod?, data) axes."""
+        return int(np.prod([self.shape[a] for a in self.batch_axes]))
+
+    @property
+    def nodes_per_rank(self) -> int:
+        return self.n_nodes // self.world
+
+    def owner(self, node: int) -> int:
+        """The rank holding joined (pod-major) node index ``node``."""
+        return node // self.nodes_per_rank
+
+    def local_node(self, node: int) -> Optional[int]:
+        """``node``'s index among this rank's nodes, or None."""
+        i = node - self.rank * self.nodes_per_rank
+        return i if 0 <= i < self.nodes_per_rank else None
 
     @property
     def model_size(self) -> int:
@@ -56,13 +99,20 @@ class MeshContext:
 
 
 def make_context(axis_shapes: Sequence[int], axis_names: Sequence[str],
-                 device=None) -> MeshContext:
+                 device=None, group=None) -> MeshContext:
     """The canonical context for node axes ``axis_names`` of sizes
     ``axis_shapes``, on ``device`` (``None`` means CUDA, and raises
     without a card; the CPU tests pass ``device="cpu"``).
 
     As in the JAX package, ``pod`` and ``data`` identify a node and
-    ``model`` is the axis inside one."""
+    ``model`` is the axis inside one. With ``group`` (a process group,
+    :func:`node_group`) this rank holds ``n_nodes / world`` consecutive
+    nodes: the world must divide the joined (pod, data) axes into
+    blocks of whole pods or of equal parts of one pod, the node axes must
+    lead, pod first, and a CUDA device needs ``nccl``, the CPU ``gloo``
+    -- anything else raises ``ValueError``; nothing falls back. The JAX
+    package's ``make_context`` (``src/repro/distributed/context.py:119``)
+    takes a mesh whose devices the ranks stand for here."""
     names = tuple(axis_names)
     sizes = tuple(int(s) for s in axis_shapes)
     if len(names) != len(sizes) or len(set(names)) != len(names):
@@ -72,6 +122,78 @@ def make_context(axis_shapes: Sequence[int], axis_names: Sequence[str],
                          f"{dict(zip(names, sizes))}")
     batch_axes = tuple(a for a in names if a in ("pod", "data"))
     model_axis = "model" if "model" in names else None
-    return MeshContext(axis_names=names, axis_sizes=sizes,
-                       batch_axes=batch_axes, model_axis=model_axis,
-                       device=resolve_device(device))
+    if group is None:
+        return MeshContext(axis_names=names, axis_sizes=sizes,
+                           batch_axes=batch_axes, model_axis=model_axis,
+                           device=resolve_device(device))
+    backend = dist.get_backend(group)
+    kind = torch.device("cuda" if device is None else device).type
+    if (kind == "cuda") != (backend == "nccl"):
+        raise ValueError(f"a {kind} context cannot run on the {backend!r} "
+                         f"backend (CUDA needs 'nccl', the CPU 'gloo')")
+    if names[:len(batch_axes)] != batch_axes:
+        raise ValueError(f"across ranks the node axes {batch_axes} must "
+                         f"lead, pod first; the axes are {names}")
+    world, rank = dist.get_world_size(group), dist.get_rank(group)
+    shape = dict(zip(names, sizes))
+    n_nodes = int(np.prod([shape[a] for a in batch_axes]))
+    if n_nodes % world:
+        raise ValueError(f"a world of {world} ranks does not divide the "
+                         f"{n_nodes} nodes of {batch_axes}")
+    k, n_data = n_nodes // world, shape["data"]
+    first = rank * k
+    if k % n_data == 0:                   # whole pods (or the whole ring)
+        block = {"data": (0, n_data)}
+        if "pod" in shape:
+            block["pod"] = (first // n_data, k // n_data)
+    elif n_data % k == 0 and "pod" in shape:   # a part of one pod
+        block = {"pod": (first // n_data, 1), "data": (first % n_data, k)}
+    elif n_data % k == 0:
+        block = {"data": (first, k)}
+    else:
+        raise ValueError(f"{k} nodes a rank cut the pods of {n_data} "
+                         f"nodes unevenly")
+    return MeshContext(
+        axis_names=names, axis_sizes=sizes, batch_axes=batch_axes,
+        model_axis=model_axis, device=resolve_device(device), group=group,
+        world=world, rank=rank,
+        local_sizes=tuple(block[a][1] if a in block else s
+                          for a, s in zip(names, sizes)),
+        local_starts=tuple(block[a][0] if a in block else 0
+                           for a in names))
+
+
+def node_group(device=None, init_method: Optional[str] = None,
+               world_size: Optional[int] = None, rank: Optional[int] = None,
+               timeout_s: float = 600.0):
+    """The default process group for a node context, initialized once:
+    ``nccl`` for a CUDA device (``None`` means the card), ``gloo`` for
+    the CPU. ``init_method`` (e.g. ``file:///tmp/pg``) with
+    ``world_size`` and ``rank``, or else the ``torchrun`` environment
+    (``env://``: ``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
+    ``WORLD_SIZE``). Raises ``ValueError`` if a group of the other
+    backend is already up. It stands for the device set the JAX
+    package's ``make_mesh`` lays out (``src/repro/distributed/
+    context.py:63``)."""
+    dev = torch.device("cuda" if device is None else device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dist.is_initialized():
+        if dist.get_backend() != backend:
+            raise ValueError(f"a {dist.get_backend()!r} group is up; a "
+                             f"{dev.type} context needs {backend!r}")
+        return dist.group.WORLD
+    kw: Dict[str, Any] = {
+        "init_method": init_method or "env://",
+        "timeout": datetime.timedelta(seconds=timeout_s)}
+    if world_size is not None:
+        kw["world_size"], kw["rank"] = int(world_size), int(rank)
+    if backend == "nccl":
+        dev = resolve_device(dev if dev.index is not None else torch.device(
+            "cuda", int(os.environ.get("LOCAL_RANK", 0))))
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
+    dist.init_process_group(backend, **kw)
+    if backend == "nccl":
+        # one collective brings the communicator up before any send/recv
+        dist.all_reduce(torch.zeros(1, device=dev))
+    return dist.group.WORLD

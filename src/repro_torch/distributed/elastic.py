@@ -61,6 +61,13 @@ def install_recovered_shard(state: Any, specs: Any, engine: ReplicationEngine,
 
     Exact (bit-identical) when the log dtype matches the state dtype.
     Like the JAX package, it needs dimensions that the node axes divide.
+
+    Across ranks the parameters are replicated on every rank and
+    ``recover_node`` hands every rank the same ``result`` (each bucket
+    broadcast from the rank holding its newest version), so every rank
+    runs this on its own copy and the copies stay ``==``: the JAX
+    package's ``install_recovered_shard`` writes the global array once
+    (``src/repro/distributed/elastic.py:55``).
     """
     ctx = engine.ctx
     per_model = reassemble_shard(engine, result)

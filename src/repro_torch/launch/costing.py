@@ -43,7 +43,7 @@ blockwise and chunked scans.
 There is no counterpart of the JAX package's HLO collective parser
 (``collective_bytes``): a logical mesh on one card issues no
 collectives. The replication traffic of a step is the engine's layout
-(``launch/dryrun.py``); multi-card collectives come with ROADMAP A4(d).
+(``launch/dryrun.py``); their collective bytes come with ROADMAP A4(d3).
 """
 
 from __future__ import annotations

@@ -27,11 +27,27 @@ one device (``distributed/context.py``), not a set of devices, so
 ``--mesh 4x2`` means 4 data nodes x 2 model ranks whatever the device.
 ``--log-capacity`` sets the replica log slots per node (the default's 8
 do not fit beside a billion-parameter model's state on one card).
+
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set) the
+run is data-parallel over the ranks, where the JAX launcher
+(``src/repro/launch/train.py:22``) is one process over a device mesh: each rank holds ``nodes / world``
+whole nodes of the mesh, on ``cuda:LOCAL_RANK`` with ``nccl``, or on the
+CPU with ``gloo`` when ``--device cpu``; every line is prefixed with the
+rank::
+
+    torchrun --standalone --nproc-per-node 4 -m repro_torch.launch.train \
+        --arch qwen3-0.6b --reduced --steps 100 --mesh 4x2
+
+A single process without those variables runs as before.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
+
+import torch
 
 from repro_torch.config import (
     MeshConfig,
@@ -43,7 +59,7 @@ from repro_torch.config import (
     get_reduced_config,
 )
 from repro_torch.core.failures import FailureEvent, FailureInjector
-from repro_torch.distributed.context import make_context
+from repro_torch.distributed.context import make_context, node_group
 from repro_torch.training.trainer import Trainer
 
 
@@ -94,24 +110,44 @@ def main(argv=None) -> None:
         train=TrainConfig(total_steps=args.steps, learning_rate=args.lr,
                           warmup_steps=max(args.steps // 10, 1)),
     )
-    ctx = make_context(mesh_shape, axes, device=args.device)
+    group, device, tag = None, args.device, ""
+    if "WORLD_SIZE" in os.environ:
+        if device is None:
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+        group = node_group(device)
+        tag = f"rank {os.environ['RANK']}/{os.environ['WORLD_SIZE']}: "
+    ctx = make_context(mesh_shape, axes, device=device, group=group)
     injector = FailureInjector(
         [FailureEvent(step=args.fail_step, node=args.fail_node)]
         if args.fail_node >= 0 and args.fail_step >= 0 else [])
 
     trainer = Trainer(run, ctx, args.workdir, injector=injector)
-    print(f"training {model_cfg.name} ({model_cfg.param_count()/1e6:.1f}M "
-          f"params) on mesh {mesh_shape}, variant={args.variant}, "
-          f"device {ctx.device}")
+
+    def say(line: str) -> None:
+        # one write a line, newline included: the ranks of a torchrun
+        # share one stdout, and print() writes the newline apart (two
+        # writes when the stream is unbuffered)
+        sys.stdout.write(tag + line + "\n")
+        sys.stdout.flush()
+
+    say(f"training {model_cfg.name} "
+        f"({model_cfg.param_count()/1e6:.1f}M params) on mesh "
+        f"{mesh_shape}, variant={args.variant}, device {ctx.device}"
+        + (f", {ctx.world} ranks ({torch.distributed.get_backend(group)})"
+           if group is not None else ""))
 
     def log(step: int, m: dict) -> None:
-        print(f"step {step:5d} loss {m['loss']:.4f} "
-              f"gnorm {m['grad_norm']:.3f} {m['wall_s']*1e3:.0f} ms")
+        say(f"step {step:5d} loss {m['loss']:.4f} "
+            f"gnorm {m['grad_norm']:.3f} {m['wall_s']*1e3:.0f} ms")
 
-    trainer.train(args.steps, on_metrics=log)
-    trainer.ckpt.wait()
-    for e in trainer.events:
-        print("event:", e)
+    try:
+        trainer.train(args.steps, on_metrics=log)
+        trainer.ckpt.wait()
+        for e in trainer.events:
+            say(f"event: {e}")
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

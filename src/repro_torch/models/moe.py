@@ -4,7 +4,7 @@ The JAX package's ``models/moe.py`` on torch tensors: its local path,
 which is the whole function on one card (the JAX package takes it
 whenever no mesh context is set). The EP / TP ``shard_map`` layouts need
 more than one device and wait for the multi-card port (ROADMAP
-A4(d)). The expert products are ``torch.bmm``, as the JAX package leaves
+A4(d2)). The expert products are ``torch.bmm``, as the JAX package leaves
 its einsums to XLA.
 
 The port gives the JAX function's answer where torch's primitives

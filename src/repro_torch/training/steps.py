@@ -18,6 +18,15 @@ log ring and the staging buffer in place (``optim/optimizers.py``,
 ``core/replication.py``), and returns the state with ``step`` advanced.
 On the card every attention of the forward and of its gradient runs in
 the ``flash_attn`` kernels (``kernels/flash_attn/ops.py``).
+
+Data-parallel across ranks (a rank-aware context): each rank's batch is
+its nodes' rows of the global batch, and its gradient and loss are
+weighted by its share of the loss's tokens and summed over ranks in flat
+f32 buckets (``distributed/collectives.py``) before the clip and the
+optimizer, so every rank applies the same update to its copy of the
+parameters. The token shares make the sum the global token mean, masked
+or not (the per-rank means are not averaged). A MoE's load-balancing
+term is then the ranks' weighted mean, not the global batch's.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ import torch
 
 from repro_torch.config import RunConfig
 from repro_torch.core.replication import ReplicationEngine
+from repro_torch.distributed import collectives
+from repro_torch.distributed.context import MeshContext
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.optim.optimizers import (clip_by_global_norm, tree_leaves,
@@ -64,10 +75,31 @@ def init_train_state(run: RunConfig, model: Model, seed: int,
                       step=0, wt_buffer=wt)
 
 
+def rank_weight(batch: Dict[str, torch.Tensor], ctx: MeshContext) -> float:
+    """This rank's share of the global batch's loss tokens: its mask's
+    sum over the ranks' (one ``all_reduce``), or, unmasked, 1 / world
+    (every rank holds as many rows). Exactly 1.0 on one rank. The JAX
+    package takes the token mean of the whole batch
+    (``cross_entropy_loss``, ``src/repro/models/layers.py:144``), whose
+    gradient GSPMD sums over the shards."""
+    if "mask" not in batch:
+        return 1.0 / ctx.world
+    n = batch["mask"].float().sum().reshape(1)
+    total = n.clone()
+    torch.distributed.all_reduce(total, group=ctx.group)
+    return float(n) / float(total)
+
+
 def make_train_step(run: RunConfig, model: Model,
-                    engine: Optional[ReplicationEngine]
+                    engine: Optional[ReplicationEngine],
+                    ctx: Optional[MeshContext] = None
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor]],
                                   Tuple[TrainState, Dict[str, Any]]]:
+    """The train step; with a rank-aware ``ctx``, data-parallel over its
+    ranks (the JAX step under a batch sharded ``P(batch_axes, ...)``,
+    ``src/repro/training/trainer.py:109-116``, whose gradient GSPMD
+    sums over the batch axes)."""
+    across = ctx is not None and ctx.group is not None
     _, opt_update = make_optimizer(run.train)
     schedule = make_schedule(run.train)
     rep = run.replication
@@ -85,6 +117,11 @@ def make_train_step(run: RunConfig, model: Model,
             state.params)
         for p in leaves:
             p.grad = None
+        if across:
+            loss = loss.detach().float().reshape(1)
+            collectives.all_reduce_sum(tree_leaves(grads) + [loss],
+                                       rank_weight(batch, ctx), ctx)
+            loss = loss[0]
         grads, gnorm = clip_by_global_norm(grads, run.train.grad_clip)
         lr = schedule(state.step)
         new_params, new_opt = opt_update(grads, state.opt_state,

@@ -22,6 +22,16 @@ per-node tensor carries the node axes as leading dimensions, and the
 parameters live whole on ``ctx.device`` with ``param_specs`` saying
 which block each node owns. A step's wall time is read after a
 synchronize of the card, so it covers the step's device work.
+
+With a rank-aware context (``torch.distributed``, one process a rank)
+the trainer is data-parallel: every rank holds the whole parameters,
+trains on its nodes' rows of each global batch (the reference's
+``P(batch_axes, ...)``, ``src/repro/training/trainer.py:109-116``),
+sums the gradients over the ranks (``training/steps.py``), replicates
+its own nodes' blocks into its part of the log ring, dumps to its own
+MN directory, and takes part in every recovery; every rank runs the
+same control plane (the failures, the directory, the Configuration
+Manager: the lowest live node, on the lowest live rank).
 """
 
 from __future__ import annotations
@@ -85,7 +95,8 @@ class Trainer:
         self.run = run
         self.ctx = ctx
         self.model = model or build_model(run.model)
-        self.ckpt = CheckpointManager(workdir)
+        self.ckpt = CheckpointManager(
+            workdir, rank=None if ctx.group is None else ctx.rank)
         self.injector = injector or FailureInjector()
         self.monitor = StragglerMonitor()
         self.events: List[Dict[str, Any]] = []
@@ -100,7 +111,7 @@ class Trainer:
                                             params)
         self.state: TrainState = init_train_state(
             run, self.model, run.train.seed, self.engine, params=params)
-        self._step_fn = make_train_step(run, self.model, self.engine)
+        self._step_fn = make_train_step(run, self.model, self.engine, ctx)
 
         n_nodes = (self.engine.n_nodes if self.engine else
                    int(np.prod([ctx.shape[a] for a in ctx.batch_axes])))
@@ -113,12 +124,23 @@ class Trainer:
             run.model, run.shape, seed=run.train.seed)
         self._batch_dtypes = {k: s.dtype for k, s in
                               batch_struct(run.model, run.shape).items()}
+        self._rows = slice(None)
+        if ctx.group is not None:
+            rows = run.shape.global_batch
+            if rows % ctx.n_nodes:
+                raise ValueError(f"a global batch of {rows} rows does not "
+                                 f"split over {ctx.n_nodes} nodes")
+            per_rank = rows // ctx.n_nodes * ctx.nodes_per_rank
+            self._rows = slice(ctx.rank * per_rank,
+                               (ctx.rank + 1) * per_rank)
 
     # ------------------------------------------------------------------
     def _to_device(self, batch: Dict[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(device=self.ctx.device,
-                                          dtype=self._batch_dtypes[k])
+        """This rank's rows of the global batch, on the device (the JAX
+        ``Trainer._shard_batch``, ``src/repro/training/trainer.py:109``)."""
+        return {k: torch.from_numpy(v[self._rows]).to(
+                    device=self.ctx.device, dtype=self._batch_dtypes[k])
                 for k, v in batch.items()}
 
     # ------------------------------------------------------------------
@@ -178,7 +200,8 @@ class Trainer:
     # ------------------------------------------------------------------
     def _dump(self, step_no: int) -> None:
         """MN-tier dump: full state (copied to the host, then written
-        async) + directory watermark."""
+        async) + directory watermark; across ranks each rank into its own
+        directory (``src/repro/training/trainer.py:174``)."""
         t0 = time.perf_counter()
         self.ckpt.save(step_no, {"params": self.state.params,
                                  "opt": self.state.opt_state},
@@ -190,7 +213,9 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _recover(self, failed_node: int, step_no: int) -> None:
-        """CM-driven recovery + spare replacement."""
+        """CM-driven recovery + spare replacement; across ranks every
+        rank recovers and installs the same shard
+        (``src/repro/training/trainer.py:184``)."""
         if self.engine is None:
             raise RuntimeError(
                 f"node {failed_node} failed but replication variant is "
@@ -223,3 +248,6 @@ class Trainer:
             "stats": dataclasses.asdict(result.stats),
             "wall_s": time.perf_counter() - t0,
         })
+        if self.ctx.group is not None:
+            self.events[-1]["cm_rank"] = self.engine.owner_rank(
+                self.engine.node_coord(cm))
