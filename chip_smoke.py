@@ -250,7 +250,20 @@ each hand-written CUDA kernel against its plain PyTorch version:
     56 forward and 28 backward ``flash_attn`` launches a step, the
     ``all_reduce`` ms a step and the step's median beside phase 20's;
     (c) with more than one card, ``min(count, 4)`` ranks on ``nccl``
-    (not run on one card: printed as such).
+    (not run on one card: printed as such);
+24. the evaluation's ``cells`` shards one placement each (``devices=``),
+    run right after phase 14: (a) the mega-grid banked (``sub``, k 1)
+    with its 4 shards on ``cuda:0`` four times over, every cell ``==``
+    phase 4's, 4 launches a tile over 40 lanes each, the four byte keys
+    ``==`` their reckoning and each card's resident bytes its own
+    placements'; (b) the stacked plane, ``==``; (c) phase 13's 500 queries
+    on a server over the 4 placements, answers ``==`` phase 13's, zero
+    new programs after warm, p50 / p99 and q/s beside phase 13's; (d)
+    shard 3 lost at dispatch 5 (k 2), rebuilt from placement 0's replica
+    block, and the degraded finish on 3 placements, both ``==``; (e) with
+    four cards (a)-(d) on ``cuda:0..3`` (not run on one card: printed as
+    such; ``--multi-card-only cells`` runs it alone with phases 4 and
+    13's reference on card 0).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -2946,21 +2959,28 @@ def pct(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(len(xs) * q))] if xs else 0.0
 
 
-def phase_serving(torch, S, E, Sc, sv, kernel, ops, mega_res) -> dict:
-    print("phase 13: ScenarioServer at n_stores=50 000, 4 logical shards, "
-          "64-lane serve tiles: the mega-grid warmed, then a seeded stream "
-          "of 500 queries, a submit burst, a grid query and a downtime query")
+def serving_stream(Sc) -> list:
+    """Phase 13's seeded stream: 500 queries, 70% mega-grid cells, the
+    rest from 30 novel cells (seed 3)."""
     import numpy as np
     mega = Sc.mega_grid()
-    index = {s: i for i, s in enumerate(mega)}
     novel = Sc.grid_delta(mega, seeds=(3,),
                           workloads=("ycsb", "canneal", "barnes"),
                           sb_sizes=(72, 48))
     check(len(novel) == 30, f"{len(novel)} novel cells (seed 3)")
     rng = np.random.default_rng(SEED)
-    stream = [mega[rng.integers(len(mega))] if rng.random() < 0.7
-              else novel[rng.integers(len(novel))]
-              for _ in range(SERVE_QUERIES)]
+    return [mega[rng.integers(len(mega))] if rng.random() < 0.7
+            else novel[rng.integers(len(novel))]
+            for _ in range(SERVE_QUERIES)]
+
+
+def phase_serving(torch, S, E, Sc, sv, kernel, ops, mega_res) -> dict:
+    print("phase 13: ScenarioServer at n_stores=50 000, 4 logical shards, "
+          "64-lane serve tiles: the mega-grid warmed, then a seeded stream "
+          "of 500 queries, a submit burst, a grid query and a downtime query")
+    mega = Sc.mega_grid()
+    index = {s: i for i, s in enumerate(mega)}
+    stream = serving_stream(Sc)
     S.clear_sim_caches()
     srv = sv.ScenarioServer(n_stores=N_STORES, n_shards=SERVE_SHARDS,
                             batch_cells=64)
@@ -3052,7 +3072,7 @@ def phase_serving(torch, S, E, Sc, sv, kernel, ops, mega_res) -> dict:
             "miss_p99_ms": pct(miss_ms, 0.99),
             "h2d_bytes_per_query": st["h2d_bytes"] / len(stream),
             "launches": launches, "bank_dev_bytes": dev_bytes,
-            "bank_capacity": st["bank_capacity"]}
+            "bank_capacity": st["bank_capacity"], "answers": answers}
 
 
 def check_answer(got, want, what: str) -> None:
@@ -3155,6 +3175,258 @@ def phase_resilience(torch, S, E, Sc, chaos, launcher, ops,
           f"launcher: 0 post-recovery tile programs ({wall:.1f} s)")
     out["launcher_wall_s"] = wall
     return out
+
+
+#: phase 24: the cells shards of the evaluation, one placement each
+CELLS_SHARDS = 4
+#: the sub layout's bytes a wv row and store: w, v f32 and pr_nc bool
+SUB_BYTES_PER_ROW_STORE = 9
+
+
+def serve_stream(torch, E, sv, ops, stream, mega, devices) -> dict:
+    """Phase 13's stream on a server whose 4 shards lie on ``devices``
+    (one placement, or one per shard): the mega-grid warmed, then the
+    500 queries one at a time. Returns the answers, the latencies, the
+    launches and the programs built after warm."""
+    srv = sv.ScenarioServer(n_stores=N_STORES, n_shards=CELLS_SHARDS,
+                            batch_cells=64, devices=devices)
+    with srv:
+        t0 = time.perf_counter()
+        srv.warm(mega)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        srv.reset_stats()
+        tc0 = E.trace_count()
+        ops.bank_scan.launches = 0
+        hit_ms, miss_ms, answers = [], [], []
+        t0 = time.perf_counter()
+        for spec in stream:
+            t1 = time.perf_counter()
+            r = srv.query(spec)
+            (hit_ms if r.meta["cache"] == "hit" else miss_ms).append(
+                (time.perf_counter() - t1) * 1e3)
+            answers.append(r)
+        stream_s = time.perf_counter() - t0
+        st = srv.stats()
+    return {"answers": answers, "warm_s": warm_s, "stream_s": stream_s,
+            "qps": len(stream) / stream_s, "hits": len(hit_ms),
+            "misses": len(miss_ms), "hit_p50_ms": pct(hit_ms, 0.5),
+            "hit_p99_ms": pct(hit_ms, 0.99), "miss_p50_ms": pct(miss_ms, 0.5),
+            "miss_p99_ms": pct(miss_ms, 0.99),
+            "launches": ops.bank_scan.launches,
+            "new_programs": E.trace_count() - tc0,
+            "compiled_programs": st["compiled_programs"],
+            "bank_dev_bytes": st["bank_dev_bytes"],
+            "bank_dev_bytes_per_shard": st["bank_dev_bytes_per_shard"]}
+
+
+def cells_placements(torch, S, E, Sc, sv, chaos, ops, ref, devices,
+                     label: str) -> dict:
+    """Phase 24 (a)-(d) with the 4 shards on ``devices``, one placement
+    each: the mega-grid banked (sub, k 1) and stacked, the scenario
+    service, a shard loss recovered from the survivor's replica block
+    and the degraded finish -- every answer ``==`` phases 4 and 13's
+    (``ref``), launches tiles x 4 over b_pad / 4 lanes, the byte keys
+    beside their reckoning, each card's resident bytes its own
+    placements' only."""
+    mega = Sc.mega_grid()
+    want = [fields(r) for r in ref["mega_results"]]
+    n = CELLS_SHARDS
+    cards = sorted({torch.device(d).index for d in devices})
+    out = {"devices": [str(d) for d in devices], "launches": 0}
+    lanes = []
+    bank_scan = E.bank_scan
+
+    def counted(*args, **kw):
+        lanes.append(int(args[4].shape[0]))
+        return bank_scan(*args, **kw)
+
+    def run(what: str, **kw):
+        """One mega-grid run over the placements; returns its results,
+        wall, stats and launches (the lanes of each in ``lanes``)."""
+        lanes.clear()
+        ops.bank_scan.launches = 0
+        t0 = time.perf_counter()
+        res = Sc.run_sweep(mega, n_stores=N_STORES, n_shards=n,
+                           devices=devices, engine="stream", **kw)
+        wall = time.perf_counter() - t0
+        stats = E.bank_stats()
+        stats.pop("telemetry", None)
+        out["launches"] += ops.bank_scan.launches
+        check([fields(r) for r in res] == want,
+              f"{label} {what}: every cell == phase 4 ({wall:.3f} s, "
+              f"{ops.bank_scan.launches} launches)")
+        return res, wall, stats, ops.bank_scan.launches
+
+    E.bank_scan = counted
+    t_phase = time.perf_counter()
+    try:
+        # (a) the mega-grid, banked, sub, k 1: cold, as phase 4 ran
+        S.clear_sim_caches()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mem0 = {c: torch.cuda.memory_allocated(c) for c in cards}
+        _, wall, stats, launches = run("(a) banked sub k 1")
+        mem = {c: torch.cuda.memory_allocated(c) - mem0[c] for c in cards}
+        b_pad = -(-E._default_tile_cells(N_STORES) // 8) * 8
+        check(launches == stats["tiles"] * n
+              and set(lanes) == {b_pad // n},
+              f"{label} (a): {launches} launches = {stats['tiles']} tiles "
+              f"x {n}, each over {b_pad // n} lanes")
+        local = S.sub_bank_rows(stats["wv_rows"], n)
+        stack = local * N_STORES * SUB_BYTES_PER_ROW_STORE
+        arrivals = stats["trace_rows"] * N_STORES * 4
+        reckon = {"h2d_bytes": arrivals + n * stack
+                  + stats["tiles"] * 8 * b_pad,
+                  "bank_dev_bytes": n * (arrivals + stack),
+                  "bank_dev_bytes_per_shard": arrivals + stack,
+                  "bank_fabric_bytes": (n - 1) * arrivals}
+        got = {k: stats[k] for k in reckon}
+        print(f"  {label} (a) byte keys {json.dumps(got)}; reckoned "
+              f"{json.dumps(reckon)} ({local} local rows x {N_STORES} "
+              f"stores x {SUB_BYTES_PER_ROW_STORE} B = {stack} B of stacks "
+              f"a placement; {stats['trace_rows']} x {N_STORES} x 4 B = "
+              f"{arrivals} B of arrivals, copied {n - 1} times)")
+        check(got == reckon, f"{label} (a): the four byte keys == their "
+              f"reckoning")
+        per_card = {c: sum(1 for d in devices
+                           if torch.device(d).index == c) * (arrivals + stack)
+                    for c in cards}
+        print(f"  {label} (a) resident on each card after the run "
+              f"(torch.cuda.memory_allocated, less before): "
+              f"{json.dumps(mem)}; its placements' tensors {per_card}")
+        check(all(per_card[c] <= mem[c] < per_card[c] + (8 << 20)
+                  for c in cards),
+              f"{label} (a): each card holds its placements' stacks and "
+              f"arrivals and nothing of the others'")
+        out["a"] = {"wall_s": wall, "launches": launches,
+                    "tiles": stats["tiles"], "byte_keys": got,
+                    "reckoned": reckon, "card_bytes": mem,
+                    "phase4_wall_s": ref["mega_wall_s"]}
+        print(f"  {label} (a) wall {wall:.3f} s against phase 4's "
+              f"{ref['mega_wall_s']:.3f} s (one placement) -> "
+              f"{wall / ref['mega_wall_s']:.3f}x")
+
+        # (b) the stacked plane on the same placements
+        _, wall, stats, launches = run("(b) stacked", data_plane="stacked")
+        check(launches == stats["tiles"] * n,
+              f"{label} (b): {launches} launches = {stats['tiles']} tiles "
+              f"x {n}")
+        out["b"] = {"wall_s": wall, "launches": launches,
+                    "tiles": stats["tiles"]}
+
+        # (c) the scenario service, phase 13's stream
+        S.clear_sim_caches()
+        served = serve_stream(torch, E, sv, ops, ref["stream"], mega,
+                              devices)
+        out["launches"] += served["launches"]
+        for got_r, want_r in zip(served["answers"], ref["answers"]):
+            check_answer(got_r, want_r, f"{label} (c) vs phase 13")
+        check(True, f"{label} (c): {len(ref['stream'])} answers == phase "
+              f"13's")
+        check(served["new_programs"] == 0
+              and served["compiled_programs"] == 0,
+              f"{label} (c): zero new tile programs after warm "
+              f"({served['launches']} launches, {served['misses']} misses)")
+        srv13 = ref["serving"]
+        print(f"  {label} (c) q/s {served['qps']:.1f} (phase 13: "
+              f"{srv13['qps']:.1f}); hits p50 {served['hit_p50_ms']:.4f} / "
+              f"p99 {served['hit_p99_ms']:.4f} ms ({srv13['hit_p50_ms']:.4f} "
+              f"/ {srv13['hit_p99_ms']:.4f}); misses p50 "
+              f"{served['miss_p50_ms']:.3f} / p99 {served['miss_p99_ms']:.3f}"
+              f" ms ({srv13['miss_p50_ms']:.3f} / {srv13['miss_p99_ms']:.3f}"
+              f"); warm {served['warm_s']:.3f} s; resident "
+              f"{served['bank_dev_bytes']} B, "
+              f"{served['bank_dev_bytes_per_shard']} B the most a placement")
+        served.pop("answers")
+        out["c"] = served
+
+        # (d) a shard lost, k 2: first the clean run, then the loss
+        # the server extended the memoized bank in place
+        S.clear_sim_caches()
+        _, wall_clean, _, _ = run("(d) fault-free k 2", k_replicas=2)
+        tc0 = E.trace_count()
+        with chaos.inject(chaos.ChaosConfig(lose_shard=3,
+                                            lose_at_dispatch=5)) as cs:
+            _, wall_loss, _, _ = run("(d) shard 3 lost", k_replicas=2)
+        rec = cs.report()["recoveries"]
+        check(len(rec) == 1 and rec[0]["shard"] == 3
+              and rec[0]["source"] == "replica"
+              and chaos.replica_source(3, n) == 0,
+              f"{label} (d): shard 3 rebuilt from placement 0's replica "
+              f"block and placed again alone ({rec[0]['ms']:.2f} ms)"
+              if rec else f"{label} (d): one recovery")
+        check(E.trace_count() == tc0, f"{label} (d): zero new tile programs")
+        tc0 = E.trace_count()
+        with chaos.inject(chaos.ChaosConfig(lose_shard=3, lose_at_dispatch=5,
+                                            recovery="degraded")) as cs:
+            res, wall_deg, stats, _ = run("(d) degraded", k_replicas=2)
+        check(stats["degraded"]
+              and {r.meta["n_shards"] for r in res} >= {n - 1}
+              and cs.report()["recoveries"][0]["source"] == "degraded-mesh",
+              f"{label} (d): the degraded finish on {n - 1} placements "
+              f"({E.trace_count() - tc0} new programs)")
+        out["d"] = {"clean_wall_s": wall_clean, "loss_wall_s": wall_loss,
+                    "degraded_wall_s": wall_deg, "recovery": rec}
+    finally:
+        E.bank_scan = bank_scan
+    S.clear_sim_caches()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"  {label}: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_cells(torch, S, E, Sc, sv, chaos, ops, ref) -> dict:
+    """Phase 24: the evaluation's ``cells`` shards one placement each --
+    (a)-(d) on ``cuda:0`` four times over, and (e) with four cards
+    (a)-(d) on ``cuda:0..3``."""
+    print(f"phase 24: the evaluation's {CELLS_SHARDS} cells shards one "
+          f"placement each (devices=): the mega-grid banked and stacked, the "
+          f"scenario service, a lost shard and the degraded finish")
+    one = ("cuda:0",) * CELLS_SHARDS
+    out = {"repeated": cells_placements(torch, S, E, Sc, sv, chaos, ops,
+                                        ref, one, "cuda:0 x 4")}
+    out["multi_card"] = phase_cells_multi(torch, S, E, Sc, sv, chaos, ops,
+                                          ref)
+    if isinstance(out["multi_card"], dict):
+        rep, mc = out["repeated"], out["multi_card"]
+        walls = {"a": ("a", "wall_s"), "b": ("b", "wall_s"),
+                 "c stream": ("c", "stream_s"),
+                 "d clean": ("d", "clean_wall_s"),
+                 "d loss": ("d", "loss_wall_s"),
+                 "d degraded": ("d", "degraded_wall_s")}
+        print("  (e) walls on cuda:0..3 beside cuda:0 x 4's (s): "
+              + "; ".join(f"{k} {mc[p][q]:.3f} / {rep[p][q]:.3f}"
+                          for k, (p, q) in walls.items()))
+    return out
+
+
+def phase_cells_multi(torch, S, E, Sc, sv, chaos, ops, ref):
+    """Phase 24(e): with four cards, (a)-(d) on ``cuda:0..3``."""
+    if torch.cuda.device_count() < CELLS_SHARDS:
+        print(json.dumps({"cells_multi_card": "not run: "
+                          f"{torch.cuda.device_count()} card"}))
+        return f"not run: {torch.cuda.device_count()} card"
+    cards = tuple(f"cuda:{i}" for i in range(CELLS_SHARDS))
+    return cells_placements(torch, S, E, Sc, sv, chaos, ops, ref, cards,
+                            "(e) cuda:0..3")
+
+
+def cells_reference(torch, S, E, Sc, sv, ops) -> dict:
+    """``--multi-card-only``'s phase 24 reference on card 0 (one
+    placement): phase 4's mega-grid and phase 13's stream. The process's
+    first mega-grid run: its wall is a cold one."""
+    print("phase 4 and 13 again (the reference of phase 24(e)): the "
+          "mega-grid and the 500-query stream on one placement")
+    S.clear_sim_caches()
+    t0 = time.perf_counter()
+    res = Sc.run_sweep(Sc.mega_grid(), n_stores=N_STORES)
+    wall = time.perf_counter() - t0
+    stream = serving_stream(Sc)
+    S.clear_sim_caches()
+    served = serve_stream(torch, E, sv, ops, stream, Sc.mega_grid(), None)
+    return {"mega_results": res, "mega_wall_s": wall, "stream": stream,
+            "answers": served.pop("answers"), "serving": served}
 
 
 #: phase 20: training. The backward kernel's shapes, (name, B, Sq, Skv, H,
@@ -5148,20 +5420,35 @@ def phase_ranks_multi(torch, fa, ssd, one_losses) -> dict:
         "wall_s": time.perf_counter() - t0}}
 
 
-def multi_card_only(torch, fa, ssd) -> int:
-    """``--multi-card-only``: phase 20's training on card 0 without a
-    group (the reference losses), then phase 23(c) alone."""
+def multi_card_only(torch, fa, ssd, which: str, sim) -> int:
+    """``--multi-card-only``: for ``"ranks"``, phase 20's training on
+    card 0 without a group (the reference losses), then phase 23(c)
+    alone; for ``"cells"``, phases 4 and 13 on card 0 (the reference),
+    then phase 24(e) alone; ``"all"`` runs both."""
     check(torch.cuda.device_count() > 1,
           f"--multi-card-only: {torch.cuda.device_count()} cards, needs 2+")
-    print("phase 20 (the reference of phase 23(c)): qwen3-0.6b trained on "
-          "card 0 without a group")
-    one, _ = train_qwen3(torch, fa, ssd, None)
-    gc.collect()
-    torch.cuda.empty_cache()
-    out = phase_ranks_multi(torch, fa, ssd, one["losses"])
-    print(json.dumps({"reference": {
-        "losses": one["losses"],
-        "step_ms_median": one["step_ms_median_2_6"]}, **out}))
+    if which in ("all", "cells"):
+        S, E, Sc, sv, chaos, ops = sim
+        check(torch.cuda.device_count() >= CELLS_SHARDS,
+              f"phase 24(e): {torch.cuda.device_count()} cards, needs "
+              f"{CELLS_SHARDS}")
+        ref = cells_reference(torch, S, E, Sc, sv, ops)
+        cells = phase_cells(torch, S, E, Sc, sv, chaos, ops, ref)
+        print(json.dumps({"cells": {
+            "reference_mega_wall_s": ref["mega_wall_s"],
+            "reference_serving": ref["serving"], **cells}}))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if which in ("all", "ranks"):
+        print("phase 20 (the reference of phase 23(c)): qwen3-0.6b trained "
+              "on card 0 without a group")
+        one, _ = train_qwen3(torch, fa, ssd, None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = phase_ranks_multi(torch, fa, ssd, one["losses"])
+        print(json.dumps({"reference": {
+            "losses": one["losses"],
+            "step_ms_median": one["step_ms_median_2_6"]}, **out}))
     print(f"card: {card_line()}")
     return 0
 
@@ -5206,10 +5493,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", help="also write the measured numbers "
                     "as JSON to this path")
-    ap.add_argument("--multi-card-only", action="store_true",
-                    help="with more than one card: build the kernels, "
-                    "train phase 20's qwen3-0.6b on card 0 for the "
-                    "reference losses and run phase 23(c) alone")
+    ap.add_argument("--multi-card-only", nargs="?", const="all",
+                    choices=("all", "ranks", "cells"),
+                    help="with more than one card: build the kernels, then "
+                    "'ranks': train phase 20's qwen3-0.6b on card 0 for the "
+                    "reference losses and run phase 23(c) alone; 'cells': "
+                    "run phases 4 and 13 on card 0 for the reference and "
+                    "phase 24(e) alone; 'all' (the default): both")
     args = ap.parse_args(argv)
 
     import torch
@@ -5308,7 +5598,8 @@ def main(argv=None) -> int:
     print(f"  ssd_scan_bwd instantiations with a spill, (store, load) bytes: "
           f"{build['ssd_scan_bwd_spills']}")
     if args.multi_card_only:
-        return multi_card_only(torch, fa, ssd)
+        return multi_card_only(torch, fa, ssd, args.multi_card_only,
+                               (S, E, Sc, sv, chaos, ops))
     err2 = phase_kernel_vs_plain(torch, S, Sc, ops, ref)
     fig10 = phase_fig10(torch, S, E, Sc, C, ops, ref)
     mega = phase_mega(torch, S, E, Sc, T, ops, ref)
@@ -5334,6 +5625,13 @@ def main(argv=None) -> int:
     served_sc = phase_serving(torch, S, E, Sc, sv, kernel, ops, mega_res)
     resil = phase_resilience(torch, S, E, Sc, chaos, serve_scenarios, ops,
                              mega_res)
+    cells = phase_cells(torch, S, E, Sc, sv, chaos, ops, {
+        "mega_results": mega_res, "mega_wall_s": mega["wall_s"],
+        "stream": serving_stream(Sc), "answers": served_sc.pop("answers"),
+        "serving": served_sc})
+    cells_launches = cells["repeated"]["launches"] + (
+        cells["multi_card"]["launches"]
+        if isinstance(cells["multi_card"], dict) else 0)
     del mega_res
     S.clear_sim_caches()
     served_moe = phase_serve_moe(torch, serve_mod, fa, ssd, attn, moe)
@@ -5365,7 +5663,8 @@ def main(argv=None) -> int:
                      + routes["launches"]["stacked"]["bank_scan"]
                      + routes["launches"]["banked"]["bank_scan"]
                      + mega_st["launches"] + mega_st["banked_launches"]
-                     + served_sc["launches"] + resil["launches"]),
+                     + served_sc["launches"] + resil["launches"]
+                     + cells_launches),
         "max_abs_err": max(err2, fig10["max_abs_err"], mega["max_abs_err"]),
         "ms": mega["kernel_ms"], "plain_ms": mega["plain_ms"],
         "bound_ms": mega["bound_ms"], "bound_by": mega["bound_by"],
@@ -5390,6 +5689,10 @@ def main(argv=None) -> int:
              "launches": served_sc["launches"]},
             {"path": "resilience: 4-shard runs, recoveries, launcher",
              "launches": resil["launches"]},
+            {"path": "cells shards one placement each (phase 24): the "
+                     "mega-grid banked and stacked, the service, a lost "
+                     "shard, the degraded finish; 4 launches a tile",
+             "launches": cells_launches},
         ],
     }
     st_entry = {
@@ -5614,6 +5917,7 @@ def main(argv=None) -> int:
                        "serve": served, "timeline_max_abs_err": err10,
                        "fig10_routes": routes, "mega_stacked": mega_st,
                        "serving": served_sc, "resilience": resil,
+                       "cells": cells,
                        "serve_moe": served_moe, "cut_configs": cut,
                        "ycsb": ycsb, "serve_whisper": whisper,
                        "serve_vlm": vlm, "train": train,

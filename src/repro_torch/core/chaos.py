@@ -31,11 +31,16 @@ it simulates, with the same three ingredients:
   new ones) or finish on one shard fewer with a replicated bank
   (``distributed.elastic.cells_degraded_shards``).
 
-On one card the shards are logical: the ``(n_shards, k * rows,
-n_stores)`` stacks lie contiguous on the device, and a "lost" shard is
-a block whose contents are no longer trusted. The recovered results are
-``==`` to the fault-free run and to the JAX package's: rebuilt rows
-carry the same bits and the scan is IEEE add and max only.
+A placed bank is either ONE placement, the tuple ``(arrivals, w, v,
+pr_nc)`` -- the ``(n_shards, k * rows, n_stores)`` stacks of the logical
+shards contiguous on one device, a "lost" shard a block whose contents
+are no longer trusted -- or a tuple of such tuples, one placement per
+shard (``distributed.context.cells_devices``): placement ``s`` holds
+shard ``s``'s own ``(1, k * rows, n_stores)`` stacks, and a lost shard
+is a placement whose tensors are gone. Every function here takes either
+form. The recovered results are ``==`` to the fault-free run and to the
+JAX package's: rebuilt rows carry the same bits and the scan is IEEE
+add and max only.
 """
 
 from __future__ import annotations
@@ -249,10 +254,14 @@ class ChaosState:
         exactly the partial-corruption case row digests exist for).
         Fires once; returns ``dev`` untouched otherwise.
 
-        The ``w`` plane is cloned on its own device and the one row is
-        changed in the clone, so a memoized clean placement (the
-        simulated durable dump) is never poisoned and nothing crosses
-        to the host."""
+        The ``w`` plane holding the row is cloned on its own device and
+        the one row is changed in the clone, so a memoized clean
+        placement (the simulated durable dump) is never poisoned and
+        nothing crosses to the host. Over placements the sub layout's
+        row lives on placement ``r % n_shards``; the replicated layout's
+        row is changed in every placement's copy (one logical row, as in
+        the JAX package's replicated array; its ``tamper_bank`` is
+        ``src/repro/core/chaos.py:249``)."""
         r = self.cfg.corrupt_wv_row
         with self._lock:
             fire = (r is not None and not self._corrupted
@@ -263,13 +272,20 @@ class ChaosState:
                 self._note("corrupt_row", r)
         if not fire:
             return dev
-        a, w, v, p = dev
-        w = w.clone()
-        if w.dim() == 3:            # sub stack (n_shards, k*local, S)
-            w[r % n_shards, r // n_shards] += 1.0
-        else:                       # replicated (rows, S)
-            w[r] += 1.0
-        return (a, w, v, p)
+        parts = list(placements(dev))
+        sub = parts[0][1].dim() == 3
+        for i, (a, w, v, p) in enumerate(parts):
+            if sub and len(parts) > 1 and i != r % n_shards:
+                continue
+            w = w.clone()
+            if not sub:                 # replicated (rows, S)
+                w[r] += 1.0
+            elif len(parts) == 1:       # sub stack (n_shards, k*local, S)
+                w[r % n_shards, r // n_shards] += 1.0
+            else:                       # shard i's stack (1, k*local, S)
+                w[0, r // n_shards] += 1.0
+            parts[i] = (a, w, v, p)
+        return parts[0] if is_one_placement(dev) else tuple(parts)
 
     def note_detection(self, rows: Sequence[int]) -> None:
         with self._lock:
@@ -362,39 +378,78 @@ def row_digest(row: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(row).tobytes())
 
 
+def is_one_placement(dev: tuple) -> bool:
+    """``dev`` is one placement's ``(arrivals, w, v, pr_nc)``, not a
+    tuple of per-shard placements."""
+    return isinstance(dev[0], torch.Tensor)
+
+
+def placements(dev: tuple) -> tuple:
+    """The per-placement ``(arrivals, w, v, pr_nc)`` tuples of a placed
+    bank (one for a single placement; a lost placement is ``None``)."""
+    return (dev,) if is_one_placement(dev) else tuple(dev)
+
+
+def _locate(r: int, n_shards: int, local_cap: int,
+            block: int) -> Tuple[int, int]:
+    """``(shard, local row)`` of global wv row ``r``'s copy in replica
+    ``block``: shard ``(r % n_shards + block) % n_shards``, local index
+    ``block * local_cap + r // n_shards``."""
+    return ((r % n_shards + block) % n_shards,
+            block * local_cap + r // n_shards)
+
+
 def _flat_rows(plane: torch.Tensor, rows: Sequence[int], n_shards: int,
                local_cap: int, block: int) -> List[int]:
-    """Row indices into ``plane`` viewed as ``(-1, n_stores)`` of the
-    copies of global wv ``rows`` in replica ``block``: row ``r`` itself
-    on the 2-D replicated layout; on the sub stack, shard ``(r %
-    n_shards + block) % n_shards`` at local index ``block * local_cap +
-    r // n_shards``."""
+    """Row indices into one placement's ``plane`` viewed as ``(-1,
+    n_stores)`` of the copies of global wv ``rows`` in replica
+    ``block``: row ``r`` itself on the 2-D replicated layout; on the sub
+    stack, shard ``(r % n_shards + block) % n_shards`` at local index
+    ``block * local_cap + r // n_shards``."""
     if plane.dim() == 2:
         return list(rows)
     width = plane.shape[1]
-    return [((r % n_shards + block) % n_shards) * width
-            + block * local_cap + r // n_shards for r in rows]
+    return [sh * width + loc for sh, loc in
+            (_locate(r, n_shards, local_cap, block) for r in rows)]
 
 
 def _read_rows(dev: tuple, rows: Sequence[int], n_shards: int,
                local_cap: int, block: int
                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """``(w, v, pr_nc)`` host copies of ``rows``' copies in ``block``:
-    one gather and one device->host copy per plane."""
-    _, w, v, p = dev
-    idx = torch.tensor(_flat_rows(w, rows, n_shards, local_cap, block),
-                       dtype=torch.long, device=w.device)
-    return tuple(x.reshape(-1, x.shape[-1]).index_select(0, idx).cpu()
-                 .numpy() for x in (w, v, p))
+    one gather and one device->host copy per plane and placement read.
+    Over placements a sub-layout copy is read from the placement of its
+    shard, a replicated row from placement 0 (the JAX package reads its
+    global arrays, ``src/repro/core/chaos.py:369-416``)."""
+    parts = placements(dev)
+    if len(parts) == 1 or parts[0][1].dim() == 2:
+        _, w, v, p = parts[0]
+        idx = torch.tensor(_flat_rows(w, rows, n_shards, local_cap, block),
+                           dtype=torch.long, device=w.device)
+        return tuple(x.reshape(-1, x.shape[-1]).index_select(0, idx).cpu()
+                     .numpy() for x in (w, v, p))
+    locs = [_locate(r, n_shards, local_cap, block) for r in rows]
+    out = []
+    for plane in (1, 2, 3):
+        got: List[Optional[np.ndarray]] = [None] * len(rows)
+        for sh in sorted({sh for sh, _ in locs}):
+            sel = [i for i, (s, _) in enumerate(locs) if s == sh]
+            x = parts[sh][plane]
+            idx = torch.tensor([locs[i][1] for i in sel], dtype=torch.long,
+                               device=x.device)
+            for i, row in zip(sel, x[0].index_select(0, idx).cpu().numpy()):
+                got[i] = row
+        out.append(np.stack(got))
+    return tuple(out)
 
 
 def fetch_wv_row(dev: tuple, r: int, *, n_shards: int,
                  local_cap: int = 0, block: int = 0
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Read global wv row ``r``'s ``(w, v, pr_nc)`` bytes back from a
-    placed bank ``(arrivals, w, v, pr_nc)``. On the sub-bank layout
-    replica ``block`` ``j`` of owner ``r % n_shards`` lives in shard
-    ``(r % n_shards + j) % n_shards``'s block at local index ``j *
+    placed bank (one placement or one per shard). On the sub-bank
+    layout replica ``block`` ``j`` of owner ``r % n_shards`` lives in
+    shard ``(r % n_shards + j) % n_shards``'s block at local index ``j *
     local_cap + r // n_shards``; the replicated 2-D layout indexes row
     ``r`` directly."""
     return tuple(x[0] for x in _read_rows(dev, [r], n_shards, local_cap,
@@ -432,19 +487,28 @@ def owned_rows(lost: int, n_shards: int, wv_rows: int) -> List[int]:
     return list(range(lost, wv_rows, n_shards))
 
 
+def replica_source(lost: int, n_shards: int) -> int:
+    """The shard whose replica block 1 holds lost shard ``lost``'s rows:
+    ``(lost + 1) % n_shards``, never ``lost`` itself."""
+    return (lost + 1) % n_shards
+
+
 def replica_rebuild(dev: tuple, lost: int, *, n_shards: int,
                     k_replicas: int, local_cap: int, wv_rows: int
                     ) -> Dict[str, np.ndarray]:
     """Rebuild the lost shard's wv rows from the SURVIVING replica
     block: with ``k_replicas >= 2`` row ``r``'s second copy lives in
-    shard ``(r % n + 1) % n``'s replica block 1, a different shard by
-    construction, so losing one shard never loses a row. The lost
-    shard's rows sit there in global-row order at local indices
-    ``[local_cap, local_cap + len(rows))``, so each plane is read back
-    as ONE ``(rows, n_stores)`` slice of the survivor -- nothing of the
-    lost shard's own blocks is read. Returns ``{"w", "v", "pr_nc"}``
-    host arrays, the exact bits :func:`verify_rebuild` then digests
-    against the host truth."""
+    shard ``(r % n + 1) % n``'s replica block 1
+    (:func:`replica_source`), a different shard by construction, so
+    losing one shard never loses a row. The lost shard's rows sit there
+    in global-row order at local indices ``[local_cap, local_cap +
+    len(rows))``, so each plane is read back as ONE ``(rows, n_stores)``
+    slice of the survivor -- its block of the one placement's stacks, or
+    its own placement -- and nothing of the lost shard is read (over
+    placements the lost one may already be freed). Returns ``{"w", "v",
+    "pr_nc"}`` host arrays, the exact bits :func:`verify_rebuild` then
+    digests against the host truth. The JAX package's
+    ``replica_rebuild`` is ``src/repro/core/chaos.py:419``."""
     if k_replicas < 2:
         raise ValueError("replica rebuild needs k_replicas >= 2")
     if n_shards < 2:
@@ -454,10 +518,15 @@ def replica_rebuild(dev: tuple, lost: int, *, n_shards: int,
         if not m:
             return {k: np.zeros((0,), np.float32)
                     for k in ("w", "v", "pr_nc")}
-        survivor = (lost + 1) % n_shards
-        _, w, v, p = dev
-        return {name: x[survivor, local_cap:local_cap + m].cpu().numpy()
-                for name, x in (("w", w), ("v", v), ("pr_nc", p))}
+        survivor = replica_source(lost, n_shards)
+        parts = placements(dev)
+        if len(parts) == 1:
+            _, w, v, p = parts[0]
+            planes = tuple(x[survivor:survivor + 1] for x in (w, v, p))
+        else:
+            planes = parts[survivor][1:]
+        return {name: x[0, local_cap:local_cap + m].cpu().numpy()
+                for name, x in zip(("w", "v", "pr_nc"), planes)}
 
 
 def journal_rebuild(bank, lost: int, n_shards: int) -> Dict[str, np.ndarray]:

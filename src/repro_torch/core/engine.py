@@ -1,4 +1,4 @@
-"""Streaming mega-grid engine (the tier above ``simulate_batch``), one card.
+"""Streaming mega-grid engine (the tier above ``simulate_batch``).
 
 ``simulate_batch`` runs a whole grid as ONE banked scan: right up to a
 few thousand cells. A mega-grid (>10^4 cells -- the full (workload x
@@ -23,18 +23,25 @@ seeds) is streamed through this tier instead:
    the measured baseline) ships every cell's five per-store arrays,
    stacked cell-major on the host; its tile program collapses them on
    the device and scans them with the same kernel, one launch per tile.
-4. **Logical shards on one card.** ``n_shards`` partitions the banked
-   plane the way the JAX package partitions it over a ``cells`` mesh.
-   ``bank_partition="sub"`` (the default) places the per-shard sub-bank
-   stacks ``(n_shards, k * local_rows, n_stores)`` contiguous on the
-   card -- wv row ``r`` owned by shard ``r % n_shards`` at local row
-   ``r // n_shards`` -- and schedules every lane into its owner's slot
-   block (``plan_tiles(owners=...)``). The tile program gathers from the
-   flat view ``(n_shards * k * local_rows, n_stores)``; the host writes
-   each slot's flat row ``owner * k * local_rows + local`` into the index
-   vector, so each tile stays one kernel launch at any shard count.
-   ``"replicated"`` keeps ONE copy of the plain columns on the card and
-   lanes in cell blocks. Both gather the same bits.
+4. **Shards on one placement or one placement each.** ``n_shards``
+   partitions the banked plane the way the JAX package partitions it
+   over a ``cells`` mesh, and ``devices``
+   (:func:`~repro_torch.distributed.context.cells_devices`) says where
+   the shards lie. ``bank_partition="sub"`` (the default) gives wv row
+   ``r`` to shard ``r % n_shards`` at local row ``r // n_shards`` and
+   schedules every lane into its owner's slot block
+   (``plan_tiles(owners=...)``). On ONE placement (the default) the
+   per-shard stacks ``(n_shards, k * local_rows, n_stores)`` lie
+   contiguous on the device, the host writes each slot's flat row
+   ``owner * k * local_rows + local`` into the index vector, and a tile
+   is one kernel launch at any shard count. On ``n_shards`` placements
+   -- the JAX layout, ``devices[s]`` holding shard ``s``'s ``(1, k *
+   local_rows, n_stores)`` stacks and a copy of the arrivals -- a tile's
+   index vectors split into the shards' slot blocks, each with its local
+   rows, and the tile is one launch per placement, all launched before
+   any is drained. ``"replicated"`` keeps one copy of the plain columns
+   per placement and lanes in cell blocks. Every layout gathers the
+   same bits.
 5. **Double-buffered streaming.** A prefetch thread prepares tile k+1's
    host payload while tile k is launched; launches run ahead of the
    device by at most :data:`MAX_IN_FLIGHT_TILES` tiles before the oldest
@@ -58,6 +65,7 @@ on every ``SimResult`` field but ``meta``, at every shard count.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -102,6 +110,7 @@ from repro_torch.core.simulator import (
     sub_key,
 )
 from repro_torch.device import resolve_device
+from repro_torch.distributed.context import cells_devices
 from repro_torch.kernels.bank_scan import bank_scan
 from repro_torch.kernels.bank_scan import kernel as _bank_scan_kernel
 
@@ -201,7 +210,7 @@ class TileSignature:
     ``b_pad`` is the canonical padded lane count, ``chunk`` the
     blocked-scan block length (reported, no result depends on it),
     ``sb_uniform`` the tile's SB depth, ``sb_max`` its padded ring width,
-    ``n_shards`` the logical shard count, ``data_plane`` the input plane,
+    ``n_shards`` the shard count, ``data_plane`` the input plane,
     ``bank_shape`` the ``(trace_rows, wv_rows)`` of the grid's bank --
     under ``bank_sub`` the second entry is the local axis of one shard's
     stack, ``k_replicas * local_rows`` -- and ``bank_sub`` the per-shard
@@ -349,12 +358,13 @@ def bank_stats() -> Dict[str, object]:
     ``scan_lanes`` (unique timelines scanned), ``tiles``, ``trace_rows``
     / ``wv_rows`` / ``bank_rows`` (deduplicated bank columns),
     ``bank_bytes`` (host bytes of one bank copy), ``bank_dev_bytes``
-    (**measured** bytes of the placed tensors) and
-    ``bank_dev_bytes_per_shard`` (the most on one device: on one card,
-    the same number), ``h2d_bytes`` (bytes that crossed host->device
-    this run: the bank iff it was not already resident, plus every
-    tile's index vectors), ``bank_fabric_bytes`` (device-to-device
-    copies: 0, one card), ``stacked_h2d_bytes`` (what a stacked
+    (**measured** bytes of the placed tensors, summed over placements)
+    and ``bank_dev_bytes_per_shard`` (the most on one placement: on one
+    placement, the same number), ``h2d_bytes`` (bytes that crossed
+    host->device this run: the bank iff it was not already resident,
+    plus every tile's index vectors), ``bank_fabric_bytes``
+    (device-to-device copies between placements: 0 on one placement),
+    ``placements`` (1, or ``n_shards``), ``stacked_h2d_bytes`` (what a stacked
     per-cell plane would ship), ``dedup_ratio`` (their ratio),
     ``dev_mem_hwm_bytes`` (resident bank plus the in-flight tiles'
     payloads at their peak), ``k_replicas`` (replica blocks of the sub
@@ -365,17 +375,22 @@ def bank_stats() -> Dict[str, object]:
 
 
 def _build_bank_tile_fn(sig: TileSignature) -> Callable:
-    """Banked tile program: one bank-scan launch over the
-    device-resident bank for the tile's two index vectors.
+    """Banked tile program: one bank-scan launch over one placement's
+    device-resident bank for its two index vectors. The engine calls it
+    once per placement of a tile: once on one placement, once per shard
+    over ``n_shards`` placements (the JAX package's ``shard_map`` over
+    the ``cells`` mesh, ``src/repro/core/engine.py:527``; the axis
+    runs no collectives, so neither does the port).
 
     ``sig.bank_sub`` selects the per-shard sub-bank layout: the three
-    max-plus planes arrive stacked ``(n_shards, k * local_rows,
-    n_stores)``, contiguous on the card, and the program gathers from
-    their flat view ``(n_shards * k * local_rows, n_stores)`` -- the wv
-    indices are already flat rows (``owner * k * local_rows + local``,
-    written by the host). Gathering a flat row moves the identical bits
-    the global gather would, so both layouts are ``==`` at any shard
-    count, and a tile is one launch either way."""
+    max-plus planes arrive stacked ``(shards, k * local_rows,
+    n_stores)`` -- every shard's on one placement, a shard's own ``(1,
+    ...)`` on its placement -- and the program gathers from their flat
+    view ``(shards * k * local_rows, n_stores)``; the host has written
+    each wv index as a row of that view (``owner * k * local_rows +
+    local`` on one placement, ``local`` on a shard's own). Gathering a
+    flat row moves the identical bits the global gather would, so every
+    layout is ``==`` at any shard count."""
     global _TRACE_COUNT
     _TRACE_COUNT += 1
 
@@ -392,12 +407,13 @@ def _build_bank_tile_fn(sig: TileSignature) -> Callable:
 
 def _build_tile_fn(sig: TileSignature) -> Callable:
     """The tile program of ``sig``: the banked one, or the stacked one --
-    the tile's cell-major arrays collapsed into max-plus rows on the
-    device (:func:`~repro_torch.core.simulator._blocked_precompute`),
-    then one bank-scan launch with lane ``b`` reading row ``b``. The
-    tile is SB-uniform, so ``sb_size`` is not read. Logical shards
-    partition the lanes only, so the stacked program does not depend on
-    ``n_shards``."""
+    one placement's block of the tile's cell-major arrays collapsed into
+    max-plus rows on its device
+    (:func:`~repro_torch.core.simulator._blocked_precompute`), then one
+    bank-scan launch with lane ``b`` reading row ``b``. The tile is
+    SB-uniform, so ``sb_size`` is not read. Shards partition the lanes
+    only (cell blocks, as the JAX package's ``tile_shardings`` do), so
+    the stacked program does not depend on ``n_shards``."""
     if sig.data_plane == "bank":
         return _build_bank_tile_fn(sig)
     global _TRACE_COUNT
@@ -407,7 +423,7 @@ def _build_tile_fn(sig: TileSignature) -> Callable:
             sb_size, t_l1, t_wt):
         w, v, pr_nc = _blocked_precompute(coalesce, exposed, t_repl_i,
                                           svc_i, config_idx, t_l1, t_wt)
-        lanes = torch.arange(sig.b_pad, dtype=torch.int32,
+        lanes = torch.arange(arrivals.shape[0], dtype=torch.int32,
                              device=arrivals.device)
         return bank_scan(arrivals, w, v, pr_nc, lanes, lanes,
                          chunk=sig.chunk, sb=sig.sb_uniform)
@@ -475,6 +491,61 @@ def _place_tile(np_args: tuple, dev: torch.device) -> tuple:
     return tuple(torch.from_numpy(x).to(dev) for x in np_args)
 
 
+def _place_blocks(np_args: tuple, placements: Sequence[torch.device]
+                  ) -> List[tuple]:
+    """One tile's host arrays placed block by block: placement ``d``
+    gets rows ``[d * b, (d + 1) * b)`` of every array, ``b = b_pad /
+    len(placements)`` -- its shard's slot block of the index vectors, or
+    its cell block of the stacked arrays (the JAX package places the
+    tile cell-sharded, ``src/repro/core/engine.py:591-605``). One
+    placement gets the whole tile."""
+    if len(placements) == 1:
+        return [_place_tile(np_args, placements[0])]
+    b = np_args[0].shape[0] // len(placements)
+    return [_place_tile(tuple(x[d * b:(d + 1) * b] for x in np_args), dev)
+            for d, dev in enumerate(placements)]
+
+
+def _on_card(dev: torch.device):
+    """Make ``dev`` the current CUDA device around one placement's
+    launches (a no-op on the CPU)."""
+    if dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def launch_tile(sig: "TileSignature", placed: Sequence[tuple],
+                placements: Sequence[torch.device],
+                bank_parts: Optional[Sequence[tuple]] = None,
+                costs: Optional[Tuple[float, float]] = None) -> List[tuple]:
+    """Launch ``sig``'s program once on every placement -- against
+    placement ``d``'s resident bank (``bank_parts[d]``) or its stacked
+    block (with ``costs = (t_l1, t_wt)``) -- before any is drained, so
+    the placements' devices run at once (the JAX package's one
+    ``shard_map`` call over the ``cells`` mesh,
+    ``src/repro/core/engine.py:1225-1227``). Returns the per-placement
+    output triples, in slot order."""
+    fn = _tile_fn(sig)
+    outs = []
+    for d, dev in enumerate(placements):
+        with _on_card(dev):
+            outs.append(fn(*bank_parts[d], *placed[d])
+                        if bank_parts is not None
+                        else fn(*placed[d], *costs))
+    return outs
+
+
+def drain_tile(outs: Sequence[tuple]) -> Tuple[np.ndarray, ...]:
+    """Wait for a launched tile's per-placement outputs (``.cpu()``,
+    placement by placement, after all were launched) and join them in
+    slot order: ``(exec_ns, at_head, sb_full)`` -- the JAX package's
+    drain of a cells-sharded output (``src/repro/core/engine.py:983-988``)."""
+    host = [[o.cpu().numpy() for o in out] for out in outs]
+    if len(host) == 1:
+        return tuple(host[0])
+    return tuple(np.concatenate(cols) for cols in zip(*host))
+
+
 def _stacked_tile_bytes(sig: TileSignature) -> int:
     """Host bytes of one stacked tile's payload (5 per-store arrays at
     17 B per cell-store + the two per-cell i32 vectors)."""
@@ -505,41 +576,58 @@ def _stacked_plane_h2d(specs: Sequence[ScenarioSpec],
     return total
 
 
-def _device_bytes(arrays: Sequence[torch.Tensor]) -> int:
-    """Resident bytes of ``arrays``, measured from the tensors. Every
-    logical shard lies on the one card, so this is also the most bytes
-    on one device (``bank_dev_bytes_per_shard``)."""
-    return sum(t.numel() * t.element_size() for t in arrays)
+def _placement_bytes(parts: Sequence[Optional[tuple]]) -> Tuple[int, int]:
+    """``(total, most on one placement)`` resident bytes of a placed
+    bank's per-placement tensors, measured from the tensors (a freed
+    placement holds none) -- the JAX package's
+    ``_measured_device_bytes`` (``src/repro/core/engine.py:675-691``)
+    per placement. On one placement the two agree."""
+    per = [sum(t.numel() * t.element_size() for t in p) if p is not None
+           else 0 for p in parts]
+    return (sum(per), max(per)) if per else (0, 0)
 
 
 def _build_programs(sigs: Sequence[TileSignature],
-                    dev: torch.device) -> None:
-    """Build the tile program of every signature and, on a CUDA device,
-    load the bank-scan kernel library (``nvcc`` at its first use), so
-    neither waits on the timed path. Launches nothing."""
+                    placements: Sequence[torch.device]) -> None:
+    """Build the tile program of every signature and, with a CUDA
+    placement, load the bank-scan kernel library (``nvcc`` at its first
+    use) and bring up the context of every card of the placements, so
+    none of it waits on the timed path. Launches nothing. Runs on the
+    compile-warm thread, as the JAX package's warm calls do
+    (``src/repro/core/engine.py:1031-1043``)."""
     for sig in sigs:
         _tile_fn(sig)
-    if dev.type == "cuda":
+    cards = list(dict.fromkeys(d for d in placements if d.type == "cuda"))
+    if cards:
         _bank_scan_kernel.load()
+    for d in cards:
+        torch.empty(1, device=d)
 
 
 def warm_signatures(sigs: List[TileSignature], t_l1, t_wt,
                     bank_dev: Optional[tuple] = None,
-                    device=None) -> None:
+                    device=None, devices=None) -> None:
     """Build every tile program of ``sigs`` and launch each once on
-    ``device`` (``None`` means CUDA) with zero inputs, so the first live
-    call builds and loads nothing. Public: the scenario-serving daemon's
+    every placement with zero inputs, so the first live call builds and
+    loads nothing and no card sees its first launch there. Public: the
+    scenario-serving daemon's
     :meth:`~repro_torch.core.serving.ScenarioServer.warm` calls it
-    against its own resident bank. Banked programs run on ``bank_dev``
-    with zero index vectors (row 0 is a valid gather target in every
-    layout); stacked ones on zero tiles."""
-    dev = resolve_device(device)
-    _build_programs(sigs, dev)
+    against its own resident bank. The placements are ``devices`` (one
+    per shard; ``bank_dev`` then holds one placed bank per placement)
+    or else ``device`` (``None`` means CUDA). Banked programs run on
+    ``bank_dev`` with zero index vectors (row 0 is a valid gather target
+    in every layout); stacked ones on zero tiles. The JAX package's
+    ``warm_signatures`` is ``src/repro/core/engine.py:694``."""
+    placements = (tuple(resolve_device(d) for d in devices)
+                  if devices is not None else (resolve_device(device),))
+    _build_programs(sigs, placements)
+    parts = (bank_dev,) if len(placements) == 1 else bank_dev
     for sig in sigs:
         if sig.data_plane == "bank":
             idx = (np.zeros((sig.b_pad,), np.int32),
                    np.zeros((sig.b_pad,), np.int32))
-            _tile_fn(sig)(*bank_dev, *_place_tile(idx, dev))
+            launch_tile(sig, _place_blocks(idx, placements), placements,
+                        bank_parts=parts)
             continue
         args = (np.zeros((sig.b_pad, sig.n_stores), np.float32),
                 np.zeros((sig.b_pad, sig.n_stores), bool),
@@ -548,7 +636,8 @@ def warm_signatures(sigs: List[TileSignature], t_l1, t_wt,
                 np.zeros((sig.b_pad, sig.n_stores), np.float32),
                 np.zeros((sig.b_pad,), np.int32),
                 np.full((sig.b_pad,), sig.sb_uniform, np.int32))
-        _tile_fn(sig)(*_place_tile(args, dev), t_l1, t_wt)
+        launch_tile(sig, _place_blocks(args, placements), placements,
+                    costs=(t_l1, t_wt))
 
 
 # ---------------------------------------------------------------------------
@@ -565,18 +654,27 @@ def run_grid(specs: Sequence[ScenarioSpec],
              bank_partition: Optional[str] = None,
              k_replicas: Optional[int] = None,
              worker_timeout_s: Optional[float] = None,
-             device=None) -> List[SimResult]:
-    """Stream a (mega-)grid through the tile engine on ``device``.
+             device=None, devices=None) -> List[SimResult]:
+    """Stream a (mega-)grid through the tile engine.
 
     ``device=None`` means CUDA (raises without one). Results come back
     in ``specs`` order, ``==`` to ``simulate_batch``, to the serial
-    oracle and to the JAX package on every field but ``meta``.
-    ``chunk_size=None`` uses the
+    oracle and to the JAX package at the same ``n_shards`` on every
+    field but ``meta``. ``chunk_size=None`` uses the
     :func:`~repro_torch.core.simulator.auto_chunk` pick per SB group;
     ``tile_cells`` defaults to the :data:`DEFAULT_TILE_BYTES` budget.
-    ``n_shards`` (default 1: the JAX package's default is every local
-    device, and the port runs on one card) is the number of logical
-    shards; ``n_shards < 1`` raises ``ValueError``. ``data_plane`` is
+    ``n_shards`` (default 1) is the number of ``cells`` shards;
+    ``n_shards < 1`` raises ``ValueError``. ``devices`` places them
+    (:func:`~repro_torch.distributed.context.cells_devices`): ``None``
+    (the default) or one device keeps every shard on one placement,
+    ``device``, and a tile is one launch; ``n_shards`` devices put shard
+    ``s`` on ``devices[s]``, the JAX package's layout
+    (``src/repro/core/engine.py:843-851``, whose default is every local
+    device; the port's default pins one launch a tile), and a tile is
+    one launch per placement over ``b_pad / n_shards`` lanes; another
+    length raises ``ValueError``. The four byte keys of
+    :func:`bank_stats` and ``meta["bank_fabric_bytes"]`` are then ``==``
+    the JAX package's at the same ``n_shards``. ``data_plane`` is
     ``"bank"`` (default: the device-resident bank, index-vector tiles
     over unique scan lanes) or ``"stacked"`` (every cell's arrays
     shipped in cell-major tiles, the measured baseline);
@@ -602,12 +700,23 @@ def run_grid(specs: Sequence[ScenarioSpec],
     worker threads and recovers in place: in-flight tiles are cancelled,
     the lost shard's rows are rebuilt from the surviving replica block
     (or the bank's Logging-Unit journal), digest-verified against the
-    host truth, and the bank is re-placed at the same shapes -- zero new
-    tile programs, results ``==``. ``ChaosConfig(recovery="degraded")``
-    instead finishes the unfinished cells on one shard fewer with the
-    bank replicated (one new program per SB group).
+    host truth, and re-placed at the same shapes -- zero new tile
+    programs, results ``==``. On one placement the bank is placed
+    again; over placements the lost placement's tensors are freed
+    first, the rebuild reads only the survivor's placement, and only the
+    lost placement is placed again (a spare), so the byte keys then
+    count one placement where the JAX package, which places the whole
+    bank again, counts all. ``ChaosConfig(recovery="degraded")`` instead
+    finishes the unfinished cells on one shard fewer with the bank
+    replicated (one new program per SB group): over placements on the
+    surviving ones, the lost one dropped, where the JAX package takes
+    its first ``n - 1`` devices -- the results are ``==`` either way.
     """
-    dev = resolve_device(device)
+    if n_shards is None:
+        n_shards = 1
+    placements = cells_devices(n_shards, devices, device)
+    dev = placements[0]
+    multi = len(placements) > 1
     if not specs:
         return []
     if chunk_size is not None and chunk_size < 1:
@@ -624,10 +733,6 @@ def run_grid(specs: Sequence[ScenarioSpec],
         raise ValueError("k_replicas > 1 applies to the sub-partitioned "
                          f"bank plane only (got plane={plane!r}, "
                          f"partition={partition!r})")
-    if n_shards is None:
-        n_shards = 1
-    if n_shards < 1:
-        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
     for s in specs:
         s.validate(cluster)
 
@@ -635,7 +740,8 @@ def run_grid(specs: Sequence[ScenarioSpec],
                    tile_cells=tile_cells or _default_tile_cells(n_stores),
                    n_shards=n_shards)
     bank: Optional[TraceBank] = None
-    bank_dev: tuple = ()
+    # one placed (arrivals, w, v, pr_nc) per placement
+    bank_parts: tuple = ()
     sub = False
     k_eff = 1
     local_rows = 0
@@ -689,17 +795,22 @@ def run_grid(specs: Sequence[ScenarioSpec],
     else:
         stacked_h2d = sum(_stacked_tile_bytes(t.sig) for t in tiles)
     h2d_bytes = sum(tile_payload_bytes(t.sig) for t in tiles)
-    live_bytes = hwm_bytes = bank_dev_bytes = 0
-    # one slot block of a sub-bank tile = one shard's k_eff blocks
-    wv_stride = k_eff * local_rows
+    live_bytes = hwm_bytes = bank_dev_bytes = bank_dev_per = 0
+    fabric_bytes = 0
+    # one slot block of a sub-bank tile = one shard's k_eff blocks, at
+    # its flat rows on one placement, at its local rows on its own
+    wv_stride = 0 if multi else k_eff * local_rows
 
     def prep_banked(tile: Tile):
         """Prefetch-thread work for one banked tile: the two padded int32
         row-index vectors, plus the prepared member cells of each lane
         (the scatter targets). A sub-bank tile's wv entry is the flat
-        row ``owner * k * local_rows + local`` of its lane, at its
-        :attr:`Tile.slots` position. Unfilled slots stay 0 -- row 0 is a
-        valid gather target and padding outputs are discarded."""
+        row ``owner * k * local_rows + local`` of its lane on one
+        placement, the local row ``wv_row // n_shards`` on its shard's
+        own (the JAX package's ``prep_banked``,
+        ``src/repro/core/engine.py:941-966``), at its :attr:`Tile.slots`
+        position. Unfilled slots stay 0 -- row 0 is a valid gather
+        target and padding outputs are discarded."""
         trace_idx = np.zeros(tile.sig.b_pad, np.int32)
         wv_idx = np.zeros(tile.sig.b_pad, np.int32)
         slots = tile.slots if tile.slots is not None \
@@ -733,7 +844,7 @@ def run_grid(specs: Sequence[ScenarioSpec],
         nonlocal live_bytes
         kt, tile, groups, outs = entry
         with _tm.span("tile/drain", tile=kt):
-            exec_ns, at_head, sb_full = (o.cpu().numpy() for o in outs)
+            exec_ns, at_head, sb_full = drain_tile(outs)
         live_bytes -= tile_payload_bytes(tile.sig)
         slots = tile.slots if tile.slots is not None \
             else range(len(tile.indices))
@@ -750,7 +861,7 @@ def run_grid(specs: Sequence[ScenarioSpec],
                                            else None),
                         "bank_rows": bank.n_rows if bank is not None else 0,
                         "h2d_bytes": h2d_bytes,
-                        "bank_fabric_bytes": 0}
+                        "bank_fabric_bytes": fabric_bytes}
                 results[i] = _finish_result(cell, exec_ns[pos],
                                             int(at_head[pos]),
                                             int(sb_full[pos]), meta=meta)
@@ -781,7 +892,7 @@ def run_grid(specs: Sequence[ScenarioSpec],
             st.on_thread("warm")
         try:
             with _tm.span("compile/warm", signatures=len(sigs)):
-                _build_programs(sigs, dev)
+                _build_programs(sigs, placements)
         except ChaosError:
             raise
         except Exception as e:
@@ -824,57 +935,92 @@ def run_grid(specs: Sequence[ScenarioSpec],
         if st is None or not st.wants_verify() or bank is None:
             return
         rows = sorted({bank.rows_for(sp)[1] for sp in tile.specs})
-        _chaos.verify_rows(bank, bank_dev, rows[:VERIFY_ROWS_PER_TILE],
+        _chaos.verify_rows(bank, bank_parts, rows[:VERIFY_ROWS_PER_TILE],
                            n_shards=n_shards if sub else 1,
                            local_cap=local_rows if sub else 0,
                            where="tile gather sample")
 
     def bank_place_key():
-        return sub_key(n_shards, k_eff, dev) if sub else columns_key(dev)
+        return (sub_key(n_shards, k_eff, placements) if sub
+                else columns_key(placements))
 
     def place_bank_now() -> None:
-        """Place the bank on ``dev`` (memoized on the bank): the sub
-        stacks of ``TraceBank.sub_bank_host`` with ``k_eff`` replica
-        blocks, contiguous on the card, or ONE copy of the plain columns
-        (``"replicated"``, whatever the shard count)."""
-        nonlocal bank_dev, h2d_bytes, bank_dev_bytes
+        """Place the bank (memoized on the bank): the sub stacks of
+        ``TraceBank.sub_bank_host`` with ``k_eff`` replica blocks --
+        contiguous on one placement, a shard's own on each of
+        ``n_shards`` -- or one copy of the plain columns per placement
+        (``"replicated"``); the JAX package's ``_place_sub_bank`` /
+        ``_place_bank`` (``src/repro/core/engine.py:608-672``)."""
+        nonlocal bank_parts, h2d_bytes, fabric_bytes
         with _tm.span("bank/place", rows=bank.n_rows):
             if sub:
-                fresh, bank_dev = _retried(
-                    lambda: bank.sub_device_args(n_shards, device=dev,
-                                                 k_replicas=k_eff,
-                                                 on_upload=_h2d_hook),
+                fresh, fabric, bank_parts = _retried(
+                    lambda: bank.placed_sub(n_shards, placements,
+                                            k_replicas=k_eff,
+                                            on_upload=_h2d_hook),
                     "bank placement")
             else:
-                fresh, bank_dev = _retried(
-                    lambda: bank.device_args(device=dev,
-                                             on_upload=_h2d_hook),
+                fresh, fabric, bank_parts = _retried(
+                    lambda: bank.placed_columns(placements,
+                                                on_upload=_h2d_hook),
                     "bank placement")
         h2d_bytes += fresh
-        bank_dev_bytes = _device_bytes(bank_dev)
+        fabric_bytes += fabric
+        measure_bank()
+
+    def measure_bank() -> None:
+        nonlocal bank_dev_bytes, bank_dev_per
+        bank_dev_bytes, bank_dev_per = _placement_bytes(bank_parts)
+
+    def respare(lost: int, rebuilt) -> None:
+        """Place the lost shard again on its own placement (a spare),
+        its primary rows from ``rebuilt`` -- the other placements keep
+        theirs."""
+        nonlocal bank_parts, h2d_bytes, fabric_bytes
+        fresh, fabric, bank_parts = _retried(
+            lambda: bank.respare_sub(n_shards, placements, k_eff, lost,
+                                     rebuilt, on_upload=_h2d_hook),
+            "spare placement")
+        h2d_bytes += fresh
+        fabric_bytes += fabric
+        measure_bank()
+
+    def free_lost(lost: int) -> None:
+        """A lost placement's memory is gone: drop its tensors from the
+        run and from the bank's memo before anything is rebuilt."""
+        nonlocal bank_parts
+        bank.free_placement(bank_place_key(), lost)
+        bank_parts = bank_parts[:lost] + (None,) + bank_parts[lost + 1:]
+        measure_bank()
 
     def recover(err: Exception) -> None:
         """Spare-replacement recovery: rebuild the lost rows from the
         surviving replica block (or the Logging-Unit journal),
-        digest-verify the rebuild against the host truth, drop the stale
-        placement and re-place -- same shapes, so every tile program
-        still hits (zero new programs)."""
-        nonlocal bank_dev
+        digest-verify the rebuild against the host truth, then place
+        again -- the whole bank on one placement, only the lost
+        placement (freed before the rebuild) over several -- at the same
+        shapes, so every tile program still hits (zero new programs).
+        The JAX package's ``recover`` is
+        ``src/repro/core/engine.py:1118-1159``."""
         t0 = time.monotonic()
         lost = err.shard if isinstance(err, ShardLossError) else None
         if lost is not None:
-            # spare replacement: the shard count is unchanged (a spare
-            # takes the lost shard's place) -- validated by the elastic
-            # policy the trainer tier shares
+            # spare replacement: the shard count and placements are
+            # unchanged (a spare takes the lost shard's place) --
+            # validated by the elastic policy the trainer tier shares
             from repro_torch.distributed.elastic import \
                 cells_spare_replacement
-            cells_spare_replacement(n_shards, lost)
+            cells_spare_replacement(n_shards, lost, placements)
+        spare = multi and bank is not None and sub and lost is not None
+        if spare:
+            free_lost(lost)
         source = "redispatch"
+        rebuilt = None
         if bank is not None and sub and lost is not None:
             with _tm.span("recover/rebuild", shard=lost):
                 if k_eff >= 2:
                     rebuilt = _chaos.replica_rebuild(
-                        bank_dev, lost, n_shards=n_shards,
+                        bank_parts, lost, n_shards=n_shards,
                         k_replicas=k_eff, local_cap=local_rows,
                         wv_rows=bank.wv_rows)
                     source = "replica"
@@ -890,8 +1036,11 @@ def run_grid(specs: Sequence[ScenarioSpec],
             source = "host"
         if bank is not None:
             with _tm.span("recover/replace", source=source):
-                bank.drop_placement(bank_place_key())
-                place_bank_now()
+                if spare:
+                    respare(lost, rebuilt)
+                else:
+                    bank.drop_placement(bank_place_key())
+                    place_bank_now()
         if st is not None:
             st.note_recovery(source, (time.monotonic() - t0) * 1e3,
                              lost, "spare")
@@ -909,16 +1058,24 @@ def run_grid(specs: Sequence[ScenarioSpec],
         if plane == "bank":
             with _tm.span("bank/build", cells=len(specs)):
                 bank = get_trace_bank(specs, n_stores, cluster)
+            if sub:
+                # the memoized bank may have grown past this grid's rows
+                # (a server extends it in place): its stacks are as wide
+                # as its own rows, and the lanes' flat rows and replica
+                # offsets follow them
+                local_rows = sub_bank_rows(bank.wv_rows, n_shards)
+                wv_stride = 0 if multi else k_eff * local_rows
             place_bank_now()
             if st is not None:
                 # chaos row corruption lands on the DEVICE copy only (the
                 # host columns stay the truth the digests and rebuilds
                 # verify against)
-                bank_dev = st.tamper_bank(
-                    bank_dev, n_shards=n_shards,
+                bank_parts = _chaos.placements(st.tamper_bank(
+                    bank_parts if multi else bank_parts[0],
+                    n_shards=n_shards,
                     k_replicas=k_eff if sub else 1,
                     local_cap=local_rows if sub else 0,
-                    wv_rows=bank.wv_rows)
+                    wv_rows=bank.wv_rows))
             live_bytes = hwm_bytes = bank_dev_bytes
         while not all(done):
             pending = [k for k, d in enumerate(done) if not d]
@@ -943,7 +1100,7 @@ def run_grid(specs: Sequence[ScenarioSpec],
 
                     def place_dispatch(args=np_args, sig=tile.sig):
                         _h2d_hook(tile_payload_bytes(sig))
-                        return _place_tile(args, dev)
+                        return _place_blocks(args, placements)
 
                     with _tm.span("tile/h2d", tile=kt):
                         placed = _retried(place_dispatch,
@@ -958,11 +1115,14 @@ def run_grid(specs: Sequence[ScenarioSpec],
                     redispatch_pending = False
                     with _tm.span(dispatch_span, tile=kt):
                         if plane == "bank":
-                            outs = _tile_fn(tile.sig)(*bank_dev, *placed)
+                            outs = launch_tile(tile.sig, placed,
+                                               placements,
+                                               bank_parts=bank_parts)
                         else:
-                            outs = _tile_fn(tile.sig)(*placed,
-                                                      costs["t_l1"],
-                                                      costs["t_wt"])
+                            outs = launch_tile(tile.sig, placed,
+                                               placements,
+                                               costs=(costs["t_l1"],
+                                                      costs["t_wt"]))
                     in_flight.append((kt, tile, groups, outs))
                     _tm.gauge("engine/in_flight_tiles", len(in_flight))
                     _tm.gauge("engine/prefetch_queue_depth",
@@ -1010,16 +1170,21 @@ def run_grid(specs: Sequence[ScenarioSpec],
 
     if degraded_from is not None:
         # no spare: finish the unfinished cells on one shard fewer with
-        # the bank replicated -- new programs, but no spare needed
+        # the bank replicated -- new programs, but no spare needed; over
+        # placements the lost one is freed and dropped
         from repro_torch.distributed.elastic import cells_degraded_shards
         t0 = time.monotonic()
+        if multi:
+            free_lost(degraded_from)
+        n_left, survivors = cells_degraded_shards(n_shards, placements,
+                                                  degraded_from)
         left = [i for i, r in enumerate(results) if r is None]
         sub_res = run_grid([specs[i] for i in left], cluster=cluster,
                            n_stores=n_stores, chunk_size=chunk_size,
-                           tile_cells=tile_cells,
-                           n_shards=cells_degraded_shards(n_shards),
+                           tile_cells=tile_cells, n_shards=n_left,
                            data_plane="bank",
-                           bank_partition="replicated", device=dev)
+                           bank_partition="replicated", device=dev,
+                           devices=survivors)
         for i, r in zip(left, sub_res):
             results[i] = r
         st.note_recovery("degraded-mesh", (time.monotonic() - t0) * 1e3,
@@ -1035,10 +1200,11 @@ def run_grid(specs: Sequence[ScenarioSpec],
         "wv_rows": bank.wv_rows if bank is not None else 0,
         "bank_rows": bank.n_rows if bank is not None else 0,
         "bank_bytes": bank.nbytes if bank is not None else 0,
-        "bank_dev_bytes_per_shard": bank_dev_bytes,
+        "bank_dev_bytes_per_shard": bank_dev_per,
         "bank_dev_bytes": bank_dev_bytes,
         "h2d_bytes": h2d_bytes,
-        "bank_fabric_bytes": 0,
+        "bank_fabric_bytes": fabric_bytes,
+        "placements": len(placements),
         "stacked_h2d_bytes": stacked_h2d,
         "dedup_ratio": stacked_h2d / max(h2d_bytes, 1),
         "dev_mem_hwm_bytes": hwm_bytes,
@@ -1073,7 +1239,7 @@ def simulate_grid(specs: Sequence[ScenarioSpec],
                   bank_partition: Optional[str] = None,
                   k_replicas: Optional[int] = None,
                   worker_timeout_s: Optional[float] = None,
-                  device=None) -> List[SimResult]:
+                  device=None, devices=None) -> List[SimResult]:
     """Run a scenario grid on the right engine tier, on ``device``.
 
     ``engine``:
@@ -1089,11 +1255,21 @@ def simulate_grid(specs: Sequence[ScenarioSpec],
     ``data_plane`` (blocked and stream tiers) selects the columnar bank
     (default) or the stacked per-cell-copies baseline; ``n_shards``,
     ``bank_partition``, ``k_replicas`` and ``worker_timeout_s`` (stream
-    tier only) pass through to :func:`run_grid`. ``device=None`` means
-    CUDA (raises without one). All tiers return ``==`` results in
-    ``specs`` order; ``SimResult.meta`` records what actually ran.
+    tier only) pass through to :func:`run_grid`, and so does ``devices``
+    (the placements of the shards,
+    :func:`~repro_torch.distributed.context.cells_devices`; checked on
+    every tier). Below the stream tier a grid runs on one device --
+    ``device``, or the first placement -- as the JAX package runs its
+    one-shot batch on its default device. ``device=None`` means CUDA
+    (raises without one). All tiers return ``==`` results in ``specs``
+    order; ``SimResult.meta`` records what actually ran.
     """
-    dev = resolve_device(device)
+    if devices is not None:
+        placements = cells_devices(n_shards or 1, devices, device)
+        dev = resolve_device(device) if device is not None \
+            else placements[0]
+    else:
+        dev = resolve_device(device)
     if engine == "auto":
         engine = "stream" if len(specs) >= STREAM_THRESHOLD else "blocked"
     if bank_partition is not None and engine != "stream":
@@ -1125,5 +1301,6 @@ def simulate_grid(specs: Sequence[ScenarioSpec],
                         n_shards=n_shards, data_plane=data_plane,
                         bank_partition=bank_partition,
                         k_replicas=k_replicas,
-                        worker_timeout_s=worker_timeout_s, device=dev)
+                        worker_timeout_s=worker_timeout_s, device=dev,
+                        devices=devices)
     raise ValueError(f"unknown engine {engine!r}")

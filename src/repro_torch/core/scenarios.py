@@ -239,8 +239,11 @@ def run_sweep(specs: Sequence[ScenarioSpec],
     streaming tier for mega-grids (>=
     ``repro_torch.core.engine.STREAM_THRESHOLD`` cells); ``engine=``
     forces a tier and ``engine_kw`` passes tile / data-plane knobs
-    through. ``device=None`` means CUDA (raises without one). Results
-    are in ``specs`` order and ``==`` across tiers.
+    through -- ``n_shards`` and ``devices`` (one placement per shard,
+    :func:`~repro_torch.distributed.context.cells_devices`) reach the
+    streaming tier; below it the one-shot batch runs on one device.
+    ``device=None`` means CUDA (raises without one). Results are in
+    ``specs`` order and ``==`` across tiers.
 
     Both tiers resolve the grid's columnar
     :class:`~repro_torch.core.simulator.TraceBank` through one

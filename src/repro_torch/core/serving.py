@@ -72,6 +72,14 @@ them) and host memos (rebuilt on demand), but never the server's bank
 handle or lane cache -- answers stay ``==`` throughout. The daemon and
 watchdog threads place on the server's own device explicitly: a new
 thread does not inherit its caller's current CUDA device.
+
+The shards lie on one placement (the default: the stacks contiguous on
+one device, one launch a tile) or on one placement each (``devices``,
+the JAX package's layout, ``src/repro/core/serving.py:203-206`` and
+``:354-372``): placement ``s`` holds shard ``s``'s capacity stacks and a
+copy of the arrivals, a tile's index vectors split into the shards'
+slot blocks, and a flush launches its tile once per placement before
+draining any.
 """
 
 from __future__ import annotations
@@ -83,8 +91,6 @@ import time
 from collections import OrderedDict, deque
 from concurrent.futures import Future
 from typing import Deque, Dict, List, Optional, Sequence, Set, Tuple
-
-import contextlib
 
 import numpy as np
 import torch
@@ -105,9 +111,10 @@ from repro_torch.core.simulator import (
     _plane_keys,
     _prepare_cell,
     _trace_cached,
+    fill_sub_shard,
     get_trace_bank,
 )
-from repro_torch.device import resolve_device
+from repro_torch.distributed.context import cells_devices
 
 #: Device-bank rows are padded up to the next multiple of this (with at
 #: least one full spare block of headroom), so appending a novel
@@ -148,12 +155,18 @@ class ScenarioServer:
     ``batch_window_ms``. Every protocol answer is ``==`` on every
     ``SimResult`` field but ``meta`` to the cold
     ``simulate_grid``/``simulate_spec`` oracle for the same spec and to
-    the JAX package's server -- the server only ever reorganizes *which
-    tile program computes which lane when*, never the arithmetic.
+    the JAX package's server at the same ``n_shards`` -- the server only
+    ever reorganizes *which tile program computes which lane when*,
+    never the arithmetic.
 
     ``device=None`` means CUDA (raises without one; ``device="cpu"``
-    runs the plain versions); the resolved ``torch.device`` is kept in
-    :attr:`device` and every placement and thread uses it.
+    runs the plain versions). ``devices`` places the shards
+    (:func:`~repro_torch.distributed.context.cells_devices`): ``None``
+    (the default) or one device keeps them all on one placement,
+    ``device``; ``n_shards`` devices put shard ``s`` on ``devices[s]``
+    (entries may repeat). The placements are kept in
+    :attr:`placements`, the first in :attr:`device`, and every placement
+    and thread uses them.
     ``batch_cells`` is the canonical serve-tile size (every flush pads
     to it -- one program per store-buffer depth); ``row_pad`` the
     device-bank capacity quantum (:data:`SERVE_ROW_PAD`; the wv capacity
@@ -200,10 +213,10 @@ class ScenarioServer:
                  k_replicas: Optional[int] = None,
                  submit_timeout_ms: Optional[float] = None,
                  watchdog_ms: Optional[float] = None,
-                 device=None):
-        self.device = resolve_device(device)
-        if n_shards < 1:
-            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+                 device=None, devices=None):
+        self.placements = cells_devices(n_shards, devices, device)
+        self.device = self.placements[0]
+        self._multi = len(self.placements) > 1
         if batch_cells < 1:
             raise ValueError(f"batch_cells must be >= 1, got {batch_cells}")
         if row_pad < 1:
@@ -238,7 +251,9 @@ class ScenarioServer:
         # serve state (all guarded by _lock)
         self._lock = threading.RLock()
         self._bank = None                               # TraceBank handle
-        self._dev: Optional[tuple] = None               # capacity tensors
+        # capacity tensors: one (arrivals, w, v, pr_nc), or one such
+        # tuple per placement
+        self._dev: Optional[tuple] = None
         self._cap: Tuple[int, int] = (0, 0)             # (trace, LOCAL wv)
         self._dev_rows: Tuple[int, int] = (0, 0)        # real rows resident
         # lane key -> (exec_ns, at_head, sb_full, representative spec);
@@ -352,13 +367,29 @@ class ScenarioServer:
         self._stats["appended_trace_rows"] += nt
         self._stats["appended_wv_rows"] += nw
 
-    def _place(self, host: tuple) -> tuple:
-        """Host arrays as tensors of the server's own on its device --
-        always a copy, even on the CPU, so a later in-place splice never
-        writes into a host array or a ``TraceBank`` placement."""
+    def _place(self, host: tuple, device=None) -> tuple:
+        """Host arrays as tensors of the server's own on ``device`` (its
+        first placement by default) -- always a copy, even on the CPU,
+        so a later in-place splice never writes into a host array or a
+        ``TraceBank`` placement."""
         _engine._h2d_hook(sum(int(x.nbytes) for x in host))
         return tuple(torch.from_numpy(np.ascontiguousarray(x))
-                     .to(self.device, copy=True) for x in host)
+                     .to(device or self.device, copy=True) for x in host)
+
+    def _place_parts(self, a_host: np.ndarray, subs: tuple) -> tuple:
+        """The capacity bank over placements: the arrivals cross to the
+        first placement once and are copied device to device to the
+        others, and placement ``s`` receives only shard ``s``'s ``(1,
+        ...)`` slice of each stack from the host (the JAX package's
+        ``_place_rows`` / ``_place_sub``,
+        ``src/repro/core/serving.py:354-372``)."""
+        a0 = self._place((a_host,))[0]
+        _engine._h2d_hook(sum(int(x.nbytes) for x in subs))
+        return tuple(
+            (a0 if s == 0 else a0.to(d, copy=True),)
+            + tuple(torch.from_numpy(np.ascontiguousarray(x[s:s + 1]))
+                    .to(d, copy=True) for x in subs)
+            for s, d in enumerate(self.placements))
 
     def _sub_stack(self, col: np.ndarray, cap: int) -> np.ndarray:
         """Host sub-bank stack of ``col`` at local capacity ``cap``:
@@ -376,16 +407,8 @@ class ScenarioServer:
         out = np.zeros((n, self.k_replicas * cap) + col.shape[1:],
                        col.dtype)
         for s in range(n):
-            for j in range(self.k_replicas):
-                rows = col[(s - j) % n::n]
-                out[s, j * cap:j * cap + rows.shape[0]] = rows
+            fill_sub_shard(out[s], col, s, n, self.k_replicas, cap)
         return out
-
-    def _splice(self, dev: torch.Tensor, rows: np.ndarray, r0: int) -> None:
-        """Copy ``rows`` into the capacity tensor ``dev`` at row ``r0``,
-        in place (the only host->device bytes are ``rows`` itself; the
-        surrounding capacity rows never recross the link)."""
-        dev[r0:r0 + rows.shape[0]].copy_(self._place((rows,))[0])
 
     def _sub_window(self, col: np.ndarray, lo: int, hi: int,
                     p: int) -> np.ndarray:
@@ -423,17 +446,22 @@ class ScenarioServer:
             subs = (self._sub_stack(bank.w, cap[1]),
                     self._sub_stack(bank.v, cap[1]),
                     self._sub_stack(bank.pr_nc, cap[1]))
-            self._dev = self._place((a_host,)) + self._place(subs)
+            self._dev = (self._place_parts(a_host, subs) if self._multi
+                         else self._place((a_host,)) + self._place(subs))
             self._cap = cap
             self._dev_rows = (t, p)
             self._stats["bank_uploads"] += 1
             self._tamper()
             return int(a_host.nbytes) + sum(int(x.nbytes) for x in subs)
         h2d = 0
-        a, w, v, pnc = self._dev
+        parts = self._parts()
         t0, p0 = self._dev_rows
         if t > t0:
-            self._splice(a, bank.arrivals[t0:t], t0)
+            # one host crossing to the first placement, copied device to
+            # device to the others
+            rows = self._place((bank.arrivals[t0:t],))[0]
+            for part in parts:
+                part[0][t0:t].copy_(rows)
             h2d += int(bank.arrivals[t0:t].nbytes)
         if p > p0:
             # local rows touched by global rows [p0, p): splice the
@@ -452,8 +480,13 @@ class ScenarioServer:
                     np.ascontiguousarray(np.roll(d, j, axis=0))
                     for d in win0)
                 o = j * self._cap[1]
-                for dst, d in zip((w, v, pnc), self._place(deltas)):
-                    dst[:, o + lo:o + hi].copy_(d)
+                # over placements each receives its own shard's window
+                _engine._h2d_hook(sum(int(d.nbytes) for d in deltas))
+                for s, part in enumerate(parts):
+                    for dst, d in zip(part[1:], deltas):
+                        d = d[s:s + 1] if self._multi else d
+                        dst[:, o + lo:o + hi].copy_(torch.from_numpy(
+                            np.ascontiguousarray(d)).to(dst.device))
                 h2d += sum(int(d.nbytes) for d in deltas)
         if h2d:
             self._dev_rows = (t, p)
@@ -500,13 +533,17 @@ class ScenarioServer:
 
     def _scan_lanes(self, miss: Dict[tuple, ScenarioSpec]) -> int:
         """Scan every miss lane once through ``engine.tile_fn`` (one
-        kernel launch per tile) and cache its raw outputs. A lane's wv
+        kernel launch per tile and placement, every placement launched
+        before any is drained) and cache its raw outputs. A lane's wv
         entry is its flat row ``owner * k * capacity + local`` in the
-        contiguous stacks. Returns the index-vector h2d bytes."""
+        contiguous stacks of one placement, its local row ``wv_row //
+        n_shards`` in its shard's own (the JAX package's
+        ``_scan_lanes``, ``src/repro/core/serving.py:519``). Returns the
+        index-vector h2d bytes."""
         lane_keys = list(miss)
         bank = self._bank
         n = self.n_shards
-        stride = self.k_replicas * self._cap[1]
+        stride = 0 if self._multi else self.k_replicas * self._cap[1]
         st = _chaos.active()
         h2d = 0
         for tile, sig in self._serve_sigs([miss[k] for k in lane_keys]):
@@ -517,7 +554,7 @@ class ScenarioServer:
             for s, pos in zip(tile.specs, slots):
                 tr, wr = bank.rows_for(s)
                 trace_idx[pos] = tr
-                wv_idx[pos] = (wr % n) * stride + wr // n   # flat row
+                wv_idx[pos] = (wr % n) * stride + wr // n
             idx = (trace_idx, wv_idx)
             h2d += idx[0].nbytes + idx[1].nbytes
             if st is not None:
@@ -535,18 +572,22 @@ class ScenarioServer:
 
             def place(args=idx):
                 _engine._h2d_hook(args[0].nbytes + args[1].nbytes)
-                return _engine._place_tile(args, self.device)
+                return _engine._place_blocks(args, self.placements)
 
-            out = _engine.tile_fn(sig)(*self._dev,
-                                       *_engine._retried(
-                                           place, "serve tile placement"))
-            exec_ns, at_head, sb_full = (o.cpu().numpy() for o in out)
+            outs = _engine.launch_tile(
+                sig, _engine._retried(place, "serve tile placement"),
+                self.placements, bank_parts=self._parts())
+            exec_ns, at_head, sb_full = _engine.drain_tile(outs)
             for i, pos in zip(tile.indices, slots):
                 key = lane_keys[i]
                 self._lanes[key] = (exec_ns[pos], int(at_head[pos]),
                                     int(sb_full[pos]), miss[key])
             self._sigs.add(sig)
         return h2d
+
+    def _parts(self) -> tuple:
+        """The capacity bank's per-placement tuples."""
+        return self._dev if self._multi else (self._dev,)
 
     def _evict(self) -> None:
         """LRU-bound the serve state (end of every flush, under _lock):
@@ -581,10 +622,17 @@ class ScenarioServer:
         digest-verify them against the host truth, then drop ONLY the
         device placement -- capacity is KEPT, so the next
         :meth:`_sync_device` re-places identical shapes and signatures
-        and post-recovery serving builds zero new programs."""
+        and post-recovery serving builds zero new programs. Over
+        placements the lost placement's tensors are freed first, the
+        rebuild reads only the survivor's placement, and only the lost
+        placement is placed again, at the same capacity (a spare:
+        :meth:`_respare`). The JAX package's ``_recover`` is
+        ``src/repro/core/serving.py:591``."""
         t0 = time.monotonic()
         lost = err.shard if isinstance(err, ShardLossError) else None
+        spare = self._multi and lost is not None and self._dev is not None
         source = "replace"
+        rebuilt = None
         with _tm.span("recover", error=type(err).__name__):
             with _tm.span("recover/detect", error=type(err).__name__):
                 _tm.count("chaos/faults_detected")
@@ -594,7 +642,12 @@ class ScenarioServer:
                 # shared with run_grid
                 from repro_torch.distributed.elastic import \
                     cells_spare_replacement
-                cells_spare_replacement(self.n_shards, lost)
+                cells_spare_replacement(self.n_shards, lost,
+                                        self.placements)
+                if spare:
+                    # a lost card's memory is gone
+                    self._dev = self._dev[:lost] + (None,) \
+                        + self._dev[lost + 1:]
                 with _tm.span("recover/rebuild", shard=lost):
                     if self.k_replicas >= 2 and self._dev is not None:
                         rebuilt = _chaos.replica_rebuild(
@@ -614,16 +667,43 @@ class ScenarioServer:
                         _chaos.verify_rebuild(self._bank, rebuilt, lost,
                                               self.n_shards)
             with _tm.span("recover/replace", source=source):
-                # drop only the placement; the next _sync_device
-                # re-places identical shapes (the re-place leg)
-                self._dev = None
-                self._dev_rows = (0, 0)
+                if spare:
+                    self._respare(lost, rebuilt)
+                else:
+                    # drop only the placement; the next _sync_device
+                    # re-places identical shapes (the re-place leg)
+                    self._dev = None
+                    self._dev_rows = (0, 0)
         ms = (time.monotonic() - t0) * 1e3
         self._stats["recoveries"] += 1
         self._stats["recovery_ms"] += ms
         st = _chaos.active()
         if st is not None:
             st.note_recovery(source, ms, lost, "spare")
+
+    def _respare(self, lost: int, rebuilt) -> None:
+        """Place shard ``lost`` again on its own placement at the
+        resident capacity: block 0 from ``rebuilt`` (its verified rows;
+        ``None`` takes the host bank's), the replica blocks from the host
+        bank, the arrivals copied device to device from the survivor's
+        placement. The other placements are not touched (the JAX
+        package places the whole bank again at its next sync,
+        ``src/repro/core/serving.py:591``)."""
+        bank, n, cap = self._bank, self.n_shards, self._cap[1]
+        p = self._dev_rows[1]
+        stacks = tuple(
+            fill_sub_shard(np.zeros((self.k_replicas * cap,)
+                                    + col.shape[1:], col.dtype),
+                           col[:p], lost, n, self.k_replicas, cap,
+                           None if rebuilt is None else rebuilt[name])[None]
+            for name, col in (("w", bank.w), ("v", bank.v),
+                              ("pr_nc", bank.pr_nc)))
+        dev = self.placements[lost]
+        src = self._dev[_chaos.replica_source(lost, n)][0]
+        spare = (src.to(dev, copy=True),) + self._place(stacks, dev)
+        self._dev = self._dev[:lost] + (spare,) + self._dev[lost + 1:]
+        self._stats["h2d_bytes"] += sum(int(x.nbytes) for x in stacks)
+        self._tamper()
 
     # -- synchronous serving ----------------------------------------------
 
@@ -776,7 +856,8 @@ class ScenarioServer:
             costs = _commit_cost_ns("proactive", self.cluster)
             compiled0 = _engine.trace_count()
             _engine.warm_signatures(sigs, costs["t_l1"], costs["t_wt"],
-                                    bank_dev=self._dev, device=self.device)
+                                    bank_dev=self._dev, device=self.device,
+                                    devices=self.placements)
             self._sigs.update(sigs)
             self._stats["compiled_programs"] += \
                 _engine.trace_count() - compiled0
@@ -832,11 +913,11 @@ class ScenarioServer:
             self._watchdog.start()
 
     def _on_device(self):
-        """Make the server's device current in this thread (a thread
-        starts on CUDA device 0 whatever its creator's device was)."""
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
+        """Make the server's first placement current in this thread (a
+        thread starts on CUDA device 0 whatever its creator's device
+        was); each placement's launches make their own card current
+        around them (``engine.launch_tile``)."""
+        return _engine._on_card(self.device)
 
     def _serve_loop(self) -> None:
         with self._on_device():
@@ -994,7 +1075,8 @@ class ScenarioServer:
         is measured against -- ``bank_capacity`` as ``(trace rows,
         per-shard local wv rows)``, and MEASURED resident device bytes
         ``bank_dev_bytes`` / ``bank_dev_bytes_per_shard`` summed from
-        the live capacity tensors -- one card, so the two agree), the
+        the live capacity tensors, in all and the most on one placement
+        -- on one placement the two agree), the
         LRU counters
         (``lane_evictions`` / ``bank_compactions``), and ``pending``
         queue depth.
@@ -1020,9 +1102,10 @@ class ScenarioServer:
             st["k_replicas"] = self.k_replicas
             st["journal_entries"] = (self._bank.journal_entries
                                      if self._bank is not None else 0)
-            nbytes = _engine._device_bytes(
-                self._dev if self._dev is not None else ())
-            st["bank_dev_bytes"] = st["bank_dev_bytes_per_shard"] = nbytes
+            total, per = _engine._placement_bytes(
+                self._parts() if self._dev is not None else ())
+            st["bank_dev_bytes"] = total
+            st["bank_dev_bytes_per_shard"] = per
         with self._cond:
             st["pending"] = len(self._queue)
             st.update(copy.deepcopy(self._wd_stats))

@@ -708,14 +708,55 @@ def _place(host: tuple, device: torch.device) -> tuple:
                  for x in host)
 
 
-def columns_key(device: torch.device) -> tuple:
-    """Placement-memo key of a bank's plain columns on ``device``."""
-    return ("columns", str(device))
+def _place_own(host: tuple, device: torch.device) -> tuple:
+    """Host numpy arrays as tensors on ``device`` that own their memory,
+    even on the CPU: placements of one layout never alias each other or
+    the host columns, so losing (freeing, poisoning) one placement
+    touches nothing else."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(x))
+                 .to(device, copy=True) for x in host)
 
 
-def sub_key(n_shards: int, k_replicas: int, device: torch.device) -> tuple:
-    """Placement-memo key of a bank's sub-bank stacks on ``device``."""
-    return ("sub", n_shards, k_replicas, str(device))
+def placement_key(device) -> object:
+    """Memo-key component of a placement: one device (or a one-entry
+    sequence) keys as its name, several placements as the tuple of
+    theirs -- so the layouts of one bank over one card and over several
+    placements (even repeated ones) never collide."""
+    if isinstance(device, (tuple, list)):
+        if len(device) == 1:
+            return str(device[0])
+        return tuple(str(d) for d in device)
+    return str(device)
+
+
+def columns_key(device) -> tuple:
+    """Placement-memo key of a bank's plain columns on ``device`` (one
+    device, or a tuple of placements)."""
+    return ("columns", placement_key(device))
+
+
+def sub_key(n_shards: int, k_replicas: int, device) -> tuple:
+    """Placement-memo key of a bank's sub-bank stacks on ``device`` (one
+    device, or a tuple of placements)."""
+    return ("sub", n_shards, k_replicas, placement_key(device))
+
+
+def fill_sub_shard(out: np.ndarray, col: np.ndarray, shard: int,
+                   n_shards: int, k_replicas: int, cap: int,
+                   primary: Optional[np.ndarray] = None) -> np.ndarray:
+    """Write shard ``shard``'s local axis of the sub-bank layout into
+    ``out`` (``(k_replicas * cap, ...)``, zeroed): block ``j`` (local
+    rows ``[j * cap, (j + 1) * cap)``) holds the rows of ``col`` owned
+    by shard ``(shard - j) % n_shards``, i.e. ``col[(shard - j) %
+    n_shards::n_shards]``, from its start. ``primary`` replaces block
+    0's rows (the same rows, e.g. read back from a surviving replica and
+    digest-verified). Returns ``out``. The layout is the JAX package's
+    ``TraceBank.sub_bank_host`` (``src/repro/core/simulator.py:915``)."""
+    for j in range(k_replicas):
+        rows = primary if j == 0 and primary is not None \
+            else col[(shard - j) % n_shards::n_shards]
+        out[j * cap:j * cap + rows.shape[0]] = rows
+    return out
 
 
 @dataclasses.dataclass
@@ -878,9 +919,7 @@ class TraceBank:
             out = np.zeros((n_shards, k_replicas * p_loc) + col.shape[1:],
                            col.dtype)
             for s in range(n_shards):
-                for j in range(k_replicas):
-                    rows = col[(s - j) % n_shards::n_shards]
-                    out[s, j * p_loc:j * p_loc + rows.shape[0]] = rows
+                fill_sub_shard(out[s], col, s, n_shards, k_replicas, p_loc)
             return out
 
         return self.arrivals, sub(self.w), sub(self.v), sub(self.pr_nc)
@@ -921,6 +960,133 @@ class TraceBank:
         be served from the memo -- the next ``device_args`` /
         ``sub_device_args`` call re-places from the host truth."""
         self._device.pop(key, None)
+
+    def placed_columns(self, devices: Sequence[torch.device],
+                       on_upload: Optional[Callable[[int], None]] = None
+                       ) -> Tuple[int, int, tuple]:
+        """The plain columns on every placement of ``devices``: the
+        ``replicated`` partition, ONE copy per placement. Returns
+        ``(h2d_bytes, fabric_bytes, parts)``, ``parts`` holding one
+        ``(arrivals, w, v, pr_nc)`` tuple per placement.
+
+        One placement is :meth:`device_args` (its memo and diff path).
+        Over several, the host columns cross to ``devices[0]`` once (the
+        ``h2d_bytes``) and the other placements copy them device to
+        device (the ``fabric_bytes``), as the JAX package stages its
+        replicated bank (``src/repro/core/engine.py:608-633``); every
+        copy owns its memory. Memoized per :func:`columns_key` of the
+        placement tuple; a bank grown since the placement is placed
+        again whole. ``on_upload(nbytes)`` runs just before any host
+        bytes cross."""
+        if len(devices) == 1:
+            nbytes, dev = self.device_args(devices[0], on_upload)
+            return nbytes, 0, (dev,)
+        mkey = columns_key(devices)
+        rows_now = (self.trace_rows, self.wv_rows)
+        entry = self._device.get(mkey)
+        if entry is not None and entry[0] == rows_now \
+                and all(p is not None for p in entry[1]):
+            return 0, 0, entry[1]
+        host = (self.arrivals, self.w, self.v, self.pr_nc)
+        if on_upload is not None:
+            on_upload(self.nbytes)
+        first = _place_own(host, devices[0])
+        parts = (first,) + tuple(tuple(t.to(d, copy=True) for t in first)
+                                 for d in devices[1:])
+        self._device[mkey] = (rows_now, parts)
+        return self.nbytes, self.nbytes * (len(devices) - 1), parts
+
+    def placed_sub(self, n_shards: int, devices: Sequence[torch.device],
+                   k_replicas: int = 1,
+                   on_upload: Optional[Callable[[int], None]] = None
+                   ) -> Tuple[int, int, tuple]:
+        """The :meth:`sub_bank_host` layout over placements: returns
+        ``(h2d_bytes, fabric_bytes, parts)``, ``parts`` holding one
+        ``(arrivals, w, v, pr_nc)`` tuple per placement.
+
+        One placement is :meth:`sub_device_args` (the ``(n_shards, k *
+        local_rows, n_stores)`` stacks contiguous on it). Over
+        ``n_shards`` placements, placement ``s`` holds shard ``s``'s own
+        ``(1, k * local_rows, n_stores)`` slice of each stack, which
+        crosses from the host to it alone (so ``h2d_bytes`` stays at
+        bank scale), and a copy of the arrivals: they cross to
+        ``devices[0]`` once and are copied device to device to the rest
+        (``fabric_bytes``), as in the JAX package's ``_place_sub_bank``
+        (``src/repro/core/engine.py:636-672``). Every placement owns its
+        memory. Memoized per :func:`sub_key` of the placement tuple; a
+        placement freed by :meth:`free_placement` or a grown bank places
+        the layout again."""
+        if len(devices) == 1:
+            nbytes, dev = self.sub_device_args(n_shards, devices[0],
+                                               k_replicas, on_upload)
+            return nbytes, 0, (dev,)
+        if len(devices) != n_shards:
+            raise ValueError(f"{len(devices)} placements for {n_shards} "
+                             f"shards")
+        mkey = sub_key(n_shards, k_replicas, devices)
+        rows_now = (self.trace_rows, self.wv_rows)
+        entry = self._device.get(mkey)
+        if entry is not None and entry[0] == rows_now \
+                and all(p is not None for p in entry[1]):
+            return 0, 0, entry[1]
+        host = self.sub_bank_host(n_shards, k_replicas)
+        nbytes = sum(int(x.nbytes) for x in host)
+        if on_upload is not None:
+            on_upload(nbytes)
+        a0 = _place_own(host[:1], devices[0])[0]
+        parts = tuple(
+            (a0 if s == 0 else a0.to(d, copy=True),)
+            + _place_own(tuple(x[s:s + 1] for x in host[1:]), d)
+            for s, d in enumerate(devices))
+        self._device[mkey] = (rows_now, parts)
+        return nbytes, int(host[0].nbytes) * (n_shards - 1), parts
+
+    def free_placement(self, key: object, index: int) -> None:
+        """Forget placement ``index`` of the memoized layout ``key`` (a
+        lost card's memory is gone): the memo no longer holds its
+        tensors, and the layout is whole again only after
+        :meth:`respare_sub` or a fresh :meth:`placed_sub`."""
+        entry = self._device.get(key)
+        if entry is not None:
+            rows, parts = entry
+            self._device[key] = (rows, parts[:index] + (None,)
+                                 + parts[index + 1:])
+
+    def respare_sub(self, n_shards: int, devices: Sequence[torch.device],
+                    k_replicas: int, shard: int,
+                    primary: Optional[Dict[str, np.ndarray]] = None,
+                    on_upload: Optional[Callable[[int], None]] = None
+                    ) -> Tuple[int, int, tuple]:
+        """Spare replacement of one placement of the :meth:`placed_sub`
+        layout over ``n_shards`` placements: shard ``shard``'s stacks
+        are built again on ``devices[shard]`` -- block 0 from
+        ``primary`` (its own rows, ``{"w", "v", "pr_nc"}``, e.g. read back
+        from a surviving replica block and digest-verified; ``None``
+        takes the host columns), the replica blocks from the host columns
+        -- and its arrivals are copied device to device from shard
+        ``(shard + 1) % n_shards``'s placement. The other placements are
+        not touched (the JAX package places the whole bank again,
+        ``src/repro/core/engine.py:1153-1156``). Returns ``(h2d_bytes,
+        fabric_bytes, parts)``."""
+        mkey = sub_key(n_shards, k_replicas, devices)
+        rows, parts = self._device[mkey]
+        p_loc = sub_bank_rows(self.wv_rows, n_shards)
+        stacks = tuple(
+            fill_sub_shard(np.zeros((k_replicas * p_loc,) + col.shape[1:],
+                                    col.dtype),
+                           col, shard, n_shards, k_replicas, p_loc,
+                           None if primary is None else primary[name])[None]
+            for name, col in (("w", self.w), ("v", self.v),
+                              ("pr_nc", self.pr_nc)))
+        nbytes = sum(int(x.nbytes) for x in stacks)
+        if on_upload is not None:
+            on_upload(nbytes)
+        src = parts[(shard + 1) % n_shards][0]
+        spare = (src.to(devices[shard], copy=True),) \
+            + _place_own(stacks, devices[shard])
+        parts = parts[:shard] + (spare,) + parts[shard + 1:]
+        self._device[mkey] = (rows, parts)
+        return nbytes, src.numel() * src.element_size(), parts
 
     # -- Logging-Unit journal (resilience) --------------------------------
 

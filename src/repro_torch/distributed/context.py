@@ -19,6 +19,10 @@ per-node tensor of that rank carries only its own nodes
 (``local_sizes``). The JAX package's ``shard_map`` regions map onto the
 collectives of :mod:`repro_torch.distributed.collectives`. Without a
 group the context holds every node, as on one card.
+
+The streaming engine's ``cells`` axis needs no process group: one
+process places each shard on a device of its own
+(:func:`cells_devices`).
 """
 
 from __future__ import annotations
@@ -96,6 +100,41 @@ class MeshContext:
         if self.model_axis is None:
             return 1
         return self.shape[self.model_axis]
+
+
+def cells_devices(n_shards: int, devices=None,
+                  device=None) -> Tuple[torch.device, ...]:
+    """The placements of the evaluation's ``cells`` shards, the port's
+    counterpart of the JAX package's ``cells_mesh``
+    (``src/repro/distributed/context.py:103-116``), in one process.
+
+    ``devices=None`` gives one placement, ``device`` (``None`` means
+    CUDA): every logical shard on it, contiguous. ``devices`` holds one
+    entry (that one placement) or exactly ``n_shards`` entries, shard
+    ``s`` on ``devices[s]``; entries may repeat, which is how one card,
+    or the CPU, runs the layout of several. ``device`` is not read when
+    ``devices`` is given. Each entry resolves through
+    :func:`~repro_torch.device.resolve_device` (``"cuda"`` becomes
+    ``cuda:<current>``); a CUDA entry without CUDA raises
+    ``RuntimeError``, and a card index past ``torch.cuda.device_count()``,
+    a length not in {1, ``n_shards``} or ``n_shards < 1`` raise
+    ``ValueError``. Nothing falls back."""
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if devices is None:
+        return (resolve_device(device),)
+    if isinstance(devices, (str, torch.device)):
+        devices = (devices,)
+    devices = tuple(devices)
+    if len(devices) not in (1, n_shards):
+        raise ValueError(f"devices must hold 1 or n_shards={n_shards} "
+                         f"placements, got {len(devices)}")
+    out = tuple(resolve_device(d) for d in devices)
+    for d in out:
+        if d.type == "cuda" and d.index >= torch.cuda.device_count():
+            raise ValueError(f"placement {d} asked, but torch sees "
+                             f"{torch.cuda.device_count()} CUDA devices")
+    return out
 
 
 def make_context(axis_shapes: Sequence[int], axis_names: Sequence[str],

@@ -7,12 +7,13 @@ card that is tensor surgery on the global state
 (:func:`install_recovered_shard`). Without a spare the mesh shrinks
 instead (:func:`shrink_data_axis`). The streaming engine's logical
 ``cells`` shards follow the same two policies
-(:func:`cells_spare_replacement`, :func:`cells_degraded_shards`).
+(:func:`cells_spare_replacement`, :func:`cells_degraded_shards`), on one
+device or one placement per shard.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -108,24 +109,41 @@ def shrink_data_axis(mesh_shape: Tuple[int, ...], axes: Tuple[str, ...]
 
 # -- the engine tier's logical ``cells`` shards (core.engine / chaos) -------
 
-def cells_spare_replacement(n_shards: int, lost: int) -> int:
-    """Spare-replacement shard count for the streaming engine's
-    ``cells`` shards: UNCHANGED -- a spare takes the lost shard's place,
-    so every tile program stays valid and recovery costs re-placing the
-    rebuilt rows only (``run_grid``'s recovery path; zero new
-    programs). Returns the shard count after validating the lost
-    index."""
+def cells_spare_replacement(n_shards: int, lost: int,
+                            placements: Sequence = ()
+                            ) -> Tuple[int, Tuple]:
+    """Spare-replacement layout for the streaming engine's ``cells``
+    shards: UNCHANGED -- a spare takes the lost shard's place, so every
+    tile program stays valid and recovery costs re-placing the lost
+    shard's rows only (``run_grid``'s recovery path; zero new
+    programs). Returns ``(n_shards, placements)`` after validating the
+    lost index: the count and the placements (one device, or one per
+    shard, :func:`~repro_torch.distributed.context.cells_devices`) of
+    the new layout, the spare on the lost shard's placement. The JAX
+    package's ``cells_spare_replacement``
+    (``src/repro/distributed/elastic.py:111``) returns the count."""
     if not 0 <= lost < n_shards:
         raise ValueError(f"lost shard {lost} not in [0, {n_shards})")
-    return n_shards
+    return n_shards, tuple(placements)
 
 
-def cells_degraded_shards(n_shards: int) -> int:
-    """Degraded shard count after losing one shard with no spare: one
+def cells_degraded_shards(n_shards: int, placements: Sequence = (),
+                          lost: Optional[int] = None) -> Tuple[int, Tuple]:
+    """Degraded layout after losing one shard with no spare: one shard
     fewer -- the caller re-runs on it with ``bank_partition=
     "replicated"`` (per-shard sub-banks would need a reshard; the
     replicated layout needs only its new tile programs) and keeps
-    serving."""
+    serving. Returns ``(n_shards - 1, placements)``: with one placement
+    per shard the lost shard's is dropped (the JAX package's
+    ``cells_degraded_shards``, ``src/repro/distributed/elastic.py:123``,
+    takes the first ``n - 1`` devices; the results are ``==`` either
+    way, each lane's arithmetic is its own), and one placement is
+    kept."""
     if n_shards <= 1:
         raise ValueError("cannot shrink a single-shard cells mesh")
-    return n_shards - 1
+    placements = tuple(placements)
+    if len(placements) == n_shards and n_shards > 1:
+        if lost is None or not 0 <= lost < n_shards:
+            raise ValueError(f"lost shard {lost} not in [0, {n_shards})")
+        placements = placements[:lost] + placements[lost + 1:]
+    return n_shards - 1, placements

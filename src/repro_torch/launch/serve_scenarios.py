@@ -15,6 +15,15 @@ p50/p99 latency, throughput, cache-hit ratio and the marginal
 host->device bytes per query. ``--check`` re-runs every served cell
 through the cold ``simulate_grid`` oracle and asserts ``==`` on every
 ``SimResult`` field but ``meta``.
+
+``--cards N`` places the shards: 1 (the default) keeps every shard on
+one card, and ``N == --shards`` puts shard ``s`` on ``cuda:s`` -- or on
+the ``s``-th of N CPU placements with ``--device cpu`` -- the
+counterpart of the reference launcher's ``--host-devices``
+(``src/repro/launch/serve_scenarios.py:40``, ``:58-61``). Fewer cards
+than asked raises::
+
+    python -m repro_torch.launch.serve_scenarios --shards 4 --cards 4
 """
 
 import argparse
@@ -33,7 +42,11 @@ def main(argv=None) -> None:
     ap.add_argument("--window-ms", type=float, default=2.0,
                     help="async batching window (submit path)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="logical shards of the resident bank")
+                    help="shards of the resident bank")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="placements of the shards: 1 (all on one card) "
+                         "or --shards (shard s on cuda:s, or on the s-th "
+                         "CPU placement with --device cpu)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check", action="store_true",
                     help="assert every answer == the cold oracle")
@@ -60,6 +73,7 @@ def main(argv=None) -> None:
     import contextlib
 
     import numpy as np
+    import torch
 
     from repro_torch.core import chaos
     from repro_torch.core import telemetry
@@ -69,6 +83,14 @@ def main(argv=None) -> None:
     from repro_torch.device import resolve_device
 
     device = resolve_device(args.device)
+    if args.cards not in (1, args.shards):
+        raise SystemExit(f"--cards must be 1 or --shards ({args.shards}), "
+                         f"got {args.cards}")
+    if device.type == "cuda" and args.cards > torch.cuda.device_count():
+        raise SystemExit(f"--cards {args.cards} asked, but torch sees "
+                         f"{torch.cuda.device_count()} CUDA devices")
+    devices = (tuple(torch.device("cuda", i) for i in range(args.cards))
+               if device.type == "cuda" else (device,) * args.cards)
 
     if args.trace_out:
         telemetry.enable()
@@ -94,10 +116,12 @@ def main(argv=None) -> None:
                         batch_window_ms=args.window_ms,
                         n_shards=args.shards, k_replicas=args.k_replicas,
                         submit_timeout_ms=args.submit_timeout_ms,
-                        watchdog_ms=args.watchdog_ms, device=device) as srv:
+                        watchdog_ms=args.watchdog_ms, device=device,
+                        devices=devices) as srv:
         t0 = time.perf_counter()
         srv.warm(warm_grid)
         t_warm = time.perf_counter() - t0
+        print(f"placements: {', '.join(map(str, srv.placements))}")
         print(f"warm: {len(warm_grid)} cells, "
               f"{srv.stats()['bank_rows']} bank rows, "
               f"{srv.stats()['compiled_programs']} programs, "
