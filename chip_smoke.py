@@ -263,7 +263,27 @@ each hand-written CUDA kernel against its plain PyTorch version:
     block, and the degraded finish on 3 placements, both ``==``; (e) with
     four cards (a)-(d) on ``cuda:0..3`` (not run on one card: printed as
     such; ``--multi-card-only cells`` runs it alone with phases 4 and
-    13's reference on card 0).
+    13's reference on card 0);
+25. serving with the ``model`` axis split across ranks, run right after
+    phase 16: (a) moonshot-v1-16b-a3b and hymba-1.5b served at phases
+    15's and 9's batch, prompt and generation through the rank-aware
+    path in phase 23's one-rank group at ``--mesh 1x1`` (every leaf
+    placed by its spec, the layers through ``sharding.weight`` and the
+    ``model``-group collectives): tokens ``==`` phases 15's and 9's,
+    ``flash_attn`` / ``ssd_scan`` launches as there; (b) ``flash_attn``
+    and ``ssd_scan`` at the per-rank shapes of the four-card layouts
+    (moonshot at model 4, hymba at data 2 x model 2) against their plain
+    versions, timed beside SDPA and their bounds; (c) with four cards,
+    alone in ``--multi-card-only serve``: moonshot at data 1 x model 4
+    and hymba at 2 x 2 across four ``nccl`` ranks, each rank's bf16
+    logits (the prefill and every decode step, fed the one-card run's
+    tokens) within 3e-2 of max |logit| of a one-card run on card 0 in
+    the same call, routing flips counted and gated under phase 15's
+    policy, the generated tokens compared (first divergence printed),
+    moonshot's f32 copy at 4 layers within 1e-4, each card's memory
+    after placement against its reckoning, prefill / decode times,
+    tok/s and the collectives' calls and ms a step (not run on one
+    card: printed as such).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -1798,7 +1818,8 @@ def phase_serve(torch, serve_mod, fa, ssd, attn, ssm_mod) -> dict:
            "attn_launches_by_kernel": by_kernel,
            "ssd_launches_by_kernel": ssd_by_kernel,
            "peak_bytes": peak, "wall_s": wall_s,
-           "params": cfg.param_count(), "tokens_seq0": res.tokens[0].tolist()}
+           "params": cfg.param_count(), "tokens_seq0": res.tokens[0].tolist(),
+           "tokens": res.tokens.tolist()}
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.param_count()} parameters ({cfg.dtype}); prefill "
           f"{res.prefill_s * 1e3:.1f} ms wall; {res.decode_steps} decode "
@@ -2185,7 +2206,8 @@ def phase_serve_moe(torch, serve_mod, fa, ssd, attn, moe) -> dict:
            "launches": fa.ops.flash_attention.launches,
            "attn_launches_by_kernel": by_kernel, "peak_bytes": peak,
            "wall_s": wall_s, "params": cfg.param_count(),
-           "tokens_seq0": res.tokens[0].tolist()}
+           "tokens_seq0": res.tokens[0].tolist(),
+           "tokens": res.tokens.tolist()}
     print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts}"
           f" shared, {cfg.param_count()} parameters ({cfg.dtype}); prefill "
@@ -5420,13 +5442,561 @@ def phase_ranks_multi(torch, fa, ssd, one_losses) -> dict:
         "wall_s": time.perf_counter() - t0}}
 
 
+#: phase 25: serving with the model axis split across ranks. The layouts
+#: of the four-card call, (arch, (data, model), batch, prompt, generated)
+TP_SERVES = (("moonshot-v1-16b-a3b", (1, 4), MOE_BATCH, MOE_PROMPT, MOE_GEN),
+             ("hymba-1.5b", (2, 2), SERVE_BATCH, SERVE_PROMPT, SERVE_GEN))
+#: the per-rank attention shapes of those layouts, (name, B, Sq, Skv, H,
+#: K, D, causal): moonshot's 16 heads at model 4, hymba's 25 (FSDP only:
+#: replicated over model) at data 2
+TP_ATTN_SHAPES = [
+    ("moonshot-v1-16b-a3b at model 4", 4, 2048, 2048, 4, 4, 128, True),
+    ("hymba-1.5b at data 2 x model 2", 2, 4096, 4096, 25, 5, 64, True)]
+#: hymba's per-rank SSD shape at data 2 x model 2: (b, l, h, p, n, chunk)
+TP_SSD_SHAPE = (2, 4096, 25, 64, 16, 256)
+#: (c)'s prefill logits are compared at every 256th position and the last
+TP_PREFILL_STRIDE = 256
+TP_MEMORY_SLACK = 1.02           # placed bytes against the reckoning
+TP_COLLECTIVES = ("model_sum", "fsdp_gather", "model_gather")
+
+
+def leaf_bytes(tree) -> int:
+    """Bytes of a parameter tree's tensors as a rank holds them (a
+    ``Shard``'s block)."""
+    if isinstance(tree, dict):
+        return sum(leaf_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(leaf_bytes(v) for v in tree)
+    t = getattr(tree, "local", tree)
+    return t.numel() * t.element_size()
+
+
+def phase_serve_ranks(torch, serve_mod, fa, ssd, group, hymba, moon) -> dict:
+    """Phase 25(a): moonshot and hymba at phases 15's and 9's batch,
+    prompt and generation through the rank-aware serve path in phase
+    23's one-rank group at ``--mesh 1x1``: tokens ``==`` those phases'."""
+    from repro_torch.distributed import collectives, sharding
+    print("phase 25: serving with the model axis split across ranks -- (a) "
+          "moonshot and hymba through the rank-aware path in a one-rank "
+          f"{torch.distributed.get_backend(group)} group at --mesh 1x1")
+    out = {}
+    for arch, batch, prompt, gen, want, reduced in (
+            (MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN, moon, False),
+            (SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, hymba,
+             SERVE_REDUCED)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        fa.ops.reset_counts()
+        ssd.ops.reset_counts()
+        t0 = time.perf_counter()
+        res = serve_mod.serve(arch, reduced=reduced, batch=batch,
+                              prompt_len=prompt, gen=gen, seed=SEED,
+                              mesh=(1, 1), group=group)
+        wall_s = time.perf_counter() - t0
+        cfg = res.cfg
+        launches = {"flash_attn": fa.ops.flash_attention.launches,
+                    "ssd_scan": ssd.ops.ssd_scan.launches}
+        n_shards = sum(isinstance(t, sharding.Shard) for t in
+                       _leaves(res.params))
+        r = {"prefill_s": res.prefill_s,
+             "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
+             "decode_tok_per_s": res.decode_tok_per_s,
+             "launches": launches, "shard_leaves": n_shards,
+             "placed_bytes": res.placed_bytes, "peak_bytes": res.peak_bytes,
+             "collectives": res.collectives, "wall_s": wall_s}
+        print(f"  {cfg.name}: {n_shards} leaves placed as shards; prefill "
+              f"{res.prefill_s * 1e3:.1f} ms wall, decode "
+              f"{r['decode_ms_per_step']:.3f} ms a step "
+              f"({res.decode_tok_per_s:.1f} tok/s) beside the one-card "
+              f"path's {want['prefill_s'] * 1e3:.1f} ms / "
+              f"{want['decode_ms_per_step']:.3f} ms; peak {res.peak_bytes} "
+              f"bytes; collectives moved nothing in a group of one "
+              f"({json.dumps(res.collectives)}); serve() {wall_s:.1f} s")
+        check(res.ctx.split_model and res.ctx.world == 1 and n_shards > 0,
+              f"{cfg.name}: the rank-aware path (split model, world 1, "
+              f"{n_shards} Shard leaves)")
+        check(res.tokens.tolist() == want["tokens"],
+              f"{cfg.name}: the {batch} x {gen} tokens == the one-card "
+              f"path's (a group of one changes no value)")
+        n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+        check(launches == {"flash_attn": cfg.n_layers, "ssd_scan": n_ssd},
+              f"{cfg.name}: the prefill launched flash_attn "
+              f"{launches['flash_attn']} and ssd_scan "
+              f"{launches['ssd_scan']} times, as on the one-card path")
+        check(all(v == 0 for c in res.collectives.values()
+                  for v in c.values()),
+              f"{cfg.name}: no collective call in a group of one")
+        out[arch] = r
+        del res
+    collectives.reset_counts()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def phase_tp_kernels(torch, fa, ssd, attn, ssm_mod) -> dict:
+    """Phase 25(b): ``flash_attn`` and ``ssd_scan`` at the four-card
+    layouts' per-rank shapes against their plain versions (phase 8's
+    tolerances), timed beside SDPA and their bounds."""
+    print("phase 25(b): the kernels at the per-rank shapes of the "
+          "four-card layouts")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+
+    def randn(*shape, dtype="float32", scale=1.0):
+        t = torch.randn(shape, generator=gen, device=dev) * scale
+        return t.to(getattr(torch, dtype))
+
+    out = {"attn": [], "attn_err": 0.0}
+    for shape in TP_ATTN_SHAPES:
+        name, b, sq, skv, h, kh, d, causal = shape
+        q = randn(b, sq, h, d, dtype="bfloat16")
+        k, v = (randn(b, skv, kh, d, dtype="bfloat16") for _ in range(2))
+        got = fa.kernel.launch(q, k, v, causal, "mma")
+        plain = attn._blockwise_attention(q, k, v, causal)
+        err = float((got.float() - plain.float()).abs().max())
+        check(bool(torch.allclose(got.float(), plain.float(), atol=2e-2,
+                                  rtol=2e-2)),
+              f"flash_attn at {name}: kernel vs plain max_abs_err {err:.3g} "
+              f"(tol 2e-2)")
+        rows = check_attn_rows(torch, fa, attn, q, k, v, got, plain, name,
+                               causal)
+        out["attn_err"] = max(out["attn_err"], err)
+        del q, k, v, got, plain
+        t = time_attention(torch, fa, attn, randn, shape)
+        t["rows"], t["max_abs_err"] = rows, err
+        out["attn"].append(t)
+    b, l, h, p, n, chunk = TP_SSD_SHAPE
+    x = randn(b, l, h, p, dtype="bfloat16", scale=0.5)
+    dtt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 0.001
+    A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
+    B, C = (randn(b, l, n, dtype="bfloat16", scale=0.3) for _ in range(2))
+    y, st = ssd.kernel.launch(x, dtt, A, B, C, chunk, None, "mma")
+    errs = {}
+    for what, (yw, sw) in (("plain", ssm_mod.ssd_chunked(x, dtt, A, B, C,
+                                                         chunk)),
+                           ("ssd_ref", ssd.ssd_ref(x, dtt, A, B, C))):
+        yrel, srel = max_rel(y.float(), yw.float()), max_rel(st.float(),
+                                                             sw.float())
+        errs[what] = (yrel, srel)
+        check(yrel < 3e-2 and srel < 3e-2,
+              f"ssd_scan at hymba's per-rank shape {TP_SSD_SHAPE}: kernel "
+              f"vs {what} y err {yrel:.3g} of max|y|, state {srel:.3g} of "
+              f"max|state| (tol 3e-2)")
+    out["ssd"] = {
+        "shape": TP_SSD_SHAPE, "rel_err": errs,
+        "max_abs_err": float((y.float() - ssm_mod.ssd_chunked(
+            x, dtt, A, B, C, chunk)[0].float()).abs().max()),
+        "ms": cuda_ms(lambda: ssd.kernel.launch(x, dtt, A, B, C, chunk,
+                                                None, "mma"), 10),
+        "plain_ms": cuda_ms(lambda: ssm_mod.ssd_chunked(x, dtt, A, B, C,
+                                                        chunk), 3),
+        "library_ms": None}
+    out["ssd"]["bound_ms"], out["ssd"]["bound_by"] = ssd_bound_ms(
+        torch, x, B, chunk)
+    s_ = out["ssd"]
+    print(f"  ssd_scan at hymba's per-rank shape (b {b}, l {l}, h {h}, p "
+          f"{p}, n {n}, chunk {chunk}, bf16): tensor-core passes "
+          f"{s_['ms']:.4f} ms, plain {s_['plain_ms']:.4f} ms, bound "
+          f"{s_['bound_ms']:.5f} ms ({s_['bound_by']}); no single PyTorch "
+          f"call computes the scan; phase 8's full-width rows above")
+    del x, dtt, A, B, C, y, st
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 25(c): four ranks on four cards
+# ---------------------------------------------------------------------------
+
+def tp_positions(prompt: int) -> list:
+    return sorted(set(range(0, prompt, TP_PREFILL_STRIDE)) | {prompt - 1})
+
+
+def tp_logits_run(torch, model, params, batch, feed, tape_calls=None,
+                  moe=None, ctx=None):
+    """The prefill's logits at ``tp_positions`` and each decode step's,
+    the decode fed ``feed`` (B, steps) tokens; each as f32 on the host,
+    gathered over ``model`` under ``ctx``. With ``moe``, the routing is
+    recorded (or, given ``tape_calls``, pinned to them): returns
+    (prefill, [decode], calls)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import mesh_context
+    tape = RoutingTape(torch, moe) if moe is not None else None
+    scope = (tape.pin(tape_calls) if tape_calls is not None else
+             tape.record() if tape is not None else contextlib.nullcontext())
+    pos = tp_positions(batch["tokens"].shape[1])
+    with torch.inference_mode(), mesh_context(ctx), scope as calls:
+        logits, cache = model.prefill(params, batch,
+                                      max_len=batch["tokens"].shape[1]
+                                      + feed.shape[1] + 1)
+        pre = sharding.constrain_logits(logits[:, pos].contiguous(),
+                                        params["embed"]).float().cpu()
+        del logits
+        dec = []
+        for t in range(feed.shape[1]):
+            lg, cache = model.decode_step(params, cache, feed[:, t])
+            dec.append(sharding.constrain_logits(
+                lg, params["embed"]).float().cpu())
+        kv = sum(cache[k].numel() * cache[k].element_size()
+                 for k in ("k", "v", "conv", "ssd") if k in cache)
+        del cache
+    idx = None if calls is None else [c[0].cpu() for c in calls]
+    return pre, dec, idx, kv
+
+
+def tp_reference(torch, serve_mod, moe, path: str) -> dict:
+    """(c)'s reference on card 0 without a group: for each of
+    ``TP_SERVES`` serve() (tokens, rates), then the logits of the prefill
+    and of each decode step fed serve()'s tokens with the routing
+    recorded; moonshot's f32 copy at ``MOE_F32_LAYERS`` layers, request
+    0, the same way. Saved to ``path`` (a ``torch.save`` per arch)."""
+    from repro_torch.distributed import collectives
+    from repro_torch.models import build_model
+    out = {}
+    for arch, mesh, batch, prompt, gen in TP_SERVES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        reduced = SERVE_REDUCED if arch == SERVE_ARCH else False
+        res = serve_mod.serve(arch, reduced=reduced, batch=batch,
+                              prompt_len=prompt, gen=gen, seed=SEED)
+        cfg = res.cfg
+        model = build_model(cfg)
+        feed = res.tokens[:, :gen - 1].to(res.device)
+        is_moe = cfg.is_moe
+        pre, dec, idx, kv = tp_logits_run(
+            torch, model, res.params, {"tokens": res.prompts}, feed,
+            moe=moe if is_moe else None)
+        warm = time_collectives(torch, collectives, model, res.params,
+                                res.inputs, 8, None)
+        ref = {"tokens": res.tokens, "prefill": pre, "decode": dec,
+               "idx": idx, "kv_bytes": kv, "warm": warm,
+               "prefill_s": res.prefill_s,
+               "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
+               "decode_tok_per_s": res.decode_tok_per_s,
+               "peak_bytes": res.peak_bytes,
+               "param_bytes": leaf_bytes(res.params)}
+        if is_moe:
+            cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                        n_layers=MOE_F32_LAYERS)
+            p32 = to_f32(torch, {**res.params,
+                                 "layers": res.params["layers"][
+                                     :MOE_F32_LAYERS]})
+            ref["f32"] = tp_logits_run(
+                torch, build_model(cfg32), p32,
+                {"tokens": res.prompts[:1]}, feed[:1], moe=moe)[:3]
+            del p32
+        del res
+        file = os.path.join(path, f"tp_ref_{arch}.pt")
+        torch.save(ref, file)
+        out[arch] = file
+        print(f"  the one-card reference on card 0: {cfg.name} prefill "
+              f"{ref['prefill_s'] * 1e3:.1f} ms (warm "
+              f"{warm['prefill_ms']:.1f} ms), decode "
+              f"{ref['decode_ms_per_step']:.3f} ms a step "
+              f"({ref['decode_tok_per_s']:.1f} tok/s), parameters "
+              f"{ref['param_bytes']} B, cache {kv} B, peak "
+              f"{ref['peak_bytes']} B")
+    return out
+
+
+def rel_to(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def tp_flips(a, b) -> int:
+    """Tokens whose top-k expert set differs between two runs' calls."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+
+
+def tp_compare(torch, model, params, batch, feed, ref, rows, tol, ctx, moe,
+               what: str) -> dict:
+    """The rank's logits against ``ref``'s rows, under phase 15's flip
+    policy: above ``tol`` with flips, read again pinned to the
+    reference's experts, and the pinned reading gates."""
+    pre, dec, idx, kv = tp_logits_run(torch, model, params, batch, feed,
+                                      moe=moe, ctx=ctx)
+    rels = [rel_to(pre, ref["prefill"][rows])] + [
+        rel_to(d, w[rows]) for d, w in zip(dec, ref["decode"])]
+    out = {"rel": max(rels), "rel_prefill": rels[0],
+           "rel_decode_max": max(rels[1:]) if len(rels) > 1 else None,
+           "kv_bytes": kv, "flips": None, "pinned_rel": None}
+    if moe is not None:
+        out["flips"] = tp_flips(idx, ref["idx"])
+        if out["rel"] > tol and out["flips"]:
+            ppre, pdec, _, _ = tp_logits_run(
+                torch, model, params, batch, feed, tape_calls=[
+                    (i.to(ctx.device), None) for i in ref["idx"]],
+                moe=moe, ctx=ctx)
+            out["pinned_rel"] = max([rel_to(ppre, ref["prefill"][rows])] + [
+                rel_to(d, w[rows]) for d, w in zip(pdec, ref["decode"])])
+    gate = out["rel"] if out["pinned_rel"] is None else out["pinned_rel"]
+    check(gate <= tol, f"rank {ctx.rank}: {what} logits (prefill at "
+          f"{len(tp_positions(batch['tokens'].shape[1]))} positions, "
+          f"{len(dec)} decode steps fed the one-card tokens) within "
+          f"{out['rel']:.3g} of max|logit| of the one-card run, "
+          f"{out['flips']} routing flips, pinned {out['pinned_rel']}, "
+          f"limit {tol}")
+    return out
+
+
+def serve_rank(rank: int, world: int, rendezvous: str, refs: dict,
+               out_paths: list) -> None:
+    """One rank of phase 25(c) on card ``rank``: each of ``TP_SERVES``
+    served free-running through ``serve()`` across the ``nccl`` group,
+    then its logits held against the one-card reference's rows."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    dev = f"cuda:{rank}"
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.distributed.context import make_context, node_group
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+    group = node_group(dev, init_method=f"file://{rendezvous}",
+                       world_size=world, rank=rank, timeout_s=600)
+    res_all = {}
+    for arch, mesh, batch, prompt, gen in TP_SERVES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = torch.load(refs[arch])
+        fa.ops.reset_counts()
+        ssd.ops.reset_counts()
+        reduced = SERVE_REDUCED if arch == SERVE_ARCH else False
+        res = serve_mod.serve(arch, reduced=reduced, batch=batch,
+                              prompt_len=prompt, gen=gen, seed=SEED,
+                              device=dev, mesh=mesh, group=group)
+        ctx, cfg = res.ctx, res.cfg
+        launches = {"flash_attn": fa.ops.flash_attention.launches,
+                    "ssd_scan": ssd.ops.ssd_scan.launches}
+        rows = res.rows
+        mine = leaf_bytes(res.params)
+        prompts_b = sum(t.numel() * t.element_size()
+                        for t in res.inputs.values())
+        toks, want = res.tokens, ref["tokens"][rows]
+        diverge = [(i, t) for i in range(toks.shape[0])
+                   for t in range(toks.shape[1]) if toks[i, t] != want[i, t]]
+        first = min(diverge, key=lambda it: it[1]) if diverge else None
+        model = build_model(cfg)
+        feed = ref["tokens"][rows, :gen - 1].to(dev)
+        batch_rows = {"tokens": res.prompts[rows]}
+        cmp = tp_compare(torch, model, res.params, batch_rows, feed, ref,
+                         rows, LOGIT_TOLERANCE, ctx,
+                         moe if cfg.is_moe else None, f"{cfg.name} bf16")
+        # the collectives of 8 decode steps, each call between CUDA events
+        timed = time_collectives(torch, collectives, model, res.params,
+                                 res.inputs, 8, ctx)
+        r = {"rank": rank, "arch": arch, "mesh": list(mesh),
+             "rows": [rows.start, rows.stop], "block": ctx.block,
+             "model_rank": ctx.model_rank, "launches": launches,
+             "placed_bytes": res.placed_bytes, "held_bytes": res.held_bytes,
+             "param_bytes": mine,
+             "prompt_bytes": prompts_b, "peak_bytes": res.peak_bytes,
+             "prefill_s": res.prefill_s,
+             "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
+             "decode_tok_per_s_rank": res.decode_tok_per_s,
+             "decode_tok_per_s": (batch * res.decode_steps
+                                  / max(res.decode_s, 1e-9)),
+             "collective_calls": res.collectives, "collectives_timed": timed,
+             "first_divergence": first, "n_diverged": len(diverge),
+             "bf16": cmp}
+        n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+        check(launches == {"flash_attn": cfg.n_layers, "ssd_scan": n_ssd},
+              f"rank {rank}: {cfg.name}'s prefill launched flash_attn "
+              f"{launches['flash_attn']} and ssd_scan {launches['ssd_scan']}"
+              f" times at the rank's heads ({cfg.n_layers} layers)")
+        added = res.placed_bytes - res.held_bytes
+        check(added <= TP_MEMORY_SLACK * (mine + prompts_b),
+              f"rank {rank}: {cfg.name}'s card holds {res.placed_bytes} B "
+              f"after placement, {added} B more than before serve(), "
+              f"against its blocks' {mine} B + prompts {prompts_b} B "
+              f"(slack {TP_MEMORY_SLACK})")
+        if cfg.is_moe:
+            cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                        n_layers=MOE_F32_LAYERS)
+            p32 = to_f32_shards(torch, sharding, {
+                **res.params, "layers": res.params["layers"][
+                    :MOE_F32_LAYERS]})
+            ref32 = dict(zip(("prefill", "decode", "idx"), ref["f32"]))
+            r["f32"] = tp_compare(
+                torch, build_model(cfg32), p32,
+                {"tokens": res.prompts[:1]}, feed[:1], ref32, slice(0, 1),
+                F32_LOGIT_TOLERANCE, ctx, moe, f"{cfg.name} f32 at "
+                f"{MOE_F32_LAYERS} layers, request 0")
+            del p32
+        res_all[arch] = r
+        del res, ref, model
+    with open(out_paths[rank], "w", encoding="utf-8") as fh:
+        json.dump(res_all, fh, default=str)
+    torch.distributed.destroy_process_group()
+
+
+def to_f32_shards(torch, sharding, tree):
+    """A rank's parameter tree in f32, its shards kept shards."""
+    if isinstance(tree, dict):
+        return {k: to_f32_shards(torch, sharding, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_f32_shards(torch, sharding, v) for v in tree)
+    if isinstance(tree, sharding.Shard):
+        return dataclasses.replace(tree, local=tree.local.float())
+    return tree.float()
+
+
+def time_collectives(torch, collectives, model, params, prompts, steps,
+                     ctx) -> dict:
+    """Calls and ms a decode step of each serving collective over
+    ``steps`` decode steps of ``make_serve_fns`` after its prefill of the
+    global ``prompts`` (timed: a warm prefill, after ``serve()``'s):
+    each call that moves data between two CUDA events, summed after a
+    synchronize. ``ctx=None``: one card, no collective."""
+    from repro_torch.training.steps import make_serve_fns
+    prefill_fn, decode_fn = make_serve_fns(model, ctx)
+    saved = {n: getattr(collectives, n) for n in TP_COLLECTIVES}
+    events = {n: [] for n in TP_COLLECTIVES}
+
+    def timed(name):
+        fn = saved[name]
+
+        def wrapper(*a, **kw):
+            n0 = collectives.COUNTS[name]
+            s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s_.record()
+            out = fn(*a, **kw)
+            e_.record()
+            if collectives.COUNTS[name] > n0:
+                events[name].append((s_, e_))
+            return out
+        return wrapper
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, st = prefill_fn(params, prompts, max_len=prompts[
+            "tokens"].shape[1] + steps + 1)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for n in TP_COLLECTIVES:
+            setattr(collectives, n, timed(n))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                _, st = decode_fn(params, st)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            for n, fn in saved.items():
+                setattr(collectives, n, fn)
+        del st
+    return {"steps": steps, "prefill_ms": prefill_ms,
+            "step_ms": wall / steps * 1e3, **{
+        n: {"calls_per_step": len(ev) / steps,
+            "ms_per_step": sum(a.elapsed_time(b) for a, b in ev) / steps}
+        for n, ev in events.items()}}
+
+
+def phase_serve_multi(torch, serve_mod, moe) -> dict:
+    """Phase 25(c): with four cards, ``TP_SERVES`` across four ``nccl``
+    ranks against a one-card run on card 0 in the same call."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(json.dumps({"serve_multi_card": f"not run: {n} card"
+                          + ("" if n == 1 else "s")}))
+        return {"serve_multi_card": f"not run: {n} card(s)"}
+    world = 4
+    build = os.path.join(ROOT, "build", "repro_torch")
+    os.makedirs(build, exist_ok=True)
+    layouts = ", ".join(f"{a} at data {m[0]} x model {m[1]}"
+                        for a, m, *_ in TP_SERVES)
+    print(f"phase 25(c): {world} ranks on {world} cards (nccl): {layouts}; "
+          f"first the one-card reference on card 0")
+    refs = tp_reference(torch, serve_mod, moe, build)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    rendezvous = os.path.join(build, f"pg-serve-{os.getpid()}")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    outs = [os.path.join(build, f"serve_rank{r}.json") for r in range(world)]
+    t0 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        serve_rank, args=(world, rendezvous, refs, outs), nprocs=world,
+        join=True, start_method="spawn")
+    res = []
+    for path in outs:
+        with open(path, encoding="utf-8") as fh:
+            res.append(json.load(fh))
+    for arch, mesh, batch, prompt, gen in TP_SERVES:
+        ref = torch.load(refs[arch])
+        for r in (x[arch] for x in res):
+            c = r["collectives_timed"]
+            f32 = r.get("f32")
+            print(f"  rank {r['rank']} ({arch}, block {r['block']}, model "
+                  f"{r['model_rank']}, rows {r['rows']}): placed "
+                  f"{r['placed_bytes']} B ({r['held_bytes']} B held before; "
+                  f"blocks {r['param_bytes']} B, one "
+                  f"card's parameters {ref['param_bytes']} B), peak "
+                  f"{r['peak_bytes']} B; cache {r['bf16']['kv_bytes']} B "
+                  f"(one card {ref['kv_bytes']} B); prefill "
+                  f"{r['prefill_s'] * 1e3:.1f} ms, warm "
+                  f"{c['prefill_ms']:.1f} (one card "
+                  f"{ref['prefill_s'] * 1e3:.1f}, warm "
+                  f"{ref['warm']['prefill_ms']:.1f}), decode "
+                  f"{r['decode_ms_per_step']:.3f} ms a step (one card "
+                  f"{ref['decode_ms_per_step']:.3f}), "
+                  f"{r['decode_tok_per_s']:.1f} tok/s for the batch (one card "
+                  f"{ref['decode_tok_per_s']:.1f}); collectives a decode "
+                  f"step: " + ", ".join(
+                      f"{k} {c[k]['calls_per_step']:.0f} calls "
+                      f"{c[k]['ms_per_step']:.3f} ms" for k in TP_COLLECTIVES)
+                  + f" (the timed steps {c['step_ms']:.3f} ms each); bf16 "
+                  f"logits {r['bf16']['rel']:.3g} (prefill "
+                  f"{r['bf16']['rel_prefill']:.3g}), {r['bf16']['flips']} "
+                  f"flips, pinned {r['bf16']['pinned_rel']}"
+                  + ("" if f32 is None else
+                     f"; f32 at {MOE_F32_LAYERS} layers {f32['rel']:.3g}, "
+                     f"{f32['flips']} flips, pinned {f32['pinned_rel']}")
+                  + f"; tokens: {r['n_diverged']} of the rank's differ, "
+                  f"first divergence (row, step) {r['first_divergence']}; "
+                  f"launches {r['launches']}; {card_line()}")
+        del ref
+    return {"serve_multi_card": {"world": world, "ranks": res,
+                                 "wall_s": time.perf_counter() - t0}}
+
+
 def multi_card_only(torch, fa, ssd, which: str, sim) -> int:
     """``--multi-card-only``: for ``"ranks"``, phase 20's training on
     card 0 without a group (the reference losses), then phase 23(c)
     alone; for ``"cells"``, phases 4 and 13 on card 0 (the reference),
-    then phase 24(e) alone; ``"all"`` runs both."""
+    then phase 24(e) alone; for ``"serve"``, phase 25(c) alone (its
+    one-card reference on card 0 first); ``"all"`` runs the three."""
     check(torch.cuda.device_count() > 1,
           f"--multi-card-only: {torch.cuda.device_count()} cards, needs 2+")
+    if which in ("all", "serve"):
+        from repro_torch.launch import serve as serve_mod
+        from repro_torch.models import moe
+        check(torch.cuda.device_count() >= 4,
+              f"phase 25(c): {torch.cuda.device_count()} cards, needs 4")
+        out = phase_serve_multi(torch, serve_mod, moe)
+        print(json.dumps(out, default=str))
+        gc.collect()
+        torch.cuda.empty_cache()
     if which in ("all", "cells"):
         S, E, Sc, sv, chaos, ops = sim
         check(torch.cuda.device_count() >= CELLS_SHARDS,
@@ -5494,12 +6064,14 @@ def main(argv=None) -> int:
     ap.add_argument("--report", help="also write the measured numbers "
                     "as JSON to this path")
     ap.add_argument("--multi-card-only", nargs="?", const="all",
-                    choices=("all", "ranks", "cells"),
+                    choices=("all", "ranks", "cells", "serve"),
                     help="with more than one card: build the kernels, then "
                     "'ranks': train phase 20's qwen3-0.6b on card 0 for the "
                     "reference losses and run phase 23(c) alone; 'cells': "
                     "run phases 4 and 13 on card 0 for the reference and "
-                    "phase 24(e) alone; 'all' (the default): both")
+                    "phase 24(e) alone; 'serve': phase 25(c) alone (four "
+                    "cards), its one-card reference on card 0 first; 'all' "
+                    "(the default): the three")
     args = ap.parse_args(argv)
 
     import torch
@@ -5636,6 +6208,9 @@ def main(argv=None) -> int:
     S.clear_sim_caches()
     served_moe = phase_serve_moe(torch, serve_mod, fa, ssd, attn, moe)
     cut = phase_cut_configs(torch, serve_mod, config, fa, ssd, attn, moe)
+    tp = {"ranks_one": phase_serve_ranks(torch, serve_mod, fa, ssd, group,
+                                         served, served_moe),
+          "kernels": phase_tp_kernels(torch, fa, ssd, attn, ssm_mod)}
     ycsb = phase_ycsb(torch)
     whisper = phase_serve_family(torch, serve_mod, fa, attn, 18,
                                  WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT,
@@ -5652,6 +6227,7 @@ def main(argv=None) -> int:
     ex100m = launch["train_100m_ft"]
     ranks["multi_card"] = phase_ranks_multi(torch, fa, ssd,
                                             train["train"]["losses"])
+    tp["multi_card"] = phase_serve_multi(torch, serve_mod, moe)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
@@ -5772,7 +6348,15 @@ def main(argv=None) -> int:
          "launches": g["launches"]["ssd_scan"][0]}
         for arch, g in fam["grads_f32"].items()
         if g["launches"]["ssd_scan"][0]]
+    ssd_entry["paths"].append(
+        {"path": f"{SERVE_ARCH} serve through the rank-aware path, mesh "
+                 f"1x1 (phase 25(a)), prefill",
+         "launches": tp["ranks_one"][SERVE_ARCH]["launches"]["ssd_scan"]})
     ssd_entry["launches"] = sum(p["launches"] for p in ssd_entry["paths"])
+    ssd_entry["per_rank_shape"] = {
+        k: tp["kernels"]["ssd"][k] for k in ("shape", "ms", "plain_ms",
+                                             "bound_ms", "bound_by",
+                                             "library_ms")}
     for key in ("simt_ms", "f32_ms", "passes_ms"):
         ssd_entry[key] = model_k[f"ssd_{key}"]
     attn_entry = model_entries[0]
@@ -5780,7 +6364,7 @@ def main(argv=None) -> int:
     attn_entry["shapes"] = [
         {k: t[k] for k in ("shape", "dtype", "ms", "library_ms", "simt_ms",
                            "plain_ms", "bound_ms", "bound_by")}
-        for t in model_k["attn_timed"]]
+        for t in model_k["attn_timed"] + tp["kernels"]["attn"]]
     attn_entry["paths"] = [
         {"path": "hymba-1.5b serve, prefill", "launches":
          served["launches"]["flash_attn"]},
@@ -5791,6 +6375,10 @@ def main(argv=None) -> int:
         {"path": f"{WHISPER_ARCH} serve, prefill (encoder, decoder, cross)",
          "launches": whisper["launches"]},
         {"path": f"{VLM_ARCH} serve, prefill", "launches": vlm["launches"]},
+        {"path": f"{MOE_ARCH} and {SERVE_ARCH} serve through the rank-aware "
+                 f"path, mesh 1x1 (phase 25(a)), prefill",
+         "launches": sum(tp["ranks_one"][a]["launches"]["flash_attn"]
+                         for a in (MOE_ARCH, SERVE_ARCH))},
         {"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps (forward and "
                  f"remat's recompute)",
          "launches": train["train"]["launches"]["forward"]},
@@ -5922,6 +6510,7 @@ def main(argv=None) -> int:
                        "ycsb": ycsb, "serve_whisper": whisper,
                        "serve_vlm": vlm, "train": train,
                        "train_families": fam, "launch_paths": launch,
+                       "serve_ranks": tp,
                        "ranks": ranks,
                        "kernels": kernels},
                       fh, indent=1, default=str)

@@ -145,6 +145,10 @@ class ReplicationEngine:
 
     def __init__(self, rep: ReplicationConfig, ctx: MeshContext,
                  param_specs: Any, global_params: Any):
+        if ctx.split_model:
+            raise NotImplementedError(
+                "replication over ranks that split the model axis (A4(d2b) "
+                "in ROADMAP.md): a rank must hold whole nodes")
         self.rep = rep
         self.ctx = ctx
         self.mesh_axes = ctx.axis_names

@@ -13,6 +13,18 @@ Tensors here are node-major: the first dimension is this rank's
 permutation names nodes by their joined index, as ``ppermute`` names
 the devices along its axes. Every rank computes the same plan from the
 same permutation, so sends and receives always pair up.
+
+When the ranks split the ``model`` axis (serving), three forward-only
+collectives stand for what GSPMD inserts into the JAX package's
+partitioned prefill and decode: :func:`model_sum`, the ``model``-group
+sum of a row-parallel product's partials (the ``psum`` of
+``src/repro/models/moe.py:224`` and GSPMD's all-reduce after every
+``wo`` / ``w_down`` / ``out_proj``); :func:`fsdp_gather`, the FSDP
+all-gather of a storage-sharded parameter dimension just in time
+(``_gather``, ``src/repro/models/moe.py:177-186``); and
+:func:`model_gather`, the ``model``-group all-gather of the
+vocab-split logits. Each call that moves data adds one to
+``COUNTS[name]``; a group of one rank moves nothing and counts nothing.
 """
 
 from __future__ import annotations
@@ -31,6 +43,15 @@ from repro_torch.distributed.context import MeshContext
 #: launches of its casts, concatenations and copies back (PERF.md), not
 #: by the number of buckets, and no other size was tried.
 GRAD_BUCKET_BYTES = 64 << 20
+
+#: calls of the serving collectives that moved data, by name
+COUNTS: Dict[str, int] = {"model_sum": 0, "fsdp_gather": 0,
+                          "model_gather": 0}
+
+
+def reset_counts() -> None:
+    for k in COUNTS:
+        COUNTS[k] = 0
 
 
 def _global(ctx: MeshContext, rank: int) -> int:
@@ -226,3 +247,47 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
             bucket, size = [], 0
     if bucket:
         flush()
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism and FSDP (serving, forward only)
+# ---------------------------------------------------------------------------
+
+def model_sum(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """The sum of ``x`` over this rank's ``model`` group (in place, and
+    returned): a row-parallel product's partials made whole."""
+    if ctx.model_group is None:
+        return x
+    COUNTS["model_sum"] += 1
+    dist.all_reduce(x, group=ctx.model_group)
+    return x
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, starts: Sequence[int],
+                ctx: MeshContext) -> torch.Tensor:
+    """Dimension ``dim`` of a storage-sharded parameter block gathered
+    over this rank's FSDP group, in node-block order; ``starts[b]`` is
+    where block ``b``'s part begins, and a part several blocks hold (a
+    dimension the sanitizer split over fewer axes than the blocks) is
+    taken once."""
+    if ctx.fsdp_group is None:
+        return x
+    COUNTS["fsdp_gather"] += 1
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(ctx.n_blocks)]
+    dist.all_gather(parts, x, group=ctx.fsdp_group)
+    keep = [p for b, p in enumerate(parts)
+            if b == 0 or starts[b] != starts[b - 1]]
+    return keep[0] if len(keep) == 1 else torch.cat(keep, dim=dim)
+
+
+def model_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """The last dimension of ``x`` gathered over this rank's ``model``
+    group, in model order (the vocab-split logits made whole)."""
+    if ctx.model_group is None:
+        return x
+    COUNTS["model_gather"] += 1
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(ctx.model_size)]
+    dist.all_gather(parts, x, group=ctx.model_group)
+    return torch.cat(parts, dim=-1)

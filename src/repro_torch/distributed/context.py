@@ -20,6 +20,21 @@ per-node tensor of that rank carries only its own nodes
 collectives of :mod:`repro_torch.distributed.collectives`. Without a
 group the context holds every node, as on one card.
 
+With ``split_model=True`` the ranks split the ``model`` axis too: a
+rank holds a block of whole nodes at ONE ``model`` position, the ranks
+numbered model-minor (``rank = block * m + position``). Each rank then
+has its ``model`` group (the ``m`` ranks of its node block, which share
+its nodes and sum the tensor-parallel partials) and its FSDP group (the
+ranks at its ``model`` position, which share the storage-sharded
+parameter dimensions), both built once, in the same order on every
+rank. That is the serving layout of ``launch/serve.py --mesh``.
+
+The JAX package finds its mesh through a module-level context
+(:func:`set_mesh_context` / :func:`get_mesh_context` /
+:func:`mesh_context`, ``src/repro/distributed/context.py:44-60``); the
+port keeps the same three functions, which the ``Trainer`` and the
+serve path set and the models read.
+
 The streaming engine's ``cells`` axis needs no process group: one
 process places each shard on a device of its own
 (:func:`cells_devices`).
@@ -27,10 +42,12 @@ process places each shard on a device of its own
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
+import weakref
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +82,9 @@ class MeshContext:
     rank: int = 0
     local_sizes: Tuple[int, ...] = ()   # this rank's block of each axis
     local_starts: Tuple[int, ...] = ()  # ... and where it starts
+    split_model: bool = False        # a rank holds one model position
+    model_group: Any = None          # the ranks of this rank's nodes
+    fsdp_group: Any = None           # the ranks at its model position
 
     def __post_init__(self) -> None:
         if not self.local_sizes:          # no group: every node is local
@@ -83,16 +103,36 @@ class MeshContext:
         return int(np.prod([self.shape[a] for a in self.batch_axes]))
 
     @property
+    def n_blocks(self) -> int:
+        """Node blocks over the ranks: the world, or with the model axis
+        split over ranks the world over the model size."""
+        return self.world // self.model_size if self.split_model \
+            else self.world
+
+    @property
+    def block(self) -> int:
+        """This rank's node block."""
+        return self.rank // self.model_size if self.split_model \
+            else self.rank
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's ``model`` position when the ranks split the axis,
+        else 0 (the rank holds every position)."""
+        return self.rank % self.model_size if self.split_model else 0
+
+    @property
     def nodes_per_rank(self) -> int:
-        return self.n_nodes // self.world
+        return self.n_nodes // self.n_blocks
 
     def owner(self, node: int) -> int:
-        """The rank holding joined (pod-major) node index ``node``."""
+        """The node block (the rank, unless the ranks split ``model``)
+        holding joined (pod-major) node index ``node``."""
         return node // self.nodes_per_rank
 
     def local_node(self, node: int) -> Optional[int]:
         """``node``'s index among this rank's nodes, or None."""
-        i = node - self.rank * self.nodes_per_rank
+        i = node - self.block * self.nodes_per_rank
         return i if 0 <= i < self.nodes_per_rank else None
 
     @property
@@ -100,6 +140,31 @@ class MeshContext:
         if self.model_axis is None:
             return 1
         return self.shape[self.model_axis]
+
+
+_CURRENT: Optional[MeshContext] = None
+
+
+def set_mesh_context(ctx: Optional[MeshContext]) -> None:
+    """Make ``ctx`` the context the models read (``None``: no mesh)."""
+    global _CURRENT
+    _CURRENT = ctx
+
+
+def get_mesh_context() -> Optional[MeshContext]:
+    return _CURRENT
+
+
+@contextlib.contextmanager
+def mesh_context(ctx: Optional[MeshContext]) -> Iterator[
+        Optional[MeshContext]]:
+    """``ctx`` as the models' context for the length of a ``with``."""
+    prev = get_mesh_context()
+    set_mesh_context(ctx)
+    try:
+        yield ctx
+    finally:
+        set_mesh_context(prev)
 
 
 def cells_devices(n_shards: int, devices=None,
@@ -138,7 +203,8 @@ def cells_devices(n_shards: int, devices=None,
 
 
 def make_context(axis_shapes: Sequence[int], axis_names: Sequence[str],
-                 device=None, group=None) -> MeshContext:
+                 device=None, group=None, split_model: bool = False,
+                 timeout_s: Optional[float] = None) -> MeshContext:
     """The canonical context for node axes ``axis_names`` of sizes
     ``axis_shapes``, on ``device`` (``None`` means CUDA, and raises
     without a card; the CPU tests pass ``device="cpu"``).
@@ -149,9 +215,15 @@ def make_context(axis_shapes: Sequence[int], axis_names: Sequence[str],
     nodes: the world must divide the joined (pod, data) axes into
     blocks of whole pods or of equal parts of one pod, the node axes must
     lead, pod first, and a CUDA device needs ``nccl``, the CPU ``gloo``
-    -- anything else raises ``ValueError``; nothing falls back. The JAX
-    package's ``make_context`` (``src/repro/distributed/context.py:119``)
-    takes a mesh whose devices the ranks stand for here."""
+    -- anything else raises ``ValueError``; nothing falls back. With
+    ``split_model`` the ranks split the ``model`` axis as well: the world
+    must be ``m`` (the model size) times a number of node blocks that
+    divides the joined (pod, data) nodes as above; each rank then holds
+    one ``model`` position of its block (``model_group`` /
+    ``fsdp_group``, whose collectives time out after ``timeout_s``, or
+    torch's default for the backend when it is ``None``). The JAX package's ``make_context``
+    (``src/repro/distributed/context.py:119``) takes a mesh whose devices
+    the ranks stand for here."""
     names = tuple(axis_names)
     sizes = tuple(int(s) for s in axis_shapes)
     if len(names) != len(sizes) or len(set(names)) != len(names):
@@ -176,11 +248,17 @@ def make_context(axis_shapes: Sequence[int], axis_names: Sequence[str],
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     shape = dict(zip(names, sizes))
     n_nodes = int(np.prod([shape[a] for a in batch_axes]))
-    if n_nodes % world:
-        raise ValueError(f"a world of {world} ranks does not divide the "
-                         f"{n_nodes} nodes of {batch_axes}")
-    k, n_data = n_nodes // world, shape["data"]
-    first = rank * k
+    m = shape.get("model", 1)
+    if split_model and (model_axis is None or world % m):
+        raise ValueError(f"a world of {world} ranks cannot split the model "
+                         f"axis of {dict(zip(names, sizes))}")
+    blocks = world // m if split_model else world
+    if n_nodes % blocks:
+        raise ValueError(f"{blocks} node blocks of a world of {world} ranks "
+                         f"do not divide the {n_nodes} nodes of "
+                         f"{batch_axes}")
+    k, n_data = n_nodes // blocks, shape["data"]
+    first = (rank // m if split_model else rank) * k
     if k % n_data == 0:                   # whole pods (or the whole ring)
         block = {"data": (0, n_data)}
         if "pod" in shape:
@@ -192,6 +270,12 @@ def make_context(axis_shapes: Sequence[int], axis_names: Sequence[str],
     else:
         raise ValueError(f"{k} nodes a rank cut the pods of {n_data} "
                          f"nodes unevenly")
+    groups: Dict[str, Any] = {}
+    if split_model:
+        block["model"] = (rank % m, 1)
+        groups = dict(zip(("model_group", "fsdp_group"),
+                          _split_groups(group, world, m, rank,
+                                        timeout_s)))
     return MeshContext(
         axis_names=names, axis_sizes=sizes, batch_axes=batch_axes,
         model_axis=model_axis, device=resolve_device(device), group=group,
@@ -199,7 +283,39 @@ def make_context(axis_shapes: Sequence[int], axis_names: Sequence[str],
         local_sizes=tuple(block[a][1] if a in block else s
                           for a, s in zip(names, sizes)),
         local_starts=tuple(block[a][0] if a in block else 0
-                           for a in names))
+                           for a in names),
+        split_model=split_model, **groups)
+
+
+#: group -> {(world, m, timeout_s): every rank's (model groups, FSDP
+#: groups)}, made once; a destroyed group's entry goes with it
+_SPLIT_GROUPS: "weakref.WeakKeyDictionary[Any, Dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _split_groups(group, world: int, m: int, rank: int,
+                  timeout_s: Optional[float]) -> Tuple[Any, Any]:
+    """This rank's (model group, FSDP group) of a world whose ranks split
+    ``model`` (model-minor numbering). Every rank builds every group, in
+    the same order, the first time a world is split (``dist.new_group``
+    is collective); a group of one rank is ``None``."""
+    made = _SPLIT_GROUPS.setdefault(group, {})
+    key = (world, m, timeout_s)
+    if key not in made:
+        glob = [dist.get_global_rank(group, r) for r in range(world)]
+        kw = ({} if timeout_s is None
+              else {"timeout": datetime.timedelta(seconds=timeout_s)})
+
+        def new(ranks):
+            return (dist.new_group([glob[r] for r in ranks], **kw)
+                    if len(ranks) > 1 else None)
+
+        models = [new(list(range(b * m, (b + 1) * m)))
+                  for b in range(world // m)]
+        fsdps = [new(list(range(p, world, m))) for p in range(m)]
+        made[key] = (models, fsdps)
+    models, fsdps = made[key]
+    return models[rank // m], fsdps[rank % m]
 
 
 def node_group(device=None, init_method: Optional[str] = None,

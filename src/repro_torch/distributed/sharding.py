@@ -11,23 +11,47 @@ dicts where the JAX package stacks them on a leading L axis
 (``models/model_zoo.py::params_from_jax``). Each per-layer leaf gets the
 spec the JAX rule gives its stacked leaf, less the leading ``None``.
 
-On one card the specs do not place tensors: they say which block of
-each global tensor a logical node of a :class:`MeshContext` owns, for
-the replication engine (``core/replication.py``) and
-``install_recovered_shard`` (``distributed/elastic.py``).
-``named_shardings`` is the identity: every tensor on ``ctx.device``.
-The activation constraints, cache, tile and bank specs of the JAX module
-are not ported (identities on one card, or the engine's own layout).
+On one card, and across ranks that hold whole nodes, the specs do not
+place tensors: they say which block of each global tensor a logical
+node of a :class:`MeshContext` owns, for the replication engine
+(``core/replication.py``) and ``install_recovered_shard``
+(``distributed/elastic.py``), and ``named_shardings`` leaves every
+tensor whole on ``ctx.device``. When the ranks split the ``model`` axis
+(``make_context(..., split_model=True)``) ``named_shardings`` places
+blocks: each leaf becomes a :class:`Shard`, this rank's block of the
+global tensor by its spec -- the ``model`` entry at its model position,
+the (pod, data) entries (FSDP storage) at its node block -- and the
+layers take a leaf through :func:`weight`, which all-gathers the storage
+dimensions over the FSDP group just in time and keeps the ``model``
+split (``src/repro/models/moe.py:177-186`` does the same inside its
+``shard_map``; GSPMD does it for every other leaf).
+
+The serving half of the JAX module's activation rules is here too:
+:func:`batch_blocks` (its ``batch_specs`` split of a batch), and the
+constraint points :func:`constrain_batch` (a batch input's rows on this
+rank), :func:`constrain_heads` (a whole-head tensor's heads on this
+rank) and :func:`constrain_logits` (the vocab-split logits gathered
+over ``model``), which are the explicit places where the port gathers
+or slices what GSPMD reshards unasked. The JAX module's ``cache_specs``
+has no counterpart: a rank's cache holds what its layers read (the KV
+heads of :func:`~repro_torch.models.attention.local_kv_heads`, the SSD
+heads and x channels of :func:`~repro_torch.models.ssm.local_heads`),
+which is not always the block that spec gives (ROADMAP.md,
+"Contracts": the split serve caches).
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed.context import MeshContext, P
+from repro_torch.distributed import collectives
+from repro_torch.distributed.context import (MeshContext, P,
+                                             get_mesh_context)
 
 
 def _leaf_spec(path: str, ndim: int, cfg: ModelConfig, n_model: int,
@@ -121,10 +145,12 @@ def sanitize_spec(spec: P, shape: Sequence[int], ctx: MeshContext) -> P:
     return P(*out)
 
 
-def param_specs(params: Any, cfg: ModelConfig, ctx: MeshContext) -> Any:
+def param_specs(params: Any, cfg: ModelConfig, ctx: MeshContext,
+                prefix: str = "") -> Any:
     """A tree of :class:`P` matching ``params`` (a tree of tensors, or of
     anything with a ``.shape``): dicts by key, ``layers`` /
-    ``enc_layers`` lists of per-layer dicts."""
+    ``enc_layers`` lists of per-layer dicts. ``prefix`` is the path of
+    a subtree (``"layers"`` for one layer's dict)."""
     fsdp = ctx.batch_axes
     n_model = ctx.model_size
     model_ax = ctx.model_axis
@@ -141,17 +167,209 @@ def param_specs(params: Any, cfg: ModelConfig, ctx: MeshContext) -> Any:
         spec = _leaf_spec(path, len(shape), cfg, n_model, fsdp, model_ax)
         return sanitize_spec(spec, shape, ctx)
 
-    return walk(params, "")
+    return walk(params, prefix)
 
 
-def named_shardings(params: Any, cfg: ModelConfig, ctx: MeshContext) -> Any:
-    """The parameters placed by their specs: on one card, every tensor on
-    ``ctx.device`` (the identity when they are there already)."""
-    def walk(node: Any) -> Any:
+@dataclass(frozen=True)
+class Shard:
+    """This rank's block of a global parameter: ``local`` is the block,
+    ``spec`` the global tensor's (sanitized) spec, ``shape`` its global
+    shape. Only a context whose ranks split ``model`` makes these
+    (:func:`place`), with what the layers read on every call worked out
+    once: ``split``, the dimensions the ``model`` axis splits;
+    ``gathers``, each storage-sharded dimension with every node block's
+    start in it (none when one block holds the whole storage);
+    ``model_pos`` / ``model_size``, the rank's ``model`` position and the
+    axis size."""
+    local: torch.Tensor
+    spec: P
+    shape: Tuple[int, ...]
+    split: Tuple[int, ...] = ()
+    gathers: Tuple[Tuple[int, Tuple[int, ...]], ...] = ()
+    model_pos: int = 0
+    model_size: int = 1
+
+
+def entry_axes(spec: P, dim: int) -> Tuple[str, ...]:
+    """The axes sharding dimension ``dim`` of a spec (``()``: none)."""
+    entry = tuple(spec)[dim] if dim < len(spec) else None
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _dim_block(axes: Tuple[str, ...], size: int, ctx: MeshContext,
+               block: int, model_pos: int) -> Tuple[int, int]:
+    """(start, length) of dimension ``size`` sharded over ``axes`` held
+    by node block ``block`` at model position ``model_pos``. The rules
+    put ``model`` first and then a prefix of the (pod, data) axes, whose
+    flattened index is the joined node index over ``q`` nodes."""
+    shape = ctx.shape
+    fsdp = tuple(a for a in axes if a != ctx.model_axis)
+    if fsdp != ctx.batch_axes[:len(fsdp)] or (
+            ctx.model_axis in axes and axes[0] != ctx.model_axis):
+        raise ValueError(f"no block rule for a dimension over {axes}")
+    parts = int(np.prod([shape[a] for a in fsdp]))
+    q = ctx.n_nodes // parts                  # nodes per storage part
+    k = ctx.nodes_per_rank
+    lo, hi = block * k // q, ((block + 1) * k - 1) // q + 1
+    if ctx.model_axis in axes:
+        lo, hi = model_pos * parts + lo, model_pos * parts + hi
+        parts *= ctx.model_size
+    step = size // parts
+    return lo * step, (hi - lo) * step
+
+
+def block_slices(spec: P, shape: Sequence[int], ctx: MeshContext
+                 ) -> Tuple[slice, ...]:
+    """The slices of a global tensor of ``shape`` that this rank holds
+    under ``spec``."""
+    out = []
+    for d, size in enumerate(shape):
+        axes = entry_axes(spec, d)
+        if not axes:
+            out.append(slice(None))
+            continue
+        lo, n = _dim_block(axes, size, ctx, ctx.block, ctx.model_rank)
+        out.append(slice(lo, lo + n))
+    return tuple(out)
+
+
+def place(t: torch.Tensor, spec: P, ctx: MeshContext) -> Any:
+    """This rank's block of the global tensor ``t``, copied onto
+    ``ctx.device``: a :class:`Shard`, or for a spec that shards nothing
+    the whole tensor, plain."""
+    if not any(entry_axes(spec, d) for d in range(t.dim())):
+        return t.to(ctx.device, copy=True)
+    blk = t[block_slices(spec, t.shape, ctx)]
+    gathers = []
+    for d in range(t.dim()):
+        axes = entry_axes(spec, d)
+        if ctx.n_blocks > 1 and any(a in ctx.batch_axes for a in axes):
+            gathers.append((d, tuple(
+                _dim_block(axes, t.shape[d], ctx, b, ctx.model_rank)[0]
+                for b in range(ctx.n_blocks))))
+    return Shard(local=blk.to(ctx.device, copy=True).contiguous(),
+                 spec=spec, shape=tuple(t.shape),
+                 split=tuple(d for d in range(t.dim())
+                             if ctx.model_axis in entry_axes(spec, d)),
+                 gathers=tuple(gathers), model_pos=ctx.model_rank,
+                 model_size=ctx.model_size)
+
+
+def named_shardings(params: Any, cfg: ModelConfig, ctx: MeshContext,
+                    prefix: str = "") -> Any:
+    """The parameters placed by their specs: when the ranks split
+    ``model``, every leaf this rank's :class:`Shard` of it (a replicated
+    leaf, a norm's scale, stays a plain tensor); otherwise
+    every tensor whole on ``ctx.device`` (the identity when they are
+    there already). ``prefix`` as for :func:`param_specs`."""
+    specs = (param_specs(params, cfg, ctx, prefix) if ctx.split_model
+             else None)
+
+    def walk(node: Any, spec: Any) -> Any:
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, None if spec is None else spec[k])
+                    for k, v in node.items()}
         if isinstance(node, (list, tuple)):
-            return type(node)(walk(x) for x in node)
-        return node.to(ctx.device)
+            specs_ = spec if spec is not None else [None] * len(node)
+            return type(node)(walk(x, s) for x, s in zip(node, specs_))
+        if spec is None:
+            return node.to(ctx.device)
+        return place(node, spec, ctx)
 
-    return walk(params)
+    return walk(params, specs)
+
+
+# ---------------------------------------------------------------------------
+# The layers' view of a leaf
+# ---------------------------------------------------------------------------
+
+def model_split(leaf: Any, dim: int) -> bool:
+    """Whether the ``model`` axis splits dimension ``dim`` of ``leaf``
+    over the ranks (a :class:`Shard` whose spec keeps ``model`` there;
+    a plain tensor is whole)."""
+    return isinstance(leaf, Shard) and dim in leaf.split
+
+
+def weight(leaf: Any) -> torch.Tensor:
+    """The tensor a layer computes with: a plain tensor as it is; a
+    :class:`Shard` with its storage (pod, data) dimensions all-gathered
+    over the FSDP group (:func:`collectives.fsdp_gather`), its ``model``
+    split kept."""
+    if not isinstance(leaf, Shard):
+        return leaf
+    t = leaf.local
+    if leaf.gathers:
+        ctx = get_mesh_context()
+        for d, starts in leaf.gathers:
+            t = collectives.fsdp_gather(t, d, starts, ctx)
+    return t
+
+
+def model_block(leaf: Any, dim: int, size: int) -> Tuple[int, int]:
+    """(start, length) of this rank's ``model`` block of a dimension of
+    global ``size`` that ``leaf`` splits over ``model`` (``(0, size)``
+    when it does not)."""
+    if not model_split(leaf, dim):
+        return 0, size
+    n = size // leaf.model_size
+    return leaf.model_pos * n, n
+
+
+# ---------------------------------------------------------------------------
+# Serving batches
+# ---------------------------------------------------------------------------
+
+def batch_blocks(n_rows: int, ctx: MeshContext) -> int:
+    """The blocks a batch of ``n_rows`` rows splits into over the
+    context's (pod, data) axes, as the JAX package's sanitized
+    ``batch_specs`` entry splits its dimension 0
+    (``src/repro/distributed/sharding.py:411-416``)."""
+    spec = sanitize_spec(P(ctx.batch_axes), (n_rows,), ctx)
+    return int(np.prod([ctx.shape[a] for a in entry_axes(spec, 0)]))
+
+
+# ---------------------------------------------------------------------------
+# Activation constraints: where the port gathers or slices
+# ---------------------------------------------------------------------------
+
+def constrain_batch(x: torch.Tensor,
+                    ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """A global batch input's rows on this rank: dimension 0 split over
+    the node blocks, every rank of a block holding the same rows (the
+    whole batch without a group). Raises ``ValueError`` when the blocks
+    do not divide the rows (the JAX package then shards a B = 1 cache's
+    sequence: A4(d2c) in ROADMAP.md)."""
+    ctx = ctx or get_mesh_context()
+    if ctx is None or ctx.group is None:
+        return x
+    if x.shape[0] % ctx.n_blocks:
+        raise ValueError(f"a batch of {x.shape[0]} rows does not split over "
+                         f"{ctx.n_blocks} node blocks")
+    n = x.shape[0] // ctx.n_blocks
+    return x[ctx.block * n:(ctx.block + 1) * n]
+
+
+def constrain_heads(x: torch.Tensor,
+                    ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """(B, S, H, hd) with every head -> this rank's ``H / m`` heads when
+    the ranks split ``model`` and ``m`` divides ``H``; else unchanged."""
+    ctx = ctx or get_mesh_context()
+    if ctx is None or not ctx.split_model or x.shape[2] % ctx.model_size:
+        return x
+    n = x.shape[2] // ctx.model_size
+    return x[:, :, ctx.model_rank * n:(ctx.model_rank + 1) * n]
+
+
+def constrain_logits(logits: torch.Tensor, embed: Dict[str, Any],
+                     ctx: Optional[MeshContext] = None) -> torch.Tensor:
+    """(..., V / m) logits of this rank's vocabulary block -> (..., V),
+    all-gathered over the ``model`` group; logits the unembedding made
+    whole (``embed``'s vocab leaf not split, e.g. hymba's 32 001) come
+    back as they are."""
+    ctx = ctx or get_mesh_context()
+    leaf = embed["out"] if "out" in embed else embed["tok"]
+    if ctx is None or not model_split(leaf, 1 if "out" in embed else 0):
+        return logits
+    return collectives.model_gather(logits, ctx)

@@ -30,16 +30,36 @@ that take the prompt's leading positions; the prefill gets the whole
 batch. ``--gen`` tokens are answered
 per request: the first from the prefill, the rest one per decode step,
 as the JAX package's launcher does. It prints the prefill time, the
-decode time, tokens/s and sequence 0. The JAX launcher's ``--mesh`` and
-``--host-devices`` have no meaning on one card and are left out.
+decode time, tokens/s and sequence 0.
+
+``--mesh DxM`` lays the run out on a ``data x model`` mesh, as the JAX
+launcher's does (there the default is 4x2; here no mesh unless asked).
+Under ``torchrun`` (``WORLD_SIZE`` set) the ranks split the mesh: an
+``env://`` group from ``node_group`` (``nccl`` on the cards, ``gloo``
+with ``--device cpu``), each rank one ``model`` position of a block of
+data positions, the parameters placed by their specs (FSDP over
+``data``, tensor parallel over ``model``, the MoE's EP / TP), each rank
+serving its rows of the batch; rank 0 prints. Without a group the mesh
+is the one-card logical context, on which a MoE dispatches each data
+block on its own, as the JAX launcher's ``shard_map`` does::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch moonshot-v1-16b-a3b --mesh 1x4 --batch 4 --prompt-len 2048
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-0.6b \\
+        --reduced --mesh 2x2 --device cpu
+
+The JAX launcher's ``--host-devices`` has no meaning here and is left
+out.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -50,6 +70,9 @@ from repro_torch.config import (
     get_reduced_config,
 )
 from repro_torch.device import resolve_device
+from repro_torch.distributed import collectives
+from repro_torch.distributed.context import (MeshContext, make_context,
+                                             node_group)
 from repro_torch.models import build_model
 from repro_torch.models.model_zoo import make_batch
 from repro_torch.training.steps import make_serve_fns
@@ -65,6 +88,14 @@ class ServeResult:
     prefill_s: float                   # wall, ending in a synchronise
     decode_s: float                    # wall of the gen - 1 decode steps
     device: torch.device
+    ctx: Optional[MeshContext] = None  # the mesh, when one was asked
+    rows: slice = slice(None)          # this rank's rows of the batch
+    held_bytes: Optional[int] = None    # the card's memory before init
+    placed_bytes: Optional[int] = None  # ... after placement
+    peak_bytes: Optional[int] = None    # ... and its peak over the run
+    #: calls of the serving collectives, {"prefill": {...}, "decode": {...}}
+    collectives: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def decode_steps(self) -> int:
@@ -83,28 +114,48 @@ def _sync(device: torch.device) -> None:
 
 def serve(arch: str, reduced: bool = False, batch: int = 4,
           prompt_len: int = 64, gen: int = 32, seed: int = 0,
-          device=None) -> ServeResult:
+          device=None, mesh: Optional[Tuple[int, int]] = None,
+          group=None) -> ServeResult:
     """Serve ``batch`` prompts of ``prompt_len`` tokens with ``gen`` greedy
-    tokens each on ``device`` (``None``: the card, raising without one)."""
+    tokens each on ``device`` (``None``: the card, raising without one).
+    ``mesh`` ``(data, model)``, given, lays the run out on that mesh:
+    across the ranks of ``group`` (each rank one ``model`` position,
+    :func:`~repro_torch.distributed.context.make_context` with
+    ``split_model``), or on one device as logical nodes. The result holds
+    this rank's rows (``rows``) of the tokens."""
     if gen < 1:
         raise ValueError(f"gen must be at least 1, got {gen}")
     dev = resolve_device(device)
     cfg = get_reduced_config(arch) if reduced else get_model_config(arch)
     model = build_model(cfg)
-    prefill_fn, decode_fn = make_serve_fns(model)
+    ctx = None
+    if mesh is not None:
+        ctx = make_context(tuple(mesh), ("data", "model"), device=dev,
+                           group=group, split_model=group is not None)
+    prefill_fn, decode_fn = make_serve_fns(model, ctx)
     shape = ShapeConfig("serve", seq_len=prompt_len, global_batch=batch,
                         kind="prefill")
-    params = model.init(seed, device=dev)
+    held = None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+    params = model.init(seed, device=dev, ctx=ctx)
     prompts = make_batch(cfg, shape, seed=seed, device=dev)
+    placed = (torch.cuda.memory_allocated(dev) if dev.type == "cuda"
+              else None)
     max_len = prompt_len + gen
+    counts = {}
 
     with torch.inference_mode():
+        collectives.reset_counts()
         _sync(dev)
         t0 = time.perf_counter()
         toks, state = prefill_fn(params, prompts, max_len=max_len)
         _sync(dev)
         prefill_s = time.perf_counter() - t0
+        counts["prefill"] = dict(collectives.COUNTS)
 
+        collectives.reset_counts()
         out: List[torch.Tensor] = [toks]
         t0 = time.perf_counter()
         for _ in range(gen - 1):
@@ -112,9 +163,27 @@ def serve(arch: str, reduced: bool = False, batch: int = 4,
             out.append(toks)
         _sync(dev)
         decode_s = time.perf_counter() - t0
+        counts["decode"] = dict(collectives.COUNTS)
+    rows = slice(None)
+    if ctx is not None and ctx.group is not None:
+        n = batch // ctx.n_blocks
+        rows = slice(ctx.block * n, (ctx.block + 1) * n)
     return ServeResult(cfg=cfg, params=params, prompts=prompts["tokens"],
                        inputs=prompts, tokens=torch.stack(out, dim=1).cpu(),
-                       prefill_s=prefill_s, decode_s=decode_s, device=dev)
+                       prefill_s=prefill_s, decode_s=decode_s, device=dev,
+                       ctx=ctx, rows=rows, held_bytes=held,
+                       placed_bytes=placed,
+                       peak_bytes=(torch.cuda.max_memory_allocated(dev)
+                                   if dev.type == "cuda" else None),
+                       collectives=counts)
+
+
+def parse_mesh(text: Optional[str]) -> Optional[Tuple[int, int]]:
+    """``"DxM"`` -> ``(D, M)``; ``None`` stays ``None``."""
+    if text is None:
+        return None
+    d, m = (int(v) for v in text.lower().split("x"))
+    return d, m
 
 
 def main(argv: Optional[List[str]] = None) -> ServeResult:
@@ -127,15 +196,28 @@ def main(argv: Optional[List[str]] = None) -> ServeResult:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
+    ap.add_argument("--mesh", default=None,
+                    help="DxM data x model mesh (default: none); under "
+                    "torchrun the ranks split it")
     args = ap.parse_args(argv)
+    mesh = parse_mesh(args.mesh)
+    group = None
+    if mesh is not None and "WORLD_SIZE" in os.environ:
+        group = node_group(args.device)
     res = serve(args.arch, reduced=args.reduced, batch=args.batch,
                 prompt_len=args.prompt_len, gen=args.gen, seed=args.seed,
-                device=args.device)
-    print(f"{res.cfg.name}: prefill {args.batch}x{args.prompt_len} in "
-          f"{res.prefill_s * 1e3:.1f} ms; {res.decode_steps} decode steps in "
-          f"{res.decode_s * 1e3:.1f} ms ({res.decode_tok_per_s:.0f} tok/s) "
-          f"on {res.device}")
-    print("sample generation (seq 0):", res.tokens[0].tolist())
+                device=args.device, mesh=mesh, group=group)
+    if res.ctx is None or res.ctx.rank == 0:
+        where = "" if res.ctx is None else (
+            f" on a {args.mesh} mesh" + ("" if group is None else
+                                         f", {res.ctx.world} ranks"))
+        print(f"{res.cfg.name}: prefill {args.batch}x{args.prompt_len} in "
+              f"{res.prefill_s * 1e3:.1f} ms; {res.decode_steps} decode "
+              f"steps in {res.decode_s * 1e3:.1f} ms "
+              f"({res.decode_tok_per_s:.0f} tok/s) on {res.device}{where}")
+        print("sample generation (seq 0):", res.tokens[0].tolist())
+    if group is not None:
+        torch.distributed.destroy_process_group()
     return res
 
 

@@ -26,6 +26,14 @@ path too, or, inside ``kernels.on_meta()``, the kernel's shape-only
 route (``launch/costing.py``). Decode attention stays plain
 torch: the JAX package has no kernel for it. All paths accumulate
 softmax statistics in f32.
+
+Across ranks that split the ``model`` axis (``sharding.Shard`` leaves)
+a rank computes its ``H / m`` query heads when ``wq`` splits them, its
+``K / m`` KV heads when ``wk`` / ``wv`` split them, and otherwise every
+KV head, sliced to the ones its query heads read (:func:`_local_kv`);
+``wo``'s partial is summed over the ``model`` group. Where the heads do
+not divide ``m`` (hymba's 25) every rank computes the whole attention
+and nothing is summed. The KV cache holds the rank's KV heads.
 """
 
 from __future__ import annotations
@@ -37,6 +45,9 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding
+from repro_torch.distributed.context import get_mesh_context
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.models.layers import (
     Params,
@@ -88,16 +99,47 @@ def _project_qkv(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
     hd = cfg.resolved_head_dim
     b, sq, _ = xq.shape
     skv = xkv.shape[1]
-    q = (xq @ params["wq"]).reshape(b, sq, cfg.n_heads, hd)
-    k = (xkv @ params["wk"]).reshape(b, skv, cfg.n_kv_heads, hd)
-    v = (xkv @ params["wv"]).reshape(b, skv, cfg.n_kv_heads, hd)
+    w = sharding.weight
+    q = (xq @ w(params["wq"])).reshape(b, sq, -1, hd)
+    k = (xkv @ w(params["wk"])).reshape(b, skv, -1, hd)
+    v = (xkv @ w(params["wv"])).reshape(b, skv, -1, hd)
     if "q_norm" in params:
-        q = head_rmsnorm(params["q_norm"], q, cfg.norm_eps)
-        k = head_rmsnorm(params["k_norm"], k, cfg.norm_eps)
+        q = head_rmsnorm(w(params["q_norm"]), q, cfg.norm_eps)
+        k = head_rmsnorm(w(params["k_norm"]), k, cfg.norm_eps)
     if use_rope:
         q = apply_rope(q, q_positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
+    k, v = _local_kv(params, k, v, cfg)
     return q, k, v
+
+
+def _local_kv(params: Params, k: torch.Tensor, v: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The KV heads this rank's query heads read, when ``wq`` splits the
+    query heads over ``model`` and ``wk`` does not split the KV heads
+    (computed whole): the group's KV head(s) when the rank's ``H / m``
+    heads cover whole GQA groups or lie inside one, else each query
+    head's own copy. Otherwise ``k`` / ``v`` as they are."""
+    if not sharding.model_split(params["wq"], 1) or \
+            sharding.model_split(params["wk"], 1):
+        return k, v
+    h0, nh = sharding.model_block(params["wq"], 1, cfg.n_heads)
+    g = cfg.n_heads // cfg.n_kv_heads
+    if nh % g == 0 or g % nh == 0:
+        k0, nk = h0 // g, max(nh // g, 1)
+        return k[:, :, k0:k0 + nk], v[:, :, k0:k0 + nk]
+    return (sharding.constrain_heads(_expand_kv(k, cfg.n_heads)),
+            sharding.constrain_heads(_expand_kv(v, cfg.n_heads)))
+
+
+def _out_proj(params: Params, o: torch.Tensor) -> torch.Tensor:
+    """``o (B, S, heads, hd) @ wo``; ``wo``'s partial summed over the
+    ``model`` group where it splits the heads."""
+    b, s = o.shape[:2]
+    out = o.reshape(b, s, -1) @ sharding.weight(params["wo"])
+    if sharding.model_split(params["wo"], 0):
+        out = collectives.model_sum(out, get_mesh_context())
+    return out
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -287,7 +329,7 @@ def self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     use_blockwise = (s > BLOCKWISE_THRESHOLD if force_blockwise is None
                      else force_blockwise)
     o = _attend(q, k, v, causal, use_blockwise)
-    return o.reshape(b, s, -1) @ params["wo"]
+    return _out_proj(params, o)
 
 
 def cross_kv(params: Params, ctx: torch.Tensor, cfg: ModelConfig
@@ -318,13 +360,31 @@ def cross_attention(params: Params, x: torch.Tensor, ctx: torch.Tensor,
     return cross_attend(params, x, k, v, cfg)
 
 
+def local_kv_heads(cfg: ModelConfig, params: Optional[Params] = None
+                   ) -> int:
+    """The KV heads a rank caches: ``params`` (one layer's attention
+    leaves) as :func:`_project_qkv` and :func:`_local_kv` leave them;
+    every head without ``params`` or a split."""
+    if params is None or not sharding.model_split(params["wq"], 1):
+        return cfg.n_kv_heads
+    if sharding.model_split(params["wk"], 1):
+        return cfg.n_kv_heads // get_mesh_context().model_size
+    _, nh = sharding.model_block(params["wq"], 1, cfg.n_heads)
+    g = cfg.n_heads // cfg.n_kv_heads
+    return max(nh // g, 1) if (nh % g == 0 or g % nh == 0) else nh
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   n_layers: Optional[int] = None,
-                  device: Optional[torch.device] = None
+                  device: Optional[torch.device] = None,
+                  n_kv_heads: Optional[int] = None
                   ) -> Dict[str, object]:
+    """Zero K / V caches ``(L, batch, max_len, n_kv_heads, hd)``
+    (``n_kv_heads``: the config's, or a rank's :func:`local_kv_heads`)."""
     dt = dtype_of(cfg)
     L = n_layers if n_layers is not None else cfg.n_layers
-    shape = (L, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    shape = (L, batch, max_len, n_kv_heads or cfg.n_kv_heads,
+             cfg.resolved_head_dim)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
@@ -350,8 +410,7 @@ def decode_self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     k_cache[:, cache_len] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, cache_len] = v_new[:, 0].to(v_cache.dtype)
     o = _decode_attention(q, k_cache, v_cache, cache_len + 1)
-    out = o.reshape(b, 1, -1) @ params["wo"]
-    return out, k_cache, v_cache
+    return _out_proj(params, o), k_cache, v_cache
 
 
 def prefill_self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig
@@ -362,5 +421,4 @@ def prefill_self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig
     positions = torch.arange(s, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, x, cfg, positions, positions, True)
     o = _attend(q, k, v, True, s > BLOCKWISE_THRESHOLD)
-    out = o.reshape(b, s, -1) @ params["wo"]
-    return out, k, v
+    return _out_proj(params, o), k, v

@@ -6,6 +6,13 @@ nested dicts of tensors with the JAX package's keys, weights laid out
 (on the device the weights are made on); the numbers differ from
 ``jax.random`` for the same seed, so a parity test takes the JAX
 package's weights through ``model_zoo.params_from_jax`` instead.
+
+Across ranks that split the ``model`` axis a leaf may be a
+:class:`~repro_torch.distributed.sharding.Shard`; the layers take it
+through ``sharding.weight`` (its FSDP dimensions gathered) and sum a
+row-parallel product's partials over the ``model`` group where the
+leaf's spec splits its rows. A leaf whose spec lost the ``model`` axis
+to the sanitizer is computed whole, replicated, and not summed.
 """
 
 from __future__ import annotations
@@ -23,6 +30,9 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding
+from repro_torch.distributed.context import get_mesh_context
 
 Params = Dict[str, Any]
 
@@ -128,13 +138,22 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
-              ) -> torch.Tensor:
+def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              reduce: bool = True) -> torch.Tensor:
+    """The MLP; across ranks ``w_gate`` / ``w_up`` column-parallel over
+    ``ff`` and ``w_down``'s partial summed over ``model`` (unless
+    ``reduce`` is False: the caller sums)."""
+    w = sharding.weight
     if cfg.mlp == "swiglu":
-        g = F.silu(x @ params["w_gate"])
-        return (g * (x @ params["w_up"])) @ params["w_down"]
-    # jax.nn.gelu is the tanh approximation by default
-    return F.gelu(x @ params["w_up"], approximate="tanh") @ params["w_down"]
+        g = F.silu(x @ w(params["w_gate"]))
+        out = (g * (x @ w(params["w_up"]))) @ w(params["w_down"])
+    else:
+        # jax.nn.gelu is the tanh approximation by default
+        out = (F.gelu(x @ w(params["w_up"]), approximate="tanh")
+               @ w(params["w_down"]))
+    if reduce and sharding.model_split(params["w_down"], 0):
+        out = collectives.model_sum(out, get_mesh_context())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -150,14 +169,28 @@ def embedding_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["tok"][tokens]
+    """Token embeddings; across ranks vocab-parallel: each rank looks up
+    the tokens of its vocabulary block, zeros the others, and the
+    ``model`` group sums (one rank holds each token's row)."""
+    leaf = params["tok"]
+    tok = sharding.weight(leaf)
+    if not sharding.model_split(leaf, 0):
+        return tok[tokens]
+    v0, nv = sharding.model_block(leaf, 0, leaf.shape[0])
+    mine = (tokens >= v0) & (tokens < v0 + nv)
+    rows = tok[torch.where(mine, tokens - v0, 0)]
+    x = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return collectives.model_sum(x, get_mesh_context())
 
 
 def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
             ) -> torch.Tensor:
+    """Logits; across ranks this rank's vocabulary block where the leaf
+    splits the vocab over ``model`` (``sharding.constrain_logits``
+    gathers them), else every column."""
     if cfg.tie_embeddings:
-        return x @ params["tok"].T
-    return x @ params["out"]
+        return x @ sharding.weight(params["tok"]).T
+    return x @ sharding.weight(params["out"])
 
 
 # ---------------------------------------------------------------------------

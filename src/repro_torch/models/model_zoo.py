@@ -54,14 +54,31 @@ def build_model(cfg: ModelConfig) -> Model:
     transformer.check_family(cfg)
     mod = encdec if cfg.is_encdec else transformer
 
-    def init(seed: int = 0, device=None) -> Dict[str, Any]:
+    def init(seed: int = 0, device=None, ctx=None) -> Dict[str, Any]:
         """Random weights from ``torch.Generator(device).manual_seed(seed)``,
-        made on ``device`` (``None``: the card). On ``"meta"`` only their
-        shapes and dtypes (``launch/dryrun.py``)."""
-        dev = resolve_device(device)
+        made on ``device`` (``None``: ``ctx.device``, else the card). On
+        ``"meta"`` only their shapes and dtypes (``launch/dryrun.py``).
+        With a context whose ranks split ``model`` each rank keeps its
+        :class:`~repro_torch.distributed.sharding.Shard` of every leaf:
+        the same draws as the one-card init, block for block ``==``,
+        placed layer by layer as they are drawn."""
+        dev = resolve_device(device if device is not None or ctx is None
+                             else ctx.device)
         gen = (_MetaGenerator() if dev.type == "meta"
                else torch.Generator(device=dev))
-        return mod.init_params(gen.manual_seed(seed), cfg)
+        place = None
+        if ctx is not None and ctx.split_model:
+            if cfg.is_encdec:
+                raise NotImplementedError(
+                    f"{cfg.name}: an enc-dec model across ranks that split "
+                    f"the model axis (A4(d2c) in ROADMAP.md)")
+            from repro_torch.distributed.sharding import named_shardings
+
+            def place(tree, path):
+                return named_shardings(tree, cfg, ctx, path)
+        if place is None:
+            return mod.init_params(gen.manual_seed(seed), cfg)
+        return mod.init_params(gen.manual_seed(seed), cfg, place)
 
     def init_cache(batch: int, max_len: int, device=None) -> Dict[str, Any]:
         if cfg.is_encdec:

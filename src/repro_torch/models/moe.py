@@ -1,11 +1,29 @@
 """Top-k MoE with sort-based (dropping) dispatch.
 
-The JAX package's ``models/moe.py`` on torch tensors: its local path,
-which is the whole function on one card (the JAX package takes it
-whenever no mesh context is set). The EP / TP ``shard_map`` layouts need
-more than one device and wait for the multi-card port (ROADMAP
-A4(d2)). The expert products are ``torch.bmm``, as the JAX package leaves
-its einsums to XLA.
+The JAX package's ``models/moe.py`` on torch tensors. The expert
+products are ``torch.bmm``, as the JAX package leaves its einsums to
+XLA. :func:`moe_apply` reads the module-level mesh context
+(``distributed/context.py::get_mesh_context``), as the reference does:
+
+* **no context, or one without a ``model`` axis**: the reference's local
+  path, the process's tokens routed at once -- with the shared experts
+  added under every context (the reference drops them under a context
+  without ``model``: ROADMAP C6);
+* **a context with a ``model`` axis**: the reference's ``shard_map``
+  body (``src/repro/models/moe.py:192-227``). Each data block of the
+  rows is dispatched on its own, its capacity from its own tokens, as
+  ``shard_map`` hands each device its block of a batch sharded
+  ``P(batch_axes)`` (``sanitize_spec`` may keep fewer axes, or none);
+  the aux loss is the blocks' mean (the reference returns block 0's:
+  ROADMAP C7). On one card, or across ranks that hold whole nodes, the
+  process computes every expert; across ranks that split ``model`` a
+  rank computes its experts (EP, ``E % m == 0``: experts ``[e_start,
+  e_start + E / m)``) or its ``ff`` slice of every expert (TP), its
+  shared experts' ``ff`` slice, and the ``model`` group sums the
+  partials, with the reference's ``1 / m`` where the sanitizer left a
+  stack unsplit. The reference's ``pmean`` of the aux loss over
+  ``model`` has nothing to do here: every rank of the group already
+  holds the same aux, from the replicated router and the same tokens.
 
 The port gives the JAX function's answer where torch's primitives
 promise less than JAX's:
@@ -40,6 +58,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding
+from repro_torch.distributed.context import get_mesh_context
 from repro_torch.models.layers import (
     Params,
     dense_init,
@@ -176,12 +197,60 @@ def _dispatch_and_compute(x_flat: torch.Tensor, params: Params,
 def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss ()): the routed experts,
-    then the shared ones added after them."""
+    then the shared ones added after them; per data block under a
+    context with a ``model`` axis (module docstring). The aux loss needs
+    no ``model`` collective: it comes from the replicated router and the
+    block's tokens, so every rank of the group holds the same value."""
     b, s, d = x.shape
+    E = cfg.n_experts
+    ctx = get_mesh_context()
     xf = x.reshape(-1, d)
-    out, aux = _dispatch_and_compute(
-        xf, params, cfg, 0, cfg.n_experts, params.get("w_gate"),
-        params["w_up"], params["w_down"])
+    if ctx is None or ctx.model_axis is None:
+        out, aux = _dispatch_and_compute(
+            xf, params, cfg, 0, E, params.get("w_gate"), params["w_up"],
+            params["w_down"])
+        if "shared" in params:
+            out = out + mlp_apply(params["shared"], xf, cfg)
+        return out.reshape(b, s, d), aux
+
+    n_blocks = _data_blocks(b, ctx)
+    m = ctx.model_size
+    ep = E % m == 0 and E >= m
+    up = params["w_up"]
+    e_start, e_count = (sharding.model_block(up, 0, E) if ep else (0, E))
+    summed = ctx.split_model and m > 1
+    w = sharding.weight
+    wg = params.get("w_gate")
+    wg, wu, wd = (None if wg is None else w(wg)), w(up), w(params["w_down"])
+    outs, auxs = [], []
+    for blk in xf.chunk(n_blocks):
+        o, a = _dispatch_and_compute(blk, params, cfg, e_start, e_count,
+                                     wg, wu, wd)
+        outs.append(o)
+        auxs.append(a)
+    out = outs[0] if n_blocks == 1 else torch.cat(outs)
+    aux = auxs[0] if n_blocks == 1 else torch.stack(auxs).mean()
+    if summed and not sharding.model_split(up, 0 if ep else 2):
+        out = out / m                      # every rank computed it whole
     if "shared" in params:
-        out = out + mlp_apply(params["shared"], xf, cfg)
+        sh = mlp_apply(params["shared"], xf, cfg, reduce=False)
+        if summed and not sharding.model_split(params["shared"]["w_up"], 1):
+            sh = sh / m
+        out = out + sh
+    if summed:
+        out = collectives.model_sum(out, ctx)
     return out.reshape(b, s, d), aux
+
+
+def _data_blocks(rows: int, ctx) -> int:
+    """The data blocks of a process's ``rows``: its share of the blocks
+    the global batch splits into over the (pod, data) axes
+    (``sharding.batch_blocks``); across ranks the global batch is
+    ``rows`` times the node blocks."""
+    if ctx.group is None:
+        return sharding.batch_blocks(rows, ctx)
+    total = sharding.batch_blocks(rows * ctx.n_blocks, ctx)
+    if total % ctx.n_blocks:
+        raise ValueError(f"{total} data blocks of the global batch do not "
+                         f"split over {ctx.n_blocks} node blocks")
+    return total // ctx.n_blocks

@@ -11,6 +11,17 @@ O(1) recurrent state update, plain torch.
 
 Projections stay separate matrices (z, x, B, C, dt), with a single B/C
 group, as in the JAX package.
+
+Across ranks that split the ``model`` axis (``sharding.Shard`` leaves,
+``ssm_tp``: ``d_inner`` divisible by ``m``) a rank holds ``nh / m``
+heads: ``w_z`` / ``w_x`` / ``conv_wx`` split over ``d_inner``, and it
+slices ``conv_bx`` / ``norm_scale`` to its channels and ``dt`` /
+``A_log`` / ``D`` / ``dt_bias`` to its heads; ``w_B`` / ``w_C`` /
+``w_dt`` stay whole. The gated norm's sum of squares runs over the whole
+``d_inner``, so it is summed over the ``model`` group before the
+``rsqrt`` (GSPMD does this unasked), and ``out_proj``'s partial is
+summed over the group. The conv cache holds the rank's ``x`` channels
+and the whole B / C.
 """
 
 from __future__ import annotations
@@ -23,6 +34,9 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding
+from repro_torch.distributed.context import get_mesh_context
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import Params, dense_init, dtype_of
 
@@ -89,11 +103,55 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                eps: float) -> torch.Tensor:
-    """Mamba-2 gated RMSNorm: norm(y * silu(z)) * scale."""
+                eps: float, d_inner: Optional[int] = None) -> torch.Tensor:
+    """Mamba-2 gated RMSNorm: norm(y * silu(z)) * scale. With ``d_inner``
+    larger than y's channels (a rank's block of them) the sum of squares
+    is summed over the ``model`` group and taken over ``d_inner``."""
     g = y.float() * F.silu(z.float())
-    var = g.square().mean(dim=-1, keepdim=True)
+    if d_inner is None or d_inner == g.shape[-1]:
+        var = g.square().mean(dim=-1, keepdim=True)
+    else:
+        ss = collectives.model_sum(g.square().sum(dim=-1, keepdim=True),
+                                   get_mesh_context())
+        var = ss / d_inner
     return (g * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
+
+
+class _Local:
+    """One SSD layer's weights as this rank computes with them: the
+    projections through ``sharding.weight``, the per-channel and
+    per-head leaves sliced to the rank's heads, and whether
+    ``out_proj``'s partial is summed over ``model``."""
+
+    def __init__(self, params: Params, cfg: ModelConfig):
+        w = sharding.weight
+        di, p = cfg.d_inner, cfg.ssm_head_dim
+        c0, nc = sharding.model_block(params["w_x"], 1, di)
+        if nc % p:
+            raise ValueError(f"{cfg.name}: a rank's {nc} SSD channels are "
+                             f"not whole heads of {p}")
+        h0, nh = c0 // p, nc // p
+        self.d_inner, self.n_heads = nc, nh
+        for name in ("w_z", "w_x", "w_B", "w_C", "conv_wx", "conv_wB",
+                     "conv_bB", "conv_wC", "conv_bC", "out_proj"):
+            setattr(self, name, w(params[name]))
+        self.conv_bx = w(params["conv_bx"])[c0:c0 + nc]
+        self.norm_scale = w(params["norm_scale"])[c0:c0 + nc]
+        self.w_dt_cols = (h0, nh)
+        self.w_dt = w(params["w_dt"])
+        for name in ("A_log", "D", "dt_bias"):
+            setattr(self, name, w(params[name])[h0:h0 + nh])
+        self.reduce = sharding.model_split(params["out_proj"], 0)
+
+    def dt_raw(self, u: torch.Tensor) -> torch.Tensor:
+        h0, nh = self.w_dt_cols
+        return (u @ self.w_dt)[..., h0:h0 + nh]
+
+    def out(self, y: torch.Tensor) -> torch.Tensor:
+        out = y @ self.out_proj
+        if self.reduce:
+            out = collectives.model_sum(out, get_mesh_context())
+        return out
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -171,26 +229,27 @@ def ssm_apply(params: Params, u: torch.Tensor, cfg: ModelConfig,
     """u: (B, L, d_model) -> (out, final_state) or, with ``return_cache``,
     (out, (conv_cache (B, K-1, di+2n), ssd_state (B, nh, p, n)))."""
     bsz, l, _ = u.shape
-    di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads, cfg.ssm_head_dim
-    z = u @ params["w_z"]
-    xr_raw = u @ params["w_x"]
-    Br_raw = u @ params["w_B"]
-    Cr_raw = u @ params["w_C"]
-    dt_raw = u @ params["w_dt"]
-    xr = F.silu(_causal_conv(xr_raw, params["conv_wx"], params["conv_bx"]))
-    Bm = F.silu(_causal_conv(Br_raw, params["conv_wB"], params["conv_bB"]))
-    Cm = F.silu(_causal_conv(Cr_raw, params["conv_wC"], params["conv_bC"]))
+    lp = _Local(params, cfg)
+    di, n, nh, p = lp.d_inner, cfg.ssm_state, lp.n_heads, cfg.ssm_head_dim
+    z = u @ lp.w_z
+    xr_raw = u @ lp.w_x
+    Br_raw = u @ lp.w_B
+    Cr_raw = u @ lp.w_C
+    dt_raw = lp.dt_raw(u)
+    xr = F.silu(_causal_conv(xr_raw, lp.conv_wx, lp.conv_bx))
+    Bm = F.silu(_causal_conv(Br_raw, lp.conv_wB, lp.conv_bB))
+    Cm = F.silu(_causal_conv(Cr_raw, lp.conv_wC, lp.conv_bC))
     xs = xr.reshape(bsz, l, nh, p)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, None, :])
-    A = -torch.exp(params["A_log"])
+    dt = F.softplus(dt_raw.float() + lp.dt_bias[None, None, :])
+    A = -torch.exp(lp.A_log)
     scan = ssd_ops.ssd_scan
     if xs.device.type == "meta":           # shapes only: launch/costing.py
         scan = ssd_ops.ssd_scan_meta if kernels.ON_META else ssd_chunked
     y, state = scan(xs, dt, A, Bm, Cm, cfg.ssm_chunk, init_state)
-    y = y + xs * params["D"][None, None, :, None].to(y.dtype)
+    y = y + xs * lp.D[None, None, :, None].to(y.dtype)
     y = y.reshape(bsz, l, di)
-    y = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps)
-    out = y @ params["out_proj"]
+    y = _gated_norm(y, z, lp.norm_scale, cfg.norm_eps, cfg.d_inner)
+    out = lp.out(y)
     if not return_cache:
         return out, state
     # conv cache = last K-1 *pre-conv* rows (what decode's window expects)
@@ -207,16 +266,30 @@ def ssm_apply(params: Params, u: torch.Tensor, cfg: ModelConfig,
 # Decode: O(1) recurrent update
 # ---------------------------------------------------------------------------
 
+def local_heads(cfg: ModelConfig, params: Optional[Params] = None) -> int:
+    """The SSD heads a rank holds: ``params`` (one layer's SSD leaves)
+    split over ``model``, or every head."""
+    if params is None:
+        return cfg.ssm_n_heads
+    _, nc = sharding.model_block(params["w_x"], 1, cfg.d_inner)
+    return nc // cfg.ssm_head_dim
+
+
 def init_ssm_cache(cfg: ModelConfig, batch: int,
                    n_layers: Optional[int] = None,
-                   device: Optional[torch.device] = None) -> SSMState:
+                   device: Optional[torch.device] = None,
+                   n_heads: Optional[int] = None) -> SSMState:
+    """Zero conv ``(L, batch, K-1, nh * p + 2n)`` and SSD ``(L, batch,
+    nh, p, n)`` caches for ``n_heads`` (the config's, or a rank's
+    :func:`local_heads`)."""
     dt = dtype_of(cfg)
     L = n_layers if n_layers is not None else cfg.n_layers
-    di, n = cfg.d_inner, cfg.ssm_state
+    nh = n_heads or cfg.ssm_n_heads
+    di, n = nh * cfg.ssm_head_dim, cfg.ssm_state
     return {
         "conv": torch.zeros((L, batch, cfg.ssm_conv - 1, di + 2 * n),
                             dtype=dt, device=device),
-        "ssd": torch.zeros((L, batch, cfg.ssm_n_heads, cfg.ssm_head_dim, n),
+        "ssd": torch.zeros((L, batch, nh, cfg.ssm_head_dim, n),
                            dtype=dt, device=device),
     }
 
@@ -228,20 +301,19 @@ def ssm_decode_step(params: Params, u: torch.Tensor, cfg: ModelConfig,
     ssd_state: (B, nh, p, n). Returns (out, conv_state, ssd_state) as
     new tensors."""
     bsz = u.shape[0]
-    di, n, nh, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_n_heads, cfg.ssm_head_dim
+    lp = _Local(params, cfg)
+    di, n, nh, p = lp.d_inner, cfg.ssm_state, lp.n_heads, cfg.ssm_head_dim
     ut = u[:, 0, :]
-    z = ut @ params["w_z"]
-    xr = ut @ params["w_x"]
-    Br = ut @ params["w_B"]
-    Cr = ut @ params["w_C"]
-    dt_raw = ut @ params["w_dt"]
+    z = ut @ lp.w_z
+    xr = ut @ lp.w_x
+    Br = ut @ lp.w_B
+    Cr = ut @ lp.w_C
+    dt_raw = lp.dt_raw(ut)
 
     new_in = torch.cat([xr, Br, Cr], dim=-1)              # (B, di+2n)
     window = torch.cat([conv_state, new_in[:, None, :]], dim=1)
-    conv_w = torch.cat(
-        [params["conv_wx"], params["conv_wB"], params["conv_wC"]], dim=-1)
-    conv_b = torch.cat(
-        [params["conv_bx"], params["conv_bB"], params["conv_bC"]], dim=-1)
+    conv_w = torch.cat([lp.conv_wx, lp.conv_wB, lp.conv_wC], dim=-1)
+    conv_b = torch.cat([lp.conv_bx, lp.conv_bB, lp.conv_bC], dim=-1)
     conv_out = torch.einsum("bkc,kc->bc", window, conv_w.to(u.dtype))
     mixed = F.silu(conv_out + conv_b.to(u.dtype))
     new_conv_state = window[:, 1:, :]
@@ -249,16 +321,16 @@ def ssm_decode_step(params: Params, u: torch.Tensor, cfg: ModelConfig,
     Bm = mixed[..., di:di + n]
     Cm = mixed[..., di + n:]
 
-    dt = F.softplus(dt_raw.float() + params["dt_bias"][None, :])
-    A = -torch.exp(params["A_log"])
+    dt = F.softplus(dt_raw.float() + lp.dt_bias[None, :])
+    A = -torch.exp(lp.A_log)
     dA = torch.exp(dt * A[None, :])                                 # (B, nh)
     upd = (dt[..., None] * xs.float())[..., :, None] \
         * Bm.float()[:, None, None, :]                              # (B,nh,p,n)
     state = dA[..., None, None] * ssd_state.float() + upd
     y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
-    y = y + xs.float() * params["D"][None, :, None]
+    y = y + xs.float() * lp.D[None, :, None]
     y = y.reshape(bsz, di).to(u.dtype)
-    y = _gated_norm(y, z, params["norm_scale"], cfg.norm_eps)
-    out = (y @ params["out_proj"])[:, None, :]
+    y = _gated_norm(y, z, lp.norm_scale, cfg.norm_eps, cfg.d_inner)
+    out = lp.out(y)[:, None, :]
     return (out, new_conv_state.to(conv_state.dtype),
             state.to(ssd_state.dtype))

@@ -4,9 +4,16 @@ families.
 The JAX package's ``models/transformer.py`` on torch tensors. Its layer
 ``lax.scan`` over stacked parameters becomes a Python loop over a list
 of per-layer parameter dicts (``params["layers"][i]`` holds the JAX
-package's keys). The ``constrain_*`` sharding hints are identities on
-one card and are not ported. A vlm batch's ``patch_embeds`` replace the
-leading positions' token embeddings. Enc-dec configs run in
+package's keys). A vlm batch's ``patch_embeds`` replace the leading
+positions' token embeddings.
+
+Across ranks that split the ``model`` axis the functions take this
+rank's rows of the batch (``sharding.constrain_batch``; the serve fns of
+``training/steps.py`` cut them) and its parameter blocks, give the
+logits of its vocabulary block (``sharding.constrain_logits`` gathers
+them), and keep a cache of its heads (``init_cache(..., layer=)``); the
+layers below sum and gather where the JAX package's ``constrain_*``
+hints make GSPMD do so. Enc-dec configs run in
 ``models/encdec.py``; ``model_zoo.build_model`` picks the module.
 
 Caches are dicts of tensors with the JAX package's keys (``k``, ``v``
@@ -19,7 +26,7 @@ token would move more bytes than the step itself.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -119,13 +126,21 @@ def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
 # Model init
 # ---------------------------------------------------------------------------
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Random weights from ``gen``, made on the generator's device."""
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                place: Optional[Callable[[Params, str], Params]] = None
+                ) -> Params:
+    """Random weights from ``gen``, made on the generator's device.
+    ``place(subtree, path)``, given, takes each part as it is drawn (the
+    embedding, each layer, the final norm), so a rank keeps its blocks
+    and holds no more than one whole layer besides them."""
     check_family(cfg)
+    place = place or (lambda tree, path: tree)
     return {
-        "embed": embedding_init(gen, cfg),
-        "layers": [init_layer(gen, cfg) for _ in range(cfg.n_layers)],
-        "final_norm": rmsnorm_init(cfg.d_model, dtype_of(cfg), gen.device),
+        "embed": place(embedding_init(gen, cfg), "embed"),
+        "layers": [place(init_layer(gen, cfg), "layers")
+                   for _ in range(cfg.n_layers)],
+        "final_norm": place(rmsnorm_init(cfg.d_model, dtype_of(cfg),
+                                         gen.device), "final_norm"),
     }
 
 
@@ -173,14 +188,25 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device: Optional[torch.device] = None) -> Cache:
+               device: Optional[torch.device] = None,
+               layer: Optional[Params] = None) -> Cache:
+    """A zero cache for ``batch`` rows; given a ``layer``'s parameters,
+    with the KV heads and SSD heads that layer's leaves leave this rank
+    (``attention.local_kv_heads``, ``ssm.local_heads``: fewer when the
+    ranks split ``model``)."""
     check_family(cfg)
     cache: Cache = {"length": 0}
     if cfg.family != "ssm":
-        kv = attn.init_kv_cache(cfg, batch, max_len, device=device)
+        kv = attn.init_kv_cache(
+            cfg, batch, max_len, device=device,
+            n_kv_heads=attn.local_kv_heads(
+                cfg, None if layer is None else layer["attn"]))
         cache["k"], cache["v"] = kv["k"], kv["v"]
     if cfg.family in ("ssm", "hybrid"):
-        s = ssm_mod.init_ssm_cache(cfg, batch, device=device)
+        s = ssm_mod.init_ssm_cache(
+            cfg, batch, device=device,
+            n_heads=ssm_mod.local_heads(
+                cfg, None if layer is None else layer["ssm"]))
         cache["conv"], cache["ssd"] = s["conv"], s["ssd"]
     return cache
 
@@ -195,7 +221,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     # the JAX package pads the K/V of all x.shape[1] positions (more than
     # seq when a vlm batch has more patches than tokens) by max_len - seq
     n_pos = x.shape[1]
-    cache = init_cache(cfg, bsz, max_len + n_pos - seq, device=x.device)
+    cache = init_cache(cfg, bsz, max_len + n_pos - seq, device=x.device,
+                       layer=params["layers"][0])
     for i, lp in enumerate(params["layers"]):
         if cfg.family == "ssm":
             h = rmsnorm(lp["norm"], x, cfg.norm_eps)

@@ -31,14 +31,15 @@ term is then the ranks' weighted mean, not the global batch's.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.config import RunConfig
 from repro_torch.core.replication import ReplicationEngine
-from repro_torch.distributed import collectives
-from repro_torch.distributed.context import MeshContext
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.context import MeshContext, mesh_context
 from repro_torch.models.model_zoo import Model
 from repro_torch.optim import make_optimizer, make_schedule
 from repro_torch.optim.optimizers import (clip_by_global_norm, tree_leaves,
@@ -171,25 +172,45 @@ class ServeState(NamedTuple):
     tokens: torch.Tensor               # last emitted token per sequence (B,)
 
 
-def make_serve_fns(model: Model):
+def make_serve_fns(model: Model, ctx: Optional[MeshContext] = None):
     """(prefill_fn, decode_fn) for the serving path.
 
     ``prefill_fn(params, batch, max_len)`` consumes the prompt and returns
     (first_tokens, ServeState): the greedy argmax over the last
     position's logits. ``decode_fn(params, state)`` emits one token per
     sequence against the cache, which it advances in place.
+
+    Under ``ctx`` (set as the models' mesh context for each call) the
+    prefill takes this rank's rows of the global ``batch``
+    (``sharding.constrain_batch``) and every token is the argmax over the
+    logits gathered over ``model`` (``sharding.constrain_logits``): the
+    lowest global index on a tie, as ``jnp.argmax`` gives it
+    (``src/repro/training/steps.py:126``, ``:132``). The tokens and the
+    cache are the rank's rows.
     """
+    scope = ((lambda: mesh_context(ctx)) if ctx is not None
+             else contextlib.nullcontext)
+
+    def greedy(params: Any, logits: torch.Tensor) -> torch.Tensor:
+        full = sharding.constrain_logits(logits, params["embed"], ctx)
+        return torch.argmax(full, dim=-1).to(torch.int32)
+
     def prefill_fn(params: Any, batch: Dict[str, torch.Tensor],
                    max_len: Optional[int] = None
                    ) -> Tuple[torch.Tensor, ServeState]:
-        logits, cache = model.prefill(params, batch, max_len=max_len)
-        toks = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        with scope():
+            batch = {k: sharding.constrain_batch(v, ctx)
+                     for k, v in batch.items()}
+            logits, cache = model.prefill(params, batch, max_len=max_len)
+            toks = greedy(params, logits[:, -1, :])
         return toks, ServeState(cache=cache, tokens=toks)
 
     def decode_fn(params: Any, state: ServeState
                   ) -> Tuple[torch.Tensor, ServeState]:
-        logits, cache = model.decode_step(params, state.cache, state.tokens)
-        toks = torch.argmax(logits, dim=-1).to(torch.int32)
+        with scope():
+            logits, cache = model.decode_step(params, state.cache,
+                                              state.tokens)
+            toks = greedy(params, logits)
         return toks, ServeState(cache=cache, tokens=toks)
 
     return prefill_fn, decode_fn

@@ -20,7 +20,9 @@ Where the JAX package takes a device mesh, the port takes a
 (``distributed/context.py``), whose axes are ``run.mesh``'s: every
 per-node tensor carries the node axes as leading dimensions, and the
 parameters live whole on ``ctx.device`` with ``param_specs`` saying
-which block each node owns. A step's wall time is read after a
+which block each node owns. Each step runs with the context as the
+models' mesh context, so a MoE dispatches each data block on its own as
+the reference's ``shard_map`` does. A step's wall time is read after a
 synchronize of the card, so it covers the step's device work.
 
 With a rank-aware context (``torch.distributed``, one process a rank)
@@ -50,7 +52,7 @@ from repro_torch.core.failures import FailureDetector, FailureInjector
 from repro_torch.core.recovery import recover_node
 from repro_torch.core.replication import ReplicationEngine
 from repro_torch.data import SyntheticTokenPipeline
-from repro_torch.distributed.context import MeshContext
+from repro_torch.distributed.context import MeshContext, mesh_context
 from repro_torch.distributed.elastic import install_recovered_shard
 from repro_torch.distributed.sharding import named_shardings, param_specs
 from repro_torch.models.model_zoo import batch_struct, build_model
@@ -92,6 +94,10 @@ class Trainer:
                                                 tuple(run.mesh.shape)):
             raise ValueError(f"the context's axes {ctx.shape} are not the "
                              f"run's mesh {run.mesh}")
+        if ctx.split_model:
+            raise NotImplementedError(
+                "training with the model axis split across ranks (A4(d2b) "
+                "in ROADMAP.md): give the Trainer ranks of whole nodes")
         self.run = run
         self.ctx = ctx
         self.model = model or build_model(run.model)
@@ -169,7 +175,8 @@ class Trainer:
             # ---- one step ------------------------------------------------
             t0 = time.perf_counter()
             batch = self._to_device(self.pipeline.next())
-            self.state, metrics = self._step_fn(self.state, batch)
+            with mesh_context(self.ctx):
+                self.state, metrics = self._step_fn(self.state, batch)
             _sync(dev)
             dt = time.perf_counter() - t0
             # straggler injection: modeled as an artificial delay

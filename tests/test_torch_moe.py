@@ -305,3 +305,104 @@ def test_moe_apply_and_init_layout(arch):
                                     if k != "shared"},
                                    torch.from_numpy(x), tcfg)
         assert not torch.allclose(routed, to, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh context: the dispatch per data block (R1), the aux loss
+# (ROADMAP C7) and the shared experts (ROADMAP C6)
+# ---------------------------------------------------------------------------
+
+from repro.distributed.context import make_context as jax_make_context
+from repro.distributed.context import make_mesh
+from repro.distributed.context import mesh_context as jax_mesh_context
+from repro_torch.distributed.context import make_context as t_make_context
+from repro_torch.distributed.context import mesh_context as t_mesh_context
+
+
+def _mesh_case(seed=3):
+    """Reduced moonshot in f32, its JAX weights, a 4 x 16 batch."""
+    jcfg, tcfg = _cfgs("moonshot-v1-16b-a3b")
+    jp, tp = _params(jcfg, seed=seed)
+    x = np.random.default_rng(seed).standard_normal(
+        (4, 16, jcfg.d_model)).astype(np.float32)
+    return jcfg, tcfg, jp, tp, x
+
+
+def _jax_on_mesh(mesh, jp, x, jcfg):
+    with jax_mesh_context(jax_make_context(mesh)):
+        out, aux = jax.jit(lambda p, v: jmoe.moe_apply(p, v, jcfg))(
+            jp, jnp.asarray(x))
+    return np.asarray(out), float(aux)
+
+
+def test_moe_dispatches_each_data_block_as_the_reference(mesh8):
+    """R1: on a (4 data, 2 model) context the port routes each batch row
+    block on its own, with its own capacity, as the reference's
+    ``shard_map`` does on ``mesh8``: within 1e-5 of max |out| (the whole
+    batch routed at once reads ~0.4 away)."""
+    jcfg, tcfg, jp, tp, x = _mesh_case()
+    want, _ = _jax_on_mesh(mesh8, jp, x, jcfg)
+    ctx = t_make_context((4, 2), ("data", "model"), device="cpu")
+    with t_mesh_context(ctx):
+        got, _ = tmoe.moe_apply(tp, torch.from_numpy(x), tcfg)
+    scale = np.abs(want).max()
+    assert np.abs(got.numpy() - want).max() <= 1e-5 * scale
+    whole, _ = tmoe.moe_apply(tp, torch.from_numpy(x), tcfg)
+    assert np.abs(whole.numpy() - want).max() > 1e-2 * scale
+
+
+def test_dense_forward_unchanged_under_the_context():
+    """R1 leaves a dense model alone: a reduced qwen3's forward under the
+    (4, 2) context is ``==`` the one without."""
+    from repro_torch import config as TCfg
+    from repro_torch.models import build_model
+    model = build_model(TCfg.get_reduced_config("qwen3-0.6b"))
+    params = model.init(0, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 512, (4, 16), dtype=np.int32))
+    with torch.no_grad():
+        plain, _ = model.forward(params, {"tokens": toks}, remat="none")
+        ctx = t_make_context((4, 2), ("data", "model"), device="cpu")
+        with t_mesh_context(ctx):
+            under, _ = model.forward(params, {"tokens": toks}, remat="none")
+    assert torch.equal(plain, under)
+
+
+def test_reference_aux_is_data_block_zeros_contract(mesh8):
+    """ROADMAP C7, pinned: on ``mesh8`` the reference's aux loss is data
+    block 0's (``pmean`` over ``model`` only, returned under
+    ``out_specs P()``), not the blocks' mean; the port returns the mean.
+    If this fails, the reference was fixed and the port can be held
+    ``==`` to it."""
+    jcfg, tcfg, jp, tp, x = _mesh_case()
+    _, ref_aux = _jax_on_mesh(mesh8, jp, x, jcfg)
+    blocks = [float(jmoe.moe_apply(jp, jnp.asarray(x[i:i + 1]), jcfg)[1])
+              for i in range(4)]
+    assert ref_aux == pytest.approx(blocks[0], rel=1e-6, abs=0)
+    assert abs(ref_aux - np.mean(blocks)) > 1e-4
+    ctx = t_make_context((4, 2), ("data", "model"), device="cpu")
+    with t_mesh_context(ctx):
+        _, aux = tmoe.moe_apply(tp, torch.from_numpy(x), tcfg)
+    assert float(aux) == pytest.approx(float(np.mean(blocks)), rel=1e-6,
+                                       abs=0)
+
+
+def test_reference_drops_shared_experts_without_model_axis_contract():
+    """ROADMAP C6, pinned: on a ``("data",)`` mesh the reference takes its
+    local path and adds the shared experts only without a context, so
+    its output differs from its own no-mesh output; the port adds them
+    under every context: its output on the same context ``==`` its
+    no-mesh output."""
+    if jax.device_count() < 4:
+        pytest.skip("needs 4 host devices")
+    jcfg, tcfg, jp, tp, x = _mesh_case()
+    mesh = make_mesh((4,), ("data",), devices=jax.devices()[:4])
+    on_mesh, _ = _jax_on_mesh(mesh, jp, x, jcfg)
+    no_mesh = np.asarray(jmoe.moe_apply(jp, jnp.asarray(x), jcfg)[0])
+    assert np.abs(on_mesh - no_mesh).max() > 0.1 * np.abs(no_mesh).max()
+    plain, aux = tmoe.moe_apply(tp, torch.from_numpy(x), tcfg)
+    ctx = t_make_context((4,), ("data",), device="cpu")
+    with t_mesh_context(ctx):
+        under, aux_under = tmoe.moe_apply(tp, torch.from_numpy(x), tcfg)
+    assert torch.equal(plain, under) and torch.equal(aux, aux_under)
+    np.testing.assert_allclose(plain.numpy(), no_mesh, atol=1e-5, rtol=1e-5)

@@ -258,3 +258,49 @@ def test_cross_pod_ring_recovery_identical_to_unfailed_run(workdir):
     for a, b in zip(tree_leaves(t1.state.params),
                     tree_leaves(t2.state.params)):
         assert torch.equal(a, b)
+
+
+def test_moe_first_loss_matches_the_jax_trainer_on_mesh8(mesh8, workdir):
+    """R1 / ROADMAP C7 through the ``Trainer``: reduced moonshot in f32 on
+    the (4, 2) logical context, from the JAX ``Trainer``'s initial
+    parameters, routes each data block on its own; its first step's
+    ``ce_loss`` is within 1e-5 of the JAX ``Trainer``'s on ``mesh8``."""
+    import jax
+    from repro import config as JC
+    from repro.distributed.context import mesh_context as jax_mesh_context
+    from repro.training.steps import make_train_step as jax_train_step
+    from repro.training.trainer import Trainer as JTrainer
+    from repro_torch.models.model_zoo import params_from_jax
+    from repro_torch.training.steps import init_train_state
+
+    def run_cfg(C):
+        return C.RunConfig(
+            model=dataclasses.replace(
+                C.get_reduced_config("moonshot-v1-16b-a3b"),
+                dtype="float32"),
+            shape=C.ShapeConfig("smoke", seq_len=16, global_batch=8,
+                                kind="train"),
+            mesh=C.MeshConfig((4, 2), ("data", "model")),
+            replication=C.ReplicationConfig(
+                variant="proactive", n_replicas=2, n_buckets=4,
+                log_capacity=2, dump_interval=6),
+            train=C.TrainConfig(total_steps=4, warmup_steps=1,
+                                learning_rate=1e-3))
+
+    jrun = run_cfg(JC)
+    jtr = JTrainer(jrun, mesh8, workdir + "/jax")
+    # jitted without donation: with f32 weights the donated step raises
+    # "donate the same buffer twice"
+    with jax_mesh_context(jtr.ctx):
+        jtr._step_fn = jax.jit(jax_train_step(jrun, jtr.model, jtr.engine))
+    params0 = jax.tree.map(lambda v: np.asarray(v, np.float32),
+                           jtr.state.params)
+    want = jtr.train(1)[0]["ce_loss"]
+    run = run_cfg(TC)
+    tr = Trainer(run, make_context((4, 2), ("data", "model"), device="cpu"),
+                 workdir + "/port")
+    tr.state = init_train_state(
+        run, tr.model, run.train.seed, tr.engine,
+        params=params_from_jax(run.model, params0, device="cpu"))
+    got = tr.train(1)[0]["ce_loss"]
+    assert got == pytest.approx(want, abs=1e-5)
