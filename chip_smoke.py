@@ -270,20 +270,32 @@ each hand-written CUDA kernel against its plain PyTorch version:
     path in phase 23's one-rank group at ``--mesh 1x1`` (every leaf
     placed by its spec, the layers through ``sharding.weight`` and the
     ``model``-group collectives): tokens ``==`` phases 15's and 9's,
-    ``flash_attn`` / ``ssd_scan`` launches as there; (b) ``flash_attn``
-    and ``ssd_scan`` at the per-rank shapes of the four-card layouts
-    (moonshot at model 4, hymba at data 2 x model 2) against their plain
-    versions, timed beside SDPA and their bounds; (c) with four cards,
-    alone in ``--multi-card-only serve``: moonshot at data 1 x model 4
-    and hymba at 2 x 2 across four ``nccl`` ranks, each rank's bf16
-    logits (the prefill and every decode step, fed the one-card run's
-    tokens) within 3e-2 of max |logit| of a one-card run on card 0 in
-    the same call, routing flips counted and gated under phase 15's
-    policy, the generated tokens compared (first divergence printed),
-    moonshot's f32 copy at 4 layers within 1e-4, each card's memory
-    after placement against its reckoning, prefill / decode times,
-    tok/s and the collectives' calls and ms a step (not run on one
-    card: printed as such).
+    ``flash_attn`` / ``ssd_scan`` launches as there; then whisper-medium
+    (run after phase 18) the same way, tokens ``==`` phase 18's and
+    logits within 1e-4 of max |logit| of the one-card path's; (b)
+    ``flash_attn`` and ``ssd_scan`` at the per-rank shapes of the
+    four-card layouts (moonshot and whisper at model 4 -- whisper's
+    encoder, cross-attention and decoder --, hymba at data 2 x model 2
+    at batch 4 and 1) against their plain versions, timed beside SDPA and
+    their bounds; (d) the merge of decode-attention partials over a cache
+    split on the sequence (``collectives.merge_partials``): hymba-1.5b's
+    decode attention at batch 1 over a 524 288-position cache cut into 2
+    and 4 spans, at a length that leaves every span but the first empty
+    and one that leaves the last of 4 empty, against
+    ``_decode_attention`` over the whole cache in bf16 and f32, timed;
+    (c) with four cards, alone in ``--multi-card-only serve``: moonshot
+    and whisper at data 1 x model 4, and hymba at 2 x 2 -- at batch 4,
+    and at batch 1 (every rank serves the row, its cache holding its data
+    position's span of the sequence) at the launcher's length and at a
+    524 288-position cache -- across four ``nccl`` ranks, each rank's
+    bf16 logits (the prefill and every decode step, fed the one-card
+    run's tokens) within 3e-2 of max |logit| of a one-card run on card 0
+    in the same call, routing flips counted and gated under phase 15's
+    policy, the generated tokens compared (first divergence printed), an
+    f32 copy at 4 layers within 1e-4, each card's memory after placement
+    and its cache against their reckonings, prefill / decode times, tok/s
+    and the collectives' calls and ms a step (not run on one card:
+    printed as such).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -2554,7 +2566,8 @@ def phase_serve_family(torch, serve_mod, fa, attn, phase: int, arch: str,
            "launches": fa.ops.flash_attention.launches,
            "attn_launches_by_kernel": by_kernel, "peak_bytes": peak,
            "wall_s": wall_s, "params": cfg.param_count(),
-           "tokens_seq0": res.tokens[0].tolist()}
+           "tokens_seq0": res.tokens[0].tolist(),
+           "tokens": res.tokens.tolist()}
     stub = {k: tuple(v.shape) for k, v in res.inputs.items()
             if k != "tokens"}
     print(f"  {cfg.name}: {cfg.n_layers} decoder layers"
@@ -5442,22 +5455,70 @@ def phase_ranks_multi(torch, fa, ssd, one_losses) -> dict:
         "wall_s": time.perf_counter() - t0}}
 
 
+#: the reference's ``long_500k`` positions (``src/repro/config.py:232``)
+LONG_CACHE = 524288
+
+
+@dataclasses.dataclass(frozen=True)
+class TPServe:
+    """One layout of phase 25(c): ``arch`` at ``mesh`` (data, model),
+    ``batch`` prompts of ``prompt`` positions, ``gen`` tokens each, over a
+    cache of ``max_len`` positions (``None``: the launcher's prompt +
+    gen, through ``serve()``; else through ``make_serve_fns``)."""
+    key: str
+    arch: str
+    mesh: tuple
+    batch: int
+    prompt: int
+    gen: int
+    max_len: int = None
+
+
 #: phase 25: serving with the model axis split across ranks. The layouts
-#: of the four-card call, (arch, (data, model), batch, prompt, generated)
-TP_SERVES = (("moonshot-v1-16b-a3b", (1, 4), MOE_BATCH, MOE_PROMPT, MOE_GEN),
-             ("hymba-1.5b", (2, 2), SERVE_BATCH, SERVE_PROMPT, SERVE_GEN))
+#: of the four-card call; at batch 1 the two data positions do not divide
+#: the batch, so each serves the row and holds its span of the cache
+TP_SERVES = (
+    TPServe("moonshot 1x4", "moonshot-v1-16b-a3b", (1, 4), MOE_BATCH,
+            MOE_PROMPT, MOE_GEN),
+    TPServe("hymba 2x2", "hymba-1.5b", (2, 2), SERVE_BATCH, SERVE_PROMPT,
+            SERVE_GEN),
+    TPServe("whisper 1x4", "whisper-medium", (1, 4), WHISPER_BATCH,
+            WHISPER_PROMPT, WHISPER_GEN),
+    TPServe("hymba 2x2 B1", "hymba-1.5b", (2, 2), 1, SERVE_PROMPT,
+            SERVE_GEN),
+    TPServe("hymba 2x2 B1 long_500k", "hymba-1.5b", (2, 2), 1, SERVE_PROMPT,
+            SERVE_GEN, LONG_CACHE))
+def tp_length(entry: TPServe) -> int:
+    """The cache length ``entry`` is served over."""
+    return entry.max_len or entry.prompt + entry.gen
+
+
 #: the per-rank attention shapes of those layouts, (name, B, Sq, Skv, H,
 #: K, D, causal): moonshot's 16 heads at model 4, hymba's 25 (FSDP only:
-#: replicated over model) at data 2
+#: replicated over model) at data 2, at batch 4 and 1, whisper's 16
+#: heads at model 4 (encoder unmasked, cross-attention, decoder causal)
 TP_ATTN_SHAPES = [
     ("moonshot-v1-16b-a3b at model 4", 4, 2048, 2048, 4, 4, 128, True),
-    ("hymba-1.5b at data 2 x model 2", 2, 4096, 4096, 25, 5, 64, True)]
-#: hymba's per-rank SSD shape at data 2 x model 2: (b, l, h, p, n, chunk)
-TP_SSD_SHAPE = (2, 4096, 25, 64, 16, 256)
+    ("hymba-1.5b at data 2 x model 2", 2, 4096, 4096, 25, 5, 64, True),
+    ("hymba-1.5b B 1 at data 2 x model 2", 1, 4096, 4096, 25, 5, 64, True),
+    ("whisper-medium encoder at model 4", 8, 1500, 1500, 4, 4, 64, False),
+    ("whisper-medium cross-attention at model 4", 8, 224, 1500, 4, 4, 64,
+     False),
+    ("whisper-medium decoder at model 4", 8, 224, 224, 4, 4, 64, True)]
+#: hymba's per-rank SSD shapes at data 2 x model 2, batch 4 and batch 1:
+#: (b, l, h, p, n, chunk)
+TP_SSD_SHAPES = [(2, 4096, 25, 64, 16, 256), (1, 4096, 25, 64, 16, 256)]
 #: (c)'s prefill logits are compared at every 256th position and the last
 TP_PREFILL_STRIDE = 256
 TP_MEMORY_SLACK = 1.02           # placed bytes against the reckoning
-TP_COLLECTIVES = ("model_sum", "fsdp_gather", "model_gather")
+TP_COLLECTIVES = ("model_sum", "fsdp_gather", "model_gather", "attn_merge")
+#: (d): hymba-1.5b's decode attention (H 25, K 5, D 64) at batch 1 over a
+#: LONG_CACHE-position cache, at the launcher's length (every span but
+#: the first empty) and at five eighths of it (no span of 2 empty, the
+#: last of 4 empty and the third partly filled)
+MERGE_HEADS = (25, 5, 64)
+MERGE_LENGTHS = (SERVE_PROMPT + SERVE_GEN, 5 * LONG_CACHE // 8)
+MERGE_TOLERANCE = {"bfloat16": 2e-2, "float32": 1e-4}
 
 
 def leaf_bytes(tree) -> int:
@@ -5471,19 +5532,26 @@ def leaf_bytes(tree) -> int:
     return t.numel() * t.element_size()
 
 
-def phase_serve_ranks(torch, serve_mod, fa, ssd, group, hymba, moon) -> dict:
-    """Phase 25(a): moonshot and hymba at phases 15's and 9's batch,
-    prompt and generation through the rank-aware serve path in phase
-    23's one-rank group at ``--mesh 1x1``: tokens ``==`` those phases'."""
+def phase_serve_ranks(torch, serve_mod, fa, ssd, group, hymba, moon,
+                      whisper) -> dict:
+    """Phase 25(a): moonshot, hymba and whisper at phases 15's, 9's and
+    18's batch, prompt and generation through the rank-aware serve path
+    in phase 23's one-rank group at ``--mesh 1x1``: tokens ``==`` those
+    phases'; whisper's logits also within ``F32_LOGIT_TOLERANCE`` of max
+    |logit| of the one-card path's on the same inputs."""
     from repro_torch.distributed import collectives, sharding
+    from repro_torch.models import build_model
     print("phase 25: serving with the model axis split across ranks -- (a) "
-          "moonshot and hymba through the rank-aware path in a one-rank "
-          f"{torch.distributed.get_backend(group)} group at --mesh 1x1")
+          "moonshot, hymba and whisper through the rank-aware path in a "
+          f"one-rank {torch.distributed.get_backend(group)} group at --mesh "
+          "1x1")
     out = {}
     for arch, batch, prompt, gen, want, reduced in (
             (MOE_ARCH, MOE_BATCH, MOE_PROMPT, MOE_GEN, moon, False),
             (SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, hymba,
-             SERVE_REDUCED)):
+             SERVE_REDUCED),
+            (WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT, WHISPER_GEN,
+             whisper, False)):
         gc.collect()
         torch.cuda.empty_cache()
         fa.ops.reset_counts()
@@ -5519,13 +5587,31 @@ def phase_serve_ranks(torch, serve_mod, fa, ssd, group, hymba, moon) -> dict:
               f"{cfg.name}: the {batch} x {gen} tokens == the one-card "
               f"path's (a group of one changes no value)")
         n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-        check(launches == {"flash_attn": cfg.n_layers, "ssd_scan": n_ssd},
+        check(launches == {"flash_attn": prefill_launches(cfg),
+                           "ssd_scan": n_ssd},
               f"{cfg.name}: the prefill launched flash_attn "
               f"{launches['flash_attn']} and ssd_scan "
               f"{launches['ssd_scan']} times, as on the one-card path")
         check(all(v == 0 for c in res.collectives.values()
                   for v in c.values()),
               f"{cfg.name}: no collective call in a group of one")
+        if cfg.is_encdec:
+            model = build_model(cfg)
+            feed = res.tokens[:, :gen - 1].to(res.device)
+            ranked = tp_logits_run(torch, model, res.params, res.inputs,
+                                   feed, ctx=sharding.serving(res.ctx,
+                                                              batch))
+            one = model.init(SEED, device=res.device)
+            plain = tp_logits_run(torch, model, one, res.inputs, feed)
+            del one
+            r["logits_rel"] = max(rel_to(a, b) for a, b in zip(
+                [ranked[0]] + ranked[1], [plain[0]] + plain[1]))
+            check(r["logits_rel"] <= F32_LOGIT_TOLERANCE,
+                  f"{cfg.name}: the rank-aware path's logits (prefill at "
+                  f"{len(tp_positions(prompt))} positions, {gen - 1} decode "
+                  f"steps) within {r['logits_rel']:.3g} of max|logit| of "
+                  f"the one-card path's (limit {F32_LOGIT_TOLERANCE}); "
+                  f"{card_line()}")
         out[arch] = r
         del res
     collectives.reset_counts()
@@ -5545,8 +5631,9 @@ def _leaves(tree):
 
 def phase_tp_kernels(torch, fa, ssd, attn, ssm_mod) -> dict:
     """Phase 25(b): ``flash_attn`` and ``ssd_scan`` at the four-card
-    layouts' per-rank shapes against their plain versions (phase 8's
-    tolerances), timed beside SDPA and their bounds."""
+    layouts' per-rank shapes (``TP_ATTN_SHAPES``, ``TP_SSD_SHAPES``)
+    against their plain versions (phase 8's tolerances), timed beside
+    SDPA and their bounds."""
     print("phase 25(b): the kernels at the per-rank shapes of the "
           "four-card layouts")
     dev = torch.device(DEVICE)
@@ -5575,7 +5662,17 @@ def phase_tp_kernels(torch, fa, ssd, attn, ssm_mod) -> dict:
         t = time_attention(torch, fa, attn, randn, shape)
         t["rows"], t["max_abs_err"] = rows, err
         out["attn"].append(t)
-    b, l, h, p, n, chunk = TP_SSD_SHAPE
+    out["ssd"] = [tp_ssd(torch, ssd, ssm_mod, gen, randn, shape)
+                  for shape in TP_SSD_SHAPES]
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_ssd(torch, ssd, ssm_mod, gen, randn, shape) -> dict:
+    """``ssd_scan`` at one of hymba's per-rank shapes against the plain
+    version and ``ssd_ref``, timed beside its bound."""
+    b, l, h, p, n, chunk = shape
+    dev = torch.device(DEVICE)
     x = randn(b, l, h, p, dtype="bfloat16", scale=0.5)
     dtt = torch.rand((b, l, h), generator=gen, device=dev) * 0.099 + 0.001
     A = -torch.arange(1, h + 1, dtype=torch.float32, device=dev)
@@ -5589,11 +5686,11 @@ def phase_tp_kernels(torch, fa, ssd, attn, ssm_mod) -> dict:
                                                              sw.float())
         errs[what] = (yrel, srel)
         check(yrel < 3e-2 and srel < 3e-2,
-              f"ssd_scan at hymba's per-rank shape {TP_SSD_SHAPE}: kernel "
+              f"ssd_scan at hymba's per-rank shape {shape}: kernel "
               f"vs {what} y err {yrel:.3g} of max|y|, state {srel:.3g} of "
               f"max|state| (tol 3e-2)")
-    out["ssd"] = {
-        "shape": TP_SSD_SHAPE, "rel_err": errs,
+    out = {
+        "shape": shape, "rel_err": errs,
         "max_abs_err": float((y.float() - ssm_mod.ssd_chunked(
             x, dtt, A, B, C, chunk)[0].float()).abs().max()),
         "ms": cuda_ms(lambda: ssd.kernel.launch(x, dtt, A, B, C, chunk,
@@ -5601,17 +5698,78 @@ def phase_tp_kernels(torch, fa, ssd, attn, ssm_mod) -> dict:
         "plain_ms": cuda_ms(lambda: ssm_mod.ssd_chunked(x, dtt, A, B, C,
                                                         chunk), 3),
         "library_ms": None}
-    out["ssd"]["bound_ms"], out["ssd"]["bound_by"] = ssd_bound_ms(
-        torch, x, B, chunk)
-    s_ = out["ssd"]
+    out["bound_ms"], out["bound_by"] = ssd_bound_ms(torch, x, B, chunk)
     print(f"  ssd_scan at hymba's per-rank shape (b {b}, l {l}, h {h}, p "
           f"{p}, n {n}, chunk {chunk}, bf16): tensor-core passes "
-          f"{s_['ms']:.4f} ms, plain {s_['plain_ms']:.4f} ms, bound "
-          f"{s_['bound_ms']:.5f} ms ({s_['bound_by']}); no single PyTorch "
-          f"call computes the scan; phase 8's full-width rows above")
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+          f"{out['bound_ms']:.5f} ms ({out['bound_by']}); no single PyTorch "
+          f"call computes the scan; phase 8's full-width rows above; "
+          f"{card_line()}")
     del x, dtt, A, B, C, y, st
-    torch.cuda.empty_cache()
     return out
+
+
+def phase_merge(torch, attn, collectives) -> dict:
+    """Phase 25(d): hymba-1.5b's decode attention at batch 1 over a
+    ``LONG_CACHE``-position cache cut into 2 and 4 spans: each span's
+    partials (``attention._decode_partials``) stacked and merged
+    (``collectives.merge_partials``, the step ``attn_merge`` runs after
+    its gather) against ``_decode_attention`` over the whole cache, in
+    bf16 and f32, at each of ``MERGE_LENGTHS``; an empty span must weigh
+    nothing. Timed with CUDA events: the whole cache, the spans' partials
+    and the merge alone."""
+    h, kh, d = MERGE_HEADS
+    print(f"phase 25(d): the merge of decode-attention partials -- "
+          f"{SERVE_ARCH}'s decode attention (H {h}, K {kh}, D {d}) at "
+          f"batch 1 over {LONG_CACHE} positions cut into 2 and 4 spans")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    out = []
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        q = torch.randn((1, 1, h, d), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((1, LONG_CACHE, kh, d), generator=gen,
+                            device=dev).to(dtype) for _ in range(2))
+        for length in MERGE_LENGTHS:
+            whole = attn._decode_attention(q, k, v, length).float()
+            whole_ms = cuda_ms(lambda: attn._decode_attention(q, k, v,
+                                                              length), 5)
+            for parts in (2, 4):
+                n = LONG_CACHE // parts
+                spans = [(i * n, k[:, i * n:(i + 1) * n],
+                          v[:, i * n:(i + 1) * n]) for i in range(parts)]
+
+                def partials():
+                    got = [attn._decode_partials(q, ks, vs, length, s0)
+                           for s0, ks, vs in spans]
+                    return [torch.stack(t) for t in zip(*got)]
+
+                stacked = partials()
+                merged = collectives.merge_partials(*stacked).permute(
+                    0, 3, 1, 2, 4).reshape(1, 1, h, d)
+                err = rel_to(merged.float(), whole)
+                empty = sum(s0 >= length for s0, _, _ in spans)
+                r = {"dtype": dt, "length": length, "spans": parts,
+                     "empty_spans": empty, "rel_err": err,
+                     "whole_ms": whole_ms,
+                     "partials_ms": cuda_ms(partials, 5),
+                     "merge_ms": cuda_ms(
+                         lambda: collectives.merge_partials(*stacked), 5)}
+                out.append(r)
+                print(f"  {dt}, length {length}, {parts} spans ({empty} "
+                      f"empty): merged vs the whole cache {err:.3g} of "
+                      f"max|out|; whole {whole_ms:.4f} ms, the spans' "
+                      f"partials {r['partials_ms']:.4f} ms, the merge "
+                      f"{r['merge_ms']:.4f} ms; {card_line()}")
+                check(bool(torch.isfinite(merged).all())
+                      and err <= MERGE_TOLERANCE[dt],
+                      f"merge of {parts} spans ({empty} empty) at length "
+                      f"{length}, {dt}: finite, within {err:.3g} of "
+                      f"max|out| (tol {MERGE_TOLERANCE[dt]})")
+                del stacked, merged
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"merge": out}
 
 
 # ---------------------------------------------------------------------------
@@ -5623,12 +5781,13 @@ def tp_positions(prompt: int) -> list:
 
 
 def tp_logits_run(torch, model, params, batch, feed, tape_calls=None,
-                  moe=None, ctx=None):
+                  moe=None, ctx=None, max_len=None):
     """The prefill's logits at ``tp_positions`` and each decode step's,
-    the decode fed ``feed`` (B, steps) tokens; each as f32 on the host,
-    gathered over ``model`` under ``ctx``. With ``moe``, the routing is
-    recorded (or, given ``tape_calls``, pinned to them): returns
-    (prefill, [decode], calls)."""
+    the decode fed ``feed`` (B, steps) tokens, over a cache of
+    ``max_len`` positions (``None``: the prompt, the steps and one); each
+    as f32 on the host, gathered over ``model`` under ``ctx``. With
+    ``moe``, the routing is recorded (or, given ``tape_calls``, pinned to
+    them): returns (prefill, [decode], calls, {cache leaf: bytes})."""
     from repro_torch.distributed import sharding
     from repro_torch.distributed.context import mesh_context
     tape = RoutingTape(torch, moe) if moe is not None else None
@@ -5636,9 +5795,9 @@ def tp_logits_run(torch, model, params, batch, feed, tape_calls=None,
              tape.record() if tape is not None else contextlib.nullcontext())
     pos = tp_positions(batch["tokens"].shape[1])
     with torch.inference_mode(), mesh_context(ctx), scope as calls:
-        logits, cache = model.prefill(params, batch,
-                                      max_len=batch["tokens"].shape[1]
-                                      + feed.shape[1] + 1)
+        logits, cache = model.prefill(
+            params, batch, max_len=max_len or batch["tokens"].shape[1]
+            + feed.shape[1] + 1)
         pre = sharding.constrain_logits(logits[:, pos].contiguous(),
                                         params["embed"]).float().cpu()
         del logits
@@ -5647,37 +5806,83 @@ def tp_logits_run(torch, model, params, batch, feed, tape_calls=None,
             lg, cache = model.decode_step(params, cache, feed[:, t])
             dec.append(sharding.constrain_logits(
                 lg, params["embed"]).float().cpu())
-        kv = sum(cache[k].numel() * cache[k].element_size()
-                 for k in ("k", "v", "conv", "ssd") if k in cache)
+        kv = {k: cache[k].numel() * cache[k].element_size()
+              for k in ("k", "v", "cross_k", "cross_v", "conv", "ssd")
+              if k in cache}
         del cache
     idx = None if calls is None else [c[0].cpu() for c in calls]
     return pre, dec, idx, kv
+
+
+def tp_serve(torch, serve_mod, entry, device=None, group=None):
+    """``entry`` served: through ``serve()`` (on one card without a
+    group), and for an entry with ``max_len`` again, free-running
+    through ``make_serve_fns`` over that cache, whose tokens and times
+    then stand in the result."""
+    from repro_torch.models import build_model
+    from repro_torch.training.steps import make_serve_fns
+    reduced = SERVE_REDUCED if entry.arch == SERVE_ARCH else False
+    res = serve_mod.serve(entry.arch, reduced=reduced, batch=entry.batch,
+                          prompt_len=entry.prompt, gen=entry.gen, seed=SEED,
+                          device=device, mesh=None if group is None
+                          else entry.mesh, group=group)
+    if entry.max_len is None:
+        return res
+    prefill_fn, decode_fn = make_serve_fns(build_model(res.cfg), res.ctx)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, st = prefill_fn(res.params, res.inputs, max_len=entry.max_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = [toks]
+        t0 = time.perf_counter()
+        for _ in range(entry.gen - 1):
+            toks, st = decode_fn(res.params, st)
+            out.append(toks)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        del st
+    return dataclasses.replace(res, tokens=torch.stack(out, dim=1).cpu(),
+                               prefill_s=prefill_s, decode_s=decode_s)
+
+
+def tp_f32_cut(torch, cfg, params, shards=None):
+    """``cfg`` and ``params`` in f32 at ``MOE_F32_LAYERS`` decoder (and
+    encoder) layers; a rank's shards kept shards (``shards``: the
+    sharding module)."""
+    cut = {**params, "layers": params["layers"][:MOE_F32_LAYERS]}
+    change = {"n_layers": MOE_F32_LAYERS}
+    if cfg.is_encdec:
+        cut["enc_layers"] = params["enc_layers"][:MOE_F32_LAYERS]
+        change["encoder_layers"] = MOE_F32_LAYERS
+    cfg32 = dataclasses.replace(cfg, dtype="float32", **change)
+    return cfg32, (to_f32(torch, cut) if shards is None
+                   else to_f32_shards(torch, shards, cut))
 
 
 def tp_reference(torch, serve_mod, moe, path: str) -> dict:
     """(c)'s reference on card 0 without a group: for each of
     ``TP_SERVES`` serve() (tokens, rates), then the logits of the prefill
     and of each decode step fed serve()'s tokens with the routing
-    recorded; moonshot's f32 copy at ``MOE_F32_LAYERS`` layers, request
-    0, the same way. Saved to ``path`` (a ``torch.save`` per arch)."""
+    recorded; an f32 copy at ``MOE_F32_LAYERS`` layers, request 0, the
+    same way. Saved to ``path`` (a ``torch.save`` per entry)."""
     from repro_torch.distributed import collectives
     from repro_torch.models import build_model
     out = {}
-    for arch, mesh, batch, prompt, gen in TP_SERVES:
+    for entry in TP_SERVES:
         gc.collect()
         torch.cuda.empty_cache()
-        reduced = SERVE_REDUCED if arch == SERVE_ARCH else False
-        res = serve_mod.serve(arch, reduced=reduced, batch=batch,
-                              prompt_len=prompt, gen=gen, seed=SEED)
+        res = tp_serve(torch, serve_mod, entry)
         cfg = res.cfg
         model = build_model(cfg)
-        feed = res.tokens[:, :gen - 1].to(res.device)
+        feed = res.tokens[:, :entry.gen - 1].to(res.device)
         is_moe = cfg.is_moe
         pre, dec, idx, kv = tp_logits_run(
-            torch, model, res.params, {"tokens": res.prompts}, feed,
-            moe=moe if is_moe else None)
+            torch, model, res.params, res.inputs, feed,
+            moe=moe if is_moe else None, max_len=entry.max_len)
         warm = time_collectives(torch, collectives, model, res.params,
-                                res.inputs, 8, None)
+                                res.inputs, 8, None, tp_length(entry))
         ref = {"tokens": res.tokens, "prefill": pre, "decode": dec,
                "idx": idx, "kv_bytes": kv, "warm": warm,
                "prefill_s": res.prefill_s,
@@ -5685,27 +5890,25 @@ def tp_reference(torch, serve_mod, moe, path: str) -> dict:
                "decode_tok_per_s": res.decode_tok_per_s,
                "peak_bytes": res.peak_bytes,
                "param_bytes": leaf_bytes(res.params)}
-        if is_moe:
-            cfg32 = dataclasses.replace(cfg, dtype="float32",
-                                        n_layers=MOE_F32_LAYERS)
-            p32 = to_f32(torch, {**res.params,
-                                 "layers": res.params["layers"][
-                                     :MOE_F32_LAYERS]})
-            ref["f32"] = tp_logits_run(
-                torch, build_model(cfg32), p32,
-                {"tokens": res.prompts[:1]}, feed[:1], moe=moe)[:3]
-            del p32
+        cfg32, p32 = tp_f32_cut(torch, cfg, res.params)
+        ref["f32"] = tp_logits_run(
+            torch, build_model(cfg32), p32,
+            {k: t[:1] for k, t in res.inputs.items()}, feed[:1],
+            moe=moe if is_moe else None, max_len=entry.max_len)[:3]
+        del p32
         del res
-        file = os.path.join(path, f"tp_ref_{arch}.pt")
+        file = os.path.join(path, f"tp_ref_{entry.key.replace(' ', '_')}.pt")
         torch.save(ref, file)
-        out[arch] = file
-        print(f"  the one-card reference on card 0: {cfg.name} prefill "
+        out[entry.key] = file
+        print(f"  the one-card reference on card 0: {entry.key} "
+              f"({cfg.name}, batch {entry.batch}, prompt {entry.prompt}, "
+              f"cache {tp_length(entry)}) prefill "
               f"{ref['prefill_s'] * 1e3:.1f} ms (warm "
               f"{warm['prefill_ms']:.1f} ms), decode "
               f"{ref['decode_ms_per_step']:.3f} ms a step "
               f"({ref['decode_tok_per_s']:.1f} tok/s), parameters "
-              f"{ref['param_bytes']} B, cache {kv} B, peak "
-              f"{ref['peak_bytes']} B")
+              f"{ref['param_bytes']} B, cache {json.dumps(kv)} B, peak "
+              f"{ref['peak_bytes']} B; {card_line()}")
     return out
 
 
@@ -5720,12 +5923,12 @@ def tp_flips(a, b) -> int:
 
 
 def tp_compare(torch, model, params, batch, feed, ref, rows, tol, ctx, moe,
-               what: str) -> dict:
+               what: str, max_len=None) -> dict:
     """The rank's logits against ``ref``'s rows, under phase 15's flip
     policy: above ``tol`` with flips, read again pinned to the
     reference's experts, and the pinned reading gates."""
     pre, dec, idx, kv = tp_logits_run(torch, model, params, batch, feed,
-                                      moe=moe, ctx=ctx)
+                                      moe=moe, ctx=ctx, max_len=max_len)
     rels = [rel_to(pre, ref["prefill"][rows])] + [
         rel_to(d, w[rows]) for d, w in zip(dec, ref["decode"])]
     out = {"rel": max(rels), "rel_prefill": rels[0],
@@ -5737,7 +5940,7 @@ def tp_compare(torch, model, params, batch, feed, ref, rows, tol, ctx, moe,
             ppre, pdec, _, _ = tp_logits_run(
                 torch, model, params, batch, feed, tape_calls=[
                     (i.to(ctx.device), None) for i in ref["idx"]],
-                moe=moe, ctx=ctx)
+                moe=moe, ctx=ctx, max_len=max_len)
             out["pinned_rel"] = max([rel_to(ppre, ref["prefill"][rows])] + [
                 rel_to(d, w[rows]) for d, w in zip(pdec, ref["decode"])])
     gate = out["rel"] if out["pinned_rel"] is None else out["pinned_rel"]
@@ -5753,8 +5956,9 @@ def tp_compare(torch, model, params, batch, feed, ref, rows, tol, ctx, moe,
 def serve_rank(rank: int, world: int, rendezvous: str, refs: dict,
                out_paths: list) -> None:
     """One rank of phase 25(c) on card ``rank``: each of ``TP_SERVES``
-    served free-running through ``serve()`` across the ``nccl`` group,
-    then its logits held against the one-card reference's rows."""
+    served free-running (``tp_serve``) across the ``nccl`` group, then
+    its logits (bf16, and an f32 copy at ``MOE_F32_LAYERS`` layers) and
+    its caches held against the one-card reference's rows."""
     import torch
     sys.path.insert(0, os.path.join(ROOT, "src"))
     dev = f"cuda:{rank}"
@@ -5762,26 +5966,28 @@ def serve_rank(rank: int, world: int, rendezvous: str, refs: dict,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.distributed import collectives, sharding
-    from repro_torch.distributed.context import make_context, node_group
+    from repro_torch.distributed.context import mesh_context as mesh_ctx
+    from repro_torch.distributed.context import node_group
     from repro_torch.kernels import flash_attn as fa
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models import build_model
     from repro_torch.models import moe
+    from repro_torch.models.attention import local_kv_heads
     group = node_group(dev, init_method=f"file://{rendezvous}",
                        world_size=world, rank=rank, timeout_s=600)
     res_all = {}
-    for arch, mesh, batch, prompt, gen in TP_SERVES:
+    for entry in TP_SERVES:
         gc.collect()
         torch.cuda.empty_cache()
-        ref = torch.load(refs[arch])
+        ref = torch.load(refs[entry.key])
         fa.ops.reset_counts()
         ssd.ops.reset_counts()
-        reduced = SERVE_REDUCED if arch == SERVE_ARCH else False
-        res = serve_mod.serve(arch, reduced=reduced, batch=batch,
-                              prompt_len=prompt, gen=gen, seed=SEED,
-                              device=dev, mesh=mesh, group=group)
+        t0 = time.perf_counter()
+        res = tp_serve(torch, serve_mod, entry, device=dev, group=group)
+        wall_s = time.perf_counter() - t0
         ctx, cfg = res.ctx, res.cfg
+        sctx = sharding.serving(ctx, entry.batch)
         launches = {"flash_attn": fa.ops.flash_attention.launches,
                     "ssd_scan": ssd.ops.ssd_scan.launches}
         rows = res.rows
@@ -5793,15 +5999,19 @@ def serve_rank(rank: int, world: int, rendezvous: str, refs: dict,
                    for t in range(toks.shape[1]) if toks[i, t] != want[i, t]]
         first = min(diverge, key=lambda it: it[1]) if diverge else None
         model = build_model(cfg)
-        feed = ref["tokens"][rows, :gen - 1].to(dev)
-        batch_rows = {"tokens": res.prompts[rows]}
+        feed = ref["tokens"][rows, :entry.gen - 1].to(dev)
+        batch_rows = {k: t[rows] for k, t in res.inputs.items()}
+        is_moe = cfg.is_moe
         cmp = tp_compare(torch, model, res.params, batch_rows, feed, ref,
-                         rows, LOGIT_TOLERANCE, ctx,
-                         moe if cfg.is_moe else None, f"{cfg.name} bf16")
+                         rows, LOGIT_TOLERANCE, sctx,
+                         moe if is_moe else None, f"{entry.key} bf16",
+                         entry.max_len)
         # the collectives of 8 decode steps, each call between CUDA events
         timed = time_collectives(torch, collectives, model, res.params,
-                                 res.inputs, 8, ctx)
-        r = {"rank": rank, "arch": arch, "mesh": list(mesh),
+                                 res.inputs, 8, ctx, tp_length(entry))
+        r = {"rank": rank, "key": entry.key, "arch": entry.arch,
+             "mesh": list(entry.mesh), "batch": entry.batch,
+             "max_len": tp_length(entry),
              "rows": [rows.start, rows.stop], "block": ctx.block,
              "model_rank": ctx.model_rank, "launches": launches,
              "placed_bytes": res.placed_bytes, "held_bytes": res.held_bytes,
@@ -5810,36 +6020,64 @@ def serve_rank(rank: int, world: int, rendezvous: str, refs: dict,
              "prefill_s": res.prefill_s,
              "decode_ms_per_step": res.decode_s / res.decode_steps * 1e3,
              "decode_tok_per_s_rank": res.decode_tok_per_s,
-             "decode_tok_per_s": (batch * res.decode_steps
+             "decode_tok_per_s": (entry.batch * res.decode_steps
                                   / max(res.decode_s, 1e-9)),
              "collective_calls": res.collectives, "collectives_timed": timed,
              "first_divergence": first, "n_diverged": len(diverge),
-             "bf16": cmp}
+             "bf16": cmp, "wall_s": wall_s}
+        # one prefill through serve(), and for a long cache a second one
+        # through make_serve_fns (tp_serve)
+        runs = 1 if entry.max_len is None else 2
         n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
-        check(launches == {"flash_attn": cfg.n_layers, "ssd_scan": n_ssd},
-              f"rank {rank}: {cfg.name}'s prefill launched flash_attn "
-              f"{launches['flash_attn']} and ssd_scan {launches['ssd_scan']}"
-              f" times at the rank's heads ({cfg.n_layers} layers)")
+        check(launches == {"flash_attn": runs * prefill_launches(cfg),
+                           "ssd_scan": runs * n_ssd},
+              f"rank {rank}: {entry.key}'s {runs} prefill(s) launched "
+              f"flash_attn {launches['flash_attn']} and ssd_scan "
+              f"{launches['ssd_scan']} times at the rank's heads "
+              f"({cfg.n_layers} layers)")
         added = res.placed_bytes - res.held_bytes
         check(added <= TP_MEMORY_SLACK * (mine + prompts_b),
-              f"rank {rank}: {cfg.name}'s card holds {res.placed_bytes} B "
+              f"rank {rank}: {entry.key}'s card holds {res.placed_bytes} B "
               f"after placement, {added} B more than before serve(), "
               f"against its blocks' {mine} B + prompts {prompts_b} B "
               f"(slack {TP_MEMORY_SLACK})")
-        if cfg.is_moe:
-            cfg32 = dataclasses.replace(cfg, dtype="float32",
-                                        n_layers=MOE_F32_LAYERS)
-            p32 = to_f32_shards(torch, sharding, {
-                **res.params, "layers": res.params["layers"][
-                    :MOE_F32_LAYERS]})
-            ref32 = dict(zip(("prefill", "decode", "idx"), ref["f32"]))
-            r["f32"] = tp_compare(
-                torch, build_model(cfg32), p32,
-                {"tokens": res.prompts[:1]}, feed[:1], ref32, slice(0, 1),
-                F32_LOGIT_TOLERANCE, ctx, moe, f"{cfg.name} f32 at "
-                f"{MOE_F32_LAYERS} layers, request 0")
-            del p32
-        res_all[arch] = r
+        # the K/V caches: the one card's at this rank's heads, over the
+        # node blocks -- its rows of a batch they divide, else (every rank
+        # serving the whole batch) its span of a sequence they divide
+        split = sharding.rows_whole(sctx)
+        r["kv_bytes"], r["kv_reckoning"] = {}, {}
+        for leaf in ("k", "v", "cross_k", "cross_v"):
+            if leaf not in cmp["kv_bytes"]:
+                continue
+            cross = leaf.startswith("cross")
+            with mesh_ctx(sctx):
+                heads = local_kv_heads(
+                    cfg, res.params["layers"][0]["cross" if cross
+                                                  else "attn"])
+            length = cfg.n_frames if cross else tp_length(entry)
+            parts = (ctx.n_blocks if not split or length % ctx.n_nodes == 0
+                     else 1)
+            want_b = ref["kv_bytes"][leaf] * heads // cfg.n_kv_heads // parts
+            r["kv_bytes"][leaf] = cmp["kv_bytes"][leaf]
+            r["kv_reckoning"][leaf] = want_b
+            check(cmp["kv_bytes"][leaf] == want_b,
+                  f"rank {rank}: {entry.key}'s {leaf} cache holds "
+                  f"{cmp['kv_bytes'][leaf]} B: the one card's "
+                  f"{ref['kv_bytes'][leaf]} B at the rank's {heads} of "
+                  f"{cfg.n_kv_heads} heads over {parts} block(s) "
+                  f"({'the sequence' if split else 'the rows'}) = "
+                  f"{want_b} B; {card_line()}")
+        cfg32, p32 = tp_f32_cut(torch, cfg, res.params, sharding)
+        ref32 = dict(zip(("prefill", "decode", "idx"), ref["f32"]))
+        r["f32"] = tp_compare(
+            torch, build_model(cfg32), p32,
+            {k: t[:1] for k, t in res.inputs.items()},
+            ref["tokens"][:1, :entry.gen - 1].to(dev), ref32,
+            slice(0, 1), F32_LOGIT_TOLERANCE, sharding.serving(ctx, 1),
+            moe if is_moe else None, f"{entry.key} f32 at "
+            f"{MOE_F32_LAYERS} layers, request 0", entry.max_len)
+        del p32
+        res_all[entry.key] = r
         del res, ref, model
     with open(out_paths[rank], "w", encoding="utf-8") as fh:
         json.dump(res_all, fh, default=str)
@@ -5858,7 +6096,7 @@ def to_f32_shards(torch, sharding, tree):
 
 
 def time_collectives(torch, collectives, model, params, prompts, steps,
-                     ctx) -> dict:
+                     ctx, max_len=None) -> dict:
     """Calls and ms a decode step of each serving collective over
     ``steps`` decode steps of ``make_serve_fns`` after its prefill of the
     global ``prompts`` (timed: a warm prefill, after ``serve()``'s):
@@ -5886,7 +6124,7 @@ def time_collectives(torch, collectives, model, params, prompts, steps,
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        _, st = prefill_fn(params, prompts, max_len=prompts[
+        _, st = prefill_fn(params, prompts, max_len=max_len or prompts[
             "tokens"].shape[1] + steps + 1)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
@@ -5921,8 +6159,9 @@ def phase_serve_multi(torch, serve_mod, moe) -> dict:
     world = 4
     build = os.path.join(ROOT, "build", "repro_torch")
     os.makedirs(build, exist_ok=True)
-    layouts = ", ".join(f"{a} at data {m[0]} x model {m[1]}"
-                        for a, m, *_ in TP_SERVES)
+    layouts = ", ".join(f"{e.arch} at data {e.mesh[0]} x model "
+                        f"{e.mesh[1]}, batch {e.batch}, cache "
+                        f"{tp_length(e)}" for e in TP_SERVES)
     print(f"phase 25(c): {world} ranks on {world} cards (nccl): {layouts}; "
           f"first the one-card reference on card 0")
     refs = tp_reference(torch, serve_mod, moe, build)
@@ -5942,18 +6181,19 @@ def phase_serve_multi(torch, serve_mod, moe) -> dict:
     for path in outs:
         with open(path, encoding="utf-8") as fh:
             res.append(json.load(fh))
-    for arch, mesh, batch, prompt, gen in TP_SERVES:
-        ref = torch.load(refs[arch])
-        for r in (x[arch] for x in res):
+    for entry in TP_SERVES:
+        ref = torch.load(refs[entry.key])
+        for r in (x[entry.key] for x in res):
             c = r["collectives_timed"]
             f32 = r.get("f32")
-            print(f"  rank {r['rank']} ({arch}, block {r['block']}, model "
-                  f"{r['model_rank']}, rows {r['rows']}): placed "
+            print(f"  rank {r['rank']} ({entry.key}, block {r['block']}, "
+                  f"model {r['model_rank']}, rows {r['rows']}): placed "
                   f"{r['placed_bytes']} B ({r['held_bytes']} B held before; "
                   f"blocks {r['param_bytes']} B, one "
                   f"card's parameters {ref['param_bytes']} B), peak "
-                  f"{r['peak_bytes']} B; cache {r['bf16']['kv_bytes']} B "
-                  f"(one card {ref['kv_bytes']} B); prefill "
+                  f"{r['peak_bytes']} B; K/V cache "
+                  f"{json.dumps(r['kv_bytes'])} B against the reckoning {json.dumps(r['kv_reckoning'])} "
+                  f"(one card {json.dumps(ref['kv_bytes'])} B); prefill "
                   f"{r['prefill_s'] * 1e3:.1f} ms, warm "
                   f"{c['prefill_ms']:.1f} (one card "
                   f"{ref['prefill_s'] * 1e3:.1f}, warm "
@@ -5969,9 +6209,8 @@ def phase_serve_multi(torch, serve_mod, moe) -> dict:
                   f"logits {r['bf16']['rel']:.3g} (prefill "
                   f"{r['bf16']['rel_prefill']:.3g}), {r['bf16']['flips']} "
                   f"flips, pinned {r['bf16']['pinned_rel']}"
-                  + ("" if f32 is None else
-                     f"; f32 at {MOE_F32_LAYERS} layers {f32['rel']:.3g}, "
-                     f"{f32['flips']} flips, pinned {f32['pinned_rel']}")
+                  + f"; f32 at {MOE_F32_LAYERS} layers {f32['rel']:.3g}, "
+                  f"{f32['flips']} flips, pinned {f32['pinned_rel']}"
                   + f"; tokens: {r['n_diverged']} of the rank's differ, "
                   f"first divergence (row, step) {r['first_divergence']}; "
                   f"launches {r['launches']}; {card_line()}")
@@ -6208,13 +6447,15 @@ def main(argv=None) -> int:
     S.clear_sim_caches()
     served_moe = phase_serve_moe(torch, serve_mod, fa, ssd, attn, moe)
     cut = phase_cut_configs(torch, serve_mod, config, fa, ssd, attn, moe)
-    tp = {"ranks_one": phase_serve_ranks(torch, serve_mod, fa, ssd, group,
-                                         served, served_moe),
-          "kernels": phase_tp_kernels(torch, fa, ssd, attn, ssm_mod)}
     ycsb = phase_ycsb(torch)
     whisper = phase_serve_family(torch, serve_mod, fa, attn, 18,
                                  WHISPER_ARCH, WHISPER_BATCH, WHISPER_PROMPT,
                                  WHISPER_GEN, None)
+    from repro_torch.distributed import collectives as coll
+    tp = {"ranks_one": phase_serve_ranks(torch, serve_mod, fa, ssd, group,
+                                         served, served_moe, whisper),
+          "kernels": phase_tp_kernels(torch, fa, ssd, attn, ssm_mod),
+          "merge": phase_merge(torch, attn, coll)}
     vlm = phase_serve_family(torch, serve_mod, fa, attn, 19, VLM_ARCH,
                              VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_F32_LAYERS)
     train, train_installed = phase_train(torch, fa, attn, ssd)
@@ -6353,10 +6594,10 @@ def main(argv=None) -> int:
                  f"1x1 (phase 25(a)), prefill",
          "launches": tp["ranks_one"][SERVE_ARCH]["launches"]["ssd_scan"]})
     ssd_entry["launches"] = sum(p["launches"] for p in ssd_entry["paths"])
-    ssd_entry["per_rank_shape"] = {
-        k: tp["kernels"]["ssd"][k] for k in ("shape", "ms", "plain_ms",
-                                             "bound_ms", "bound_by",
-                                             "library_ms")}
+    ssd_entry["per_rank_shapes"] = [
+        {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")}
+        for t in tp["kernels"]["ssd"]]
     for key in ("simt_ms", "f32_ms", "passes_ms"):
         ssd_entry[key] = model_k[f"ssd_{key}"]
     attn_entry = model_entries[0]
@@ -6375,10 +6616,11 @@ def main(argv=None) -> int:
         {"path": f"{WHISPER_ARCH} serve, prefill (encoder, decoder, cross)",
          "launches": whisper["launches"]},
         {"path": f"{VLM_ARCH} serve, prefill", "launches": vlm["launches"]},
-        {"path": f"{MOE_ARCH} and {SERVE_ARCH} serve through the rank-aware "
-                 f"path, mesh 1x1 (phase 25(a)), prefill",
+        {"path": f"{MOE_ARCH}, {SERVE_ARCH} and {WHISPER_ARCH} serve "
+                 f"through the rank-aware path, mesh 1x1 (phase 25(a)), "
+                 f"prefill",
          "launches": sum(tp["ranks_one"][a]["launches"]["flash_attn"]
-                         for a in (MOE_ARCH, SERVE_ARCH))},
+                         for a in (MOE_ARCH, SERVE_ARCH, WHISPER_ARCH))},
         {"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps (forward and "
                  f"remat's recompute)",
          "launches": train["train"]["launches"]["forward"]},

@@ -147,7 +147,7 @@ class ReplicationEngine:
                  param_specs: Any, global_params: Any):
         if ctx.split_model:
             raise NotImplementedError(
-                "replication over ranks that split the model axis (A4(d2b) "
+                "replication over ranks that split the model axis (A4(d2b2) "
                 "in ROADMAP.md): a rank must hold whole nodes")
         self.rep = rep
         self.ctx = ctx

@@ -23,8 +23,13 @@ sum of a row-parallel product's partials (the ``psum`` of
 all-gather of a storage-sharded parameter dimension just in time
 (``_gather``, ``src/repro/models/moe.py:177-186``); and
 :func:`model_gather`, the ``model``-group all-gather of the
-vocab-split logits. Each call that moves data adds one to
-``COUNTS[name]``; a group of one rank moves nothing and counts nothing.
+vocab-split logits. Where a serving cache's sequence is split over the
+node blocks (``sharding.cache_span``), :func:`attn_merge` joins the
+blocks' decode-attention partials over the ranks that share a ``model``
+position, as GSPMD's partitioned softmax reductions do over the
+reference's sequence-sharded cache. Each call that moves data adds one
+to ``COUNTS[name]``; a group of one rank moves nothing and counts
+nothing.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ GRAD_BUCKET_BYTES = 64 << 20
 
 #: calls of the serving collectives that moved data, by name
 COUNTS: Dict[str, int] = {"model_sum": 0, "fsdp_gather": 0,
-                          "model_gather": 0}
+                          "model_gather": 0, "attn_merge": 0}
 
 
 def reset_counts() -> None:
@@ -291,3 +296,38 @@ def model_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(ctx.model_size)]
     dist.all_gather(parts, x, group=ctx.model_group)
     return torch.cat(parts, dim=-1)
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor
+                   ) -> torch.Tensor:
+    """Softmax attention over every block from the blocks' partials,
+    stacked on a leading block dimension: each block's row max ``m`` and
+    row sum ``l`` ``(P, ...)`` and unnormalised output ``o`` ``(P, ...,
+    hd)``, all f32 -> the normalised output ``(..., hd)``, f32. A block
+    with no valid position (``m = -inf``, ``l = 0``, ``o = 0``) weighs
+    exactly 0; a row where every block is empty has no defined output
+    (decode always holds one valid position)."""
+    top = m.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(m - top)                      # exp(-inf) = 0: no NaN
+    den = (w * l).sum(dim=0)
+    return (w[..., None] * o).sum(dim=0) / den[..., None]
+
+
+def attn_merge(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+               ctx: MeshContext) -> torch.Tensor:
+    """This rank's block partials (``m``, ``l`` ``(...)``, ``o`` ``(...,
+    hd)``, f32) joined with those of the ranks at its ``model`` position
+    (the FSDP group; the whole group when the ranks do not split
+    ``model``): one ``all_gather`` of the three packed together, in
+    block order, then :func:`merge_partials`."""
+    group = ctx.fsdp_group if ctx.split_model else ctx.group
+    if group is None:
+        return merge_partials(m[None], l[None], o[None])
+    COUNTS["attn_merge"] += 1
+    packed = torch.cat([o, m[..., None], l[..., None]], dim=-1).contiguous()
+    parts = [torch.empty_like(packed) for _ in range(ctx.n_blocks)]
+    dist.all_gather(parts, packed, group=group)
+    stacked = torch.stack(parts)
+    return merge_partials(stacked[..., -2], stacked[..., -1],
+                          stacked[..., :-2])

@@ -27,7 +27,10 @@ has its ``model`` group (the ``m`` ranks of its node block, which share
 its nodes and sum the tensor-parallel partials) and its FSDP group (the
 ranks at its ``model`` position, which share the storage-sharded
 parameter dimensions), both built once, in the same order on every
-rank. That is the serving layout of ``launch/serve.py --mesh``.
+rank. That is the serving layout of ``launch/serve.py --mesh``. A
+batch the node blocks do not divide is served whole on every rank, and
+its KV caches split their sequence over the blocks instead
+(``sharding.cache_span``).
 
 The JAX package finds its mesh through a module-level context
 (:func:`set_mesh_context` / :func:`get_mesh_context` /
@@ -85,6 +88,10 @@ class MeshContext:
     split_model: bool = False        # a rank holds one model position
     model_group: Any = None          # the ranks of this rank's nodes
     fsdp_group: Any = None           # the ranks at its model position
+    #: the global rows of the batch being served, set for each call by the
+    #: serve fns (``sharding.serving``): whether a rank's rows are a block
+    #: of the batch or the whole of it, which its rows alone cannot say
+    serve_rows: Optional[int] = None
 
     def __post_init__(self) -> None:
         if not self.local_sizes:          # no group: every node is local

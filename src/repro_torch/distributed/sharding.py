@@ -29,19 +29,26 @@ split (``src/repro/models/moe.py:177-186`` does the same inside its
 The serving half of the JAX module's activation rules is here too:
 :func:`batch_blocks` (its ``batch_specs`` split of a batch), and the
 constraint points :func:`constrain_batch` (a batch input's rows on this
-rank), :func:`constrain_heads` (a whole-head tensor's heads on this
-rank) and :func:`constrain_logits` (the vocab-split logits gathered
-over ``model``), which are the explicit places where the port gathers
-or slices what GSPMD reshards unasked. The JAX module's ``cache_specs``
-has no counterpart: a rank's cache holds what its layers read (the KV
-heads of :func:`~repro_torch.models.attention.local_kv_heads`, the SSD
-heads and x channels of :func:`~repro_torch.models.ssm.local_heads`),
-which is not always the block that spec gives (ROADMAP.md,
-"Contracts": the split serve caches).
+rank: a block of them, or the whole batch where the node blocks do not
+divide it, as the sanitized spec keeps it), :func:`constrain_heads` (a
+whole-head tensor's heads on this rank) and :func:`constrain_logits`
+(the vocab-split logits gathered over ``model``), which are the explicit
+places where the port gathers or slices what GSPMD reshards unasked.
+Of the JAX module's ``cache_specs`` the port keeps one decision,
+:func:`cache_span`: the positions of a serving cache a rank holds -- its
+span of the sequence when the blocks do not divide the batch but do
+divide the cache (``src/repro/distributed/sharding.py:285-290``, the
+B = 1 ``long_500k`` case), else every position. Its heads are what the
+rank's layers read (the KV heads of
+:func:`~repro_torch.models.attention.local_kv_heads`, the SSD heads and
+x channels of :func:`~repro_torch.models.ssm.local_heads`), which is not
+always the block that spec gives (ROADMAP.md, "Contracts": the split
+serve caches).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -330,25 +337,97 @@ def batch_blocks(n_rows: int, ctx: MeshContext) -> int:
     return int(np.prod([ctx.shape[a] for a in entry_axes(spec, 0)]))
 
 
+def _rows(n_rows: int, ctx: MeshContext) -> Tuple[int, int, int]:
+    """(start, count, blocks) of this rank's rows of a global batch of
+    ``n_rows``: dimension 0 over the longest dividing prefix of the
+    (pod, data) axes (:func:`batch_blocks`), of which this rank's node
+    block holds ``blocks``; with no axis left, the whole batch as one
+    block."""
+    spec = sanitize_spec(P(ctx.batch_axes), (n_rows,), ctx)
+    axes = entry_axes(spec, 0)
+    if not axes:
+        return 0, n_rows, 1
+    lo, n = _dim_block(axes, n_rows, ctx, ctx.block, 0)
+    return lo, n, n * batch_blocks(n_rows, ctx) // n_rows
+
+
+def rows_block(n_rows: int, ctx: MeshContext) -> Tuple[int, int]:
+    """(start, count) of this rank's rows of a global batch of
+    ``n_rows`` (every row without a group)."""
+    if ctx.group is None:
+        return 0, n_rows
+    return _rows(n_rows, ctx)[:2]
+
+
+def rows_whole(ctx: Optional[MeshContext]) -> bool:
+    """Whether this rank serves the whole batch although its context
+    spreads the nodes over several blocks: the blocks do not divide the
+    batch the serve fns set (:func:`serving`)."""
+    return (ctx is not None and ctx.group is not None and ctx.n_blocks > 1
+            and ctx.serve_rows is not None
+            and batch_blocks(ctx.serve_rows, ctx) == 1)
+
+
+def local_batch_blocks(rows: int, ctx: MeshContext) -> int:
+    """The data blocks among a process's ``rows``, each dispatched on
+    its own by the MoE: without a group the blocks of the batch; across
+    ranks those of the batch the serve fns set (:func:`serving`) that
+    this rank holds, else (the ``Trainer``'s rows) ``rows`` times the
+    node blocks' share."""
+    if ctx.group is None:
+        return batch_blocks(rows, ctx)
+    if ctx.serve_rows is not None:
+        return _rows(ctx.serve_rows, ctx)[2]
+    total = batch_blocks(rows * ctx.n_blocks, ctx)
+    if total % ctx.n_blocks:
+        raise ValueError(f"{total} data blocks of the global batch do not "
+                         f"split over {ctx.n_blocks} node blocks")
+    return total // ctx.n_blocks
+
+
+def serving(ctx: Optional[MeshContext], rows: int
+            ) -> Optional[MeshContext]:
+    """``ctx`` for serving a global batch of ``rows`` rows (a context
+    without a group, or none, as it is)."""
+    if ctx is None or ctx.group is None:
+        return ctx
+    return dataclasses.replace(ctx, serve_rows=int(rows))
+
+
+def cache_span(length: int, ctx: Optional[MeshContext] = None
+               ) -> Tuple[int, int]:
+    """(start, count) of the positions of a serving cache's sequence of
+    ``length`` positions (``k`` / ``v``; the frames of ``cross_k`` /
+    ``cross_v``) that this rank holds. The JAX package's ``cache_specs``
+    shards that sequence over the (pod, data) axes exactly when they do
+    not divide the batch (:func:`rows_whole`) and do divide ``length``;
+    a rank then holds its node block's span, and decode attention merges
+    the blocks' partials (``collectives.attn_merge``). Otherwise every
+    position. Where only a prefix of (pod, data) divides ``length`` the
+    reference splits it partly; the port keeps the whole cache there (a
+    layout, not a result, apart)."""
+    ctx = ctx or get_mesh_context()
+    if not rows_whole(ctx) or length % ctx.n_nodes:
+        return 0, length
+    n = length // ctx.n_blocks
+    return ctx.block * n, n
+
+
 # ---------------------------------------------------------------------------
 # Activation constraints: where the port gathers or slices
 # ---------------------------------------------------------------------------
 
 def constrain_batch(x: torch.Tensor,
                     ctx: Optional[MeshContext] = None) -> torch.Tensor:
-    """A global batch input's rows on this rank: dimension 0 split over
-    the node blocks, every rank of a block holding the same rows (the
-    whole batch without a group). Raises ``ValueError`` when the blocks
-    do not divide the rows (the JAX package then shards a B = 1 cache's
-    sequence: A4(d2c) in ROADMAP.md)."""
+    """A global batch input's rows on this rank (:func:`rows_block`):
+    dimension 0 split over the node blocks, every rank of a block
+    holding the same rows; the whole batch on every rank where the
+    blocks do not divide it, and without a group."""
     ctx = ctx or get_mesh_context()
     if ctx is None or ctx.group is None:
         return x
-    if x.shape[0] % ctx.n_blocks:
-        raise ValueError(f"a batch of {x.shape[0]} rows does not split over "
-                         f"{ctx.n_blocks} node blocks")
-    n = x.shape[0] // ctx.n_blocks
-    return x[ctx.block * n:(ctx.block + 1) * n]
+    lo, n = rows_block(x.shape[0], ctx)
+    return x[lo:lo + n]
 
 
 def constrain_heads(x: torch.Tensor,

@@ -45,9 +45,19 @@ block on its own, as the JAX launcher's ``shard_map`` does::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
         --arch moonshot-v1-16b-a3b --mesh 1x4 --batch 4 --prompt-len 2048
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch whisper-medium --mesh 1x4 --batch 8 --prompt-len 224
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+        --arch hymba-1.5b --mesh 2x2 --batch 1 --prompt-len 4096
     PYTHONPATH=src python -m torch.distributed.run --standalone \\
         --nproc-per-node 4 -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --reduced --mesh 2x2 --device cpu
+
+A batch the data positions do not divide (``--batch 1`` on a ``2x2``
+mesh) is served whole on every rank, and each rank's KV cache holds its
+data position's span of the ``prompt + gen`` positions (the reference's
+``cache_specs`` split of a B = 1 cache); decode attention merges the
+spans' partial softmax over the data positions.
 
 The JAX launcher's ``--host-devices`` has no meaning here and is left
 out.
@@ -70,7 +80,7 @@ from repro_torch.config import (
     get_reduced_config,
 )
 from repro_torch.device import resolve_device
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.context import (MeshContext, make_context,
                                              node_group)
 from repro_torch.models import build_model
@@ -90,6 +100,7 @@ class ServeResult:
     device: torch.device
     ctx: Optional[MeshContext] = None  # the mesh, when one was asked
     rows: slice = slice(None)          # this rank's rows of the batch
+                                       # (all of one the blocks don't divide)
     held_bytes: Optional[int] = None    # the card's memory before init
     placed_bytes: Optional[int] = None  # ... after placement
     peak_bytes: Optional[int] = None    # ... and its peak over the run
@@ -166,8 +177,8 @@ def serve(arch: str, reduced: bool = False, batch: int = 4,
         counts["decode"] = dict(collectives.COUNTS)
     rows = slice(None)
     if ctx is not None and ctx.group is not None:
-        n = batch // ctx.n_blocks
-        rows = slice(ctx.block * n, (ctx.block + 1) * n)
+        lo, n = sharding.rows_block(batch, ctx)
+        rows = slice(lo, lo + n)
     return ServeResult(cfg=cfg, params=params, prompts=prompts["tokens"],
                        inputs=prompts, tokens=torch.stack(out, dim=1).cpu(),
                        prefill_s=prefill_s, decode_s=decode_s, device=dev,

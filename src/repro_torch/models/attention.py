@@ -33,7 +33,13 @@ a rank computes its ``H / m`` query heads when ``wq`` splits them, its
 KV head, sliced to the ones its query heads read (:func:`_local_kv`);
 ``wo``'s partial is summed over the ``model`` group. Where the heads do
 not divide ``m`` (hymba's 25) every rank computes the whole attention
-and nothing is summed. The KV cache holds the rank's KV heads.
+and nothing is summed. The KV cache holds the rank's KV heads, and
+where the node blocks do not divide the batch, the rank's span of the
+sequence (``sharding.cache_span``): a decode step writes its new row
+only in the block that owns the position, and each block's partial
+softmax statistics are merged over the blocks
+(``collectives.attn_merge``). Cross-attention reads its leaves and
+heads the same way.
 """
 
 from __future__ import annotations
@@ -243,25 +249,62 @@ def _blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Decode attention (one new token vs. a KV cache)
 # ---------------------------------------------------------------------------
 
+def _valid(cache_len: Union[int, torch.Tensor], pos: torch.Tensor
+           ) -> torch.Tensor:
+    """(B or 1, S) mask of the cache positions ``pos`` below
+    ``cache_len`` (an int or (B,))."""
+    if isinstance(cache_len, torch.Tensor):
+        return pos[None, :] < cache_len.to(pos.device).reshape(-1, 1)
+    return (pos < cache_len)[None, :]     # a Python int: no host copy
+
+
+def _decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_len: Union[int, torch.Tensor], start: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One block's share of decode attention over its span of the cache,
+    global positions ``[start, start + S)``: the row max ``m`` and row
+    sum ``l`` ``(B, K, g, 1)`` and the unnormalised output ``o`` ``(B,
+    K, g, 1, hd)``, f32. A block with no valid position gives ``m =
+    -inf``, ``l = 0``, ``o = 0``: its exponentials are taken against 0,
+    not against ``m``."""
+    b, _, h, hd = q.shape
+    s, kh = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, 1, kh, h // kh, hd)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() \
+        / np.sqrt(hd)
+    valid = _valid(cache_len, start + torch.arange(s, device=q.device))
+    scores = torch.where(valid[:, None, None, None, :], scores,
+                         float("-inf"))
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    o = torch.einsum("bkgqs,bskd->bkgqd", p.to(v_cache.dtype), v_cache)
+    return m, p.sum(dim=-1), o.float()
+
+
 def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor,
-                      cache_len: Union[int, torch.Tensor]) -> torch.Tensor:
+                      cache_len: Union[int, torch.Tensor],
+                      start: Optional[int] = None) -> torch.Tensor:
     """q: (B, 1, H, hd); caches: (B, S, K, hd); cache_len: int or (B,).
 
     GQA is a grouped einsum against the *unexpanded* cache: repeating
     the KV heads would multiply the decode step's memory traffic by H/K,
-    and decode is memory-bound."""
+    and decode is memory-bound. ``start`` given, the caches are this
+    block's span of a sequence split over the node blocks, from global
+    position ``start``: the block's partials (:func:`_decode_partials`)
+    are merged over the blocks (``collectives.attn_merge``)."""
     b, _, h, hd = q.shape
     s, kh = k_cache.shape[1], k_cache.shape[2]
+    if start is not None:
+        m, l, o = _decode_partials(q, k_cache, v_cache, cache_len, start)
+        out = collectives.attn_merge(m, l, o, get_mesh_context())
+        return out.permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd).to(q.dtype)
     g = h // kh
     qg = q.reshape(b, 1, kh, g, hd)
     scale = 1.0 / np.sqrt(hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
-    pos = torch.arange(s, device=q.device)
-    if isinstance(cache_len, torch.Tensor):
-        valid = pos[None, :] < cache_len.to(q.device).reshape(-1, 1)
-    else:                       # a Python int: no host-to-device copy
-        valid = (pos < cache_len)[None, :]                    # (B or 1, S)
+    valid = _valid(cache_len, torch.arange(s, device=q.device))
     scores = torch.where(valid[:, None, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v_cache)
@@ -335,22 +378,32 @@ def self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
 def cross_kv(params: Params, ctx: torch.Tensor, cfg: ModelConfig
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K / V ``(B, F, K, hd)`` of the context (the
-    encoder output): its projections, with no norm and no RoPE."""
+    encoder output): its projections, with no norm and no RoPE, at the
+    KV heads this rank's query heads read (:func:`_local_kv`)."""
     b, f, _ = ctx.shape
     hd = cfg.resolved_head_dim
-    return ((ctx @ params["wk"]).reshape(b, f, cfg.n_kv_heads, hd),
-            (ctx @ params["wv"]).reshape(b, f, cfg.n_kv_heads, hd))
+    w = sharding.weight
+    k = (ctx @ w(params["wk"])).reshape(b, f, -1, hd)
+    v = (ctx @ w(params["wv"])).reshape(b, f, -1, hd)
+    return _local_kv(params, k, v, cfg)
+
+
+def _cross_q(params: Params, x: torch.Tensor, cfg: ModelConfig
+             ) -> torch.Tensor:
+    b, s, _ = x.shape
+    return (x @ sharding.weight(params["wq"])).reshape(
+        b, s, -1, cfg.resolved_head_dim)
 
 
 def cross_attend(params: Params, x: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Cross-attention of ``x`` (B, S, d_model) to projected K / V (from
     :func:`cross_kv`): no mask, no RoPE; on the CPU the JAX package's
-    full path at every length."""
-    b, s, _ = x.shape
-    q = (x @ params["wq"]).reshape(b, s, cfg.n_heads, cfg.resolved_head_dim)
-    o = _attend(q, k, v, causal=False, use_blockwise=False)
-    return o.reshape(b, s, -1) @ params["wo"]
+    full path at every length. ``wo``'s partial is summed over
+    ``model`` (:func:`_out_proj`)."""
+    o = _attend(_cross_q(params, x, cfg), k, v, causal=False,
+                use_blockwise=False)
+    return _out_proj(params, o)
 
 
 def cross_attention(params: Params, x: torch.Tensor, ctx: torch.Tensor,
@@ -358,6 +411,19 @@ def cross_attention(params: Params, x: torch.Tensor, ctx: torch.Tensor,
     """Decoder -> encoder cross-attention (no mask, no RoPE)."""
     k, v = cross_kv(params, ctx, cfg)
     return cross_attend(params, x, k, v, cfg)
+
+
+def decode_cross_attention(params: Params, x: torch.Tensor,
+                           cfg: ModelConfig, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, frames: int
+                           ) -> torch.Tensor:
+    """One decode token ``x`` (B, 1, d) attending to the cached cross K
+    / V of ``frames`` encoder positions, of which the caches hold this
+    rank's span (``sharding.cache_span``), every one valid."""
+    start, n = sharding.cache_span(frames)
+    o = _decode_attention(_cross_q(params, x, cfg), k_cache, v_cache,
+                          frames, start if n < frames else None)
+    return _out_proj(params, o)
 
 
 def local_kv_heads(cfg: ModelConfig, params: Optional[Params] = None
@@ -392,9 +458,32 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def write_prompt(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor, positions: int) -> None:
+    """A prompt's K / V ``(B, n_pos, K, hd)``, global positions ``[0,
+    n_pos)``, into one layer's caches of ``positions`` global positions,
+    of which they hold this rank's span (``sharding.cache_span``): the
+    positions that fall in it."""
+    start, n = sharding.cache_span(positions)
+    hi = min(start + n, k.shape[1])
+    if hi > start:
+        k_cache[:, :hi - start] = k[:, start:hi]
+        v_cache[:, :hi - start] = v[:, start:hi]
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor, pos: int,
+               start: int) -> None:
+    """The new token's row ``new`` (B, K, hd) into ``cache`` (B, S, K,
+    hd), which holds global positions ``[start, start + S)``: at ``pos
+    - start`` when this block owns ``pos``, else nowhere."""
+    i = pos - start
+    if 0 <= i < cache.shape[1]:
+        cache[:, i] = new.to(cache.dtype)
+
+
 def decode_self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
                           k_cache: torch.Tensor, v_cache: torch.Tensor,
-                          cache_len: int
+                          cache_len: int, positions: Optional[int] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """One-token decode. x: (B, 1, d). Returns (out, k_cache, v_cache).
@@ -402,14 +491,20 @@ def decode_self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     Unlike the JAX package, which returns updated copies, the new K/V
     row is written into ``k_cache`` / ``v_cache`` in place (at position
     ``cache_len``): a copy of the whole cache per step would move more
-    bytes than the step itself reads."""
+    bytes than the step itself reads. ``positions``, the global cache
+    length, given, the caches are this rank's span of it
+    (``sharding.cache_span``)."""
     b = x.shape[0]
     pos = torch.full((b, 1), cache_len, dtype=torch.long, device=x.device)
     q, k_new, v_new = _project_qkv(params, x, x, cfg, pos, pos,
                                    use_rope=True)
-    k_cache[:, cache_len] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, cache_len] = v_new[:, 0].to(v_cache.dtype)
-    o = _decode_attention(q, k_cache, v_cache, cache_len + 1)
+    total = k_cache.shape[1] if positions is None else positions
+    start, n = sharding.cache_span(total) if positions is not None \
+        else (0, total)
+    _write_row(k_cache, k_new[:, 0], cache_len, start)
+    _write_row(v_cache, v_new[:, 0], cache_len, start)
+    o = _decode_attention(q, k_cache, v_cache, cache_len + 1,
+                          start if n < total else None)
     return _out_proj(params, o), k_cache, v_cache
 
 

@@ -8,9 +8,18 @@ model is a stub. The encoder is non-causal self-attention with RoPE
 decoder is a causal transformer with cross-attention into the encoder
 output (no mask, no RoPE). Each layer ``lax.scan`` becomes a Python loop
 over per-layer parameter dicts (``params["enc_layers"][i]``,
-``params["layers"][i]``), as in the port's ``transformer.py``; the
-``constrain_*`` sharding hints are identities on one card and are not
-ported.
+``params["layers"][i]``), as in the port's ``transformer.py``.
+
+Across ranks that split the ``model`` axis every leaf is read through
+``sharding.weight`` and every attention and MLP is the tensor-parallel
+one of ``attention.py`` / ``layers.py``: the encoder's self-attention,
+the decoder's causal one and the cross-attention compute the rank's
+heads and sum ``wo``'s partial over ``model``. The reference's
+``constrain_batch`` hints are where the serve fns of
+``training/steps.py`` cut the rank's rows of ``frames`` and ``tokens``
+(``sharding.constrain_batch``), and its ``constrain_logits`` is the
+gather of ``sharding.constrain_logits`` there; on one card both are
+identities.
 
 On a CUDA tensor every attention of ``encode``, ``forward`` and
 ``prefill`` -- the encoder's, the decoder's causal one and the
@@ -21,18 +30,23 @@ as the JAX package does.
 Caches hold the JAX package's keys: ``k``, ``v`` ``(L, B, max_len, K,
 hd)``, ``cross_k``, ``cross_v`` ``(L, B, F, K, hd)`` (the encoder
 output's projections, made once by ``prefill``) and ``length``, a
-Python int. ``decode_step`` writes the new token's K/V into the cache it
-is given, in place, and returns it with ``length`` advanced. There is
+Python int; and ``positions`` / ``frames``, the global ``max_len`` and
+``F``. A rank holds its KV heads and, where the node blocks do not
+divide the batch, its span of the positions and of the frames
+(``sharding.cache_span``). ``decode_step`` writes the new token's K/V
+into the cache it is given, in place, and returns it with ``length``
+advanced. There is
 no cache before ``prefill``: the cross K/V need the encoder output.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
     Params,
@@ -78,16 +92,24 @@ def _init_dec_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
     }
 
 
-def init_params(gen: torch.Generator, cfg: ModelConfig) -> Params:
-    """Random weights from ``gen``, made on the generator's device."""
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                place: Optional[Callable[[Params, str], Params]] = None
+                ) -> Params:
+    """Random weights from ``gen``, made on the generator's device.
+    ``place(subtree, path)``, given, takes each part as it is drawn (the
+    embedding, each encoder and decoder layer, the norms), as in
+    ``transformer.init_params``."""
     dt, dev = dtype_of(cfg), gen.device
+    place = place or (lambda tree, path: tree)
     return {
-        "embed": embedding_init(gen, cfg),
-        "enc_layers": [_init_enc_layer(gen, cfg)
+        "embed": place(embedding_init(gen, cfg), "embed"),
+        "enc_layers": [place(_init_enc_layer(gen, cfg), "enc_layers")
                        for _ in range(cfg.encoder_layers)],
-        "layers": [_init_dec_layer(gen, cfg) for _ in range(cfg.n_layers)],
-        "enc_norm": rmsnorm_init(cfg.d_model, dt, dev),
-        "final_norm": rmsnorm_init(cfg.d_model, dt, dev),
+        "layers": [place(_init_dec_layer(gen, cfg), "layers")
+                   for _ in range(cfg.n_layers)],
+        "enc_norm": place(rmsnorm_init(cfg.d_model, dt, dev), "enc_norm"),
+        "final_norm": place(rmsnorm_init(cfg.d_model, dt, dev),
+                            "final_norm"),
     }
 
 
@@ -166,28 +188,34 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     enc_out = encode(params, batch["frames"], cfg)
     x = embed_tokens(params["embed"], tokens)
     dt, dev = x.dtype, x.device
-    L, kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    L, hd = cfg.n_layers, cfg.resolved_head_dim
     frames = enc_out.shape[1]
+    p0 = params["layers"][0]
+    ns = sharding.cache_span(max_len)[1]
+    f0, nf = sharding.cache_span(frames)
+    kh = attn.local_kv_heads(cfg, p0["attn"])
+    ch = attn.local_kv_heads(cfg, p0["cross"])
     cache: Cache = {
-        "k": torch.zeros((L, bsz, max_len, kh, hd), dtype=dt, device=dev),
-        "v": torch.zeros((L, bsz, max_len, kh, hd), dtype=dt, device=dev),
-        "cross_k": torch.empty((L, bsz, frames, kh, hd), dtype=dt,
-                               device=dev),
-        "cross_v": torch.empty((L, bsz, frames, kh, hd), dtype=dt,
-                               device=dev),
+        "k": torch.zeros((L, bsz, ns, kh, hd), dtype=dt, device=dev),
+        "v": torch.zeros((L, bsz, ns, kh, hd), dtype=dt, device=dev),
+        "cross_k": torch.empty((L, bsz, nf, ch, hd), dtype=dt, device=dev),
+        "cross_v": torch.empty((L, bsz, nf, ch, hd), dtype=dt, device=dev),
+        "positions": max_len,
+        "frames": frames,
     }
     for i, p in enumerate(params["layers"]):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         a, k, v = attn.prefill_self_attention(p["attn"], h, cfg)
-        cache["k"][i, :, :seq] = k
-        cache["v"][i, :, :seq] = v
+        attn.write_prompt(cache["k"][i], cache["v"][i], k, v, max_len)
         x = x + a
         hc = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-        # the cross K/V, made once from enc_out: cached, and attended to
-        # here (the JAX package projects them a second time inside its
+        # the cross K/V, made once from enc_out: the rank's span of the
+        # frames cached, and every frame attended to here (the JAX
+        # package projects them a second time inside its
         # cross_attention; the product is the same)
         ck, cv = attn.cross_kv(p["cross"], enc_out, cfg)
-        cache["cross_k"][i], cache["cross_v"][i] = ck, cv
+        cache["cross_k"][i] = ck[:, f0:f0 + nf]
+        cache["cross_v"][i] = cv[:, f0:f0 + nf]
         x = x + attn.cross_attend(p["cross"], hc, ck, cv, cfg)
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
@@ -201,17 +229,16 @@ def decode_step(params: Params, cache: Cache, tokens: torch.Tensor,
     token -- updated in place)."""
     x = embed_tokens(params["embed"], tokens[:, None])
     length = cache["length"]
-    bsz, hd = x.shape[0], cfg.resolved_head_dim
     for i, p in enumerate(params["layers"]):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         a, _, _ = attn.decode_self_attention(
-            p["attn"], h, cfg, cache["k"][i], cache["v"][i], length)
+            p["attn"], h, cfg, cache["k"][i], cache["v"][i], length,
+            cache["positions"])
         x = x + a
         hc = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-        q = (hc @ p["cross"]["wq"]).reshape(bsz, 1, cfg.n_heads, hd)
-        ck = cache["cross_k"][i]
-        o = attn._decode_attention(q, ck, cache["cross_v"][i], ck.shape[1])
-        x = x + o.reshape(bsz, 1, -1) @ p["cross"]["wo"]
+        x = x + attn.decode_cross_attention(
+            p["cross"], hc, cfg, cache["cross_k"][i], cache["cross_v"][i],
+            cache["frames"])
         x = x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     cache["length"] = length + 1

@@ -61,23 +61,18 @@ def build_model(cfg: ModelConfig) -> Model:
         With a context whose ranks split ``model`` each rank keeps its
         :class:`~repro_torch.distributed.sharding.Shard` of every leaf:
         the same draws as the one-card init, block for block ``==``,
-        placed layer by layer as they are drawn."""
+        placed layer by layer (encoder and decoder) as they are
+        drawn."""
         dev = resolve_device(device if device is not None or ctx is None
                              else ctx.device)
         gen = (_MetaGenerator() if dev.type == "meta"
                else torch.Generator(device=dev))
         place = None
         if ctx is not None and ctx.split_model:
-            if cfg.is_encdec:
-                raise NotImplementedError(
-                    f"{cfg.name}: an enc-dec model across ranks that split "
-                    f"the model axis (A4(d2c) in ROADMAP.md)")
             from repro_torch.distributed.sharding import named_shardings
 
             def place(tree, path):
                 return named_shardings(tree, cfg, ctx, path)
-        if place is None:
-            return mod.init_params(gen.manual_seed(seed), cfg)
         return mod.init_params(gen.manual_seed(seed), cfg, place)
 
     def init_cache(batch: int, max_len: int, device=None) -> Dict[str, Any]:

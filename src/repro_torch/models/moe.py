@@ -243,14 +243,8 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
 
 
 def _data_blocks(rows: int, ctx) -> int:
-    """The data blocks of a process's ``rows``: its share of the blocks
-    the global batch splits into over the (pod, data) axes
-    (``sharding.batch_blocks``); across ranks the global batch is
-    ``rows`` times the node blocks."""
-    if ctx.group is None:
-        return sharding.batch_blocks(rows, ctx)
-    total = sharding.batch_blocks(rows * ctx.n_blocks, ctx)
-    if total % ctx.n_blocks:
-        raise ValueError(f"{total} data blocks of the global batch do not "
-                         f"split over {ctx.n_blocks} node blocks")
-    return total // ctx.n_blocks
+    """The data blocks of a process's ``rows``
+    (``sharding.local_batch_blocks``): its share of the blocks the
+    global batch splits into over the (pod, data) axes, one block where
+    it is the whole of a batch they do not divide."""
+    return sharding.local_batch_blocks(rows, ctx)

@@ -13,13 +13,17 @@ rank's rows of the batch (``sharding.constrain_batch``; the serve fns of
 logits of its vocabulary block (``sharding.constrain_logits`` gathers
 them), and keep a cache of its heads (``init_cache(..., layer=)``); the
 layers below sum and gather where the JAX package's ``constrain_*``
-hints make GSPMD do so. Enc-dec configs run in
-``models/encdec.py``; ``model_zoo.build_model`` picks the module.
+hints make GSPMD do so. Where the node blocks do not divide the batch
+every rank serves the whole batch, and its ``k`` / ``v`` hold its
+block's span of the positions (``sharding.cache_span``). Enc-dec
+configs run in ``models/encdec.py``; ``model_zoo.build_model`` picks
+the module.
 
 Caches are dicts of tensors with the JAX package's keys (``k``, ``v``
-``(L, B, max_len, K, hd)``; ``conv``, ``ssd``) plus ``length``, a Python
-int. ``prefill`` fills a fresh cache; ``decode_step`` writes the new
-token's K/V and SSM state into the cache it is given, in place, and
+``(L, B, max_len, K, hd)``, or the rank's span of ``max_len``; ``conv``,
+``ssd``) plus ``length``, a Python int, and ``positions``, the global
+``max_len``. ``prefill`` fills a fresh cache; ``decode_step`` writes the
+new token's K/V and SSM state into the cache it is given, in place, and
 returns it with ``length`` advanced: a copy of every layer's cache per
 token would move more bytes than the step itself.
 """
@@ -31,6 +35,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -193,12 +198,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """A zero cache for ``batch`` rows; given a ``layer``'s parameters,
     with the KV heads and SSD heads that layer's leaves leave this rank
     (``attention.local_kv_heads``, ``ssm.local_heads``: fewer when the
-    ranks split ``model``)."""
+    ranks split ``model``), and ``k`` / ``v`` over this rank's span of
+    the ``max_len`` positions (``sharding.cache_span``). The SSM caches
+    hold every row the rank serves."""
     check_family(cfg)
-    cache: Cache = {"length": 0}
+    cache: Cache = {"length": 0, "positions": max_len}
     if cfg.family != "ssm":
         kv = attn.init_kv_cache(
-            cfg, batch, max_len, device=device,
+            cfg, batch, sharding.cache_span(max_len)[1], device=device,
             n_kv_heads=attn.local_kv_heads(
                 cfg, None if layer is None else layer["attn"]))
         cache["k"], cache["v"] = kv["k"], kv["v"]
@@ -233,8 +240,8 @@ def prefill(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             continue
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         a, k, v = attn.prefill_self_attention(lp["attn"], h, cfg)
-        cache["k"][i, :, :n_pos] = k
-        cache["v"][i, :, :n_pos] = v
+        attn.write_prompt(cache["k"][i], cache["v"][i], k, v,
+                          cache["positions"])
         if cfg.family == "hybrid":
             s, (conv, ssd) = ssm_mod.ssm_apply(lp["ssm"], h, cfg,
                                                return_cache=True)
@@ -269,7 +276,8 @@ def decode_step(params: Params, cache: Cache, tokens: torch.Tensor,
             continue
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         a, _, _ = attn.decode_self_attention(
-            lp["attn"], h, cfg, cache["k"][i], cache["v"][i], length)
+            lp["attn"], h, cfg, cache["k"][i], cache["v"][i], length,
+            cache["positions"])
         if cfg.family == "hybrid":
             s, conv, ssd = ssm_mod.ssm_decode_step(
                 lp["ssm"], h, cfg, cache["conv"][i], cache["ssd"][i])

@@ -170,6 +170,7 @@ def make_eval_step(run: RunConfig, model: Model):
 class ServeState(NamedTuple):
     cache: Dict[str, Any]
     tokens: torch.Tensor               # last emitted token per sequence (B,)
+    rows: Optional[int] = None         # the global batch's rows
 
 
 def make_serve_fns(model: Model, ctx: Optional[MeshContext] = None):
@@ -186,10 +187,16 @@ def make_serve_fns(model: Model, ctx: Optional[MeshContext] = None):
     logits gathered over ``model`` (``sharding.constrain_logits``): the
     lowest global index on a tie, as ``jnp.argmax`` gives it
     (``src/repro/training/steps.py:126``, ``:132``). The tokens and the
-    cache are the rank's rows.
+    cache are the rank's rows: a block of the batch, or the whole batch
+    where the node blocks do not divide it, and then the caches hold the
+    rank's span of the sequence (``sharding.cache_span``). The context
+    each call sets carries the global rows (``sharding.serving``; the
+    state keeps them as ``rows``).
     """
-    scope = ((lambda: mesh_context(ctx)) if ctx is not None
-             else contextlib.nullcontext)
+    def scope(rows: Optional[int]):
+        if ctx is None:
+            return contextlib.nullcontext()
+        return mesh_context(sharding.serving(ctx, rows))
 
     def greedy(params: Any, logits: torch.Tensor) -> torch.Tensor:
         full = sharding.constrain_logits(logits, params["embed"], ctx)
@@ -198,19 +205,20 @@ def make_serve_fns(model: Model, ctx: Optional[MeshContext] = None):
     def prefill_fn(params: Any, batch: Dict[str, torch.Tensor],
                    max_len: Optional[int] = None
                    ) -> Tuple[torch.Tensor, ServeState]:
-        with scope():
+        rows = batch["tokens"].shape[0]
+        with scope(rows):
             batch = {k: sharding.constrain_batch(v, ctx)
                      for k, v in batch.items()}
             logits, cache = model.prefill(params, batch, max_len=max_len)
             toks = greedy(params, logits[:, -1, :])
-        return toks, ServeState(cache=cache, tokens=toks)
+        return toks, ServeState(cache=cache, tokens=toks, rows=rows)
 
     def decode_fn(params: Any, state: ServeState
                   ) -> Tuple[torch.Tensor, ServeState]:
-        with scope():
+        with scope(state.rows):
             logits, cache = model.decode_step(params, state.cache,
                                               state.tokens)
             toks = greedy(params, logits)
-        return toks, ServeState(cache=cache, tokens=toks)
+        return toks, ServeState(cache=cache, tokens=toks, rows=state.rows)
 
     return prefill_fn, decode_fn

@@ -96,7 +96,7 @@ class Trainer:
                              f"run's mesh {run.mesh}")
         if ctx.split_model:
             raise NotImplementedError(
-                "training with the model axis split across ranks (A4(d2b) "
+                "training with the model axis split across ranks (A4(d2b1) "
                 "in ROADMAP.md): give the Trainer ranks of whole nodes")
         self.run = run
         self.ctx = ctx

@@ -8,9 +8,11 @@ builds a context whose ranks split ``model``
 weights by their specs (``named_shardings``), serves each reduced config
 through ``make_serve_fns`` -- the prefill and ``N_DECODE`` greedy decode
 steps -- and pickles its rows of the gathered logits and tokens, numpy
-only, with its collective counts; then the planted faults, the refusals
-and the init blocks. This module imports torch, numpy and
-``repro_torch`` only, and every worker checks that no JAX was imported.
+only, with its collective counts and cache bytes; then the batches of
+one row (``ONE_ROW``), whose caches split their sequence over the
+blocks, the planted faults, the refusals and the init blocks. This
+module imports torch, numpy and ``repro_torch`` only, and every worker
+checks that no JAX was imported.
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ MESHES = {2: (1, 2), 4: (2, 2)}
 #: (moonshot: EP), ff split (moonshot_e3: MoE TP), the sanitizer dropping ``model`` from the experts and the
 #: shared experts (moonshot_e3_odd: 45 does not divide 2), from the
 #: vocabulary (hymba: 511) and heads that do not divide (hymba: 5, FSDP
-#: only), the SSD split with its gated-norm sum (hymba, mamba2), and the
-#: vlm's patch embeddings split with the batch (internvl2)
+#: only), the SSD split with its gated-norm sum (hymba, mamba2), the
+#: vlm's patch embeddings split with the batch (internvl2), and the
+#: enc-dec's encoder, decoder and cross-attention heads split (whisper:
+#: 4 heads, kv 4, 16 frames)
 CONFIGS = {
     "qwen3": ("qwen3-0.6b", {}),
     "qwen3_kv1": ("qwen3-0.6b", {"n_kv_heads": 1}),
@@ -55,26 +59,70 @@ CONFIGS = {
                              "vocab_size": 511}),
     "mamba2": ("mamba2-2.7b", {}),
     "internvl2": ("internvl2-26b", {}),
+    "whisper": ("whisper-medium", {}),
 }
-#: planted fault -> the config it is planted in
+#: a batch of one row, which no data axis of 2 divides: name -> (config,
+#: cache length). At PROMPT + N_DECODE + 1 = 44 the prompt straddles the
+#: two blocks' spans of 22 and the decode steps write into block 1; at
+#: 88 the prompt and every step land in block 0 and block 1 stays empty;
+#: 45 the blocks do not divide, so each keeps the whole cache. The KV
+#: heads split (qwen3), attention FSDP-only with the SSD split (hymba),
+#: EP with one dispatch block (moonshot), the cross cache split on the
+#: frames (whisper).
+ONE_ROW = {
+    "qwen3_b1": ("qwen3", PROMPT + N_DECODE + 1),
+    "hymba_b1": ("hymba", PROMPT + N_DECODE + 1),
+    "moonshot_b1": ("moonshot", PROMPT + N_DECODE + 1),
+    "whisper_b1": ("whisper", PROMPT + N_DECODE + 1),
+    "qwen3_b1_empty": ("qwen3", 88),
+    "whisper_b1_empty": ("whisper", 88),
+    "qwen3_b1_uneven": ("qwen3", 45),
+}
+#: the ONE_ROW cases that only a world of several blocks tells apart
+SPLIT_ONLY = ("qwen3_b1_empty", "whisper_b1_empty", "qwen3_b1_uneven")
+#: planted fault -> the case it is planted in (a CONFIGS or ONE_ROW name)
 FAULTS = {"wo_sum_skipped": "qwen3", "gated_norm_sum_skipped": "hymba",
-          "e_start_zero": "moonshot", "vocab_mask_dropped": "qwen3"}
-BLOCK_CONFIGS = ("qwen3", "moonshot_e3", "hymba")
+          "e_start_zero": "moonshot", "vocab_mask_dropped": "qwen3",
+          "cross_sum_skipped": "whisper", "merge_skipped": "qwen3_b1",
+          "empty_guard_dropped": "qwen3_b1_empty",
+          "row_in_every_block": "qwen3_b1"}
+#: the faults in the sequence split, which a world of one block never runs
+SPLIT_FAULTS = ("merge_skipped", "empty_guard_dropped",
+                "row_in_every_block")
+#: the prompt of ``batch_not_divided``: 3 rows over 2 data positions
+UNDIVIDED = (3, 8)
+BLOCK_CONFIGS = ("qwen3", "moonshot_e3", "hymba", "whisper")
+
+
+def config_of(name: str) -> str:
+    """The CONFIGS entry a CONFIGS or ONE_ROW name serves."""
+    return ONE_ROW[name][0] if name in ONE_ROW else name
 
 
 def config(name: str, configs=None):
-    """The reduced config of ``name`` in f32, from ``configs`` (the
-    port's ``repro_torch.config`` by default, or the JAX package's)."""
+    """The reduced config of ``name`` (a CONFIGS or ONE_ROW name) in f32,
+    from ``configs`` (the port's ``repro_torch.config`` by default, or
+    the JAX package's)."""
     if configs is None:
         from repro_torch import config as configs
-    arch, change = CONFIGS[name]
+    arch, change = CONFIGS[config_of(name)]
     return dataclasses.replace(configs.get_reduced_config(arch),
                                dtype="float32", **change)
 
 
+def serve_shape(name: str):
+    """(rows, cache length) ``name`` is served at."""
+    if name in ONE_ROW:
+        return 1, ONE_ROW[name][1]
+    return BATCH, PROMPT + N_DECODE + 1
+
+
 def batch_data(name: str) -> Dict[str, np.ndarray]:
     """The seeded prompts of ``name``: tokens, and a vlm's patch
-    embeddings (normal x 0.02)."""
+    embeddings or an enc-dec's frames (normal x 0.02); a ONE_ROW case
+    takes the first row of its config's."""
+    if name in ONE_ROW:
+        return {k: v[:1] for k, v in batch_data(config_of(name)).items()}
     cfg = config(name)
     rng = np.random.default_rng(1000 + sorted(CONFIGS).index(name))
     out = {"tokens": rng.integers(0, cfg.vocab_size, (BATCH, PROMPT),
@@ -82,6 +130,9 @@ def batch_data(name: str) -> Dict[str, np.ndarray]:
     if cfg.family == "vlm":
         out["patch_embeds"] = (rng.standard_normal(
             (BATCH, cfg.n_patches, cfg.d_model)) * 0.02).astype(np.float32)
+    if cfg.is_encdec:
+        out["frames"] = (rng.standard_normal(
+            (BATCH, cfg.n_frames, cfg.d_model)) * 0.02).astype(np.float32)
     return out
 
 
@@ -90,10 +141,12 @@ def batch_data(name: str) -> Dict[str, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 def serve_case(ctx, name: str, tree, fault: str = None) -> Dict[str, Any]:
-    """``name`` served on this rank: its rows of the gathered prefill
-    logits ``(rows, PROMPT, V)``, of each decode step's ``(rows, V)``,
-    its tokens ``(rows, 1 + N_DECODE)``, the smallest top-k margin of its
-    MoE calls and the collective counts of the prefill and the decode."""
+    """``name`` served on this rank at :func:`serve_shape`: its rows of
+    the gathered prefill logits ``(rows, PROMPT, V)``, of each decode
+    step's ``(rows, V)``, its tokens ``(rows, 1 + N_DECODE)``, the
+    smallest top-k margin of its MoE calls, the collective counts of the
+    prefill and the decode, and the bytes of each cache leaf after the
+    prefill."""
     from repro_torch.distributed import collectives, sharding
     from repro_torch.models import build_model
     from repro_torch.models import moe
@@ -115,6 +168,8 @@ def serve_case(ctx, name: str, tree, fault: str = None) -> Dict[str, Any]:
     def prefill(p, b, **kw):
         logits, cache = model.prefill(p, b, **kw)
         rec["prefill"] = gathered(logits, p["embed"])
+        rec["bytes"] = {k: v.numel() * v.element_size()
+                        for k, v in cache.items() if torch.is_tensor(v)}
         return logits, cache
 
     def decode_step(p, c, t):
@@ -134,12 +189,12 @@ def serve_case(ctx, name: str, tree, fault: str = None) -> Dict[str, Any]:
         dataclasses.replace(model, prefill=prefill, decode_step=decode_step),
         ctx)
     batch = {k: torch.from_numpy(v) for k, v in batch_data(name).items()}
+    rows, max_len = serve_shape(name)
     moe.top_k_gates = margins
     try:
         with torch.no_grad(), plant(fault):
             collectives.reset_counts()
-            toks, st = prefill_fn(params, batch,
-                                  max_len=PROMPT + N_DECODE + 1)
+            toks, st = prefill_fn(params, batch, max_len=max_len)
             counts = {"prefill": dict(collectives.COUNTS)}
             out = [toks]
             collectives.reset_counts()
@@ -149,11 +204,11 @@ def serve_case(ctx, name: str, tree, fault: str = None) -> Dict[str, Any]:
             counts["decode"] = dict(collectives.COUNTS)
     finally:
         moe.top_k_gates = own
-    n = BATCH // ctx.n_blocks
-    return {"rows": (ctx.block * n, n), "prefill": rec["prefill"],
-            "decode": rec["decode"],
+    return {"rows": sharding.rows_block(rows, ctx),
+            "prefill": rec["prefill"], "decode": rec["decode"],
             "tokens": torch.stack(out, dim=1).numpy(),
-            "margin": rec["margin"], "counts": counts}
+            "margin": rec["margin"], "counts": counts,
+            "bytes": rec["bytes"]}
 
 
 @contextlib.contextmanager
@@ -198,6 +253,45 @@ def plant(fault: str = None):
         swap(layers, "embed_tokens", embed_tokens)
         from repro_torch.models import transformer
         swap(transformer, "embed_tokens", embed_tokens)
+    elif fault == "cross_sum_skipped":
+        def unsummed(params, o):
+            b, s = o.shape[:2]
+            return o.reshape(b, s, -1) @ sharding.weight(params["wo"])
+
+        def cross_attend(params, x, k, v, cfg):
+            q = attention._cross_q(params, x, cfg)
+            return unsummed(params, attention._attend(q, k, v, False, False))
+
+        def decode_cross(params, x, cfg, k_cache, v_cache, frames):
+            start, n = sharding.cache_span(frames)
+            return unsummed(params, attention._decode_attention(
+                attention._cross_q(params, x, cfg), k_cache, v_cache,
+                frames, start if n < frames else None))
+        swap(attention, "cross_attend", cross_attend)
+        swap(attention, "decode_cross_attention", decode_cross)
+    elif fault == "merge_skipped":
+        from repro_torch.distributed import collectives
+        swap(collectives, "attn_merge",
+             lambda m, l, o, ctx: o / l[..., None])
+    elif fault == "empty_guard_dropped":
+        def partials(q, k_cache, v_cache, cache_len, start):
+            b, _, h, hd = q.shape
+            s, kh = k_cache.shape[1], k_cache.shape[2]
+            qg = q.reshape(b, 1, kh, h // kh, hd)
+            scores = torch.einsum("bqkgd,bskd->bkgqs", qg,
+                                  k_cache).float() / np.sqrt(hd)
+            valid = attention._valid(cache_len, start + torch.arange(s))
+            scores = torch.where(valid[:, None, None, None, :], scores,
+                                 float("-inf"))
+            m = scores.amax(dim=-1)
+            p = torch.exp(scores - m[..., None])      # -inf - -inf: NaN
+            o = torch.einsum("bkgqs,bskd->bkgqd", p, v_cache)
+            return m, p.sum(dim=-1), o
+        swap(attention, "_decode_partials", partials)
+    elif fault == "row_in_every_block":
+        def write_row(cache, new, pos, start):
+            cache[:, (pos - start) % cache.shape[1]] = new.to(cache.dtype)
+        swap(attention, "_write_row", write_row)
     else:
         raise ValueError(fault)
     try:
@@ -243,9 +337,12 @@ def refusal_cases(group, world: int, tree) -> Dict[str, str]:
         params = sharding.named_shardings(
             params_from_jax(cfg, tree, device="cpu"), cfg, ctx)
         prefill_fn, _ = make_serve_fns(model, ctx)
-        toks = torch.zeros((3, 8), dtype=torch.int32)
+        toks = torch.zeros(UNDIVIDED, dtype=torch.int32)
+        served = []
         out["batch_not_divided"] = name_of(
-            lambda: prefill_fn(params, {"tokens": toks}))
+            lambda: served.append(prefill_fn(params, {"tokens": toks})[0]))
+        out["batch_not_divided_tokens"] = (served[0].numpy() if served
+                                           else None)
     return out
 
 
@@ -291,10 +388,14 @@ def _main(rank: int, world: int, tmpdir: str) -> None:
                        group=group, split_model=True, timeout_s=TIMEOUT_S)
     out: Dict[str, Any] = {"rank": rank, "block": ctx.block,
                            "model_rank": ctx.model_rank}
-    out["serve"] = {name: serve_case(ctx, name, trees[name])
-                    for name in CONFIGS}
-    out["faults"] = {f: serve_case(ctx, name, trees[name], fault=f)
-                     for f, name in FAULTS.items()}
+    split = ctx.n_blocks > 1
+    out["serve"] = {name: serve_case(ctx, name, trees[config_of(name)])
+                    for name in list(CONFIGS) + list(ONE_ROW)
+                    if split or name not in SPLIT_ONLY}
+    out["faults"] = {f: serve_case(ctx, name, trees[config_of(name)],
+                                   fault=f)
+                     for f, name in FAULTS.items()
+                     if split or f not in SPLIT_FAULTS}
     out["refusals"] = refusal_cases(group, world, trees["qwen3"])
     out["blocks"] = block_cases(ctx)
     assert "jax" not in sys.modules
