@@ -295,7 +295,32 @@ each hand-written CUDA kernel against its plain PyTorch version:
     f32 copy at 4 layers within 1e-4, each card's memory after placement
     and its cache against their reckonings, prefill / decode times, tok/s
     and the collectives' calls and ms a step (not run on one card:
-    printed as such).
+    printed as such);
+26. training with the ``model`` axis split across ranks, run right after
+    phase 23(b): (a) qwen3-0.6b at phase 20's configuration (batch 4 x
+    4 096, AdamW, remat full), variant none, 3 steps through the split
+    ``Trainer`` at mesh 2 x 1 (one rank holding both data nodes at the
+    one model position: every leaf a ``Shard``, every collective a group
+    of one) on phase 23's one-rank group: its losses ``==`` phase 23(b)'s
+    first three (else within 1e-6 relative, the distance printed), 168
+    forward and 84 backward ``flash_attn`` launches, the rank's
+    parameter and AdamW bytes its blocks'; (b) ``flash_attn`` forward
+    (with lse) and backward at qwen3-0.6b's per-rank training shape of
+    the 2 x 2 layout (B 2, S 4 096, H 8, K 4, D 128) and ``ssd_scan``
+    forward and backward at hymba-1.5b's (b 2, l 4 096, h 25, p 64, n
+    16), against their plain versions, timed beside SDPA's forward +
+    backward and their bounds; (c) with four cards, alone in
+    ``--multi-card-only train``: qwen3-0.6b whole at data 2 x model 2 (6
+    steps, one MN dump restored ``==``) and moonshot-v1-16b-a3b cut to 2
+    layers at data 2 x model 4 (EP, 16 experts a card) across four
+    ``nccl`` ranks, each rank's bf16 losses within 2^-8 relative of card
+    0's run alone in the same call, each card's parameter and AdamW
+    bytes its blocks', the step ms beside card 0's and the backward's
+    collective calls and ms a step; and the f32 2-layer gradients of
+    qwen3 and hymba at 2 x 2, moonshot at 2 x 4 and whisper at 1 x 4,
+    each rank's blocks within 1e-4 of the leaf's norm of the same
+    gradient taken on its card alone (the MoE pinned to that run's
+    routing) (not run on one card: printed as such).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -6105,19 +6130,22 @@ def time_collectives(torch, collectives, model, params, prompts, steps,
     from repro_torch.training.steps import make_serve_fns
     prefill_fn, decode_fn = make_serve_fns(model, ctx)
     saved = {n: getattr(collectives, n) for n in TP_COLLECTIVES}
+    # the gated norm's sum of squares moves data as a model_sum
+    saved["model_sum_shared"] = collectives.model_sum_shared
     events = {n: [] for n in TP_COLLECTIVES}
 
     def timed(name):
         fn = saved[name]
+        counter = "model_sum" if name == "model_sum_shared" else name
 
         def wrapper(*a, **kw):
-            n0 = collectives.COUNTS[name]
+            n0 = collectives.COUNTS[counter]
             s_, e_ = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s_.record()
             out = fn(*a, **kw)
             e_.record()
-            if collectives.COUNTS[name] > n0:
-                events[name].append((s_, e_))
+            if collectives.COUNTS[counter] > n0:
+                events[counter].append((s_, e_))
             return out
         return wrapper
 
@@ -6128,7 +6156,7 @@ def time_collectives(torch, collectives, model, params, prompts, steps,
             "tokens"].shape[1] + steps + 1)
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
-        for n in TP_COLLECTIVES:
+        for n in saved:
             setattr(collectives, n, timed(n))
         try:
             torch.cuda.synchronize()
@@ -6219,12 +6247,628 @@ def phase_serve_multi(torch, serve_mod, moe) -> dict:
                                  "wall_s": time.perf_counter() - t0}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 26: training with the model axis split across ranks
+# ---------------------------------------------------------------------------
+
+#: 26(a): phase 20's qwen3-0.6b run through the split path on one card,
+#: on phase 23's one-rank group. The mesh is (data 2 x model 1), not 1 x
+#: 1: the Trainer's shard directory needs a replica node besides the
+#: owner, in both packages. Variant none; the first SPLIT_ONE_STEPS steps
+#: of phase 20's 6-step schedule (the cosine's length sets every lr)
+SPLIT_ONE_MESH = (2, 1)
+SPLIT_ONE_STEPS = 3
+#: 26(a)'s losses against phase 23(b)'s where they are not bit for bit
+SPLIT_ONE_RTOL = 1e-6
+#: 26(b): the kernels at the per-rank training shapes of the 2 x 2 layout
+#: (qwen3-0.6b's 16 heads, 8 KV heads at model 2, 2 rows a data block;
+#: hymba-1.5b's 50 SSD heads at model 2)
+TP_TRAIN_ATTN_CASE = ("qwen3-0.6b per-rank training at data 2 x model 2",
+                      2, 4096, 4096, 8, 4, 128, True, ("bfloat16",))
+TP_TRAIN_SSD_CASE = ("hymba-1.5b per-rank training at data 2 x model 2",
+                     2, 4096, 25, 64, 16, 256, "bfloat16", False)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPTrain:
+    """One bf16 training layout of 26(c): ``arch`` (cut to ``layers``;
+    0: whole) at ``mesh`` (data, model), ``batch`` x ``seq``, ``steps``
+    steps, an MN dump every ``dump_interval`` steps (0: none)."""
+    key: str
+    arch: str
+    layers: int
+    mesh: tuple
+    batch: int
+    seq: int
+    steps: int
+    dump_interval: int = 0
+
+
+#: 26(c), four cards: qwen3-0.6b whole at data 2 x model 2 (two node
+#: blocks, FSDP over data) with one MN dump, as phase 20 runs it; and
+#: moonshot-v1-16b-a3b cut to 2 layers at data 2 x model 4 (one node
+#: block of both data nodes: EP, 16 of the 64 experts a card), as phase
+#: 21 runs it
+TP_TRAINS = (
+    TPTrain("qwen3 2x2", TRAIN_ARCH, 0, (2, 2), TRAIN_BATCH, TRAIN_SEQ,
+            TRAIN_STEPS, TRAIN_DUMP_INTERVAL),
+    TPTrain("moonshot 2x4", MOE_ARCH, 2, (2, 4), 2, 2048, 3))
+#: 26(c)'s bf16 losses against card 0's: the row-parallel partials are
+#: rounded to bf16 before their sum, where one card sums in f32 inside
+#: the product; one bf16 ulp at 1 (2^-8)
+TP_TRAIN_LOSS_RTOL = 2.0 ** -8
+#: 26(c)'s f32 gradients at 2 layers, (arch, mesh, batch, positions):
+#: each leaf's block within TP_GRAD_TOLERANCE of the leaf's norm
+#: (||g_rank - g_alone|| / ||g_alone leaf||) of the same card's run at
+#: the same mesh without a group; the MoE pinned to that run's routing
+#: (RoutingTape)
+TP_GRADS = (("qwen3-0.6b", (2, 2), 2, 1024),
+            ("hymba-1.5b", (2, 2), 2, 1024),
+            ("moonshot-v1-16b-a3b", (2, 4), 2, 512),
+            ("whisper-medium", (1, 4), 2, WHISPER_PROMPT))
+TP_GRAD_TOLERANCE = 1e-4
+#: AdamW's bytes for one parameter element: f32 m, v and master copy
+TRAIN_OPT_BYTES = 4 + 4 + 4
+
+
+def tp_train_run(entry, grad_clip=None, dtype=None):
+    """The ``RunConfig`` of a split training layout: ``entry`` a TPTrain,
+    variant none, phase 20's schedule."""
+    from repro_torch import config
+    cfg = config.get_model_config(entry.arch)
+    change = {}
+    if entry.layers:
+        change["n_layers"] = entry.layers
+        if cfg.is_encdec:
+            change["encoder_layers"] = entry.layers
+    if dtype:
+        change["dtype"] = dtype
+    cfg = dataclasses.replace(cfg, **change)
+    train = config.TrainConfig(total_steps=max(entry.steps, TRAIN_STEPS)
+                               if entry.arch == TRAIN_ARCH else entry.steps,
+                               warmup_steps=2, remat="full")
+    if grad_clip is not None:
+        train = dataclasses.replace(train, grad_clip=grad_clip)
+    return config.RunConfig(
+        model=cfg,
+        shape=config.ShapeConfig(f"{entry.key}, batch {entry.batch}",
+                                 entry.seq, entry.batch, "train"),
+        mesh=config.MeshConfig(entry.mesh, ("data", "model")),
+        replication=config.ReplicationConfig(
+            variant="none", n_replicas=1,
+            dump_interval=entry.dump_interval or 10 ** 9),
+        train=train)
+
+
+class CollectiveClock:
+    """CUDA events around every call of the split collectives that moves
+    data, by name: the forward's ``model_sum`` / ``fsdp_gather`` /
+    ``model_gather`` (remat's recompute among them), the backward's
+    ``model_copy_bwd`` / ``model_sum_shared_bwd`` / ``fsdp_gather_bwd``
+    and the FSDP group's ``all_reduce_sum`` of the leaves no gather
+    reduced. ``take()`` gives each name's calls and ms since the last
+    take (after a synchronize)."""
+
+    def __init__(self, torch, collectives):
+        self.torch, self.c = torch, collectives
+        self.events = []
+        self.saved = []
+
+    def _wrap(self, obj, attr, name_of, static=False):
+        real = getattr(obj, attr)
+        fn = real.__func__ if isinstance(real, staticmethod) else real
+
+        def timed(*a, **kw):
+            s_, e_ = (self.torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            s_.record()
+            out = fn(*a, **kw)
+            e_.record()
+            self.events.append((name_of(a), s_, e_))
+            return out
+        self.saved.append((obj, attr, real))
+        setattr(obj, attr, staticmethod(timed) if static else timed)
+
+    def __enter__(self):
+        c = self.c
+        self._wrap(c, "_all_reduce", lambda a: a[2])
+        self._wrap(c, "_gather", lambda a: "fsdp_gather")
+        self._wrap(c, "_model_gather", lambda a: "model_gather")
+        self._wrap(c, "all_reduce_sum", lambda a: "all_reduce_sum")
+        self._wrap(c._FsdpGather, "backward", lambda a: "fsdp_gather_bwd",
+                   static=True)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, real in reversed(self.saved):
+            setattr(obj, attr, real)
+        self.saved = []
+
+    def take(self) -> dict:
+        self.torch.cuda.synchronize()
+        out = {}
+        for name, s_, e_ in self.events:
+            calls, ms = out.get(name, (0, 0.0))
+            out[name] = (calls + 1, ms + s_.elapsed_time(e_))
+        self.events = []
+        return {k: {"calls": c, "ms": m} for k, (c, m) in out.items()}
+
+
+def block_reckoning(torch, params, ctx) -> tuple:
+    """(elements, bytes) of the blocks ``ctx``'s rank holds of a
+    parameter tree: each ``Shard``'s ``block_slices`` of its global shape
+    at its dtype, a plain leaf whole (no group: every leaf whole)."""
+    import numpy as np
+
+    from repro_torch.distributed import sharding
+    from repro_torch.optim.optimizers import tree_leaves
+    n = nbytes = 0
+    for leaf in tree_leaves(params):
+        if isinstance(leaf, sharding.Shard) and ctx.group is not None:
+            sl = sharding.block_slices(leaf.spec, leaf.shape, ctx)
+            k = int(np.prod([len(range(*s.indices(d)))
+                             for s, d in zip(sl, leaf.shape)]))
+            size = leaf.local.element_size()
+        else:
+            t = getattr(leaf, "local", leaf)
+            k, size = t.numel(), t.element_size()
+        n += k
+        nbytes += k * size
+    return n, nbytes
+
+
+def train_split(torch, fa, ssd, entry, ctx, workdir) -> dict:
+    """``entry`` trained through the ``Trainer`` on ``ctx`` (split ranks,
+    or one card without a group): the losses, the step walls, the
+    kernels' launches, the bytes the rank holds against its blocks', the
+    collectives of each step and (``entry.dump_interval``) one MN dump
+    restored ``==`` the state of its step."""
+    import numpy as np
+
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.training import trainer as trainer_mod
+    run = tp_train_run(entry)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = trainer_mod.Trainer(run, ctx, workdir)
+    setup_s = time.perf_counter() - t0
+    held = sharding.locals_of(tr.state.params)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(held))
+    opt = tr.state.opt_state
+    opt_bytes = sum(t.numel() * t.element_size()
+                    for k in ("m", "v", "master") if k in opt
+                    for t in tree_leaves(opt[k]))
+    elems, block_bytes = block_reckoning(torch, tr.state.params, ctx)
+    fa.ops.reset_counts()
+    ssd.ops.reset_counts()
+    hist, per_step, dumped = [], [], None
+    with CollectiveClock(torch, collectives) as clock:
+        for i in range(entry.steps):
+            hist += tr.train(1)
+            per_step.append(clock.take())
+            if entry.dump_interval and (i + 1) % entry.dump_interval == 0:
+                dumped = [t.detach().clone() for t in tree_leaves(
+                    sharding.locals_of(tr.state.params))]
+    launches = {"flash_attn": fa.ops.flash_attention.launches,
+                "flash_attn_bwd": fa.ops.flash_attention.bwd_launches,
+                "flash_attn_bwd_by_kernel":
+                    dict(fa.ops.flash_attention.bwd_launches_by_kernel),
+                "ssd_scan": ssd.ops.ssd_scan.launches,
+                "ssd_scan_bwd": ssd.ops.ssd_scan.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    tr.ckpt.wait()
+    restored_equal = None
+    if dumped is not None:
+        restored, _ = tr.ckpt.restore({"params": tr.state.params,
+                                       "opt": tr.state.opt_state})
+        restored_equal = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(sharding.locals_of(restored["params"])), dumped))
+        del restored, dumped
+    losses = [h["loss"] for h in hist]
+    walls = [h["wall_s"] for h in hist]
+    names = sorted({k for s in per_step for k in s})
+    coll = {k: {"calls_per_step": sum(s.get(k, {}).get("calls", 0)
+                                      for s in per_step[1:])
+                / max(len(per_step) - 1, 1),
+                "ms_per_step": sum(s.get(k, {}).get("ms", 0.0)
+                                   for s in per_step[1:])
+                / max(len(per_step) - 1, 1)} for k in names}
+    out = {"losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "step_walls_s": walls,
+           "step_ms_median": float(np.median(walls[1:])) * 1e3,
+           "launches": launches, "param_bytes": param_bytes,
+           "opt_bytes": opt_bytes, "block_elems": elems,
+           "block_bytes": block_bytes,
+           "reckoning_bytes": block_bytes + elems * TRAIN_OPT_BYTES,
+           "peak_bytes": peak, "setup_s": setup_s,
+           "collectives": coll, "restored_equal": restored_equal,
+           "dump_write_s": tr.ckpt.last_write_s}
+    del tr, held, opt
+    return out
+
+
+def phase_split_one(torch, fa, ssd, group, ranks23) -> dict:
+    """Phase 26(a): phase 20's qwen3-0.6b through the split path on one
+    card (``SPLIT_ONE_MESH`` on phase 23's one-rank group: every leaf a
+    ``Shard`` of the whole tensor, every collective a group of one), its
+    losses held ``==`` phase 23(b)'s first ``SPLIT_ONE_STEPS``, else
+    within ``SPLIT_ONE_RTOL``."""
+    import shutil
+    import tempfile
+
+    from repro_torch import config
+    from repro_torch.distributed.context import make_context
+    print(f"phase 26(a): {TRAIN_ARCH} at phase 20's configuration through "
+          f"the split path (make_context(..., split_model=True)) at mesh "
+          f"{SPLIT_ONE_MESH[0]}x{SPLIT_ONE_MESH[1]} on phase 23's one-rank "
+          f"group, variant none, {SPLIT_ONE_STEPS} steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = make_context(SPLIT_ONE_MESH, ("data", "model"), device=DEVICE,
+                       group=group, split_model=True)
+    entry = TPTrain("qwen3 split one card", TRAIN_ARCH, 0,
+                    SPLIT_ONE_MESH, TRAIN_BATCH, TRAIN_SEQ, SPLIT_ONE_STEPS)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_split_")
+    try:
+        got = train_split(torch, fa, ssd, entry, ctx, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = ranks23["losses"][:SPLIT_ONE_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want))
+    got["phase23_losses"] = want
+    got["rel_to_phase23"] = rel
+    n = config.get_model_config(TRAIN_ARCH).n_layers * SPLIT_ONE_STEPS
+    la = got["launches"]
+    print(f"  losses {got['losses']} against phase 23(b)'s first "
+          f"{SPLIT_ONE_STEPS} {want}: max rel {rel:.3g}; flash_attn "
+          f"forward {la['flash_attn']} launches, backward "
+          f"{la['flash_attn_bwd']} {la['flash_attn_bwd_by_kernel']}; "
+          f"step median {got['step_ms_median']:.1f} ms (phase 23(b) "
+          f"{ranks23['step_ms_median']:.1f}); parameters "
+          f"{got['param_bytes']} B, optimizer state {got['opt_bytes']} B "
+          f"(the reckoning {got['reckoning_bytes']} B: the blocks' "
+          f"{got['block_bytes']} B and {TRAIN_OPT_BYTES} B of AdamW state "
+          f"an element); peak "
+          f"{got['peak_bytes']} B; {card_line()}")
+    if got["losses"] == want:
+        print(f"  ok  the {SPLIT_ONE_STEPS} losses == phase 23(b)'s, bit "
+              f"for bit")
+    else:
+        check(rel <= SPLIT_ONE_RTOL, f"the losses are not bit for bit "
+              f"phase 23(b)'s (the split path sums each loss times its "
+              f"block's share, 1.0, and the norm through the group's "
+              f"all_reduce); within {rel:.3g} relative, limit "
+              f"{SPLIT_ONE_RTOL}")
+    check(la["flash_attn"] == 2 * n and la["flash_attn_bwd"] == n
+          and la["flash_attn_bwd_by_kernel"] == {"mma": n, "simt": 0},
+          f"flash_attn launched {2 * n} times forward (the forward and "
+          f"remat's recompute) and {n} backward (tensor cores) over "
+          f"{SPLIT_ONE_STEPS} steps")
+    check(got["opt_bytes"] == TRAIN_OPT_BYTES * got["block_elems"]
+          and got["param_bytes"] == got["block_bytes"],
+          f"the rank holds its blocks: {got['param_bytes']} B of "
+          f"parameters and {got['opt_bytes']} B of AdamW state for "
+          f"{got['block_elems']} block elements ({got['block_bytes']} B)")
+    return got
+
+
+def phase_tp_train_kernels(torch, fa, ssd, attn, ssm_mod) -> dict:
+    """Phase 26(b): ``flash_attn`` forward (with lse) and backward at
+    qwen3-0.6b's per-rank training shape of the 2 x 2 layout, and
+    ``ssd_scan`` forward and backward at hymba-1.5b's, against their
+    plain versions, timed beside SDPA's forward + backward and their
+    bounds."""
+    print("phase 26(b): the kernels at the per-rank training shapes of the "
+          "data 2 x model 2 layout")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+
+    def randn(*shape, dtype="bfloat16", scale=1.0):
+        t = torch.randn(shape, generator=gen, device=dev) * scale
+        return t.to(getattr(torch, dtype))
+
+    name, b, sq, skv, h, kh, d, causal, _ = TP_TRAIN_ATTN_CASE
+    q = randn(b, sq, h, d)
+    k, v = (randn(b, skv, kh, d) for _ in range(2))
+    out, lse = fa.kernel.launch(q, k, v, causal, with_lse=True)
+
+    def rows(fn, *ts):
+        """``fn`` over one request at a time (the plain scores of all of
+        them at once would not fit)."""
+        return torch.cat([fn(*(t[i:i + 1] for t in ts)) for i in range(b)])
+
+    want = rows(lambda *t: fa.ref.attention_ref(*t, causal), q, k, v)
+    want_lse = rows(lambda *t: fa.ref.attention_lse_ref(*t, causal), q, k)
+    fwd = {"out_vs_plain": max_rel(out.float(), want.float()),
+           "lse_vs_plain": max_rel(lse.float(), want_lse.float()),
+           "max_abs_err": float((out.float() - want.float()).abs().max())}
+    del q, k, v, out, lse, want, want_lse
+    print(f"  flash_attn forward with lse at {name}'s shape: out "
+          f"{fwd['out_vs_plain']:.3g}, lse {fwd['lse_vs_plain']:.3g} of "
+          f"max|value| from the plain version")
+    check(fwd["out_vs_plain"] <= 2e-2 and fwd["lse_vs_plain"] <= 2e-2,
+          f"flash_attn forward at {name}: within 2e-2 of max|value|")
+    bwd = check_bwd_case(torch, fa, randn, TP_TRAIN_ATTN_CASE, "bfloat16")
+    bwd["forward"] = fwd
+    gc.collect()
+    torch.cuda.empty_cache()
+    sb, sl, sh, sp, sn, schunk = TP_TRAIN_SSD_CASE[1:7]
+    ssd_fwd = tp_ssd(torch, ssd, ssm_mod, gen, randn,
+                     (sb, sl, sh, sp, sn, schunk))
+    ssd_bwd = check_ssd_bwd_case(torch, ssd, ssm_mod, randn,
+                                 TP_TRAIN_SSD_CASE)
+    torch.cuda.empty_cache()
+    return {"attn": bwd, "ssd_fwd": ssd_fwd, "ssd_bwd": ssd_bwd}
+
+
+def tp_train_reference(torch, fa, ssd) -> dict:
+    """26(c)'s reference on card 0 without a group: each of ``TP_TRAINS``
+    trained on one card at its mesh of logical nodes."""
+    import shutil
+    import tempfile
+
+    from repro_torch.distributed.context import make_context
+    out = {}
+    for entry in TP_TRAINS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = make_context(entry.mesh, ("data", "model"), device=DEVICE)
+        workdir = tempfile.mkdtemp(prefix="chip_smoke_tp_ref_")
+        try:
+            # no dump: the ranks' dumps are checked, card 0's losses read
+            r = train_split(torch, fa, ssd,
+                            dataclasses.replace(entry, dump_interval=0),
+                            ctx, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        out[entry.key] = r
+        print(f"  card 0 alone: {entry.key} ({entry.arch}, batch "
+              f"{entry.batch} x {entry.seq}) losses {r['losses']}; step "
+              f"median {r['step_ms_median']:.1f} ms; parameters "
+              f"{r['param_bytes']} B, optimizer state {r['opt_bytes']} B; "
+              f"peak {r['peak_bytes']} B; {card_line()}")
+    return out
+
+
+def tp_named(tree, prefix=""):
+    """``(path, leaf)`` pairs of a parameter (or spec) tree in leaf order;
+    a spec (``P``, a tuple) is a leaf."""
+    from repro_torch.distributed.context import P
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in tp_named(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return [x for i, t in enumerate(tree)
+                for x in tp_named(t, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def tp_grads(torch, moe, arch, mesh, batch, seq, ctx, routing) -> dict:
+    """The f32 2-layer gradient of ``arch`` at ``mesh`` through the train
+    step's gradient (``steps.make_grad_fn``, no clip) on ``ctx``: card 0
+    without a group records the MoE's routing (``routing`` None), a rank
+    of the split group is pinned to card 0's."""
+    from repro_torch import config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.models import build_model
+    from repro_torch.models.model_zoo import make_batch
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.training import steps, trainer
+    entry = TPTrain(f"{arch} f32 gradients", arch, 2, mesh, batch, seq, 1)
+    run = tp_train_run(entry, grad_clip=1e30, dtype="float32")
+    run = dataclasses.replace(run, train=dataclasses.replace(
+        run.train, remat="none"))
+    cfg = run.model
+    model = build_model(cfg)
+    params = model.init(SEED, device=DEVICE,
+                        ctx=ctx if ctx.split_model else None)
+    for p_ in tree_leaves(sharding.locals_of(params)):
+        p_.requires_grad_(True)
+    full = make_batch(cfg, run.shape, seed=SEED + 26, device=DEVICE)
+    rows = trainer.batch_rows(batch, ctx)
+    data = {k: t[rows] for k, t in full.items()}
+    tape = RoutingTape(torch, moe)
+    scope = (tape.record() if routing is None and cfg.is_moe
+             else tape.pin([(i.to(DEVICE), None) for i in routing])
+             if cfg.is_moe else contextlib.nullcontext([]))
+    grad_fn = steps.make_grad_fn(run, model, ctx)
+    with scope as calls, mesh_context(ctx):
+        loss, _, grads, _ = grad_fn(params, data)
+    out = {"cfg": cfg, "loss": float(loss), "grads": grads,
+           "named": [(p, t.detach()) for p, t in tp_named(grads)],
+           "routing": ([i.cpu() for i, _ in calls]
+                       if routing is None and calls else []),
+           "margin": (min(float(mg.min()) for _, mg in calls)
+                      if routing is None and calls else None)}
+    out["norms"] = {p: float(t.float().norm()) for p, t in out["named"]}
+    del params
+    return out
+
+
+def train_rank(rank: int, world: int, rendezvous: str, refs: dict,
+               out_paths: list) -> None:
+    """One rank of phase 26(c) on card ``rank``: each of ``TP_TRAINS``
+    through the split ``Trainer`` over the ``nccl`` group, its losses
+    within ``TP_TRAIN_LOSS_RTOL`` of card 0's and its bytes its blocks';
+    then each of ``TP_GRADS``' f32 gradients, leaf by leaf against its
+    blocks of the same gradient taken on this card alone (no group; the
+    MoE pinned to that run's routing)."""
+    import shutil
+    import tempfile
+
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    dev = f"cuda:{rank}"
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    global DEVICE
+    DEVICE = dev
+    from repro_torch.distributed.context import make_context, node_group
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import moe
+    group = node_group(dev, init_method=f"file://{rendezvous}",
+                       world_size=world, rank=rank, timeout_s=600)
+    res = {"rank": rank, "train": {}, "grads": {}}
+    for entry in TP_TRAINS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        ctx = make_context(entry.mesh, ("data", "model"), device=dev,
+                           group=group, split_model=True)
+        workdir = tempfile.mkdtemp(prefix=f"chip_smoke_tp_r{rank}_")
+        try:
+            r = train_split(torch, fa, ssd, entry, ctx, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        want = refs[entry.key]
+        r["rel_to_card0"] = max(abs(a - b) / abs(b) for a, b in
+                                zip(r["losses"], want["losses"]))
+        r["block"], r["model_rank"] = ctx.block, ctx.model_rank
+        check(r["rel_to_card0"] <= TP_TRAIN_LOSS_RTOL,
+              f"rank {rank}: {entry.key}'s {entry.steps} bf16 losses within "
+              f"{r['rel_to_card0']:.3g} (rel) of card 0's, limit "
+              f"{TP_TRAIN_LOSS_RTOL:.4g}")
+        check(r["param_bytes"] == r["block_bytes"]
+              and r["opt_bytes"] == TRAIN_OPT_BYTES * r["block_elems"],
+              f"rank {rank}: {entry.key} holds {r['param_bytes']} B of "
+              f"parameters and {r['opt_bytes']} B of AdamW state: its "
+              f"blocks' {r['block_elems']} elements, {r['block_bytes']} B "
+              f"and {TRAIN_OPT_BYTES} B an element")
+        if entry.dump_interval:
+            check(r["restored_equal"] is True, f"rank {rank}: {entry.key}'s "
+                  f"MN dump of its blocks restores == the state of its step")
+        res["train"][entry.key] = r
+    from repro_torch.distributed import sharding
+    for arch, mesh, batch, seq in TP_GRADS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the reference: this card alone, no group, the MoE's routing
+        # recorded; its blocks by the split context's slices
+        one = tp_grads(torch, moe, arch, mesh, batch, seq,
+                       make_context(mesh, ("data", "model"), device=dev),
+                       None)
+        ctx = make_context(mesh, ("data", "model"), device=dev, group=group,
+                           split_model=True)
+        specs = sharding.param_specs(one["grads"], one["cfg"], ctx)
+        want = {p: (t[sharding.block_slices(sp, t.shape, ctx)],
+                    one["norms"][p])
+                for (p, t), (_, sp) in zip(one["named"], tp_named(specs))}
+        routing, ref_loss, margin = one["routing"], one["loss"], one["margin"]
+        del one, specs
+        gc.collect()
+        torch.cuda.empty_cache()
+        g = tp_grads(torch, moe, arch, mesh, batch, seq, ctx,
+                     routing or None)
+        worst, where = 0.0, None
+        for path, t in g["named"]:
+            block, norm = want[path]
+            rel = float((t.float() - block.float()).norm()) / max(norm,
+                                                                  1e-30)
+            if rel > worst:
+                worst, where = rel, path
+        res["grads"][arch] = {"worst": worst, "leaf": where,
+                              "loss": g["loss"], "ref_loss": ref_loss,
+                              "leaves": len(g["named"]),
+                              "routing_calls": len(routing),
+                              "margin": margin}
+        check(worst <= TP_GRAD_TOLERANCE and len(g["named"]) == len(want),
+              f"rank {rank}: {arch} f32 at 2 layers, mesh {mesh[0]}x"
+              f"{mesh[1]}: every leaf's block within {worst:.3g} of the "
+              f"leaf's norm of the card's run alone (largest at {where}), "
+              f"limit {TP_GRAD_TOLERANCE}")
+        del g, want
+    with open(out_paths[rank], "w", encoding="utf-8") as fh:
+        json.dump(res, fh, default=str)
+    torch.distributed.destroy_process_group()
+
+
+def phase_train_multi(torch, fa, ssd, moe) -> dict:
+    """Phase 26(c): with four cards, ``TP_TRAINS`` and ``TP_GRADS`` across
+    four ``nccl`` ranks that split ``model``, against card 0 alone in the
+    same call."""
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(json.dumps({"train_multi_card": f"not run: {n} card"
+                          + ("" if n == 1 else "s")}))
+        return {"train_multi_card": f"not run: {n} card(s)"}
+    world = 4
+    build = os.path.join(ROOT, "build", "repro_torch")
+    os.makedirs(build, exist_ok=True)
+    layouts = ", ".join(f"{e.key} ({e.arch}, batch {e.batch} x {e.seq}, "
+                        f"{e.steps} steps)" for e in TP_TRAINS)
+    print(f"phase 26(c): {world} ranks on {world} cards (nccl) splitting "
+          f"the model axis: {layouts}, first card 0 alone; f32 2-layer "
+          f"gradients of {', '.join(a for a, *_ in TP_GRADS)}, each rank "
+          f"against its card alone")
+    t0 = time.perf_counter()
+    refs = tp_train_reference(torch, fa, ssd)
+    ref_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    rendezvous = os.path.join(build, f"pg-train-{os.getpid()}")
+    if os.path.exists(rendezvous):
+        os.remove(rendezvous)
+    outs = [os.path.join(build, f"train_rank{r}.json") for r in range(world)]
+    t1 = time.perf_counter()
+    torch.multiprocessing.start_processes(
+        train_rank, args=(world, rendezvous, refs, outs), nprocs=world,
+        join=True, start_method="spawn")
+    res = []
+    for path in outs:
+        with open(path, encoding="utf-8") as fh:
+            res.append(json.load(fh))
+    for entry in TP_TRAINS:
+        want = refs[entry.key]
+        for r in res:
+            t = r["train"][entry.key]
+            coll = t["collectives"]
+            bwd = {k: v for k, v in coll.items()
+                   if k.endswith("_bwd") or k == "all_reduce_sum"}
+            print(f"  rank {r['rank']} ({entry.key}, block {t['block']}, "
+                  f"model {t['model_rank']}): losses {t['losses']} (card "
+                  f"0 {want['losses']}, rel {t['rel_to_card0']:.3g}); "
+                  f"parameters {t['param_bytes']} B, optimizer state "
+                  f"{t['opt_bytes']} B, the blocks' reckoning "
+                  f"{t['reckoning_bytes']} B (card 0 alone "
+                  f"{want['param_bytes']} + {want['opt_bytes']} B); peak "
+                  f"{t['peak_bytes']} B; step median "
+                  f"{t['step_ms_median']:.1f} ms (card 0 "
+                  f"{want['step_ms_median']:.1f}); the backward's "
+                  f"collectives a step: " + ", ".join(
+                      f"{k} {v['calls_per_step']:.0f} calls "
+                      f"{v['ms_per_step']:.3f} ms" for k, v in bwd.items())
+                  + "; the forward's: " + ", ".join(
+                      f"{k} {v['calls_per_step']:.0f} calls "
+                      f"{v['ms_per_step']:.3f} ms" for k, v in coll.items()
+                      if k not in bwd)
+                  + f"; launches {json.dumps(t['launches'])}; "
+                  f"{card_line()}")
+    for arch, *_ in TP_GRADS:
+        print(f"  {arch} f32 at 2 layers: worst leaf per rank " + ", ".join(
+            f"{r['grads'][arch]['worst']:.3g} ({r['grads'][arch]['leaf']})"
+            for r in res) + f"; losses "
+            f"{[r['grads'][arch]['loss'] for r in res]} (each card alone "
+            f"{[r['grads'][arch]['ref_loss'] for r in res]})")
+    return {"train_multi_card": {
+        "world": world, "reference": refs, "ranks": res,
+        "reference_s": ref_s, "wall_s": time.perf_counter() - t1}}
+
+
 def multi_card_only(torch, fa, ssd, which: str, sim) -> int:
     """``--multi-card-only``: for ``"ranks"``, phase 20's training on
     card 0 without a group (the reference losses), then phase 23(c)
     alone; for ``"cells"``, phases 4 and 13 on card 0 (the reference),
     then phase 24(e) alone; for ``"serve"``, phase 25(c) alone (its
-    one-card reference on card 0 first); ``"all"`` runs the three."""
+    one-card reference on card 0 first); for ``"train"``, phase 26(c)
+    alone (card 0's runs first); ``"all"`` runs the four."""
     check(torch.cuda.device_count() > 1,
           f"--multi-card-only: {torch.cuda.device_count()} cards, needs 2+")
     if which in ("all", "serve"):
@@ -6246,6 +6890,14 @@ def multi_card_only(torch, fa, ssd, which: str, sim) -> int:
         print(json.dumps({"cells": {
             "reference_mega_wall_s": ref["mega_wall_s"],
             "reference_serving": ref["serving"], **cells}}))
+        gc.collect()
+        torch.cuda.empty_cache()
+    if which in ("all", "train"):
+        from repro_torch.models import moe
+        check(torch.cuda.device_count() >= 4,
+              f"phase 26(c): {torch.cuda.device_count()} cards, needs 4")
+        out = phase_train_multi(torch, fa, ssd, moe)
+        print(json.dumps(out, default=str))
         gc.collect()
         torch.cuda.empty_cache()
     if which in ("all", "ranks"):
@@ -6303,14 +6955,15 @@ def main(argv=None) -> int:
     ap.add_argument("--report", help="also write the measured numbers "
                     "as JSON to this path")
     ap.add_argument("--multi-card-only", nargs="?", const="all",
-                    choices=("all", "ranks", "cells", "serve"),
+                    choices=("all", "ranks", "cells", "serve", "train"),
                     help="with more than one card: build the kernels, then "
                     "'ranks': train phase 20's qwen3-0.6b on card 0 for the "
                     "reference losses and run phase 23(c) alone; 'cells': "
                     "run phases 4 and 13 on card 0 for the reference and "
                     "phase 24(e) alone; 'serve': phase 25(c) alone (four "
-                    "cards), its one-card reference on card 0 first; 'all' "
-                    "(the default): the three")
+                    "cards), its one-card reference on card 0 first; "
+                    "'train': phase 26(c) alone (four cards), card 0's "
+                    "runs first; 'all' (the default): the four")
     args = ap.parse_args(argv)
 
     import torch
@@ -6463,12 +7116,17 @@ def main(argv=None) -> int:
                                        train_installed)
     del train_installed
     gc.collect()
+    split = {"one": phase_split_one(torch, fa, ssd, group, ranks["train"]),
+             "kernels": phase_tp_train_kernels(torch, fa, ssd, attn,
+                                               ssm_mod)}
+    gc.collect()
     fam = phase_train_families(torch, fa, attn, ssd, ssm_mod)
     launch = phase_launch_paths(torch, fa, ssd, train, fam)
     ex100m = launch["train_100m_ft"]
     ranks["multi_card"] = phase_ranks_multi(torch, fa, ssd,
                                             train["train"]["losses"])
     tp["multi_card"] = phase_serve_multi(torch, serve_mod, moe)
+    split["multi_card"] = phase_train_multi(torch, fa, ssd, moe)
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()
 
@@ -6597,7 +7255,7 @@ def main(argv=None) -> int:
     ssd_entry["per_rank_shapes"] = [
         {k: t[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms")}
-        for t in tp["kernels"]["ssd"]]
+        for t in tp["kernels"]["ssd"] + [split["kernels"]["ssd_fwd"]]]
     for key in ("simt_ms", "f32_ms", "passes_ms"):
         ssd_entry[key] = model_k[f"ssd_{key}"]
     attn_entry = model_entries[0]
@@ -6626,7 +7284,11 @@ def main(argv=None) -> int:
          "launches": train["train"]["launches"]["forward"]},
         {"path": f"{TRAIN_ARCH} train through the rank-aware Trainer, "
                  f"{TRAIN_STEPS} steps (phase 23(b))",
-         "launches": ranks["train"]["launches"]["forward"]}] + [
+         "launches": ranks["train"]["launches"]["forward"]},
+        {"path": f"{TRAIN_ARCH} train through the split path, mesh "
+                 f"{SPLIT_ONE_MESH[0]}x{SPLIT_ONE_MESH[1]}, "
+                 f"{SPLIT_ONE_STEPS} steps (phase 26(a))",
+         "launches": split["one"]["launches"]["flash_attn"]}] + [
         {"path": f"{arch} train, {len(t['losses'])} steps (forward and "
                  f"remat's recompute)",
          "launches": t["launches"]["flash_attn"]}
@@ -6635,6 +7297,14 @@ def main(argv=None) -> int:
                  f"remat's recompute)",
          "launches": ex100m["launches"]["forward"]}]
     attn_entry["launches"] = sum(p["launches"] for p in attn_entry["paths"])
+    tp_attn = split["kernels"]["attn"]
+    attn_entry["per_rank_training_shape"] = {
+        "shape": tp_attn["shape"], "fwd_lse_ms": tp_attn["fwd_lse_ms"],
+        "fwd_bwd_ms": tp_attn["fwd_bwd_ms"],
+        "library_ms": tp_attn["library_ms"],
+        "library_is": "F.scaled_dot_product_attention forward + backward",
+        "bound_ms": tp_attn["bound_ms"], "bound_by": tp_attn["bound_by"],
+        **tp_attn["forward"]}
     bwd_main = train["bwd"][0]
     bwd_entry = {
         "name": "flash_attn_bwd", "route": "cuda",
@@ -6645,12 +7315,14 @@ def main(argv=None) -> int:
         "launches": train["train"]["launches"]["backward"] + sum(
             t["launches"]["flash_attn_bwd"] for t in fam["train"].values())
         + ex100m["launches"]["backward"]
-        + ranks["train"]["launches"]["backward"],
+        + ranks["train"]["launches"]["backward"]
+        + split["one"]["launches"]["flash_attn_bwd"],
         "launches_by_kernel": {
             k: v + sum(t["launches"]["flash_attn_bwd_by_kernel"][k]
                        for t in fam["train"].values())
             + ex100m["launches"]["backward_by_kernel"][k]
             + ranks["train"]["launches"]["backward_by_kernel"][k]
+            + split["one"]["launches"]["flash_attn_bwd_by_kernel"][k]
             for k, v in train["train"]["launches"][
                 "backward_by_kernel"].items()},
         "paths": [{"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps",
@@ -6663,7 +7335,11 @@ def main(argv=None) -> int:
              "launches": ex100m["launches"]["backward"]},
             {"path": f"{TRAIN_ARCH} train through the rank-aware Trainer, "
                      f"{TRAIN_STEPS} steps (phase 23(b))",
-             "launches": ranks["train"]["launches"]["backward"]}],
+             "launches": ranks["train"]["launches"]["backward"]},
+            {"path": f"{TRAIN_ARCH} train through the split path, mesh "
+                     f"{SPLIT_ONE_MESH[0]}x{SPLIT_ONE_MESH[1]}, "
+                     f"{SPLIT_ONE_STEPS} steps (phase 26(a))",
+             "launches": split["one"]["launches"]["flash_attn_bwd"]}],
         "kernel": bwd_main["kernel"],
         "kernels": {"mma": "bf16: flash_attn_bwd_dkdv_mma_kernel + "
                            "flash_attn_bwd_dq_mma_kernel, tensor cores "
@@ -6684,7 +7360,7 @@ def main(argv=None) -> int:
                                       "fwd_lse_ms", "fwd_bwd_ms",
                                       "library_ms", "plain_ms", "bound_ms",
                                       "bound_by")}
-                   for r in train["bwd"]],
+                   for r in train["bwd"] + [split["kernels"]["attn"]]],
     }
     ssd_main = fam["bwd"][0]
     ssd_bwd_paths = [
@@ -6731,7 +7407,7 @@ def main(argv=None) -> int:
                                           "ms", "simt_ms", "fwd_priors_ms",
                                           "fwd_ms", "plain_ms", "autograd_ms",
                                           "bound_ms", "bound_by")}
-                   for r in fam["bwd"]],
+                   for r in fam["bwd"] + [split["kernels"]["ssd_bwd"]]],
     }
     kernels = [entry] + lc_entries + model_entries + [bwd_entry,
                                                       ssd_bwd_entry, st_entry]
@@ -6753,7 +7429,7 @@ def main(argv=None) -> int:
                        "serve_vlm": vlm, "train": train,
                        "train_families": fam, "launch_paths": launch,
                        "serve_ranks": tp,
-                       "ranks": ranks,
+                       "ranks": ranks, "split_train": split,
                        "kernels": kernels},
                       fh, indent=1, default=str)
     print(f"card: {card}")

@@ -20,11 +20,16 @@ Leaf names are the tree paths, e.g. ``params/layers/3/attn/wq``. The
 state is copied to host memory before the write goes async, so the
 next step may overwrite it in place. numpy has no bfloat16: a bf16 leaf
 is stored bit-exactly as its ``uint16`` view, with its true dtype in the
-manifest, and ``restore`` views it back.
+manifest, and ``restore`` views it back. A ``sharding.Shard`` leaf (a
+rank's block, across ranks that split the ``model`` axis) is stored as
+its ``local`` block, the manifest keeping its spec and the global shape;
+``restore`` into a template ``Shard`` checks both and gives the template
+with the stored block.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -36,6 +41,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.context import P
+from repro_torch.distributed.sharding import Shard
 from repro_torch.optim.optimizers import tree_rebuild
 
 #: torch dtypes numpy cannot hold, stored as an unsigned view of their bits
@@ -54,8 +61,22 @@ def _named_leaves(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix[:-1], tree)]
 
 
+def _spec_json(spec: P) -> list:
+    return [list(e) if isinstance(e, tuple) else e for e in spec]
+
+
+def _shard_info(leaf: Any) -> Optional[Dict[str, Any]]:
+    """What the manifest keeps of a ``Shard`` leaf besides its block."""
+    if not isinstance(leaf, Shard):
+        return None
+    return {"spec": _spec_json(leaf.spec), "global_shape": list(leaf.shape)}
+
+
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
-    """A leaf as a host numpy array to store, and its true dtype's name."""
+    """A leaf as a host numpy array to store, and its true dtype's name
+    (a ``Shard``: its block's)."""
+    if isinstance(leaf, Shard):
+        return _to_host(leaf.local)
     if isinstance(leaf, torch.Tensor):
         # a copy: a host tensor's .cpu() would share the caller's storage
         t = leaf.detach().cpu() if leaf.is_cuda else leaf.detach().clone()
@@ -69,8 +90,17 @@ def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
     return arr, arr.dtype.name
 
 
-def _from_host(arr: np.ndarray, template: Any) -> Any:
-    """``arr`` back in the type, dtype, shape and device of ``template``."""
+def _from_host(arr: np.ndarray, template: Any,
+               info: Optional[Dict[str, Any]] = None) -> Any:
+    """``arr`` back in the type, dtype, shape and device of ``template``;
+    a ``Shard`` template gets the block, after its spec and global shape
+    are checked against the manifest's ``info``."""
+    if isinstance(template, Shard):
+        if info != _shard_info(template):
+            raise ValueError(f"the stored block is of {info}, the template "
+                             f"of {_shard_info(template)}")
+        return dataclasses.replace(template,
+                                   local=_from_host(arr, template.local))
     if isinstance(template, torch.Tensor):
         if template.dtype in _VIEWS:
             signed, _ = _VIEWS[template.dtype]
@@ -112,7 +142,8 @@ class CheckpointManager:
              blocking: bool = False) -> None:
         # snapshot to host BEFORE going async (the next step updates the
         # state in place)
-        leaves = [(n,) + _to_host(x) for n, x in _named_leaves(state)]
+        leaves = [(n,) + _to_host(x) + (_shard_info(x),)
+                  for n, x in _named_leaves(state)]
         extra = dict(extra or {})
 
         def write():
@@ -121,15 +152,17 @@ class CheckpointManager:
             tmp = tempfile.mkdtemp(dir=self.dir, prefix=".tmp_")
             try:
                 np.savez(os.path.join(tmp, "state.npz"),
-                         **{n: a for n, a, _ in leaves})
+                         **{n: a for n, a, _, _ in leaves})
                 if log_dump:
                     for b, arr in log_dump.items():
                         np.savez(os.path.join(tmp, f"logdump_b{b}.npz"),
                                  values=arr)
                 manifest = {
                     "step": step,
-                    "leaves": [{"name": n, "shape": list(a.shape),
-                                "dtype": dt} for n, a, dt in leaves],
+                    "leaves": [dict({"name": n, "shape": list(a.shape),
+                                     "dtype": dt},
+                                    **({"shard": sh} if sh else {}))
+                               for n, a, dt, sh in leaves],
                     "extra": extra,
                     "wall_time": time.time(),
                 }
@@ -184,8 +217,9 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
+        info = {e["name"]: e.get("shard") for e in manifest["leaves"]}
         with np.load(os.path.join(path, "state.npz")) as data:
-            leaves = [_from_host(data[n], t)
+            leaves = [_from_host(data[n], t, info.get(n))
                       for n, t in _named_leaves(template)]
         return tree_rebuild(template, leaves), manifest.get("extra", {})
 

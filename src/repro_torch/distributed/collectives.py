@@ -14,27 +14,35 @@ permutation names nodes by their joined index, as ``ppermute`` names
 the devices along its axes. Every rank computes the same plan from the
 same permutation, so sends and receives always pair up.
 
-When the ranks split the ``model`` axis (serving), three forward-only
-collectives stand for what GSPMD inserts into the JAX package's
-partitioned prefill and decode: :func:`model_sum`, the ``model``-group
-sum of a row-parallel product's partials (the ``psum`` of
+When the ranks split the ``model`` axis, five collectives stand for
+what GSPMD inserts into the JAX package's partitioned prefill, decode
+and training step: :func:`model_sum`, the ``model``-group sum of a
+row-parallel product's partials (the ``psum`` of
 ``src/repro/models/moe.py:224`` and GSPMD's all-reduce after every
-``wo`` / ``w_down`` / ``out_proj``); :func:`fsdp_gather`, the FSDP
-all-gather of a storage-sharded parameter dimension just in time
-(``_gather``, ``src/repro/models/moe.py:177-186``); and
-:func:`model_gather`, the ``model``-group all-gather of the
-vocab-split logits. Where a serving cache's sequence is split over the
-node blocks (``sharding.cache_span``), :func:`attn_merge` joins the
-blocks' decode-attention partials over the ranks that share a ``model``
-position, as GSPMD's partitioned softmax reductions do over the
-reference's sequence-sharded cache. Each call that moves data adds one
-to ``COUNTS[name]``; a group of one rank moves nothing and counts
-nothing.
+``wo`` / ``w_down`` / ``out_proj``); :func:`model_copy`, the entry of a
+replicated tensor into a region the ``model`` axis partitions;
+:func:`model_sum_shared`, a ``model``-group sum that every rank then
+uses for its own part (the gated norm's sum of squares);
+:func:`fsdp_gather`, the FSDP all-gather of a storage-sharded parameter
+dimension just in time (``_gather``, ``src/repro/models/moe.py:177-186``);
+and :func:`model_gather`, the ``model``-group all-gather of the
+vocab-split logits. Each is a ``torch.autograd.Function`` under grad
+mode, its backward the rule GSPMD derives from the forward (each
+docstring states it); under ``torch.no_grad()`` each runs exactly the
+forward-only call serving has always made. Where a serving cache's
+sequence is split over the node blocks (``sharding.cache_span``),
+:func:`attn_merge` joins the blocks' decode-attention partials over the
+ranks that share a ``model`` position, as GSPMD's partitioned softmax
+reductions do over the reference's sequence-sharded cache (serving
+only). Each call that moves data adds one to ``COUNTS[name]``, a
+backward's under ``name + "_bwd"``; a group of one rank moves nothing
+and counts nothing. Under ``remat="full"`` a layer's forward
+collectives run again inside the backward, and count again.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,9 +57,13 @@ from repro_torch.distributed.context import MeshContext
 #: by the number of buckets, and no other size was tried.
 GRAD_BUCKET_BYTES = 64 << 20
 
-#: calls of the serving collectives that moved data, by name
+#: calls of the collectives of a split ``model`` axis that moved data,
+#: by name; a backward's under the forward's name + ``"_bwd"`` (the
+#: backwards of ``model_sum`` and ``model_gather`` move nothing)
 COUNTS: Dict[str, int] = {"model_sum": 0, "fsdp_gather": 0,
-                          "model_gather": 0, "attn_merge": 0}
+                          "model_gather": 0, "attn_merge": 0,
+                          "model_copy_bwd": 0, "model_sum_shared_bwd": 0,
+                          "fsdp_gather_bwd": 0}
 
 
 def reset_counts() -> None:
@@ -223,14 +235,16 @@ def share(x: Optional[torch.Tensor], src: int, shape: Tuple[int, ...],
 
 
 def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
-                   ctx: MeshContext) -> None:
+                   ctx: MeshContext, group: Any = None) -> None:
     """Every tensor <- the sum over ranks of ``scale`` x the tensor, in
     place, through flat f32 buckets of ``GRAD_BUCKET_BYTES`` (one
     ``dist.all_reduce`` a bucket, not one a leaf). Stands for the sum
     that GSPMD puts into the gradient of a loss whose batch is sharded
     ``P(batch_axes, ...)`` (``src/repro/training/trainer.py:109-116``).
     A bf16 leaf goes through f32 and back: exact at ``scale`` 1 on one
-    rank."""
+    rank. ``group`` (default ``ctx.group``): the ranks to sum over, the
+    FSDP group when the ranks split ``model``."""
+    group = ctx.group if group is None else group
     bucket: List[torch.Tensor] = []
     size = 0
 
@@ -238,7 +252,7 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
         flat = torch.cat([t.reshape(-1).float() for t in bucket])
         if scale != 1.0:
             flat.mul_(scale)
-        dist.all_reduce(flat, group=ctx.group)
+        dist.all_reduce(flat, group=group)
         off = 0
         for t in bucket:
             t.copy_(flat[off:off + t.numel()].view(t.shape))
@@ -255,28 +269,95 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
 
 
 # ---------------------------------------------------------------------------
-# Tensor parallelism and FSDP (serving, forward only)
+# Tensor parallelism and FSDP, with their backward rules
 # ---------------------------------------------------------------------------
 
-def model_sum(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
-    """The sum of ``x`` over this rank's ``model`` group (in place, and
-    returned): a row-parallel product's partials made whole."""
-    if ctx.model_group is None:
-        return x
-    COUNTS["model_sum"] += 1
-    dist.all_reduce(x, group=ctx.model_group)
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x``."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _all_reduce(x: torch.Tensor, group: Any, name: str) -> torch.Tensor:
+    """``x`` summed over ``group`` in place, counted under ``name``."""
+    COUNTS[name] += 1
+    dist.all_reduce(x, group=group)
     return x
 
 
-def fsdp_gather(x: torch.Tensor, dim: int, starts: Sequence[int],
-                ctx: MeshContext) -> torch.Tensor:
-    """Dimension ``dim`` of a storage-sharded parameter block gathered
-    over this rank's FSDP group, in node-block order; ``starts[b]`` is
-    where block ``b``'s part begins, and a part several blocks hold (a
-    dimension the sanitizer split over fewer axes than the blocks) is
-    taken once."""
-    if ctx.fsdp_group is None:
+class _ModelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        return _all_reduce(x.clone(), ctx.model_group, "model_sum")
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
+
+
+class _ModelCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g.clone(), fctx.ctx.model_group,
+                           "model_copy_bwd"), None
+
+
+class _ModelSumShared(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _all_reduce(x.clone(), ctx.model_group, "model_sum")
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_reduce(g.clone(), fctx.ctx.model_group,
+                           "model_sum_shared_bwd"), None
+
+
+def model_sum(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """The sum of ``x`` over this rank's ``model`` group: a row-parallel
+    product's partials made whole (in place, and returned, under
+    ``no_grad``). What follows is replicated, so every rank holds the
+    whole gradient of the sum: the backward is the identity (summing it
+    over the group would count it ``m`` times)."""
+    if ctx is None or ctx.model_group is None:
         return x
+    if _tracked(x):
+        return _ModelSum.apply(x, ctx)
+    return _all_reduce(x, ctx.model_group, "model_sum")
+
+
+def model_copy(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """A replicated ``x`` entering a region the ``model`` axis partitions
+    (Megatron's "f"): the forward is the identity; each rank's gradient
+    covers only its heads, channels, experts or vocabulary block, so the
+    backward sums it over the ``model`` group. Also taken by a leaf that
+    ``model`` does not split but that a rank uses only in part (its
+    gradient is that rank's part)."""
+    if ctx is None or ctx.model_group is None or not _tracked(x):
+        return x
+    return _ModelCopy.apply(x, ctx)
+
+
+def model_sum_shared(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """The sum of ``x`` over the ``model`` group, which every rank then
+    uses for its own part (the gated norm's sum of squares over
+    ``d_inner``, each rank normalising its channels with it): the
+    forward sums, and so does the backward, since the sum's gradient is
+    every rank's part of it. Counted as ``model_sum`` in the forward."""
+    if ctx is None or ctx.model_group is None:
+        return x
+    if _tracked(x):
+        return _ModelSumShared.apply(x, ctx)
+    return _all_reduce(x, ctx.model_group, "model_sum")
+
+
+def _gather(x: torch.Tensor, dim: int, starts: Sequence[int],
+            ctx: MeshContext) -> torch.Tensor:
     COUNTS["fsdp_gather"] += 1
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.n_blocks)]
@@ -286,16 +367,76 @@ def fsdp_gather(x: torch.Tensor, dim: int, starts: Sequence[int],
     return keep[0] if len(keep) == 1 else torch.cat(keep, dim=dim)
 
 
-def model_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
-    """The last dimension of ``x`` gathered over this rank's ``model``
-    group, in model order (the vocab-split logits made whole)."""
-    if ctx.model_group is None:
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, dim, starts, ctx):
+        fctx.dim, fctx.starts, fctx.ctx = dim, tuple(starts), ctx
+        return _gather(x, dim, starts, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        dim, starts, ctx = fctx.dim, fctx.starts, fctx.ctx
+        COUNTS["fsdp_gather_bwd"] += 1
+        unique = sorted(set(starts))
+        n = g.shape[dim] // len(unique)
+        if len(unique) == len(starts):          # one block a part
+            parts = [p.contiguous() for p in g.split(n, dim=dim)]
+            out = torch.empty_like(parts[0])
+            dist.reduce_scatter(out, parts, group=ctx.fsdp_group)
+        else:                                   # parts several blocks hold
+            g = g.contiguous().clone()
+            dist.all_reduce(g, group=ctx.fsdp_group)
+            out = g.narrow(dim, unique.index(starts[ctx.block]) * n, n)
+        return out, None, None, None
+
+
+def fsdp_gather(x: torch.Tensor, dim: int, starts: Sequence[int],
+                ctx: MeshContext) -> torch.Tensor:
+    """Dimension ``dim`` of a storage-sharded parameter block gathered
+    over this rank's FSDP group, in node-block order; ``starts[b]`` is
+    where block ``b``'s part begins, and a part several blocks hold (a
+    dimension the sanitizer split over fewer axes than the blocks) is
+    taken once. Each block computes its own rows' loss with the gathered
+    tensor, so the backward sums the group's gradients of each part into
+    the blocks that hold it: a reduce-scatter where each block holds its
+    own part; where several hold the same part, an all-reduce and this
+    block's slice, so that every holder gets the group's sum."""
+    if ctx.fsdp_group is None:
         return x
+    if _tracked(x):
+        return _FsdpGather.apply(x, dim, tuple(starts), ctx)
+    return _gather(x, dim, starts, ctx)
+
+
+def _model_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     COUNTS["model_gather"] += 1
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.model_size)]
     dist.all_gather(parts, x, group=ctx.model_group)
     return torch.cat(parts, dim=-1)
+
+
+class _ModelGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.n, fctx.pos = x.shape[-1], ctx.model_rank
+        return _model_gather(x, ctx)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g.narrow(-1, fctx.pos * fctx.n, fctx.n), None
+
+
+def model_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """The last dimension of ``x`` gathered over this rank's ``model``
+    group, in model order (the vocab-split logits made whole). What
+    follows (the loss) is replicated, so the backward is this rank's
+    slice of the gradient."""
+    if ctx.model_group is None:
+        return x
+    if _tracked(x):
+        return _ModelGather.apply(x, ctx)
+    return _model_gather(x, ctx)
 
 
 def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor

@@ -24,7 +24,15 @@ the (pod, data) entries (FSDP storage) at its node block -- and the
 layers take a leaf through :func:`weight`, which all-gathers the storage
 dimensions over the FSDP group just in time and keeps the ``model``
 split (``src/repro/models/moe.py:177-186`` does the same inside its
-``shard_map``; GSPMD does it for every other leaf).
+``shard_map``; GSPMD does it for every other leaf). For serving and for
+training alike: a ``Shard``'s ``local`` may require grad, the gather's
+backward then reduce-scatters the gradient over the FSDP group
+(``collectives.fsdp_gather``), and :func:`part_weight` / :func:`enter`
+mark where a layer enters a region the ``model`` axis partitions.
+:func:`holders` is the one place that says how many ranks hold each
+element of a leaf, which the gradient reduction and the global norm of
+``training/steps.py`` read; :func:`locals_of` is the tree of blocks the
+optimizer updates.
 
 The serving half of the JAX module's activation rules is here too:
 :func:`batch_blocks` (its ``batch_specs`` split of a batch), and the
@@ -50,7 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -187,7 +195,8 @@ class Shard:
     ``gathers``, each storage-sharded dimension with every node block's
     start in it (none when one block holds the whole storage);
     ``model_pos`` / ``model_size``, the rank's ``model`` position and the
-    axis size."""
+    axis size. In training ``local`` is a leaf that requires grad, and
+    the optimizer updates it in place."""
     local: torch.Tensor
     spec: P
     shape: Tuple[int, ...]
@@ -302,8 +311,10 @@ def model_split(leaf: Any, dim: int) -> bool:
 def weight(leaf: Any) -> torch.Tensor:
     """The tensor a layer computes with: a plain tensor as it is; a
     :class:`Shard` with its storage (pod, data) dimensions all-gathered
-    over the FSDP group (:func:`collectives.fsdp_gather`), its ``model``
-    split kept."""
+    over the FSDP group (:func:`collectives.fsdp_gather`, whose backward
+    reduce-scatters the gradient into the blocks), its ``model`` split
+    kept. The rules shard the storage of one dimension a leaf, so one
+    gather's backward is the whole FSDP reduction of its gradient."""
     if not isinstance(leaf, Shard):
         return leaf
     t = leaf.local
@@ -312,6 +323,69 @@ def weight(leaf: Any) -> torch.Tensor:
         for d, starts in leaf.gathers:
             t = collectives.fsdp_gather(t, d, starts, ctx)
     return t
+
+
+def enter(x: torch.Tensor) -> torch.Tensor:
+    """A replicated activation entering a region the ``model`` axis
+    partitions (``collectives.model_copy``: its gradient summed over the
+    ``model`` group on the way back); the identity without a split."""
+    return collectives.model_copy(x, get_mesh_context())
+
+
+def part_weight(leaf: Any) -> torch.Tensor:
+    """:func:`weight` of a leaf used inside a region the ``model`` axis
+    partitions: a leaf the axis does not split (a plain tensor, or a
+    ``Shard`` stored over the FSDP group only) serves only this rank's
+    heads, channels, experts or vocabulary there, so its gradient is
+    this rank's part, and it goes through ``collectives.model_copy`` to
+    be summed over the ``model`` group; a leaf the axis splits is whole
+    on its rank already."""
+    t = weight(leaf)
+    if isinstance(leaf, Shard) and leaf.split:
+        return t
+    return collectives.model_copy(t, get_mesh_context())
+
+
+class Holders(NamedTuple):
+    """How many ranks of a split context hold each element of a leaf:
+    ``model`` of the ``model`` positions of a block, ``blocks`` of the
+    node blocks; ``gathered`` when the leaf's storage is gathered over
+    the FSDP group (its gradient then reduced by the gather's
+    backward)."""
+    model: int
+    blocks: int
+    gathered: bool
+
+    @property
+    def ranks(self) -> int:
+        return self.model * self.blocks
+
+
+def holders(leaf: Any, ctx: MeshContext) -> Holders:
+    """The ranks of ``ctx`` (whose ranks split ``model``) holding each
+    element of ``leaf``: a plain leaf every rank; a ``Shard`` the ``m``
+    positions of its block unless ``model`` splits it, and the node
+    blocks that store the same part -- every block when the storage is
+    not sharded, ``n_blocks / parts`` when it is sharded over fewer parts
+    than blocks (``starts`` repeats), one otherwise."""
+    if not isinstance(leaf, Shard):
+        return Holders(ctx.model_size, ctx.n_blocks, False)
+    model = 1 if leaf.split else ctx.model_size
+    if not leaf.gathers:
+        return Holders(model, ctx.n_blocks, False)
+    parts = len(set(leaf.gathers[0][1]))
+    return Holders(model, ctx.n_blocks // parts, True)
+
+
+def locals_of(tree: Any) -> Any:
+    """``tree`` with each :class:`Shard` replaced by its ``local`` block:
+    the tensors a rank holds and updates (the optimizer's tree, the
+    writethrough staging tier's)."""
+    if isinstance(tree, dict):
+        return {k: locals_of(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(locals_of(v) for v in tree)
+    return tree.local if isinstance(tree, Shard) else tree
 
 
 def model_block(leaf: Any, dim: int, size: int) -> Tuple[int, int]:

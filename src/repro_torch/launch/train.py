@@ -39,11 +39,23 @@ rank::
         --arch qwen3-0.6b --reduced --steps 100 --mesh 4x2
 
 A single process without those variables runs as before.
+
+With ``--split-model`` the ranks split the ``model`` axis too
+(``make_context(..., split_model=True)``): a rank holds one ``model``
+position of a block of nodes, its parameter and optimizer blocks placed
+by their specs, and the world must be the model size times a number of
+node blocks. Replication over such ranks is not ported yet (ROADMAP.md
+A4(d2b2)), so the variant must be ``none`` or ``writethrough``::
+
+    PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen3-0.6b --reduced \
+        --steps 20 --mesh 2x2 --split-model --variant none --device cpu
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -85,6 +97,15 @@ def main(argv=None) -> None:
     ap.add_argument("--workdir", default="/tmp/recxl_train")
     ap.add_argument("--fail-node", type=int, default=-1)
     ap.add_argument("--fail-step", type=int, default=-1)
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="the parameters' and activations' type (default: "
+                    "the config's)")
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="print the loss every this many steps")
+    ap.add_argument("--split-model", action="store_true",
+                    help="under torchrun, each rank one model position of "
+                    "a block of nodes (variant none or writethrough)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                     "plain versions)")
@@ -92,6 +113,8 @@ def main(argv=None) -> None:
 
     model_cfg = (get_reduced_config(args.arch) if args.reduced
                  else get_model_config(args.arch))
+    if args.dtype is not None:
+        model_cfg = dataclasses.replace(model_cfg, dtype=args.dtype)
     mesh_shape = tuple(int(x) for x in args.mesh.split("x"))
     axes = ("data", "model")[:len(mesh_shape)] if len(mesh_shape) == 2 else \
         ("pod", "data", "model")
@@ -116,7 +139,10 @@ def main(argv=None) -> None:
             device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
         group = node_group(device)
         tag = f"rank {os.environ['RANK']}/{os.environ['WORLD_SIZE']}: "
-    ctx = make_context(mesh_shape, axes, device=device, group=group)
+    if args.split_model and group is None:
+        ap.error("--split-model needs ranks: run under torchrun")
+    ctx = make_context(mesh_shape, axes, device=device, group=group,
+                       split_model=args.split_model)
     injector = FailureInjector(
         [FailureEvent(step=args.fail_step, node=args.fail_node)]
         if args.fail_node >= 0 and args.fail_step >= 0 else [])
@@ -134,14 +160,16 @@ def main(argv=None) -> None:
         f"({model_cfg.param_count()/1e6:.1f}M params) on mesh "
         f"{mesh_shape}, variant={args.variant}, device {ctx.device}"
         + (f", {ctx.world} ranks ({torch.distributed.get_backend(group)})"
-           if group is not None else ""))
+           if group is not None else "")
+        + (f", the model axis split (block {ctx.block}, model position "
+           f"{ctx.model_rank})" if ctx.split_model else ""))
 
     def log(step: int, m: dict) -> None:
-        say(f"step {step:5d} loss {m['loss']:.4f} "
+        say(f"step {step:5d} loss {m['loss']:.6f} "
             f"gnorm {m['grad_norm']:.3f} {m['wall_s']*1e3:.0f} ms")
 
     try:
-        trainer.train(args.steps, on_metrics=log)
+        trainer.train(args.steps, log_every=args.log_every, on_metrics=log)
         trainer.ckpt.wait()
         for e in trainer.events:
             say(f"event: {e}")

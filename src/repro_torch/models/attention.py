@@ -40,6 +40,20 @@ only in the block that owns the position, and each block's partial
 softmax statistics are merged over the blocks
 (``collectives.attn_merge``). Cross-attention reads its leaves and
 heads the same way.
+
+Where the query heads are split, the attention is a region the
+``model`` axis partitions, and its gradient needs these sums over the
+``model`` group (what GSPMD derives from the same layout):
+
+* the inputs entering it -- the self-attention's ``x``, the
+  cross-attention's ``x`` and the encoder output its K / V read -- go
+  through ``sharding.enter``;
+* the leaves ``model`` does not split but a rank uses only in part go
+  through ``sharding.part_weight``: the ``q_norm`` / ``k_norm`` scales
+  (applied to the rank's heads only) and an unsplit ``wk`` / ``wv``
+  (sliced or expanded to the group's heads by :func:`_local_kv`);
+* ``wo``'s partial leaves it through ``collectives.model_sum``, whose
+  backward is the identity.
 """
 
 from __future__ import annotations
@@ -106,6 +120,11 @@ def _project_qkv(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
     b, sq, _ = xq.shape
     skv = xkv.shape[1]
     w = sharding.weight
+    if _partitioned(params):
+        w = sharding.part_weight
+        same = xkv is xq
+        xq = sharding.enter(xq)
+        xkv = xq if same else sharding.enter(xkv)
     q = (xq @ w(params["wq"])).reshape(b, sq, -1, hd)
     k = (xkv @ w(params["wk"])).reshape(b, skv, -1, hd)
     v = (xkv @ w(params["wv"])).reshape(b, skv, -1, hd)
@@ -117,6 +136,12 @@ def _project_qkv(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
         k = apply_rope(k, kv_positions, cfg.rope_theta)
     k, v = _local_kv(params, k, v, cfg)
     return q, k, v
+
+
+def _partitioned(params: Params) -> bool:
+    """Whether the ``model`` axis splits this attention's query heads
+    over the ranks (a region it partitions)."""
+    return sharding.model_split(params["wq"], 1)
 
 
 def _local_kv(params: Params, k: torch.Tensor, v: torch.Tensor,
@@ -383,6 +408,8 @@ def cross_kv(params: Params, ctx: torch.Tensor, cfg: ModelConfig
     b, f, _ = ctx.shape
     hd = cfg.resolved_head_dim
     w = sharding.weight
+    if _partitioned(params):
+        w, ctx = sharding.part_weight, sharding.enter(ctx)
     k = (ctx @ w(params["wk"])).reshape(b, f, -1, hd)
     v = (ctx @ w(params["wv"])).reshape(b, f, -1, hd)
     return _local_kv(params, k, v, cfg)
@@ -391,6 +418,8 @@ def cross_kv(params: Params, ctx: torch.Tensor, cfg: ModelConfig
 def _cross_q(params: Params, x: torch.Tensor, cfg: ModelConfig
              ) -> torch.Tensor:
     b, s, _ = x.shape
+    if _partitioned(params):
+        x = sharding.enter(x)
     return (x @ sharding.weight(params["wq"])).reshape(
         b, s, -1, cfg.resolved_head_dim)
 

@@ -170,6 +170,8 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: str = "full"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     logits, aux = forward(params, batch, cfg, remat)
+    # the vocab-split logits of a rank gathered over ``model``
+    logits = sharding.constrain_logits(logits, params["embed"])
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     return loss, {"ce_loss": loss, "aux_loss": aux}
 

@@ -13,6 +13,16 @@ through ``sharding.weight`` (its FSDP dimensions gathered) and sum a
 row-parallel product's partials over the ``model`` group where the
 leaf's spec splits its rows. A leaf whose spec lost the ``model`` axis
 to the sanitizer is computed whole, replicated, and not summed.
+
+For the gradient (what GSPMD derives from the same layout): the MLP's
+input enters its ``ff``-split region through ``sharding.enter``, whose
+backward sums the rank's part of the input's gradient over ``model``;
+the unembedding's input enters the vocab-split product the same way;
+the embedding's and ``w_down``'s sums (``collectives.model_sum``) give
+every rank the whole gradient, their backward the identity; and
+:func:`cross_entropy_loss` takes the logits gathered by
+``collectives.model_gather``, whose backward is the rank's vocabulary
+slice.
 """
 
 from __future__ import annotations
@@ -139,11 +149,17 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
-              reduce: bool = True) -> torch.Tensor:
+              reduce: bool = True, w: Callable = sharding.weight
+              ) -> torch.Tensor:
     """The MLP; across ranks ``w_gate`` / ``w_up`` column-parallel over
-    ``ff`` and ``w_down``'s partial summed over ``model`` (unless
-    ``reduce`` is False: the caller sums)."""
-    w = sharding.weight
+    ``ff`` and ``w_down``'s partial summed over ``model``, its input
+    entering the partitioned region (``sharding.enter``). With
+    ``reduce`` False the caller (the MoE's shared experts) has entered
+    ``x``, reads the leaves through ``w`` (``sharding.part_weight``) and
+    sums."""
+    split = sharding.model_split(params["w_down"], 0)
+    if reduce and split:
+        x = sharding.enter(x)
     if cfg.mlp == "swiglu":
         g = F.silu(x @ w(params["w_gate"]))
         out = (g * (x @ w(params["w_up"]))) @ w(params["w_down"])
@@ -151,7 +167,7 @@ def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
         # jax.nn.gelu is the tanh approximation by default
         out = (F.gelu(x @ w(params["w_up"]), approximate="tanh")
                @ w(params["w_down"]))
-    if reduce and sharding.model_split(params["w_down"], 0):
+    if reduce and split:
         out = collectives.model_sum(out, get_mesh_context())
     return out
 
@@ -188,9 +204,12 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
     """Logits; across ranks this rank's vocabulary block where the leaf
     splits the vocab over ``model`` (``sharding.constrain_logits``
     gathers them), else every column."""
+    leaf = params["tok"] if cfg.tie_embeddings else params["out"]
+    if sharding.model_split(leaf, 0 if cfg.tie_embeddings else 1):
+        x = sharding.enter(x)
     if cfg.tie_embeddings:
-        return x @ sharding.weight(params["tok"]).T
-    return x @ sharding.weight(params["out"])
+        return x @ sharding.weight(leaf).T
+    return x @ sharding.weight(leaf)
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +218,13 @@ def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Token-mean CE. logits (..., V) accumulated in f32; labels int (...)."""
+    """Token-mean CE. logits (..., V) accumulated in f32; labels int (...).
+
+    Across ranks that split the vocabulary the loss takes the logits
+    gathered over ``model`` (``sharding.constrain_logits``): every rank
+    holds all ``V`` of them, in f32 here -- for qwen3-0.6b's 151 936 at 2
+    rows x 4 096 positions about 5 GB a rank. A vocab-parallel loss would
+    not gather them."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]

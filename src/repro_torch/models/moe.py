@@ -25,6 +25,23 @@ XLA. :func:`moe_apply` reads the module-level mesh context
   ``model`` has nothing to do here: every rank of the group already
   holds the same aux, from the replicated router and the same tokens.
 
+Across split ranks the expert computation is a region the ``model``
+axis partitions, and its gradient needs these sums over the ``model``
+group (what GSPMD derives from the reference's ``shard_map``):
+
+* the tokens dispatched to the experts and the shared experts' input
+  enter it through ``sharding.enter``, while the router reads the tokens
+  as they are: its aux loss is computed whole on every rank, so its
+  gradient is whole already;
+* the gates enter it too: the combine weighs only the rank's experts
+  (or its ``ff`` slice, or ``1 / m`` of an unsplit stack), so a rank's
+  gradient of them is its part, which the entry sums; the router's
+  gradient is then whole from both terms;
+* an expert stack or shared MLP the sanitizer left unsplit is read
+  through ``sharding.part_weight`` (each rank's gradient of it is
+  ``1 / m`` of the whole);
+* the partial output leaves through ``collectives.model_sum``.
+
 The port gives the JAX function's answer where torch's primitives
 promise less than JAX's:
 
@@ -175,6 +192,10 @@ def _dispatch_and_compute(x_flat: torch.Tensor, params: Params,
     logits = (x_flat @ params["router"].to(x_flat.dtype)).float()
     probs = torch.softmax(logits, dim=-1)                     # (T, E)
     gate, idx = top_k_gates(probs, K)                         # (T, K)
+    # the experts' region: its tokens and gates summed over ``model`` on
+    # the way back (the identity without a split ``model`` axis)
+    gate = sharding.enter(gate)
+    x_flat = sharding.enter(x_flat)
 
     # Load-balancing aux loss (Switch): E * sum_e f_e * p_e.
     me = probs.mean(dim=0)
@@ -219,7 +240,7 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
     up = params["w_up"]
     e_start, e_count = (sharding.model_block(up, 0, E) if ep else (0, E))
     summed = ctx.split_model and m > 1
-    w = sharding.weight
+    w = sharding.part_weight if summed else sharding.weight
     wg = params.get("w_gate")
     wg, wu, wd = (None if wg is None else w(wg)), w(up), w(params["w_down"])
     outs, auxs = [], []
@@ -233,7 +254,8 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
     if summed and not sharding.model_split(up, 0 if ep else 2):
         out = out / m                      # every rank computed it whole
     if "shared" in params:
-        sh = mlp_apply(params["shared"], xf, cfg, reduce=False)
+        sh = mlp_apply(params["shared"], sharding.enter(xf), cfg,
+                       reduce=False, w=w)
         if summed and not sharding.model_split(params["shared"]["w_up"], 1):
             sh = sh / m
         out = out + sh

@@ -22,6 +22,19 @@ slices ``conv_bx`` / ``norm_scale`` to its channels and ``dt`` /
 ``rsqrt`` (GSPMD does this unasked), and ``out_proj``'s partial is
 summed over the group. The conv cache holds the rank's ``x`` channels
 and the whole B / C.
+
+Split so, the mixer is a region the ``model`` axis partitions, and its
+gradient needs these sums over the ``model`` group (what GSPMD derives
+from the same layout): the input ``u`` enters through
+``sharding.enter``; every leaf ``model`` does not split goes through
+``sharding.part_weight`` (:class:`_Local`), since a rank's gradient of
+it is its heads' part -- ``w_B`` / ``w_C`` / ``conv_wB`` / ``conv_bB``
+/ ``conv_wC`` / ``conv_bC`` (B and C feed only the rank's heads),
+``w_dt`` (its columns taken after the product), and ``conv_bx`` /
+``norm_scale`` / ``A_log`` / ``D`` / ``dt_bias`` (sliced to the rank's
+channels or heads); the gated norm's sum of squares is summed in both
+directions (``collectives.model_sum_shared``); ``out_proj``'s partial
+leaves through ``collectives.model_sum``.
 """
 
 from __future__ import annotations
@@ -111,8 +124,8 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     if d_inner is None or d_inner == g.shape[-1]:
         var = g.square().mean(dim=-1, keepdim=True)
     else:
-        ss = collectives.model_sum(g.square().sum(dim=-1, keepdim=True),
-                                   get_mesh_context())
+        ss = collectives.model_sum_shared(
+            g.square().sum(dim=-1, keepdim=True), get_mesh_context())
         var = ss / d_inner
     return (g * torch.rsqrt(var + eps) * scale.float()).to(y.dtype)
 
@@ -121,10 +134,13 @@ class _Local:
     """One SSD layer's weights as this rank computes with them: the
     projections through ``sharding.weight``, the per-channel and
     per-head leaves sliced to the rank's heads, and whether
-    ``out_proj``'s partial is summed over ``model``."""
+    ``out_proj``'s partial is summed over ``model``; where the axis
+    splits the heads (``partitioned``), every leaf it does not split read
+    through ``sharding.part_weight``."""
 
     def __init__(self, params: Params, cfg: ModelConfig):
-        w = sharding.weight
+        self.partitioned = sharding.model_split(params["w_x"], 1)
+        w = sharding.part_weight if self.partitioned else sharding.weight
         di, p = cfg.d_inner, cfg.ssm_head_dim
         c0, nc = sharding.model_block(params["w_x"], 1, di)
         if nc % p:
@@ -231,6 +247,8 @@ def ssm_apply(params: Params, u: torch.Tensor, cfg: ModelConfig,
     bsz, l, _ = u.shape
     lp = _Local(params, cfg)
     di, n, nh, p = lp.d_inner, cfg.ssm_state, lp.n_heads, cfg.ssm_head_dim
+    if lp.partitioned:
+        u = sharding.enter(u)
     z = u @ lp.w_z
     xr_raw = u @ lp.w_x
     Br_raw = u @ lp.w_B

@@ -22,16 +22,27 @@ and clips the update by the RMS over all layers. So the port's
 Adafactor keeps its ``vs`` tree in the JAX package's stacked layout
 (``vs["layers"]`` one dict whose leaves carry the layer axis first) and
 updates each list of per-layer leaves as one stacked tensor.
+
+Across ranks that split the ``model`` axis the step hands the
+optimizer the tree of this rank's blocks (``sharding.locals_of``: each
+``Shard``'s ``local``), so AdamW's and SGD's elementwise state lives on
+the blocks' shapes and a rank holds only its blocks' state. The global
+norm then counts each element of the global gradient once: each
+leaf's sum of squares weighed by one over the ranks that hold it
+(``sharding.holders``), summed over the world. Adafactor factors and
+clips over whole stacked leaves, which across split ranks needs sums
+across blocks; it raises there (ROADMAP.md A4(d2b3)).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.config import TrainConfig
 from repro_torch.core.replication import tree_flatten, tree_unflatten
+from repro_torch.distributed.context import get_mesh_context
 
 OptState = Dict[str, Any]
 
@@ -64,20 +75,43 @@ def _zeros_like(tree: Any, dtype: torch.dtype = None) -> Any:
                     tree)
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32: a 0-d tensor."""
+def global_norm(tree: Any, holders: Optional[List[int]] = None,
+                group: Any = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32: a 0-d tensor.
+    With ``holders`` (one count a leaf, in :func:`tree_leaves` order:
+    the ranks holding each of its elements) the leaves are blocks of
+    the global gradient: each leaf's sum of squares is divided by its
+    count and the sums are added over ``group`` (one ``all_reduce``)."""
     leaves = tree_leaves(tree)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in leaves))
+    if holders is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    ss = sum(torch.sum(torch.square(x.float())) / h
+             for x, h in zip(leaves, holders))
+    if group is not None:
+        torch.distributed.all_reduce(ss, group=group)
+    return torch.sqrt(ss)
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
-                        ) -> Tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        holders: Optional[List[int]] = None,
+                        group: Any = None) -> Tuple[Any, torch.Tensor]:
     """``grads`` scaled by ``min(1, max_norm / max(norm, 1e-6))`` in f32,
-    each leaf back in its dtype (new tensors), and the global norm."""
-    norm = global_norm(grads)
+    each leaf back in its dtype (new tensors), and the global norm
+    (:func:`global_norm`, ``holders`` and ``group`` as there)."""
+    norm = global_norm(grads, holders, group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
+
+
+def _refuse_split(what: str) -> None:
+    """Raise under a mesh context whose ranks split ``model``."""
+    ctx = get_mesh_context()
+    if ctx is not None and ctx.split_model:
+        raise NotImplementedError(
+            f"{what} across ranks that split the model axis (A4(d2b3) in "
+            f"ROADMAP.md): Adafactor factors and clips over whole stacked "
+            f"leaves; use adamw or sgd")
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +192,7 @@ def _stack_leaves(tree: Any) -> List[Any]:
 
 
 def adafactor_init(params: Any, cfg: TrainConfig) -> OptState:
+    _refuse_split("adafactor")
     def factored(x: Any) -> Dict[str, torch.Tensor]:
         lead = (len(x),) if _is_stack(x) else ()
         t = x[0] if _is_stack(x) else x
@@ -178,6 +213,7 @@ def adafactor_init(params: Any, cfg: TrainConfig) -> OptState:
 @torch.no_grad()
 def adafactor_update(grads: Any, state: OptState, params: Any, lr: float,
                      cfg: TrainConfig) -> Tuple[Any, OptState]:
+    _refuse_split("adafactor")
     eps = 1e-30
     count = state["count"] + 1
     beta2t = float(1.0 - (torch.tensor(float(count), dtype=torch.float32)

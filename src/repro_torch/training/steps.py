@@ -27,6 +27,23 @@ optimizer, so every rank applies the same update to its copy of the
 parameters. The token shares make the sum the global token mean, masked
 or not (the per-rank means are not averaged). A MoE's load-balancing
 term is then the ranks' weighted mean, not the global batch's.
+
+Across ranks that split the ``model`` axis (``ctx.split_model``) the
+step runs inside the context and a rank holds its ``sharding.Shard``
+blocks, which require grad; the forward's collectives carry their
+backward rules (``collectives.model_sum`` / ``model_copy`` /
+``model_sum_shared`` / ``fsdp_gather`` / ``model_gather``), so the
+backward of the rank's loss, weighted by its node block's token share
+(:func:`rank_weight`, over the FSDP group), already sums the partial
+gradients over ``model`` and reduce-scatters the gathered leaves over
+the FSDP group. What is left is summed over the FSDP group: the leaves
+whose storage no gather reduced (``sharding.holders``), and the loss.
+The global norm weighs each leaf by one over its holders and sums over
+the world; the optimizer updates the blocks (``sharding.locals_of``).
+This stands for the JAX step that GSPMD partitions on the same mesh
+(``src/repro/training/steps.py:67-72``). Replication over such ranks
+is ROADMAP.md A4(d2b2); ``writethrough``'s staging tier is each rank's
+blocks in bf16.
 """
 
 from __future__ import annotations
@@ -54,16 +71,27 @@ class TrainState(NamedTuple):
     wt_buffer: Optional[Any] = None     # writethrough staging tier
 
 
+def _scope(ctx: Optional[MeshContext]):
+    """The models' mesh context for a step over ranks that split
+    ``model``; otherwise the caller's, untouched."""
+    if ctx is not None and ctx.split_model:
+        return mesh_context(ctx)
+    return contextlib.nullcontext()
+
+
 def init_train_state(run: RunConfig, model: Model, seed: int,
                      engine: Optional[ReplicationEngine],
-                     device=None, params: Any = None) -> TrainState:
+                     device=None, params: Any = None,
+                     ctx: Optional[MeshContext] = None) -> TrainState:
     """Weights from ``model.init(seed, device)`` (or ``params``, made
-    leaves that require grad), the optimizer's state, an empty log ring
-    for the replicating variants and a staging buffer for
+    leaves that require grad: a ``Shard``'s block), the optimizer's
+    state (of the blocks, across ranks that split ``model``), an empty
+    log ring for the replicating variants and a staging buffer for
     ``writethrough``."""
     if params is None:
         params = model.init(seed, device=device)
-    for p in tree_leaves(params):
+    held = sharding.locals_of(params)
+    for p in tree_leaves(held):
         p.requires_grad_(True)
     opt_init, _ = make_optimizer(run.train)
     logs = engine.init_logs() if engine is not None and \
@@ -71,24 +99,100 @@ def init_train_state(run: RunConfig, model: Model, seed: int,
     wt = None
     if run.replication.variant == "writethrough":
         wt = tree_map(lambda x: torch.zeros_like(x, dtype=torch.bfloat16,
-                                                 requires_grad=False), params)
-    return TrainState(params=params, opt_state=opt_init(params), logs=logs,
+                                                 requires_grad=False), held)
+    with _scope(ctx):
+        opt_state = opt_init(held)
+    return TrainState(params=params, opt_state=opt_state, logs=logs,
                       step=0, wt_buffer=wt)
 
 
 def rank_weight(batch: Dict[str, torch.Tensor], ctx: MeshContext) -> float:
     """This rank's share of the global batch's loss tokens: its mask's
     sum over the ranks' (one ``all_reduce``), or, unmasked, 1 / world
-    (every rank holds as many rows). Exactly 1.0 on one rank. The JAX
-    package takes the token mean of the whole batch
-    (``cross_entropy_loss``, ``src/repro/models/layers.py:144``), whose
-    gradient GSPMD sums over the shards."""
+    (every rank holds as many rows). Exactly 1.0 on one rank. Across
+    ranks that split ``model`` the ``m`` ranks of a node block hold the
+    same rows, so the share is its block's: over the FSDP group, 1 /
+    ``n_blocks`` unmasked. The JAX package takes the token mean of the
+    whole batch (``cross_entropy_loss``,
+    ``src/repro/models/layers.py:144``), whose gradient GSPMD sums over
+    the shards."""
+    group, n = ((ctx.fsdp_group, ctx.n_blocks) if ctx.split_model
+                else (ctx.group, ctx.world))
     if "mask" not in batch:
-        return 1.0 / ctx.world
+        return 1.0 / n
     n = batch["mask"].float().sum().reshape(1)
     total = n.clone()
-    torch.distributed.all_reduce(total, group=ctx.group)
+    if group is not None:
+        torch.distributed.all_reduce(total, group=group)
     return float(n) / float(total)
+
+
+def make_grad_fn(run: RunConfig, model: Model,
+                 ctx: Optional[MeshContext] = None
+                 ) -> Callable[[Any, Dict[str, torch.Tensor]],
+                               Tuple[torch.Tensor, Dict[str, Any], Any,
+                                     torch.Tensor]]:
+    """``grad_fn(params, batch) -> (loss, metrics, grads, grad_norm)``:
+    the train step's gradient, reduced across the context's ranks and
+    clipped by the global norm (``run.train.grad_clip``). ``grads`` is
+    shaped as ``params``, or, across ranks that split ``model``, as the
+    tree of this rank's blocks (``sharding.locals_of``); the loss and
+    the metrics are the global batch's there, the rank's own otherwise."""
+    across = ctx is not None and ctx.group is not None
+    split = ctx is not None and ctx.split_model
+    remat = run.train.remat
+
+    def grad_fn(params: Any, batch: Dict[str, torch.Tensor]):
+        if split:
+            return _split_grads(params, batch)
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+        loss, metrics = model.loss_fn(params, batch, remat=remat)
+        loss.backward()
+        grads = tree_map(
+            lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+            params)
+        for p in leaves:
+            p.grad = None
+        if across:
+            loss = loss.detach().float().reshape(1)
+            collectives.all_reduce_sum(tree_leaves(grads) + [loss],
+                                       rank_weight(batch, ctx), ctx)
+            loss = loss[0]
+        grads, gnorm = clip_by_global_norm(grads, run.train.grad_clip)
+        return loss, metrics, grads, gnorm
+
+    def _split_grads(params: Any, batch: Dict[str, torch.Tensor]):
+        held = sharding.locals_of(params)
+        leaves = tree_leaves(held)
+        for p in leaves:
+            p.grad = None
+        weight = rank_weight(batch, ctx)
+        with _scope(ctx):
+            loss, metrics = model.loss_fn(params, batch, remat=remat)
+            (loss * weight).backward()
+        grads = tree_map(
+            lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+            held)
+        for p in leaves:
+            p.grad = None
+        held_by = [sharding.holders(x, ctx) for x in tree_leaves(params)]
+        names = sorted(metrics)
+        scalars = torch.stack([loss.detach().float()] + [
+            metrics[k].detach().float() for k in names]) * weight
+        if ctx.fsdp_group is not None:
+            unreduced = [g for g, h in zip(tree_leaves(grads), held_by)
+                         if h.blocks > 1 and not h.gathered]
+            collectives.all_reduce_sum(unreduced + [scalars], 1.0, ctx,
+                                       group=ctx.fsdp_group)
+        metrics = dict(zip(names, scalars[1:]))
+        grads, gnorm = clip_by_global_norm(
+            grads, run.train.grad_clip, [h.ranks for h in held_by],
+            ctx.group)
+        return scalars[0], metrics, grads, gnorm
+
+    return grad_fn
 
 
 def make_train_step(run: RunConfig, model: Model,
@@ -99,34 +203,30 @@ def make_train_step(run: RunConfig, model: Model,
     """The train step; with a rank-aware ``ctx``, data-parallel over its
     ranks (the JAX step under a batch sharded ``P(batch_axes, ...)``,
     ``src/repro/training/trainer.py:109-116``, whose gradient GSPMD
-    sums over the batch axes)."""
-    across = ctx is not None and ctx.group is not None
+    sums over the batch axes), and, where they split ``model``, inside
+    the context with each rank's blocks (module docstring)."""
+    split = ctx is not None and ctx.split_model
+    if split and run.replication.is_replicating:
+        raise NotImplementedError(
+            f"replication ({run.replication.variant!r}) across ranks that "
+            f"split the model axis (A4(d2b2) in ROADMAP.md): train with "
+            f"variant 'none' or 'writethrough', or on ranks of whole nodes")
+    grad_fn = make_grad_fn(run, model, ctx)
     _, opt_update = make_optimizer(run.train)
     schedule = make_schedule(run.train)
     rep = run.replication
-    remat = run.train.remat
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
-        leaves = tree_leaves(state.params)
-        for p in leaves:
-            p.grad = None
-        loss, metrics = model.loss_fn(state.params, batch, remat=remat)
-        loss.backward()
-        grads = tree_map(
-            lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
-            state.params)
-        for p in leaves:
-            p.grad = None
-        if across:
-            loss = loss.detach().float().reshape(1)
-            collectives.all_reduce_sum(tree_leaves(grads) + [loss],
-                                       rank_weight(batch, ctx), ctx)
-            loss = loss[0]
-        grads, gnorm = clip_by_global_norm(grads, run.train.grad_clip)
-        lr = schedule(state.step)
-        new_params, new_opt = opt_update(grads, state.opt_state,
-                                         state.params, lr)
+        with _scope(ctx):
+            loss, metrics, grads, gnorm = grad_fn(state.params, batch)
+            lr = schedule(state.step)
+            held = sharding.locals_of(state.params) if split \
+                else state.params
+            new_params, new_opt = opt_update(grads, state.opt_state, held,
+                                             lr)
+        if split:
+            new_params = state.params     # its blocks updated in place
         del grads
 
         logs = state.logs
@@ -140,8 +240,8 @@ def make_train_step(run: RunConfig, model: Model,
             # tier before the step ends (the paper's 7.6x path; its cost is
             # the protocol simulator's to quantify)
             with torch.no_grad():
-                for dst, src in zip(tree_leaves(wt_buffer),
-                                    tree_leaves(new_params)):
+                for dst, src in zip(tree_leaves(wt_buffer), tree_leaves(
+                        sharding.locals_of(new_params))):
                     dst.copy_(src)
 
         metrics = {k: v.detach() for k, v in metrics.items()}

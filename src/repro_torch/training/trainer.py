@@ -34,6 +34,17 @@ its own nodes' blocks into its part of the log ring, dumps to its own
 MN directory, and takes part in every recovery; every rank runs the
 same control plane (the failures, the directory, the Configuration
 Manager: the lowest live node, on the lowest live rank).
+
+Across ranks that split the ``model`` axis (``make_context(...,
+split_model=True)``) each rank holds one ``model`` position of a block
+of nodes: its parameters are placed by ``named_shardings`` (its
+``Shard`` blocks, as the JAX ``Trainer`` places its state,
+``src/repro/training/trainer.py:103-107``), it trains on its node
+block's rows (the ``m`` ranks of a block share them), its optimizer
+state is its blocks', and its MN dump holds its blocks (params and
+optimizer state) in its own directory. Replication over such ranks is
+ROADMAP.md A4(d2b2): a replicating variant raises, and a fail-stop
+under ``none`` raises the WB data-loss error on every rank.
 """
 
 from __future__ import annotations
@@ -86,6 +97,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def batch_rows(rows: int, ctx: MeshContext) -> slice:
+    """This rank's rows of a global batch of ``rows``: its node block's
+    (every row without a group). The ``m`` ranks of a block that split
+    ``model`` share them."""
+    if ctx.group is None:
+        return slice(None)
+    if rows % ctx.n_nodes:
+        raise ValueError(f"a global batch of {rows} rows does not split "
+                         f"over {ctx.n_nodes} nodes")
+    per_block = rows // ctx.n_nodes * ctx.nodes_per_rank
+    return slice(ctx.block * per_block, (ctx.block + 1) * per_block)
+
+
 class Trainer:
     def __init__(self, run: RunConfig, ctx: MeshContext, workdir: str,
                  injector: Optional[FailureInjector] = None,
@@ -94,10 +118,12 @@ class Trainer:
                                                 tuple(run.mesh.shape)):
             raise ValueError(f"the context's axes {ctx.shape} are not the "
                              f"run's mesh {run.mesh}")
-        if ctx.split_model:
+        if ctx.split_model and run.replication.is_replicating:
             raise NotImplementedError(
-                "training with the model axis split across ranks (A4(d2b1) "
-                "in ROADMAP.md): give the Trainer ranks of whole nodes")
+                f"replication ({run.replication.variant!r}) across ranks "
+                f"that split the model axis (A4(d2b2) in ROADMAP.md): train "
+                f"with variant 'none' or 'writethrough', or on ranks of "
+                f"whole nodes")
         self.run = run
         self.ctx = ctx
         self.model = model or build_model(run.model)
@@ -107,16 +133,18 @@ class Trainer:
         self.monitor = StragglerMonitor()
         self.events: List[Dict[str, Any]] = []
 
-        params = named_shardings(
-            self.model.init(run.train.seed, device=ctx.device), run.model,
-            ctx)
+        params = (self.model.init(run.train.seed, ctx=ctx)
+                  if ctx.split_model else named_shardings(
+                      self.model.init(run.train.seed, device=ctx.device),
+                      run.model, ctx))
         self.specs = param_specs(params, run.model, ctx)
         self.engine: Optional[ReplicationEngine] = None
         if run.replication.is_replicating:
             self.engine = ReplicationEngine(run.replication, ctx, self.specs,
                                             params)
         self.state: TrainState = init_train_state(
-            run, self.model, run.train.seed, self.engine, params=params)
+            run, self.model, run.train.seed, self.engine, params=params,
+            ctx=ctx)
         self._step_fn = make_train_step(run, self.model, self.engine, ctx)
 
         n_nodes = (self.engine.n_nodes if self.engine else
@@ -130,15 +158,7 @@ class Trainer:
             run.model, run.shape, seed=run.train.seed)
         self._batch_dtypes = {k: s.dtype for k, s in
                               batch_struct(run.model, run.shape).items()}
-        self._rows = slice(None)
-        if ctx.group is not None:
-            rows = run.shape.global_batch
-            if rows % ctx.n_nodes:
-                raise ValueError(f"a global batch of {rows} rows does not "
-                                 f"split over {ctx.n_nodes} nodes")
-            per_rank = rows // ctx.n_nodes * ctx.nodes_per_rank
-            self._rows = slice(ctx.rank * per_rank,
-                               (ctx.rank + 1) * per_rank)
+        self._rows = batch_rows(run.shape.global_batch, ctx)
 
     # ------------------------------------------------------------------
     def _to_device(self, batch: Dict[str, np.ndarray]
@@ -208,7 +228,9 @@ class Trainer:
     def _dump(self, step_no: int) -> None:
         """MN-tier dump: full state (copied to the host, then written
         async) + directory watermark; across ranks each rank into its own
-        directory (``src/repro/training/trainer.py:174``)."""
+        directory (``src/repro/training/trainer.py:174``), and across
+        ranks that split ``model`` its blocks, each stored with its spec
+        and global shape (``checkpoint/manager.py``)."""
         t0 = time.perf_counter()
         self.ckpt.save(step_no, {"params": self.state.params,
                                  "opt": self.state.opt_state},
