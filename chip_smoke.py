@@ -320,7 +320,28 @@ each hand-written CUDA kernel against its plain PyTorch version:
     qwen3 and hymba at 2 x 2, moonshot at 2 x 4 and whisper at 1 x 4,
     each rank's blocks within 1e-4 of the leaf's norm of the same
     gradient taken on its card alone (the MoE pinned to that run's
-    routing) (not run on one card: printed as such).
+    routing) (not run on one card: printed as such);
+27. replication and recovery over ranks that split the ``model`` axis,
+    run right after phase 26(b): (a) qwen3-0.6b at phase 20's
+    configuration through the split ``Trainer`` at mesh 2 x 1 on phase
+    23's one-rank group, variant proactive (N_r 1), 4 steps, node 1
+    failed at step 3: the ring's slot of step 2 ``==`` the one phase
+    23(b)'s parameters of that step give at this mesh (else, when the
+    parameters are not bit for bit 23(b)'s, its ts / valid ``==`` and
+    its values within the parameters' distance), the recovered shard
+    installed into blocks NaN where the node's parts were ``==`` the
+    blocks before the failure, the ring's bytes its reckoning, the
+    newest ring entry dumped through ``log_compress`` against the one
+    before it ``==`` the plain version, the replicate beside 23(b)'s;
+    (b) in phase 22, the dry run's split cell: qwen3-0.6b's train_4k at
+    16 x 16, rank 0 of 256 ranks that split ``model``, costed on meta in
+    a fake process group, with its collectives' link bytes a step; (c)
+    with four cards, in ``--multi-card-only train``: qwen3-0.6b at 2 x
+    2, proactive N_r 1, node 1 failed at step 3, each rank's blocks
+    ``==`` after the install, its losses within 2^-8 of card 0's, and per
+    card the ring's bytes against its reckoning, the replicate ms against
+    card 0 alone, the recovery wall and a step's link bytes by
+    collective (not run on one card: printed as such).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -5120,7 +5141,11 @@ def start_dryrun(train_times: dict) -> dict:
     futures = {arch: pool.submit(dryrun.run_cell, arch, config.ShapeConfig(
         f"train, {b} x {s}", s, b, "train"), False, save=False)
         for arch, (b, s, _) in train_times.items()}
-    return {"proc": proc, "pool": pool, "futures": futures,
+    # phase 27(b): the split cell, rank 0 of qwen3-0.6b's train_4k at 16 x
+    # 16 over 256 ranks that split model, in a fake group
+    split = pool.submit(dryrun.run_cell, TRAIN_ARCH, "train_4k", False,
+                        save=False, split_model=True)
+    return {"proc": proc, "pool": pool, "futures": futures, "split": split,
             "out_dir": out_dir, "t0": time.perf_counter(),
             "train_times": train_times}
 
@@ -5139,6 +5164,7 @@ def finish_dryrun(started: dict) -> dict:
         stdout, stderr = proc.communicate(timeout=600)
         costs = {a: f.result(timeout=600)
                  for a, f in started["futures"].items()}
+        split = started["split"].result(timeout=600)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -5188,12 +5214,40 @@ def finish_dryrun(started: dict) -> dict:
                   f"form {cf['total']:.6g} (matmuls {cf['matmul']:.6g}, "
                   f"attention {cf['attention']:.6g}; relative difference "
                   f"{rel:.3g} <= {DRYRUN_FLOP_TOLERANCE:g})")
+    print(f"phase 27(b): the split cost pass, {TRAIN_ARCH} train_4k at "
+          f"16x16, rank 0 of 256 ranks that split the model axis (a fake "
+          f"group on meta, torch {torch_version()})")
+    check(split["status"] == "ok" and "collectives" in split,
+          f"the split cell: {split.get('status')} {split.get('error')}")
+    coll = split["collectives"]
+    check(coll["replication_bytes"] > 0 and coll["total_bytes"] == sum(
+        coll["per_kind_bytes"].values()) and all(
+            coll["per_kind_bytes"].get(k) for k in ("model_sum",
+                                                    "fsdp_gather",
+                                                    "fsdp_gather_bwd")),
+          f"the split cell reports its collectives a step: "
+          f"{json.dumps(coll)}")
+    print(f"  a step's link bytes on rank 0, by collective: "
+          f"{json.dumps(coll['per_kind_bytes'])}; calls "
+          f"{json.dumps(coll['n_ops'])}; total {coll['total_bytes']:.6g} B, "
+          f"of them REPL / VAL {coll['replication_bytes']:.6g} B; the "
+          f"rank's step {split['cost']['flops_global']:.6g} FLOP, "
+          f"{split['cost']['bytes_global']:.6g} bytes; memory "
+          f"{json.dumps(split['memory'])}; {split['wall_s']} s")
     return {"wall_s": wall, "status": status,
             "records": [{k: r.get(k) for k in ("arch", "shape", "mesh",
                                                "status", "cost", "memory",
                                                "replication", "wall_s")}
                         for r in records],
-            "train_flop_share": share}
+            "train_flop_share": share,
+            "split_cell": {k: split.get(k) for k in (
+                "arch", "shape", "mesh", "status", "scope", "cost",
+                "memory", "collectives", "wall_s")}}
+
+
+def torch_version() -> str:
+    import torch
+    return torch.__version__
 
 
 def start_group(torch):
@@ -5301,12 +5355,14 @@ def phase_ranks_mechanism(torch, lc, group, seven) -> dict:
             "loop_ms": run["loop_ms"]}
 
 
-def phase_ranks_train(torch, fa, ssd, group, twenty, installed20) -> dict:
+def phase_ranks_train(torch, fa, ssd, group, twenty, installed20) -> tuple:
     """Phase 23(b): qwen3-0.6b at phase 20's configuration through the
     rank-aware ``Trainer``; its losses and installed shard ``==`` phase
     20's (``twenty``, ``installed20``). Were they not, phase 20's run
     is repeated once to show whether the one-card run is itself
-    bit-stable, and (b) is held within the distance the two show."""
+    bit-stable, and (b) is held within the distance the two show.
+    Returns its numbers and the host copy of its parameters just after
+    the install (phase 27(a) reads them)."""
     print("phase 23(b): qwen3-0.6b at phase 20's configuration through the "
           "rank-aware Trainer (data-parallel, the gradient summed in flat "
           "f32 buckets by the group)")
@@ -5339,11 +5395,11 @@ def phase_ranks_train(torch, fa, ssd, group, twenty, installed20) -> dict:
     else:
         print(f"  not bit-identical to phase 20 (loss, parameter distance "
               f"{d23}): phase 20's run again, to read its own distance")
-        del installed
         gc.collect()
         torch.cuda.empty_cache()
         again, installed_again = train_qwen3(torch, fa, ssd, None)
         d20 = dist(again["losses"], installed_again)
+        del installed_again
         out["phase20_rerun_distance"] = d20
         check(d20 != (0.0, 0.0) and d23[0] <= d20[0] and d23[1] <= d20[1],
               f"phase 20 is not bit-stable (two runs {d20} apart), and "
@@ -5357,7 +5413,7 @@ def phase_ranks_train(torch, fa, ssd, group, twenty, installed20) -> dict:
           f"({out['step_ms_median'] / out['phase20_step_ms_median']:.4f}x);"
           f" {card_line()}")
     out["all_reduce_mean_ms"] = sum(red[1:]) / (len(red) - 1)
-    return out
+    return out, installed
 
 
 #: phase 23(c): the data-parallel losses over several cards against one
@@ -6607,7 +6663,8 @@ def phase_tp_train_kernels(torch, fa, ssd, attn, ssm_mod) -> dict:
 
 def tp_train_reference(torch, fa, ssd) -> dict:
     """26(c)'s reference on card 0 without a group: each of ``TP_TRAINS``
-    trained on one card at its mesh of logical nodes."""
+    trained on one card at its mesh of logical nodes; and 27(c)'s,
+    phase 27's run at ``SPLIT_REP_MESH4`` without the failure."""
     import shutil
     import tempfile
 
@@ -6631,6 +6688,22 @@ def tp_train_reference(torch, fa, ssd) -> dict:
               f"median {r['step_ms_median']:.1f} ms; parameters "
               f"{r['param_bytes']} B, optimizer state {r['opt_bytes']} B; "
               f"peak {r['peak_bytes']} B; {card_line()}")
+    # phase 27(c)'s reference: the same replication on card 0 alone, no
+    # failure (its replicate is the one-card time)
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_rep_ref_")
+    try:
+        r, _ = split_rep_train(torch, fa, make_context(
+            SPLIT_REP_MESH4, ("data", "model"), device=DEVICE), workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["split_rep"] = r
+    print(f"  card 0 alone: {TRAIN_ARCH} at {SPLIT_REP_MESH4[0]}x"
+          f"{SPLIT_REP_MESH4[1]}, proactive N_r 1: losses {r['losses']}; "
+          f"replicate {r['replicate_ms']:.3f} ms (inside a step "
+          f"{r['replicate_ms_median']:.3f}); ring {r['ring_bytes']} B; "
+          f"{card_line()}")
     return out
 
 
@@ -6692,12 +6765,13 @@ def tp_grads(torch, moe, arch, mesh, batch, seq, ctx, routing) -> dict:
 
 def train_rank(rank: int, world: int, rendezvous: str, refs: dict,
                out_paths: list) -> None:
-    """One rank of phase 26(c) on card ``rank``: each of ``TP_TRAINS``
-    through the split ``Trainer`` over the ``nccl`` group, its losses
-    within ``TP_TRAIN_LOSS_RTOL`` of card 0's and its bytes its blocks';
-    then each of ``TP_GRADS``' f32 gradients, leaf by leaf against its
-    blocks of the same gradient taken on this card alone (no group; the
-    MoE pinned to that run's routing)."""
+    """One rank of phases 26(c) and 27(c) on card ``rank``: each of
+    ``TP_TRAINS`` through the split ``Trainer`` over the ``nccl`` group,
+    its losses within ``TP_TRAIN_LOSS_RTOL`` of card 0's and its bytes
+    its blocks'; then each of ``TP_GRADS``' f32 gradients, leaf by leaf
+    against its blocks of the same gradient taken on this card alone (no
+    group; the MoE pinned to that run's routing); then phase 27's
+    proactive run with a fail-stop (:func:`split_rep_train`)."""
     import shutil
     import tempfile
 
@@ -6783,19 +6857,49 @@ def train_rank(rank: int, world: int, rendezvous: str, refs: dict,
               f"leaf's norm of the card's run alone (largest at {where}), "
               f"limit {TP_GRAD_TOLERANCE}")
         del g, want
+    # phase 27(c): proactive over the split ranks, a fail-stop recovered
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = make_context(SPLIT_REP_MESH4, ("data", "model"), device=dev,
+                       group=group, split_model=True)
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_rep_r{rank}_")
+    try:
+        r, _ = split_rep_train(torch, fa, ctx, workdir, SPLIT_REP_FAIL)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = refs["split_rep"]
+    r["rel_to_card0"] = max(abs(a - b) / abs(b) for a, b in
+                            zip(r["losses"], want["losses"]))
+    res["split_rep"] = r
+    rec = r["recovery"]
+    check(rec is not None and rec["stats"]["unrecoverable"] == 0
+          and r["installed_equal"] is True,
+          f"rank {rank}: node {SPLIT_REP_FAIL[1]} recovered at step "
+          f"{SPLIT_REP_FAIL[0]} ({rec and rec['stats']}), the rank's blocks "
+          f"NaN where its parts were == the blocks before the failure after "
+          f"the install")
+    check(r["ring_bytes"] == r["ring_reckoning_bytes"],
+          f"rank {rank}: the ring holds {r['ring_bytes']} B, its reckoning "
+          f"{r['ring_reckoning_bytes']} B")
+    check(r["rel_to_card0"] <= TP_TRAIN_LOSS_RTOL,
+          f"rank {rank}: the proactive run's bf16 losses within "
+          f"{r['rel_to_card0']:.3g} (rel) of card 0's, limit "
+          f"{TP_TRAIN_LOSS_RTOL:.4g}")
     with open(out_paths[rank], "w", encoding="utf-8") as fh:
         json.dump(res, fh, default=str)
     torch.distributed.destroy_process_group()
 
 
 def phase_train_multi(torch, fa, ssd, moe) -> dict:
-    """Phase 26(c): with four cards, ``TP_TRAINS`` and ``TP_GRADS`` across
+    """Phases 26(c) and 27(c): with four cards, ``TP_TRAINS``,
+    ``TP_GRADS`` and phase 27's proactive run with a fail-stop across
     four ``nccl`` ranks that split ``model``, against card 0 alone in the
     same call."""
     n = torch.cuda.device_count()
     if n < 4:
         print(json.dumps({"train_multi_card": f"not run: {n} card"
                           + ("" if n == 1 else "s")}))
+        print(f"phase 27(c): not run: {n} card" + ("" if n == 1 else "s"))
         return {"train_multi_card": f"not run: {n} card(s)"}
     world = 4
     build = os.path.join(ROOT, "build", "repro_torch")
@@ -6857,9 +6961,311 @@ def phase_train_multi(torch, fa, ssd, moe) -> dict:
             for r in res) + f"; losses "
             f"{[r['grads'][arch]['loss'] for r in res]} (each card alone "
             f"{[r['grads'][arch]['ref_loss'] for r in res]})")
+    alone = refs["split_rep"]
+    print(f"phase 27(c): {TRAIN_ARCH} at {SPLIT_REP_MESH4[0]}x"
+          f"{SPLIT_REP_MESH4[1]} over {world} ranks that split the model "
+          f"axis, proactive N_r 1, node {SPLIT_REP_FAIL[1]} failed at step "
+          f"{SPLIT_REP_FAIL[0]}; card 0 alone: replicate "
+          f"{alone['replicate_ms']:.3f} ms, losses {alone['losses']}")
+    for r in res:
+        t = r["split_rep"]
+        print(f"  card {r['rank']} (block {t['block']}, model "
+              f"{t['model_rank']}): ring {t['ring_bytes']} B (reckoning "
+              f"{t['ring_reckoning_bytes']} B); replicate "
+              f"{t['replicate_ms']:.3f} ms (inside a step "
+              f"{t['replicate_ms_median']:.3f}; card 0 alone "
+              f"{alone['replicate_ms']:.3f}); recovery "
+              f"{t['recovery']['wall_s']:.3f} s ({t['recovery_bytes']} B of "
+              f"collectives); a step's collectives (B) "
+              f"{json.dumps(t['bytes_per_step'])}, calls "
+              f"{json.dumps(t['calls_per_step'])}; step median "
+              f"{t['step_ms_median']:.1f} ms; losses {t['losses']} (rel "
+              f"{t['rel_to_card0']:.3g}); {card_line()}")
     return {"train_multi_card": {
         "world": world, "reference": refs, "ranks": res,
         "reference_s": ref_s, "wall_s": time.perf_counter() - t1}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: REPL / VAL, recovery and the install over split ranks
+# ---------------------------------------------------------------------------
+
+#: 27(a): phase 20's qwen3-0.6b through the split Trainer on one card at
+#: phase 26(a)'s mesh (data 2 x model 1), proactive: two data nodes take
+#: N_r 1. The fail-stop falls at phase 20's step, of node 1 (of 2).
+SPLIT_REP_STEPS = TRAIN_FAIL[0] + 1
+SPLIT_REP_FAIL = (TRAIN_FAIL[0], 1)
+#: 27(c): qwen3-0.6b at data 2 x model 2 over four cards, the same
+#: replication and fail-stop (node 1 is the second node block)
+SPLIT_REP_MESH4 = (2, 2)
+
+
+def split_rep_run(mesh):
+    """Phase 27's run: phase 20's configuration (qwen3-0.6b whole, batch
+    4 x 4 096, remat full, its schedule) at ``mesh``, proactive with N_r
+    1, 4 buckets, phase 20's 2 log slots, no MN dump."""
+    from repro_torch import config
+    return config.RunConfig(
+        model=config.get_model_config(TRAIN_ARCH),
+        shape=config.ShapeConfig("train_4k, batch cut to 4", TRAIN_SEQ,
+                                 TRAIN_BATCH, "train"),
+        mesh=config.MeshConfig(mesh, ("data", "model")),
+        replication=config.ReplicationConfig(
+            variant="proactive", n_replicas=1, n_buckets=4,
+            log_capacity=TRAIN_LOG_CAPACITY, dump_interval=10 ** 9),
+        train=config.TrainConfig(total_steps=TRAIN_STEPS, warmup_steps=2,
+                                 remat="full"))
+
+
+def ring_reckoning(torch, engine) -> int:
+    """The bytes a rank's ring must hold: its nodes x N_r x the log slots
+    x the buckets, each ``bucket_len`` words of the log dtype, an int32
+    timestamp and a valid byte."""
+    lay, rep = engine.layout, engine.rep
+    word = torch.empty((), dtype=engine.log_dtype).element_size()
+    entries = (engine.ctx.nodes_per_rank * engine.local_model_size
+               * rep.n_replicas * rep.log_capacity * lay.n_buckets)
+    return entries * (lay.bucket_len * word + 4 + 1)
+
+
+def split_rep_train(torch, fa, ctx, workdir, fail=None) -> tuple:
+    """``split_rep_run`` through the ``Trainer`` on ``ctx`` (ranks that
+    split ``model``, or card 0 alone without a group) for
+    ``SPLIT_REP_STEPS`` steps; with ``fail`` a fail-stop whose install is
+    handed the rank's blocks NaN where the failed node's parts were (and
+    its replicated leaves): the recovered shard must come from the ring
+    alone and equal the blocks before the failure. Returns the numbers
+    (losses, the replicate's ms a step from CUDA events around the
+    engine's call inside the step, the collectives' bytes and calls a
+    step, the ring's bytes against its reckoning, the recovery) and, on
+    the card, the ring's slots of the last two steps before the failure
+    and the blocks just before it."""
+    import numpy as np
+
+    from repro_torch.core.failures import FailureEvent, FailureInjector
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.training import trainer as trainer_mod
+    run = split_rep_run(ctx.axis_sizes)
+    inj = FailureInjector([FailureEvent(step=fail[0], node=fail[1])]
+                          if fail else [])
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer_mod.Trainer(run, ctx, workdir, injector=inj)
+    eng = tr.engine
+    real_replicate = eng.replicate
+    events, kept = [], {}
+
+    def timed(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_replicate(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    real_install = trainer_mod.install_recovered_shard
+
+    def holed_install(state, specs, engine, result, target_coord):
+        node = engine.joined_index(target_coord)
+        cap = run.replication.log_capacity
+        logs = tr.state.logs
+        kept["ring"] = {
+            step: {"values": logs["values"].select(-3, step % cap).clone(),
+                   "ts": logs["ts"].select(-2, step % cap).clone(),
+                   "valid": logs["valid"].select(-2, step % cap).clone()}
+            for step in (fail[0] - 2, fail[0] - 1)}
+        kept["before"] = [t.detach().clone() for t in
+                          tree_leaves(sharding.locals_of(state))]
+        with torch.no_grad():
+            for leaf in tree_leaves(state):
+                if not isinstance(leaf, sharding.Shard):
+                    leaf.fill_(float("nan"))
+                    continue
+                cut = sharding.node_part(leaf, ctx, node)
+                if cut is not None:
+                    leaf.local[cut] = float("nan")
+        got = real_install(state, specs, engine, result, target_coord)
+        kept["installed_equal"] = all(
+            torch.equal(a.detach(), b) for a, b in
+            zip(tree_leaves(sharding.locals_of(got)), kept["before"]))
+        return got
+
+    eng.replicate = timed
+    trainer_mod.install_recovered_shard = holed_install
+    fa.ops.reset_counts()
+    hist, per_step = [], []
+    try:
+        for _ in range(SPLIT_REP_STEPS):
+            collectives.reset_counts()
+            hist += tr.train(1)
+            per_step.append({"bytes": dict(collectives.BYTES),
+                             "calls": dict(collectives.COUNTS)})
+    finally:
+        trainer_mod.install_recovered_shard = real_install
+        eng.replicate = real_replicate
+    torch.cuda.synchronize()
+    rep_ms = [a.elapsed_time(b) for a, b in events]
+    launches = {"flash_attn": fa.ops.flash_attention.launches,
+                "flash_attn_bwd": fa.ops.flash_attention.bwd_launches,
+                "flash_attn_bwd_by_kernel":
+                    dict(fa.ops.flash_attention.bwd_launches_by_kernel)}
+    ring_bytes = sum(t.numel() * t.element_size()
+                     for t in tr.state.logs.values())
+    rec = [e for e in tr.events if e["event"] == "recovery"]
+    # a step's collectives: step 1's (warm, no recovery in it)
+    step_bytes = {k: v for k, v in per_step[1]["bytes"].items() if v}
+    step_calls = {k: v for k, v in per_step[1]["calls"].items() if v}
+    recovery_bytes = ({k: v for k, v in per_step[fail[0]]["bytes"].items()
+                       if k in ("gather_rows", "model_rows", "share") and v}
+                      if fail else {})
+    rep_alone = cuda_ms(lambda: eng.replicate(
+        tr.state.params, tr.state.logs, tr.state.step, tr.state.params), 3)
+    out = {"losses": [h["loss"] for h in hist],
+           "step_walls_s": [h["wall_s"] for h in hist],
+           "step_ms_median": float(np.median([h["wall_s"] for h in hist][
+               1:])) * 1e3,
+           "replicate_ms_in_step": rep_ms,
+           "replicate_ms_median": float(np.median(rep_ms[1:])),
+           "replicate_ms": rep_alone,
+           "bytes_per_step": step_bytes, "calls_per_step": step_calls,
+           "recovery_bytes": recovery_bytes,
+           "ring_bytes": ring_bytes,
+           "ring_reckoning_bytes": ring_reckoning(torch, eng),
+           "recovery": ({"stats": rec[0]["stats"], "wall_s": rec[0]["wall_s"],
+                         "cm_rank": rec[0].get("cm_rank")} if rec else None),
+           "installed_equal": kept.get("installed_equal"),
+           "launches": launches,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "block": ctx.block, "model_rank": ctx.model_rank}
+    del tr, eng
+    return out, {"ring": kept.get("ring"), "before": kept.get("before")}
+
+
+def phase_split_replicate(torch, fa, lc, lc_ref, group, ranks23,
+                          installed23) -> dict:
+    """Phase 27(a): phase 20's qwen3-0.6b through the split ``Trainer``
+    at mesh 2 x 1 on phase 23's one-rank group, variant proactive, a
+    fail-stop of node 1 at step 3. The ring's slot of step 2 ``==`` the
+    one of phase 23(b)'s parameters at that step (``installed23``, its
+    parameters just after its install at step 3) laid out at this mesh by
+    the engine without a group; the recovered blocks ``==`` those before
+    the failure; the ring's newest slot dumped through ``log_compress``
+    against the slot before it, ``==`` the plain version; the replicate
+    beside 23(b)'s."""
+    import shutil
+    import tempfile
+
+    from repro_torch import config
+    from repro_torch.core.replication import ReplicationEngine
+    from repro_torch.distributed.context import make_context
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import tree_leaves, tree_rebuild
+    print(f"phase 27(a): {TRAIN_ARCH} at phase 20's configuration through "
+          f"the split Trainer at mesh {SPLIT_ONE_MESH[0]}x"
+          f"{SPLIT_ONE_MESH[1]} on phase 23's one-rank group, variant "
+          f"proactive (N_r 1), {SPLIT_REP_STEPS} steps, node "
+          f"{SPLIT_REP_FAIL[1]} failed at step {SPLIT_REP_FAIL[0]}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = make_context(SPLIT_ONE_MESH, ("data", "model"), device=DEVICE,
+                       group=group, split_model=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_split_rep_")
+    try:
+        got, extras = split_rep_train(torch, fa, ctx, workdir,
+                                      SPLIT_REP_FAIL)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    cfg = config.get_model_config(TRAIN_ARCH)
+    n = cfg.n_layers * SPLIT_REP_STEPS
+    la = got["launches"]
+    check(la["flash_attn"] == 2 * n and la["flash_attn_bwd"] == n
+          and la["flash_attn_bwd_by_kernel"] == {"mma": n, "simt": 0},
+          f"flash_attn launched {la['flash_attn']} times forward and "
+          f"{la['flash_attn_bwd']} backward over {SPLIT_REP_STEPS} steps "
+          f"({2 * n} and {n} on the tensor cores expected)")
+    rec = got["recovery"]
+    check(rec is not None and rec["stats"]["unrecoverable"] == 0
+          and rec["stats"]["recovered_from_replicas"] > 0,
+          f"node {SPLIT_REP_FAIL[1]} failed at step {SPLIT_REP_FAIL[0]} and "
+          f"was recovered from the ring: {rec and rec['stats']}")
+    check(got["installed_equal"] is True,
+          "the recovered shard, installed into the rank's blocks NaN where "
+          "the node's parts were, == the blocks before the failure")
+    check(got["ring_bytes"] == got["ring_reckoning_bytes"],
+          f"the rank's ring holds {got['ring_bytes']} B, its reckoning "
+          f"{got['ring_reckoning_bytes']} B")
+    want_losses = ranks23["losses"][:SPLIT_REP_STEPS]
+    got["phase23_losses"] = want_losses
+    # phase 23(b)'s parameters at step 2 laid out at this mesh: the ring
+    # slot the engine without a group writes from them
+    params = tree_rebuild(build_model(cfg).init(SEED, device="meta"),
+                          [t.to(DEVICE) for t in installed23])
+    one_ctx = make_context(SPLIT_ONE_MESH, ("data", "model"), device=DEVICE)
+    one = ReplicationEngine(split_rep_run(SPLIT_ONE_MESH).replication,
+                            one_ctx, param_specs(params, cfg, one_ctx),
+                            params)
+    logs = one.replicate(params, one.init_logs(), SPLIT_REP_FAIL[0] - 1,
+                         params)[0]
+    slot = (SPLIT_REP_FAIL[0] - 1) % TRAIN_LOG_CAPACITY
+    ring = extras["ring"][SPLIT_REP_FAIL[0] - 1]
+    want = {"values": logs["values"].select(-3, slot),
+            "ts": logs["ts"].select(-2, slot),
+            "valid": logs["valid"].select(-2, slot)}
+    param_dist = max(float((a.float() - b.to(DEVICE).float()).abs().max())
+                     for a, b in zip(extras["before"], installed23))
+    ring_dist = float((ring["values"].float()
+                       - want["values"].float()).abs().max())
+    same_ring = all(torch.equal(ring[k], want[k]) for k in want)
+    got["params_distance_to_phase23"] = param_dist
+    got["ring_distance_to_phase23"] = ring_dist
+    print(f"  losses {got['losses']} (phase 23(b)'s first {SPLIT_REP_STEPS}"
+          f" {want_losses}); the blocks before the failure "
+          f"{param_dist} from phase 23(b)'s parameters at that step, the "
+          f"ring's step-{SPLIT_REP_FAIL[0] - 1} slot {ring_dist} from the "
+          f"one they give at this mesh")
+    if param_dist == 0.0:
+        check(same_ring, "the ring's slot (values, ts, valid) == the one "
+              "phase 23(b)'s parameters give at this mesh, bit for bit")
+    else:
+        check(all(torch.equal(ring[k], want[k]) for k in ("ts", "valid"))
+              and ring_dist <= param_dist,
+              f"the parameters are not phase 23(b)'s bit for bit "
+              f"({param_dist}): the ring's ts and valid bits ==, its "
+              f"values within that distance ({ring_dist})")
+    del logs, want, params, one
+    # the rank's newest ring entry dumped against the one before it
+    lc.compress.launches = lc.decompress.launches = 0
+    newest = ring["values"].reshape(-1).float()
+    base = extras["ring"][SPLIT_REP_FAIL[0] - 2]["values"].reshape(-1).float()
+    t0 = time.perf_counter()
+    dump_err = compare_compress(torch, lc, lc_ref, newest, base, 8,
+                                "27(a): the rank's ring entry dumped at 8 "
+                                "bits against the entry before it")
+    dump_s = time.perf_counter() - t0
+    got["dump"] = {"words": newest.numel(), "max_abs_err": dump_err,
+                   "wall_s_with_plain": dump_s,
+                   "launches": (lc.compress.launches,
+                                lc.decompress.launches)}
+    check(got["dump"]["launches"] == (1, 1),
+          f"the ring's dump launched compress and decompress "
+          f"{got['dump']['launches']} times")
+    del newest, base, extras
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  replicate {got['replicate_ms']:.3f} ms on the trained state "
+          f"(CUDA events, mean of 3; phase 23(b) {ranks23['replicate_ms']:.3f}"
+          f" ms at 4 x 2 with N_r 2), {got['replicate_ms_median']:.3f} ms "
+          f"inside a step (median of steps 1-{SPLIT_REP_STEPS - 1}); step "
+          f"median {got['step_ms_median']:.1f} ms (phase 23(b) "
+          f"{ranks23['step_ms_median']:.1f}); ring {got['ring_bytes']} B; "
+          f"recovery {rec['wall_s']:.3f} s, its collectives "
+          f"{got['recovery_bytes']} B; the dump of {got['dump']['words']} "
+          f"words == the plain version; a step's collectives (B) "
+          f"{json.dumps(got['bytes_per_step'])}; peak {got['peak_bytes']} B;"
+          f" {card_line()}")
+    got["phase23_replicate_ms"] = ranks23["replicate_ms"]
+    return got
 
 
 def multi_card_only(torch, fa, ssd, which: str, sim) -> int:
@@ -6867,8 +7273,8 @@ def multi_card_only(torch, fa, ssd, which: str, sim) -> int:
     card 0 without a group (the reference losses), then phase 23(c)
     alone; for ``"cells"``, phases 4 and 13 on card 0 (the reference),
     then phase 24(e) alone; for ``"serve"``, phase 25(c) alone (its
-    one-card reference on card 0 first); for ``"train"``, phase 26(c)
-    alone (card 0's runs first); ``"all"`` runs the four."""
+    one-card reference on card 0 first); for ``"train"``, phases 26(c)
+    and 27(c) alone (card 0's runs first); ``"all"`` runs the four."""
     check(torch.cuda.device_count() > 1,
           f"--multi-card-only: {torch.cuda.device_count()} cards, needs 2+")
     if which in ("all", "serve"):
@@ -6962,8 +7368,8 @@ def main(argv=None) -> int:
                     "run phases 4 and 13 on card 0 for the reference and "
                     "phase 24(e) alone; 'serve': phase 25(c) alone (four "
                     "cards), its one-card reference on card 0 first; "
-                    "'train': phase 26(c) alone (four cards), card 0's "
-                    "runs first; 'all' (the default): the four")
+                    "'train': phases 26(c) and 27(c) alone (four cards), "
+                    "card 0's runs first; 'all' (the default): the four")
     args = ap.parse_args(argv)
 
     import torch
@@ -7112,13 +7518,17 @@ def main(argv=None) -> int:
     vlm = phase_serve_family(torch, serve_mod, fa, attn, 19, VLM_ARCH,
                              VLM_BATCH, VLM_PROMPT, VLM_GEN, VLM_F32_LAYERS)
     train, train_installed = phase_train(torch, fa, attn, ssd)
-    ranks["train"] = phase_ranks_train(torch, fa, ssd, group, train["train"],
-                                       train_installed)
+    ranks["train"], installed23 = phase_ranks_train(
+        torch, fa, ssd, group, train["train"], train_installed)
     del train_installed
     gc.collect()
     split = {"one": phase_split_one(torch, fa, ssd, group, ranks["train"]),
              "kernels": phase_tp_train_kernels(torch, fa, ssd, attn,
                                                ssm_mod)}
+    gc.collect()
+    split["replicate"] = phase_split_replicate(torch, fa, lc, lc_ref, group,
+                                               ranks["train"], installed23)
+    del installed23
     gc.collect()
     fam = phase_train_families(torch, fa, attn, ssd, ssm_mod)
     launch = phase_launch_paths(torch, fa, ssd, train, fam)
@@ -7209,11 +7619,14 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/log_compress.cu",
         "replaces": f"src/repro/kernels/log_compress/kernel.py:{line}",
         "launches": (paper["launches"][i]
-                     + ranks["mechanism"]["launches"][i]),
+                     + ranks["mechanism"]["launches"][i]
+                     + split["replicate"]["dump"]["launches"][i]),
         "paths": [{"path": "phase 7: the paper-width dump",
                    "launches": paper["launches"][i]},
                   {"path": "phase 23(a): the rank's dump, rank-aware path",
-                   "launches": ranks["mechanism"]["launches"][i]}],
+                   "launches": ranks["mechanism"]["launches"][i]},
+                  {"path": "phase 27(a): the split rank's ring entry",
+                   "launches": split["replicate"]["dump"]["launches"][i]}],
         "max_abs_err": max(err5, paper["max_abs_err"]),
         "ms": paper[f"{op}_ms"], "plain_ms": paper[f"{op}_plain_ms"],
         "bound_ms": paper["bound_ms"], "bound_by": paper["bound_by"],
@@ -7288,7 +7701,11 @@ def main(argv=None) -> int:
         {"path": f"{TRAIN_ARCH} train through the split path, mesh "
                  f"{SPLIT_ONE_MESH[0]}x{SPLIT_ONE_MESH[1]}, "
                  f"{SPLIT_ONE_STEPS} steps (phase 26(a))",
-         "launches": split["one"]["launches"]["flash_attn"]}] + [
+         "launches": split["one"]["launches"]["flash_attn"]},
+        {"path": f"{TRAIN_ARCH} train through the split path, proactive, "
+                 f"a fail-stop recovered, {SPLIT_REP_STEPS} steps (phase "
+                 f"27(a))",
+         "launches": split["replicate"]["launches"]["flash_attn"]}] + [
         {"path": f"{arch} train, {len(t['losses'])} steps (forward and "
                  f"remat's recompute)",
          "launches": t["launches"]["flash_attn"]}
@@ -7316,13 +7733,15 @@ def main(argv=None) -> int:
             t["launches"]["flash_attn_bwd"] for t in fam["train"].values())
         + ex100m["launches"]["backward"]
         + ranks["train"]["launches"]["backward"]
-        + split["one"]["launches"]["flash_attn_bwd"],
+        + split["one"]["launches"]["flash_attn_bwd"]
+        + split["replicate"]["launches"]["flash_attn_bwd"],
         "launches_by_kernel": {
             k: v + sum(t["launches"]["flash_attn_bwd_by_kernel"][k]
                        for t in fam["train"].values())
             + ex100m["launches"]["backward_by_kernel"][k]
             + ranks["train"]["launches"]["backward_by_kernel"][k]
             + split["one"]["launches"]["flash_attn_bwd_by_kernel"][k]
+            + split["replicate"]["launches"]["flash_attn_bwd_by_kernel"][k]
             for k, v in train["train"]["launches"][
                 "backward_by_kernel"].items()},
         "paths": [{"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps",
@@ -7339,7 +7758,10 @@ def main(argv=None) -> int:
             {"path": f"{TRAIN_ARCH} train through the split path, mesh "
                      f"{SPLIT_ONE_MESH[0]}x{SPLIT_ONE_MESH[1]}, "
                      f"{SPLIT_ONE_STEPS} steps (phase 26(a))",
-             "launches": split["one"]["launches"]["flash_attn_bwd"]}],
+             "launches": split["one"]["launches"]["flash_attn_bwd"]},
+            {"path": f"{TRAIN_ARCH} train through the split path, "
+                     f"proactive, {SPLIT_REP_STEPS} steps (phase 27(a))",
+             "launches": split["replicate"]["launches"]["flash_attn_bwd"]}],
         "kernel": bwd_main["kernel"],
         "kernels": {"mma": "bf16: flash_attn_bwd_dkdv_mma_kernel + "
                            "flash_attn_bwd_dq_mma_kernel, tensor cores "

@@ -31,6 +31,16 @@ each rank walks Algorithm 2 over the replica nodes it holds, the small
 -- the recovering one included -- picks the same latest valid version a
 bucket, and the rank holding it broadcasts its values. Every rank
 returns the same :class:`RecoveryResult`, ``==`` the one-card one.
+
+Across ranks that split ``model`` each rank walks its own ``model``
+position of its replica nodes: an entry's validity is ANDed over the
+``model`` group (a version counts only when every position validated
+it, as the one-card walk requires of every ``model`` coordinate), the
+timestamp is the last position's, and the rows are summed over the
+FSDP group. Each position's row of the winning version is broadcast
+within its own FSDP group, so a rank's :class:`RecoveredShard` holds
+its position's row (``model_pos``); the stats and message log are every
+rank's, and the positions' rows, in order, are the one-card values.
 """
 
 from __future__ import annotations
@@ -61,11 +71,14 @@ from repro_torch.distributed import collectives
 
 @dataclasses.dataclass
 class RecoveredShard:
-    """One recovered (node, bucket) shard, per model-axis coordinate."""
+    """One recovered (node, bucket) shard, per model-axis coordinate:
+    every one, or, across ranks that split ``model``, the rank's
+    position ``model_pos`` alone."""
     bucket: int
     ts: int
     source: str                       # "replica:<rank>" | "mn_dump"
     values: torch.Tensor              # (n_model, bucket_len), ring's device
+    model_pos: Optional[int] = None   # the one row's position, if split
 
 
 @dataclasses.dataclass
@@ -99,7 +112,7 @@ def algorithm2_versions(engine: ReplicationEngine,
     entry counts only when every model coordinate validated it; the
     version's values are ``fetch_version(logs, ...)``."""
     axes = engine.mesh_axes
-    n_model = engine.ctx.model_size
+    n_model = engine.local_model_size
     out: List[Tuple[int, int]] = []
     for slot in range(engine.rep.log_capacity):
         ok, ts = True, -1
@@ -118,12 +131,13 @@ def algorithm2_versions(engine: ReplicationEngine,
 def fetch_version(engine: ReplicationEngine, logs: Dict[str, torch.Tensor],
                   replica_coord: Tuple[int, ...], rank: int, slot: int,
                   bucket: int) -> torch.Tensor:
-    """One logged version's values, ``(n_model, bucket_len)``, read from
-    the ring on its device."""
+    """One logged version's values, ``(n_model, bucket_len)`` (the rank's
+    one position where the ranks split ``model``), read from the ring on
+    its device."""
     return torch.stack([
         logs["values"][_lead_index(engine.mesh_axes, replica_coord, m)
                        + (rank, slot, bucket)]
-        for m in range(engine.ctx.model_size)])
+        for m in range(engine.local_model_size)])
 
 
 def _lead_index(axes: Sequence[str], node_coord: Tuple[int, ...],
@@ -150,6 +164,14 @@ def _walk_replicas(engine: ReplicationEngine, logs: Dict[str, torch.Tensor],
     copy of the global ring, ``src/repro/core/recovery.py:133``)."""
     host = host_index(logs)
     rows = np.zeros((len(queries), 3), np.int64)   # 0 rows: never asked
+    if engine.ctx.split_model:
+        found = _split_versions(engine, host, [
+            (engine.local_coord(coord), r, bucket)
+            for bucket, r, _, coord in queries])
+        for i, versions in enumerate(found):
+            if versions:
+                rows[i] = (len(versions),) + versions[0]
+        return collectives.gather_rows(rows, engine.ctx)
     for i, (bucket, r, _, coord) in enumerate(queries):
         local = engine.local_coord(coord)
         if local is None:
@@ -160,18 +182,57 @@ def _walk_replicas(engine: ReplicationEngine, logs: Dict[str, torch.Tensor],
     return collectives.gather_rows(rows, engine.ctx)
 
 
+def _split_versions(engine: ReplicationEngine, host: Dict[str, np.ndarray],
+                    items: Sequence[Tuple[Optional[Tuple[int, ...]], int,
+                                          int]]
+                    ) -> List[List[Tuple[int, int]]]:
+    """:func:`algorithm2_versions` across ranks that split ``model``, for
+    each ``(local coordinate or None, replica rank, bucket)``: a slot
+    counts when it is valid at every ``model`` position, with the last
+    position's timestamp. This rank's position's bits are summed over the
+    ``model`` group (one ``all_reduce``; the ranks of a block hold the
+    same nodes, so an item is held at every position or at none)."""
+    ctx = engine.ctx
+    cap = engine.rep.log_capacity
+    table = np.zeros((len(items), cap, 2), np.int64)
+    last = ctx.model_rank == ctx.model_size - 1
+    for i, (local, r, bucket) in enumerate(items):
+        if local is None:
+            continue
+        idx = _lead_index(engine.mesh_axes, local, 0) + (r, slice(None),
+                                                           bucket)
+        table[i, :, 0] = host["valid"][idx]
+        if last:
+            table[i, :, 1] = host["ts"][idx]
+    table = collectives.model_rows(table, ctx)
+    out = []
+    for valid, ts in zip(table[..., 0] == ctx.model_size, table[..., 1]):
+        versions = [(int(ts[s]), s) for s in range(cap)
+                    if valid[s] and ts[s] >= 0]
+        versions.sort(key=lambda p: -p[0])
+        out.append(versions)
+    return out
+
+
 def _fetch(engine: ReplicationEngine, logs: Dict[str, torch.Tensor],
            coord: Tuple[int, ...], rank: int, slot: int,
            bucket: int) -> torch.Tensor:
     """:func:`fetch_version` of the node at ``coord``, read on the rank
-    that holds it and broadcast to every rank."""
+    that holds it (at this rank's ``model`` position where the ranks
+    split the axis) and broadcast to every rank (of that position)."""
     local = engine.local_coord(coord)
     vals = (None if local is None else
             fetch_version(engine, logs, local, rank, slot, bucket))
     return collectives.share(
         vals, engine.owner_rank(coord),
-        (engine.ctx.model_size, engine.layout.bucket_len),
+        (engine.local_model_size, engine.layout.bucket_len),
         logs["values"].dtype, engine.ctx)
+
+
+def _position(engine: ReplicationEngine) -> Optional[int]:
+    """The ``model`` position of a rank's recovered rows (``None``: it
+    holds every position)."""
+    return engine.ctx.model_rank if engine.ctx.split_model else None
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +260,8 @@ def recover_node(engine: ReplicationEngine,
     ring index and raises ``IndexError`` (ROADMAP C5); without that ring
     the two agree. Across ranks (the JAX package's ``recover_node``,
     ``src/repro/core/recovery.py:119``) every rank runs it on its own
-    logs and returns the same result.
+    logs and returns the same result; across ranks that split ``model``
+    the same stats and message log, and its position's rows.
     """
     msg_log: List[Tuple[MsgType, Any]] = []
     failed = engine.ring_index(failed_coord)
@@ -247,7 +309,8 @@ def recover_node(engine: ReplicationEngine,
             candidates.sort(key=lambda c: -c[0])
             ts, (t_coord, r, slot), src = candidates[0]
             vals = _fetch(engine, logs, t_coord, r, slot, bucket)
-            shards[bucket] = RecoveredShard(bucket, ts, src, vals)
+            shards[bucket] = RecoveredShard(bucket, ts, src, vals,
+                                            _position(engine))
             n_from_replicas += 1
         elif mn_dump is not None and bucket in mn_dump:
             step, vals = mn_dump[bucket]
@@ -285,7 +348,7 @@ def _newest_parity(engine: ReplicationEngine, host: Dict[str, np.ndarray],
     best_ts, best_slot = -1, 0
     for slot in range(engine.rep.log_capacity):
         ok, ts = True, -1
-        for m in range(engine.ctx.model_size):
+        for m in range(engine.local_model_size):
             idx = _lead_index(engine.mesh_axes, coord, m) + (0, slot, bucket)
             if not host["valid"][idx]:
                 ok = False
@@ -311,7 +374,9 @@ def recover_node_parity(engine: ReplicationEngine,
     walks its log, and the parity version and each survivor's packed
     state are broadcast from the ranks that hold them, so every rank
     subtracts in the one-card order (the JAX package's
-    ``recover_node_parity``, ``src/repro/core/recovery.py:203``).
+    ``recover_node_parity``, ``src/repro/core/recovery.py:203``). Across
+    ranks that split ``model`` (``state`` the rank's ``Shard`` tree) each
+    position recovers its own rows, as :func:`recover_node` does.
     """
     if engine.rep.mode != "parity":
         raise ValueError("recover_node_parity needs a parity-mode engine")
@@ -329,16 +394,23 @@ def recover_node_parity(engine: ReplicationEngine,
     # holder's rank (Algorithm 2 over one log)
     host = host_index(logs)
     rows = np.full((nb, 2), 0, np.int64)
-    for b, h_coord in enumerate(holders):
-        local = engine.local_coord(h_coord)
-        if local is not None:
+    locals_ = [engine.local_coord(h) for h in holders]
+    if engine.ctx.split_model:
+        found = _split_versions(engine, host, [
+            (loc, 0, b) for b, loc in enumerate(locals_)])
+    for b, local in enumerate(locals_):
+        if local is None:
+            continue
+        if engine.ctx.split_model:
+            best = found[b][0] if found[b] else (-1, 0)
+        else:
             best = _newest_parity(engine, host, local, b)
-            rows[b] = (best[0] + 1, best[1])
+        rows[b] = (best[0] + 1, best[1])
     rows = collectives.gather_rows(rows, engine.ctx)
     # each survivor's packed state, (n_model, n_buckets, bucket_len), from
     # the rank that holds it
     payload = engine.payloads(state)          # (*local nodes, nb, bl)
-    n_model = engine.ctx.model_size
+    n_model = engine.local_model_size
     axes = engine.mesh_axes
     survivors = []
     for coord in members:
@@ -366,7 +438,7 @@ def recover_node_parity(engine: ReplicationEngine,
                 lost[m] -= block[m, b].double()
         holder = engine.parity_holder(group, b)
         shards[b] = RecoveredShard(b, best_ts, f"parity@node{holder}",
-                                   lost.float())
+                                   lost.float(), _position(engine))
         msg_log.append((MsgType.FETCH_LATEST_VERS_RESP,
                         {"from": holder, "bucket": b, "ts": best_ts}))
     msg_log.append((MsgType.RECOV_END, {}))

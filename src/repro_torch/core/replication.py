@@ -55,6 +55,20 @@ arrived, and a node's ``ts`` / ``valid`` are written only where a VAL
 was received; parity is a grouped ``psum`` and a ``ppermute`` to the
 holder. Without a group every pair is local and no ``torch.distributed``
 call is made. The three variants still write one ring.
+
+**Across ranks that split ``model``** (``make_context(...,
+split_model=True)``) a rank holds one ``model`` position of a block of
+nodes, and its parameters are ``sharding.Shard`` blocks. Its ring is the
+JAX package's global ring at its block and position, ``values (*local
+nodes, 1, N_r, capacity, n_buckets, bucket_len)``; its payload of each
+local node is that node's part of each ``Shard.local``
+(``sharding.node_part``: the node's storage part of a dimension over
+(pod, data), whole along one ``model`` splits) and every replicated
+leaf whole -- the block the reference's region gets on that (node,
+position) device. REPL, VAL and parity run between the ranks at the
+rank's position (the FSDP group, ``MeshContext.rank_of``), as the
+reference's region runs its ``data``-axis collectives at each ``model``
+coordinate apart.
 """
 
 from __future__ import annotations
@@ -68,7 +82,7 @@ import torch
 from repro_torch.config import ReplicationConfig
 from repro_torch.core import replica_groups
 from repro_torch.core.directory import ShardDirectory
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.context import MeshContext, P
 
 LogState = Dict[str, torch.Tensor]
@@ -141,14 +155,12 @@ class ReplicationEngine:
     """One engine per run; stateless apart from its static layout.
 
     ``param_specs`` is a tree of :class:`P` matching ``global_params``
-    (a tree of tensors, or of anything with a ``.shape``)."""
+    (a tree of tensors, or of anything with a ``.shape``: across ranks
+    that split ``model``, the tree of ``Shard``s and replicated tensors,
+    whose ``.shape`` is the global one)."""
 
     def __init__(self, rep: ReplicationConfig, ctx: MeshContext,
                  param_specs: Any, global_params: Any):
-        if ctx.split_model:
-            raise NotImplementedError(
-                "replication over ranks that split the model axis (A4(d2b2) "
-                "in ROADMAP.md): a rank must hold whole nodes")
         self.rep = rep
         self.ctx = ctx
         self.mesh_axes = ctx.axis_names
@@ -185,8 +197,19 @@ class ReplicationEngine:
     # ------------------------------------------------------------------
     @property
     def _lead(self) -> Tuple[int, ...]:
-        """The leading node dimensions of this rank's tensors."""
+        """The leading node dimensions of this rank's tensors: its block
+        of every axis (one ``model`` position where the ranks split
+        it)."""
         return self.ctx.local_sizes
+
+    @property
+    def local_model_size(self) -> int:
+        """The ``model`` coordinates of this rank's tensors: every one,
+        or the rank's one where the ranks split the axis."""
+        if self.ctx.model_axis is None:
+            return 1
+        return self.ctx.local_sizes[
+            self.ctx.axis_names.index(self.ctx.model_axis)]
 
     def node_coord(self, ring: int, pod: int = 0) -> Tuple[int, ...]:
         """Ring index -> the node's ``(pod?, data)`` coordinate. Without
@@ -233,9 +256,12 @@ class ReplicationEngine:
         return tuple(c - starts[a]
                      for a, c in zip(self.ctx.batch_axes, coord))
 
-    def owner_rank(self, coord: Sequence[int]) -> int:
-        """The rank holding the node at ``coord``."""
-        return self.ctx.owner(self.joined_index(coord))
+    def owner_rank(self, coord: Sequence[int],
+                   model_pos: Optional[int] = None) -> int:
+        """The rank holding the node at ``coord`` (at ``model`` position
+        ``model_pos``, by default this rank's, where the ranks split
+        the axis)."""
+        return self.ctx.rank_of(self.joined_index(coord), model_pos)
 
     def _layout(self, global_params: Any, specs: Any) -> EngineLayout:
         mesh_shape = self.ctx.shape
@@ -414,19 +440,55 @@ class ReplicationEngine:
         self._fill_bucket(out, list(local_leaves), bucket, 0)
         return out
 
+    def split_blocks(self, leaf: Any) -> torch.Tensor:
+        """Across ranks that split ``model``: each local node's block of
+        ``leaf`` at this rank's position, ``(*nodes, *local_shape)``, cut
+        from a ``Shard``'s ``local`` (``sharding.node_part``; a view
+        where the nodes' parts are consecutive), or a replicated tensor
+        whole."""
+        ctx = self.ctx
+        k = ctx.nodes_per_rank
+        if not isinstance(leaf, sharding.Shard):
+            x = leaf.expand((k,) + tuple(leaf.shape))
+            return x.reshape(self._lead + tuple(leaf.shape))
+        cuts = [sharding.node_part(leaf, ctx, ctx.block * k + j)
+                for j in range(k)]
+        if any(c is None for c in cuts):
+            raise ValueError(f"rank {ctx.rank} does not store its nodes' "
+                             f"blocks of a leaf of spec {leaf.spec}")
+        x = leaf.local
+        dims = [d for d, c in enumerate(cuts[0]) if c != slice(None)]
+        d = dims[0] if len(dims) == 1 else None
+        if not dims:
+            x = x.expand((k,) + tuple(x.shape))
+        elif d is not None and [c[d].start for c in cuts] == [
+                cuts[0][d].start + j * (cuts[0][d].stop - cuts[0][d].start)
+                for j in range(k)]:            # consecutive parts: a view
+            step = cuts[0][d].stop - cuts[0][d].start
+            x = x.narrow(d, cuts[0][d].start, k * step).unflatten(
+                d, (k, step)).movedim(d, 0)
+        else:
+            x = torch.stack([x[c] for c in cuts])
+        return x.reshape(self._lead + tuple(x.shape[1:]))
+
     def payloads(self, updates: Any) -> torch.Tensor:
         """Every node's packed update, ``(*nodes, n_buckets, bucket_len)``
-        in the log dtype, from the global tree ``updates``."""
+        in the log dtype, from the global tree ``updates`` (across ranks
+        that split ``model``, the tree of ``Shard``s and replicated
+        tensors: the rank's nodes at its position, :meth:`split_blocks`)."""
         leaves, _ = tree_flatten(updates)
         shapes = tuple(tuple(x.shape) for x in leaves)
         if shapes != self._global_shapes:
             raise ValueError(f"update leaf shapes {shapes} are not the "
                              f"engine's {self._global_shapes}")
-        blocks = [self.local_blocks(x, s)
-                  for x, s in zip(leaves, self._spec_leaves)]
+        if self.ctx.split_model:
+            blocks = [self.split_blocks(x) for x in leaves]
+        else:
+            blocks = [self.local_blocks(x, s)
+                      for x, s in zip(leaves, self._spec_leaves)]
         lay = self.layout
         out = torch.empty(self._lead + (lay.n_buckets, lay.bucket_len),
-                          dtype=self.log_dtype, device=leaves[0].device)
+                          dtype=self.log_dtype, device=blocks[0].device)
         for b in range(lay.n_buckets):
             self._fill_bucket(out[..., b, :], blocks, b, len(self._lead))
         return out
@@ -527,7 +589,10 @@ class ReplicationEngine:
         The JAX region (``src/repro/core/replication.py:298-414``) with
         its ``ppermute`` / ``psum`` as collectives over this rank's nodes
         (every node without a group), node-major (``(nodes, [model,]
-        ...)``), the ring written in place through views.
+        ...)``), the ring written in place through views. Across ranks
+        that split ``model``, ``updates`` is the tree of the rank's
+        ``Shard`` blocks (the step's updated ones) and the collectives
+        run at its position.
         """
         if not self.rep.is_replicating:
             return logs, commit_value
@@ -547,7 +612,7 @@ class ReplicationEngine:
         if self.rep.mode == "parity":
             # psum over each group, then member 0 forwards the parity to
             # the bucket's holder; every other node receives zeros.
-            lo = ctx.rank * k
+            lo = ctx.block * k
             groups = self.parity_groups()
             for b in range(nb):
                 par = self._group_sum(payload[..., b, :].float())
@@ -559,7 +624,7 @@ class ReplicationEngine:
                 lv[..., 0, slot, b, :] = recv.to(lv.dtype)
                 holder = torch.zeros(k, dtype=torch.bool)
                 for _, t in perm:
-                    if ctx.owner(t) == ctx.rank:
+                    if ctx.owner(t) == ctx.block:
                         holder[t - lo] = True
                 holder = holder.to(lt.device).reshape(
                     (k,) + (1,) * (lt.dim() - 4))

@@ -38,6 +38,31 @@ only). Each call that moves data adds one to ``COUNTS[name]``, a
 backward's under ``name + "_bwd"``; a group of one rank moves nothing
 and counts nothing. Under ``remat="full"`` a layer's forward
 collectives run again inside the backward, and count again.
+
+Each such call also adds its link bytes to ``BYTES[name]``, under the
+reference's ring-effective rules (``collective_bytes``,
+``src/repro/launch/costing.py:327-337``), ``out`` the call's output on
+this rank and ``n`` its group's ranks: an all-gather ``out (n - 1) /
+n``, a reduce-scatter ``out (n - 1)``, an all-reduce ``out 2 (n - 1) /
+n``, a permute (REPL, VAL, the parity forward) its payload -- every
+node of the rank, as the reference counts a ``collective-permute`` on
+every device, whether or not the peer is another rank -- and a
+broadcast (recovery's :func:`share`) its payload. Beside the
+collectives above they count the train step's other sums:
+:func:`all_reduce_sum` (the gradient buckets), ``rank_weight`` (the
+loss tokens, ``training/steps.py``), ``grad_norm`` (the global norm's
+sum of squares, ``optim/optimizers.py``), the parity shard's
+cross-rank sum (``group_sum``) and recovery's tables
+(``gather_rows``, ``model_rows``).
+
+Across ranks that split ``model`` the node-indexed collectives
+(:func:`ppermute`, :class:`GroupSum`, :func:`gather_rows`,
+:func:`share`) run within the FSDP group -- the ranks at this rank's
+``model`` position, each holding a block of nodes -- as the reference's
+``shard_map`` region runs its ``data``-axis collectives at each
+``model`` coordinate; the ranks are named by
+``MeshContext.rank_of``, the local node indices by the rank's node
+block.
 """
 
 from __future__ import annotations
@@ -63,12 +88,46 @@ GRAD_BUCKET_BYTES = 64 << 20
 COUNTS: Dict[str, int] = {"model_sum": 0, "fsdp_gather": 0,
                           "model_gather": 0, "attn_merge": 0,
                           "model_copy_bwd": 0, "model_sum_shared_bwd": 0,
-                          "fsdp_gather_bwd": 0}
+                          "fsdp_gather_bwd": 0, "all_reduce_sum": 0,
+                          "rank_weight": 0, "grad_norm": 0,
+                          "ppermute": 0, "group_sum": 0, "gather_rows": 0,
+                          "model_rows": 0, "share": 0}
+
+#: the link bytes of those calls, by the same names (module docstring)
+BYTES: Dict[str, float] = dict.fromkeys(COUNTS, 0.0)
 
 
 def reset_counts() -> None:
+    """Zero ``COUNTS`` and ``BYTES``."""
     for k in COUNTS:
         COUNTS[k] = 0
+        BYTES[k] = 0.0
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _size(group: Any) -> int:
+    return dist.get_world_size(group)
+
+
+def _account(name: str, nbytes: float) -> None:
+    """One call of ``name`` that moved ``nbytes`` link bytes."""
+    COUNTS[name] += 1
+    BYTES[name] += float(nbytes)
+
+
+def _reduced(x: torch.Tensor, group: Any) -> float:
+    """An all-reduce's link bytes: ``out 2 (n - 1) / n``."""
+    n = _size(group)
+    return _nbytes(x) * 2 * (n - 1) / n
+
+
+def _gathered(out_bytes: float, group: Any) -> float:
+    """An all-gather's link bytes: ``out (n - 1) / n``."""
+    n = _size(group)
+    return out_bytes * (n - 1) / n
 
 
 def _global(ctx: MeshContext, rank: int) -> int:
@@ -100,15 +159,21 @@ def ppermute(x: torch.Tensor, out: torch.Tensor,
     this rank holds become slice copies, merged into runs; the rest go
     in one ``dist.batch_isend_irecv`` of one message per peer rank. Local
     nodes no pair targets get zeros, as ``ppermute`` gives them. Returns
-    the bool mask of the local nodes that received, on the host."""
+    the bool mask of the local nodes that received, on the host.
+
+    Across ranks that split ``model`` the pairs run between the ranks at
+    this rank's ``model`` position (``ctx.rank_of``): the reference's
+    region permutes each ``model`` coordinate's block apart."""
     k, me = ctx.nodes_per_rank, ctx.rank
-    lo = me * k
+    lo = ctx.block * k
     local: List[Tuple[int, int]] = []
     sends: Dict[int, List[int]] = {}
     recvs: Dict[int, List[int]] = {}
     got = [False] * k
+    if ctx.group is not None:
+        _account("ppermute", _nbytes(x))
     for s, t in sorted(perm):
-        src_rank, dst_rank = ctx.owner(s), ctx.owner(t)
+        src_rank, dst_rank = ctx.rank_of(s), ctx.rank_of(t)
         if dst_rank == me:
             got[t - lo] = True
             if src_rank == me:
@@ -153,19 +218,24 @@ class GroupSum:
     here over its local nodes and then with ``dist.all_reduce`` over a
     process group of those ranks, created once (every rank builds the
     same ``GroupSum``, so ``new_group`` runs everywhere in the same
-    order), one call per rank set."""
+    order), one call per rank set. Across ranks that split ``model``
+    each ``model`` position sums over its own ranks (``ctx.rank_of``),
+    and every rank builds the process groups of every position, since
+    ``new_group`` is collective over the world."""
 
     def __init__(self, ctx: MeshContext, groups: Sequence[Sequence[int]]):
         self.ctx = ctx
         self.groups = [list(g) for g in groups]
         self.subgroups: Dict[Tuple[int, ...], object] = {}
-        for g in self.groups:
-            ranks = tuple(sorted({ctx.owner(n) for n in g}))
-            if len(ranks) > 1 and ranks not in self.subgroups:
-                self.subgroups[ranks] = dist.new_group(
-                    [_global(ctx, r) for r in ranks])
-        lo = ctx.rank * ctx.nodes_per_rank
-        met = [g for g in self.groups if any(ctx.owner(n) == ctx.rank
+        positions = range(ctx.model_size) if ctx.split_model else (None,)
+        for pos in positions:
+            for g in self.groups:
+                ranks = tuple(sorted({ctx.rank_of(n, pos) for n in g}))
+                if len(ranks) > 1 and ranks not in self.subgroups:
+                    self.subgroups[ranks] = dist.new_group(
+                        [_global(ctx, r) for r in ranks])
+        lo = ctx.block * ctx.nodes_per_rank
+        met = [g for g in self.groups if any(ctx.owner(n) == ctx.block
                                              for n in g)]
         sizes = {len(g) for g in met}
         self.tile = (sizes.pop() if len(sizes) == 1 and
@@ -179,17 +249,17 @@ class GroupSum:
             total = x.unflatten(0, (x.shape[0] // g, g)).sum(dim=1)
             return total.repeat_interleave(g, dim=0)
         ctx = self.ctx
-        lo = ctx.rank * ctx.nodes_per_rank
+        lo = ctx.block * ctx.nodes_per_rank
         out = torch.empty_like(x)
         spread: Dict[Tuple[int, ...], list] = {}   # rank set -> parts
         for g in self.groups:
-            mine = [n - lo for n in g if ctx.owner(n) == ctx.rank]
+            mine = [n - lo for n in g if ctx.owner(n) == ctx.block]
             if not mine:
                 continue
             part = x[mine[0]].clone()
             for i in mine[1:]:
                 part += x[i]
-            ranks = tuple(sorted({ctx.owner(n) for n in g}))
+            ranks = tuple(sorted({ctx.rank_of(n) for n in g}))
             if len(ranks) > 1:
                 spread.setdefault(ranks, []).append((mine, part))
                 continue
@@ -198,6 +268,8 @@ class GroupSum:
         for ranks in sorted(spread):
             parts = spread[ranks]
             stacked = torch.stack([p for _, p in parts])
+            _account("group_sum",
+                     _reduced(stacked, self.subgroups[ranks]))
             dist.all_reduce(stacked, group=self.subgroups[ranks])
             for (mine, _), total in zip(parts, stacked):
                 for i in mine:
@@ -212,11 +284,27 @@ def gather_rows(rows: np.ndarray, ctx: MeshContext) -> np.ndarray:
     rank, the recovering rank included. Stands for the JAX recovery's
     host copy of the global ring's ``ts`` / ``valid``
     (``src/repro/core/recovery.py:133``, ``:219``), which Algorithm 2
-    walks (``:72``)."""
-    if ctx.group is None:
+    walks (``:72``). Across ranks that split ``model`` each node's row
+    is filled by the ranks of its block, at every position alike, so the
+    sum runs over the FSDP group (the blocks at this rank's position)."""
+    group = ctx.fsdp_group if ctx.split_model else ctx.group
+    return _sum_rows(rows, ctx, group, "gather_rows")
+
+
+def model_rows(rows: np.ndarray, ctx: MeshContext) -> np.ndarray:
+    """Small host indices summed over this rank's ``model`` group (each
+    position's part of a node block's table made whole on every
+    position; the rows as they are without a split)."""
+    return _sum_rows(rows, ctx, ctx.model_group, "model_rows")
+
+
+def _sum_rows(rows: np.ndarray, ctx: MeshContext, group: Any,
+              name: str) -> np.ndarray:
+    if ctx.group is None or group is None:
         return rows
     t = torch.from_numpy(np.ascontiguousarray(rows, np.int64)).to(ctx.device)
-    dist.all_reduce(t, group=ctx.group)
+    _account(name, _reduced(t, group))
+    dist.all_reduce(t, group=group)
     return t.cpu().numpy()
 
 
@@ -225,12 +313,16 @@ def share(x: Optional[torch.Tensor], src: int, shape: Tuple[int, ...],
     """Rank ``src``'s tensor ``x`` on every rank (``dist.broadcast``);
     the others pass ``None`` and the shape and dtype to receive. Stands
     for the JAX recovery's read of a replica's logged version from the
-    global ring (``src/repro/core/recovery.py:178``)."""
-    if ctx.group is None:
+    global ring (``src/repro/core/recovery.py:178``). Across ranks that
+    split ``model``, ``src`` is at this rank's position and the
+    broadcast runs over the FSDP group."""
+    group = ctx.fsdp_group if ctx.split_model else ctx.group
+    if ctx.group is None or group is None:
         return x
     buf = (x.contiguous() if ctx.rank == src else
            torch.empty(shape, dtype=dtype, device=ctx.device))
-    dist.broadcast(buf, src=_global(ctx, src), group=ctx.group)
+    _account("share", _nbytes(buf))
+    dist.broadcast(buf, src=_global(ctx, src), group=group)
     return buf
 
 
@@ -252,6 +344,7 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
         flat = torch.cat([t.reshape(-1).float() for t in bucket])
         if scale != 1.0:
             flat.mul_(scale)
+        _account("all_reduce_sum", _reduced(flat, group))
         dist.all_reduce(flat, group=group)
         off = 0
         for t in bucket:
@@ -279,9 +372,18 @@ def _tracked(x: torch.Tensor) -> bool:
 
 def _all_reduce(x: torch.Tensor, group: Any, name: str) -> torch.Tensor:
     """``x`` summed over ``group`` in place, counted under ``name``."""
-    COUNTS[name] += 1
+    _account(name, _reduced(x, group))
     dist.all_reduce(x, group=group)
     return x
+
+
+def all_reduce(x: torch.Tensor, group: Any, name: str) -> torch.Tensor:
+    """``x`` summed over ``group`` in place and returned, counted under
+    ``name`` (``rank_weight``, ``grad_norm``); a ``None`` group leaves
+    it as it is."""
+    if group is None:
+        return x
+    return _all_reduce(x, group, name)
 
 
 class _ModelSum(torch.autograd.Function):
@@ -358,7 +460,8 @@ def model_sum_shared(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
 
 def _gather(x: torch.Tensor, dim: int, starts: Sequence[int],
             ctx: MeshContext) -> torch.Tensor:
-    COUNTS["fsdp_gather"] += 1
+    _account("fsdp_gather",
+             _gathered(_nbytes(x) * ctx.n_blocks, ctx.fsdp_group))
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.n_blocks)]
     dist.all_gather(parts, x, group=ctx.fsdp_group)
@@ -376,15 +479,17 @@ class _FsdpGather(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         dim, starts, ctx = fctx.dim, fctx.starts, fctx.ctx
-        COUNTS["fsdp_gather_bwd"] += 1
         unique = sorted(set(starts))
         n = g.shape[dim] // len(unique)
         if len(unique) == len(starts):          # one block a part
             parts = [p.contiguous() for p in g.split(n, dim=dim)]
             out = torch.empty_like(parts[0])
+            _account("fsdp_gather_bwd",
+                     _nbytes(out) * (_size(ctx.fsdp_group) - 1))
             dist.reduce_scatter(out, parts, group=ctx.fsdp_group)
         else:                                   # parts several blocks hold
             g = g.contiguous().clone()
+            _account("fsdp_gather_bwd", _reduced(g, ctx.fsdp_group))
             dist.all_reduce(g, group=ctx.fsdp_group)
             out = g.narrow(dim, unique.index(starts[ctx.block]) * n, n)
         return out, None, None, None
@@ -409,7 +514,8 @@ def fsdp_gather(x: torch.Tensor, dim: int, starts: Sequence[int],
 
 
 def _model_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
-    COUNTS["model_gather"] += 1
+    _account("model_gather",
+             _gathered(_nbytes(x) * ctx.model_size, ctx.model_group))
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(ctx.model_size)]
     dist.all_gather(parts, x, group=ctx.model_group)
@@ -465,8 +571,8 @@ def attn_merge(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
     group = ctx.fsdp_group if ctx.split_model else ctx.group
     if group is None:
         return merge_partials(m[None], l[None], o[None])
-    COUNTS["attn_merge"] += 1
     packed = torch.cat([o, m[..., None], l[..., None]], dim=-1).contiguous()
+    _account("attn_merge", _gathered(_nbytes(packed) * ctx.n_blocks, group))
     parts = [torch.empty_like(packed) for _ in range(ctx.n_blocks)]
     dist.all_gather(parts, packed, group=group)
     stacked = torch.stack(parts)

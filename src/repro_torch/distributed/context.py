@@ -137,6 +137,19 @@ class MeshContext:
         holding joined (pod-major) node index ``node``."""
         return node // self.nodes_per_rank
 
+    def rank_of(self, node: int, model_pos: Optional[int] = None) -> int:
+        """The rank holding joined (pod-major) node index ``node`` at
+        ``model`` position ``model_pos`` (default: this rank's): its node
+        block, or, when the ranks split ``model``, ``block * m +
+        model_pos``. The one place that says how ranks are laid out over
+        nodes; the REPL / VAL peers, the parity groups, recovery's
+        broadcasts and the Configuration Manager's rank read it."""
+        block = self.owner(node)
+        if not self.split_model:
+            return block
+        pos = self.model_rank if model_pos is None else model_pos
+        return block * self.model_size + pos
+
     def local_node(self, node: int) -> Optional[int]:
         """``node``'s index among this rank's nodes, or None."""
         i = node - self.block * self.nodes_per_rank

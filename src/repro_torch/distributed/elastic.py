@@ -4,7 +4,9 @@ After recovery (:mod:`repro_torch.core.recovery`), a hot-spare node
 takes over the failed node's coordinates and the recovered shard is
 written into the state at them; the node axes keep their sizes. On one
 card that is tensor surgery on the global state
-(:func:`install_recovered_shard`). Without a spare the mesh shrinks
+(:func:`install_recovered_shard`); across ranks that split ``model`` it
+is written in place into each rank's ``Shard`` blocks. Without a spare
+the mesh shrinks
 instead (:func:`shrink_data_axis`). The streaming engine's logical
 ``cells`` shards follow the same two policies
 (:func:`cells_spare_replacement`, :func:`cells_degraded_shards`), on one
@@ -16,10 +18,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.recovery import RecoveryResult, reassemble_shard
 from repro_torch.core.replication import (ReplicationEngine, tree_flatten,
                                           tree_unflatten)
+from repro_torch.distributed import sharding
 from repro_torch.distributed.context import MeshContext, P
 
 
@@ -69,10 +73,20 @@ def install_recovered_shard(state: Any, specs: Any, engine: ReplicationEngine,
     runs this on its own copy and the copies stay ``==``: the JAX
     package's ``install_recovered_shard`` writes the global array once
     (``src/repro/distributed/elastic.py:55``).
+
+    Across ranks that split ``model`` (``state`` the rank's tree of
+    ``Shard``s and replicated tensors, ``result`` its position's rows)
+    the shard is written in place, under ``no_grad``, into the tensors
+    the optimizer updates: into each ``Shard.local`` the failed node's
+    part at the rank's position, where the rank's node block stores it
+    (``sharding.node_part``), and every replicated leaf whole. The
+    tensors stay the autograd leaves they were; ``state`` is returned.
     """
     ctx = engine.ctx
     per_model = reassemble_shard(engine, result)
     n_model = len(per_model)
+    if ctx.split_model:
+        return _install_split(state, engine, per_model, target_coord)
 
     flat_state, treedef = tree_flatten(state)
     flat_specs, _ = tree_flatten(specs)
@@ -94,6 +108,31 @@ def install_recovered_shard(state: Any, specs: Any, engine: ReplicationEngine,
             out[sl] = patch.reshape(out[sl].shape)
         new_flat.append(out)
     return tree_unflatten(treedef, new_flat)
+
+
+def _install_split(state: Any, engine: ReplicationEngine,
+                   per_model: List[List[torch.Tensor]],
+                   target_coord: Tuple[int, ...]) -> Any:
+    """:func:`install_recovered_shard` across ranks that split
+    ``model``."""
+    ctx = engine.ctx
+    if len(per_model) != 1:
+        raise ValueError(f"a rank of a split context installs one model "
+                         f"position's rows, got {len(per_model)}")
+    leaves, _ = tree_flatten(state)
+    node = engine.joined_index(target_coord)
+    with torch.no_grad():
+        for leaf, patch in zip(leaves, per_model[0]):
+            if isinstance(leaf, sharding.Shard):
+                cut = sharding.node_part(leaf, ctx, node)
+                if cut is None:
+                    continue
+                dst = leaf.local[cut]
+            else:
+                dst = leaf
+            dst.copy_(patch.to(device=dst.device,
+                               dtype=dst.dtype).reshape(dst.shape))
+    return state
 
 
 def shrink_data_axis(mesh_shape: Tuple[int, ...], axes: Tuple[str, ...]

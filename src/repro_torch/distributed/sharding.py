@@ -251,6 +251,36 @@ def block_slices(spec: P, shape: Sequence[int], ctx: MeshContext
     return tuple(out)
 
 
+def node_part(leaf: "Shard", ctx: MeshContext, node: int
+              ) -> Optional[Tuple[slice, ...]]:
+    """The slices of ``leaf.local`` that hold joined node ``node``'s
+    block at this rank's ``model`` position -- the block the JAX
+    package's ``shard_map`` region gets on that (node, position) device
+    -- or ``None`` when this rank's node block does not store it. A
+    dimension stored over (pod, data) holds the node's storage part
+    (``n_nodes / parts`` nodes share a part, ``holders``); one the
+    ``model`` axis alone splits, and one nothing splits, are whole."""
+    out = []
+    for d, size in enumerate(leaf.shape):
+        axes = entry_axes(leaf.spec, d)
+        fsdp = tuple(a for a in axes if a != ctx.model_axis)
+        if not fsdp:
+            out.append(slice(None))
+            continue
+        parts = int(np.prod([ctx.shape[a] for a in fsdp]))
+        part = node // (ctx.n_nodes // parts)
+        if ctx.model_axis in axes:
+            part += ctx.model_rank * parts
+            parts *= ctx.model_size
+        step = size // parts
+        lo, n = _dim_block(axes, size, ctx, ctx.block, ctx.model_rank)
+        start = part * step - lo
+        if not 0 <= start < n:
+            return None
+        out.append(slice(start, start + step))
+    return tuple(out)
+
+
 def place(t: torch.Tensor, spec: P, ctx: MeshContext) -> Any:
     """This rank's block of the global tensor ``t``, copied onto
     ``ctx.device``: a :class:`Shard`, or for a spec that shards nothing

@@ -42,8 +42,13 @@ blockwise and chunked scans.
 
 There is no counterpart of the JAX package's HLO collective parser
 (``collective_bytes``): a logical mesh on one card issues no
-collectives. The replication traffic of a step is the engine's layout
-(``launch/dryrun.py``); their collective bytes come with ROADMAP A4(d3).
+collectives, and the replication traffic of such a step is the
+engine's layout (``launch/dryrun.py``). Across ranks that split
+``model`` the port counts its collectives' link bytes as they run
+(``distributed/collectives.py``'s ``BYTES``, under the parser's
+ring-effective rules), and ``launch/dryrun.py``'s split cell (ROADMAP
+A4(d2b2)) reports them for rank 0 of the layout, the REPL / VAL permutes
+from the engine's layout.
 """
 
 from __future__ import annotations

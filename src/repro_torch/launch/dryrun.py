@@ -21,6 +21,22 @@ lowering -- and record:
   bf16) and its bytes over 3.35 TB/s (HBM3), the NVIDIA H100 80GB HBM3
   at 700 W. One card has no link, so no link time is modelled.
 
+With ``split_model`` (``--split-model``) a cell costs rank 0 of the
+mesh's layout over ranks that split ``model`` -- one ``model`` position
+of a block of nodes, its ``sharding.Shard`` blocks -- in a one-process
+``fake`` process group of the mesh's world
+(``torch.testing._internal.distributed.fake_pg``), whose collectives
+take ``meta`` tensors and move nothing. The record then gains
+``collectives``: the rank's link bytes and calls a step, by collective
+(``collectives.BYTES`` / ``COUNTS``, counted as the step runs), the
+keys of the JAX package's ``collective_bytes``
+(``src/repro/launch/costing.py:309``). A fake group cannot run the
+REPL / VAL permutes (``batch_isend_irecv`` takes no ``meta`` tensor), so
+the step is costed without the replicate and its ``ppermute`` bytes and
+calls are the engine's layout: each node's payload and its VAL's
+``n_buckets`` int32 to each of N_r replicas (parity: the f32 parity
+forward a bucket).
+
 One JSON record per cell goes to ``--out`` (default
 ``build/dryrun/``, which ``.gitignore`` lists). This entry point runs on
 ``meta`` by design: it computes nothing, so it needs no card.
@@ -32,6 +48,7 @@ One JSON record per cell goes to ``--out`` (default
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -43,6 +60,7 @@ from typing import Any, Dict, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import kernels
 from repro_torch.config import (
@@ -56,14 +74,16 @@ from repro_torch.config import (
 )
 from repro_torch.configs import ASSIGNED_ARCHS
 from repro_torch.core.replication import ReplicationEngine, tree_flatten
-from repro_torch.distributed.context import MeshContext
-from repro_torch.distributed.sharding import param_specs
+from repro_torch.distributed import collectives
+from repro_torch.distributed.context import MeshContext, make_context
+from repro_torch.distributed.sharding import locals_of, param_specs
 from repro_torch.launch.costing import step_cost
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import attention
 from repro_torch.models.model_zoo import batch_struct, build_model
 from repro_torch.training.steps import (ServeState, init_train_state,
                                         make_serve_fns, make_train_step)
+from repro_torch.training.trainer import batch_rows
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
                                     ".."))
@@ -125,30 +145,78 @@ def per_node_bytes(tree: Any, specs: Any, ctx: MeshContext) -> int:
     return total
 
 
+@contextlib.contextmanager
+def fake_world(world: int):
+    """A one-process ``fake`` default process group of ``world`` ranks,
+    this process rank 0: its collectives take ``meta`` tensors and move
+    nothing. Raises ``RuntimeError`` if a process group is up."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up; the split cost pass "
+                           "needs its own fake one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _cell_context(multi_pod: bool, mesh, group=None) -> MeshContext:
+    """The production mesh (or ``mesh``, ``(shape, axes)``) on ``meta``;
+    with ``group``, rank 0 of its layout over ranks that split
+    ``model``."""
+    if mesh is None:
+        prod = make_production_mesh(multi_pod=multi_pod, device=META)
+        if group is None:
+            return prod
+        mesh = (prod.axis_sizes, prod.axis_names)
+    return make_context(*mesh, device=META, group=group,
+                        split_model=group is not None)
+
+
 def build_cell(arch: str, shape_name, multi_pod: bool,
                variant: str = "proactive",
-               model_cfg=None) -> Dict[str, Any]:
+               model_cfg=None, mesh=None, replication=None,
+               group=None) -> Dict[str, Any]:
     """Build one cell on ``meta``: the context, the model and its
     parameters, and the step with its arguments (``fn``, ``args``), plus
     the train state and engine for a train cell. ``shape_name`` names a
     cell of ``SHAPES`` or is a :class:`ShapeConfig`; ``model_cfg``
-    replaces the registered config (a reduced one, in tests)."""
+    replaces the registered config (a reduced one, in tests); ``mesh``
+    (``(shape, axes)``) the production mesh and ``replication`` the
+    cell's ``ReplicationConfig``. With ``group`` (:func:`fake_world`)
+    the cell is rank 0's of the layout over ranks that split ``model``:
+    its blocks, its rows of the batch, and a train step without the
+    replicate (module docstring; ``engine`` still gives the layout)."""
     model_cfg = model_cfg or get_model_config(arch)
     shape = _shape(shape_name)
     ok, why = shape_applicable(model_cfg, shape)
     if not ok:
         raise ValueError(f"cell skipped by design: {why}")
-    rep = ReplicationConfig(variant=variant, log_capacity=2)
+    rep = replication or ReplicationConfig(variant=variant, log_capacity=2)
     tc = train_config_for(arch) if model_cfg.name == arch else TrainConfig()
     run = RunConfig(model=model_cfg, shape=shape, replication=rep, train=tc)
-    ctx = make_production_mesh(multi_pod=multi_pod, device=META)
+    ctx = _cell_context(multi_pod, mesh, group)
     model = build_model(model_cfg)
-    params = model.init(0, device=META)
+    params = model.init(0, device=META,
+                        ctx=ctx if ctx.split_model else None)
     specs = param_specs(params, model_cfg, ctx)
     cell: Dict[str, Any] = {"run": run, "ctx": ctx, "model": model,
                             "params": params, "specs": specs,
                             "engine": None}
-    if shape.kind == "train":
+    if shape.kind == "train" and ctx.split_model:
+        engine = (ReplicationEngine(rep, ctx, specs, params)
+                  if rep.is_replicating else None)
+        state = init_train_state(run, model, 0, None, params=params,
+                                 ctx=ctx)
+        rows = batch_rows(shape.global_batch, ctx)
+        batch = {k: v[rows] for k, v in _meta_batch(model_cfg,
+                                                     shape).items()}
+        cell.update(engine=engine, state=state, step="train_step",
+                    fn=make_train_step(run, model, None, ctx),
+                    args=(state, batch))
+    elif shape.kind == "train":
         engine = (ReplicationEngine(rep, ctx, specs, params)
                   if rep.is_replicating else None)
         state = init_train_state(run, model, 0, engine, params=params)
@@ -179,88 +247,73 @@ def build_cell(arch: str, shape_name, multi_pod: bool,
     return cell
 
 
+def _rank_bytes(tree: Any) -> int:
+    """Bytes of the tensors a rank holds of ``tree`` (its blocks)."""
+    return sum(t.numel() * t.element_size()
+               for t in tree_flatten(locals_of(tree))[0]
+               if isinstance(t, torch.Tensor))
+
+
+def layout_permutes(engine: ReplicationEngine) -> Dict[str, float]:
+    """The REPL / VAL permutes of one replicate on this rank, from the
+    engine's layout: ``{"bytes": ..., "calls": ...}`` as
+    ``collectives.BYTES`` / ``COUNTS`` count them (each permute its
+    payload over the rank's nodes)."""
+    lay, rep = engine.layout, engine.rep
+    k = engine.ctx.nodes_per_rank
+    es = torch.empty((), dtype=engine.log_dtype).element_size()
+    nb = lay.n_buckets
+    if rep.mode == "parity":
+        return {"bytes": float(k * nb * lay.bucket_len * 4), "calls": nb}
+    per_replica = nb * lay.bucket_len * es + nb * 4   # REPL + VAL
+    calls = 2 * (1 if rep.coalescing else nb) * rep.n_replicas
+    return {"bytes": float(k * per_replica * rep.n_replicas),
+            "calls": calls}
+
+
 def run_cell(arch: str, shape_name, multi_pod: bool,
              variant: str = "proactive", save: bool = True,
              out_dir: str = ARTIFACT_DIR,
-             model_cfg=None) -> Dict[str, Any]:
+             model_cfg=None, split_model: bool = False, mesh=None,
+             replication=None) -> Dict[str, Any]:
     """Build and cost one cell; returns (and saves) its record.
 
     Attention and the SSD scan are counted by the kernels' formula
     (``launch/costing.py``'s flash accounting): on the card every
-    prefill and training attention and SSD scan runs in the kernels."""
+    prefill and training attention and SSD scan runs in the kernels.
+    ``split_model``: rank 0 of the layout over ranks that split
+    ``model``, in a :func:`fake_world` (module docstring); ``mesh`` and
+    ``replication`` as for :func:`build_cell`."""
     t0 = time.time()
     model_cfg = model_cfg or get_model_config(arch)
     shape = _shape(shape_name)
+    name = "2x16x16" if multi_pod else "16x16"
+    if mesh is not None:
+        name = "x".join(map(str, mesh[0]))
     record: Dict[str, Any] = {
         "arch": arch, "shape": shape.name,
-        "mesh": "2x16x16" if multi_pod else "16x16",
+        "mesh": name + ("-split" if split_model else ""),
         "variant": variant, "device": "meta",
     }
     ok, why = shape_applicable(model_cfg, shape)
+    if ok and split_model and shape.kind != "train":
+        ok, why = False, "the split cost pass takes train cells"
     if not ok:
         record.update(status="skipped", reason=why)
         if save:
             _save(record, out_dir)
         return record
     try:
-        cell = build_cell(arch, shape_name, multi_pod, variant, model_cfg)
-        ctx, engine = cell["ctx"], cell["engine"]
-        n_nodes = int(np.prod(ctx.axis_sizes))
-        t_build = time.time() - t0
-        cost = step_cost(cell["fn"], *cell["args"], flash_accounting=True)
-        memory = {"params_bytes_per_node": per_node_bytes(
-            cell["params"], cell["specs"], ctx)}
-        replication = None
-        if "state" in cell:
-            opt = _tensors_only(cell["state"].opt_state)
-            memory["opt_state_bytes_per_node"] = per_node_bytes(
-                opt, param_specs(opt, model_cfg, ctx), ctx)
-        if engine is not None:
-            lay = engine.layout
-            es = torch.empty((), dtype=engine.log_dtype).element_size()
-            n_lead = len(ctx.axis_sizes)
-            memory["log_ring_bytes_per_node"] = sum(
-                int(np.prod(s.shape[n_lead:])) * torch.empty(
-                    (), dtype=s.dtype).element_size()
-                for s in engine.log_struct().values())
-            payload = lay.n_buckets * lay.bucket_len * es
-            sends = 1 if engine.rep.mode == "parity" else \
-                engine.rep.n_replicas
-            replication = {
-                "ring_axes": list(engine.repl_axes),
-                "ring_nodes": engine.n_nodes,
-                "payload_bytes_per_node": payload,
-                "send_bytes_per_node_per_step": payload * sends,
-                "send_bytes_global_per_step": payload * sends * n_nodes,
-            }
-        flops, nbytes = cost["flops"], cost["bytes"]
-        record.update({
-            "status": "ok",
-            "step": cell["step"],
-            "mesh_shape": list(ctx.axis_sizes),
-            "n_nodes": n_nodes,
-            "build_s": round(t_build, 2),
-            "memory": memory,
-            "cost": {
-                "flops_global": flops,
-                "bytes_global": nbytes,
-                "transcendentals_global": cost["transcendentals"],
-                "eltwise_flops_global": cost["eltwise_flops"],
-                "kernel_calls": cost["kernel_calls"],
-            },
-            "replication": replication,
-            "roofline_one_card": {
-                "card": CARD, "peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW,
-                "flops_ms": flops / PEAK_FLOPS * 1e3,
-                "bytes_ms": nbytes / HBM_BW * 1e3,
-            },
-            "attention_pair_walks": sorted(
-                attention.n_pair_scan_lengths(model_cfg, shape)),
-            "model_params": model_cfg.param_count(),
-            "active_params": model_cfg.active_param_count(),
-            "tokens": shape.tokens if shape.kind != "decode"
-            else shape.global_batch,
-        })
+        with contextlib.ExitStack() as stack:
+            group = None
+            if split_model:
+                sizes = (mesh[0] if mesh is not None else
+                         make_production_mesh(multi_pod=multi_pod,
+                                              device=META).axis_sizes)
+                group = stack.enter_context(
+                    fake_world(int(np.prod(sizes))))
+            _cost_cell(record, t0, arch, shape_name, multi_pod, variant,
+                       model_cfg, mesh, replication, group)
     except Exception as e:  # noqa: BLE001 -- a failed cell IS the finding
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"
@@ -269,6 +322,99 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
     if save:
         _save(record, out_dir)
     return record
+
+
+def _cost_cell(record: Dict[str, Any], t0: float, arch: str, shape_name,
+               multi_pod: bool, variant: str, model_cfg, mesh, replication,
+               group) -> None:
+    """:func:`run_cell`'s body: build, cost and fill ``record``."""
+    shape = _shape(shape_name)
+    cell = build_cell(arch, shape_name, multi_pod, variant, model_cfg,
+                      mesh, replication, group)
+    ctx, engine = cell["ctx"], cell["engine"]
+    n_nodes = int(np.prod(ctx.axis_sizes))
+    t_build = time.time() - t0
+    collectives.reset_counts()
+    cost = step_cost(cell["fn"], *cell["args"], flash_accounting=True)
+    if ctx.split_model:
+        memory = {"params_bytes_per_rank": _rank_bytes(cell["params"])}
+    else:
+        memory = {"params_bytes_per_node": per_node_bytes(
+            cell["params"], cell["specs"], ctx)}
+    replication = None
+    if "state" in cell and ctx.split_model:
+        memory["opt_state_bytes_per_rank"] = _rank_bytes(
+            _tensors_only(cell["state"].opt_state))
+    elif "state" in cell:
+        opt = _tensors_only(cell["state"].opt_state)
+        memory["opt_state_bytes_per_node"] = per_node_bytes(
+            opt, param_specs(opt, model_cfg, ctx), ctx)
+    if ctx.split_model:
+        per_kind = {k: v for k, v in collectives.BYTES.items() if v}
+        n_ops = {k: v for k, v in collectives.COUNTS.items() if v}
+        if engine is not None:
+            perm = layout_permutes(engine)
+            per_kind["ppermute"] = perm["bytes"]
+            n_ops["ppermute"] = perm["calls"]
+        record["collectives"] = {
+            "rank": ctx.rank, "world": ctx.world,
+            "per_kind_bytes": per_kind, "n_ops": n_ops,
+            "total_bytes": float(sum(per_kind.values())),
+            "replication_bytes": per_kind.get("ppermute", 0.0)}
+        if engine is not None:
+            memory["log_ring_bytes_per_rank"] = sum(
+                int(np.prod(s.shape)) * torch.empty(
+                    (), dtype=s.dtype).element_size()
+                for s in engine.log_struct().values())
+        record["scope"] = f"rank {ctx.rank} of {ctx.world}: its blocks, " \
+            f"its rows, its collectives"
+        engine = None
+    if engine is not None:
+        lay = engine.layout
+        es = torch.empty((), dtype=engine.log_dtype).element_size()
+        n_lead = len(ctx.axis_sizes)
+        memory["log_ring_bytes_per_node"] = sum(
+            int(np.prod(s.shape[n_lead:])) * torch.empty(
+                (), dtype=s.dtype).element_size()
+            for s in engine.log_struct().values())
+        payload = lay.n_buckets * lay.bucket_len * es
+        sends = 1 if engine.rep.mode == "parity" else \
+            engine.rep.n_replicas
+        replication = {
+            "ring_axes": list(engine.repl_axes),
+            "ring_nodes": engine.n_nodes,
+            "payload_bytes_per_node": payload,
+            "send_bytes_per_node_per_step": payload * sends,
+            "send_bytes_global_per_step": payload * sends * n_nodes,
+        }
+    flops, nbytes = cost["flops"], cost["bytes"]
+    record.update({
+        "status": "ok",
+        "step": cell["step"],
+        "mesh_shape": list(ctx.axis_sizes),
+        "n_nodes": n_nodes,
+        "build_s": round(t_build, 2),
+        "memory": memory,
+        "cost": {
+            "flops_global": flops,
+            "bytes_global": nbytes,
+            "transcendentals_global": cost["transcendentals"],
+            "eltwise_flops_global": cost["eltwise_flops"],
+            "kernel_calls": cost["kernel_calls"],
+        },
+        "replication": replication,
+        "roofline_one_card": {
+            "card": CARD, "peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW,
+            "flops_ms": flops / PEAK_FLOPS * 1e3,
+            "bytes_ms": nbytes / HBM_BW * 1e3,
+        },
+        "attention_pair_walks": sorted(
+            attention.n_pair_scan_lengths(model_cfg, shape)),
+        "model_params": model_cfg.param_count(),
+        "active_params": model_cfg.active_param_count(),
+        "tokens": shape.tokens if shape.kind != "decode"
+        else shape.global_batch,
+    })
 
 
 def _save(record: Dict[str, Any], out_dir: str) -> None:
@@ -282,10 +428,12 @@ def _save(record: Dict[str, Any], out_dir: str) -> None:
 def format_record(r: Dict[str, Any]) -> str:
     """One line per record, as the JAX package's dry-run prints it."""
     if r["status"] == "ok":
-        c = r["cost"]
+        c, mem = r["cost"], r["memory"]
+        held = mem.get("params_bytes_per_node",
+                       mem.get("params_bytes_per_rank"))
         extra = (f"flops={c['flops_global']:.3e} "
                  f"bytes={c['bytes_global']:.3e} "
-                 f"params/node={r['memory']['params_bytes_per_node']:.3e}B "
+                 f"params/node={held:.3e}B "
                  f"{r['wall_s']}s")
     elif r["status"] == "error":
         extra = r["error"][:120]
@@ -335,6 +483,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
     ap.add_argument("--variant", default="proactive")
+    ap.add_argument("--split-model", action="store_true",
+                    help="cost rank 0 of the layout over ranks that split "
+                    "the model axis (train cells; a fake process group)")
     ap.add_argument("--out", default=ARTIFACT_DIR)
     ap.add_argument("--no-save", action="store_true")
     ap.add_argument("--workers", type=int, default=1,
@@ -345,7 +496,7 @@ def main(argv=None) -> int:
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
     results = run_all(archs, shapes, meshes, workers=args.workers,
-                      variant=args.variant,
+                      variant=args.variant, split_model=args.split_model,
                       save=not args.no_save, out_dir=args.out)
     n = {s: sum(r["status"] == s for r in results)
          for s in ("ok", "skipped", "error")}

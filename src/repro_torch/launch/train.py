@@ -44,12 +44,14 @@ With ``--split-model`` the ranks split the ``model`` axis too
 (``make_context(..., split_model=True)``): a rank holds one ``model``
 position of a block of nodes, its parameter and optimizer blocks placed
 by their specs, and the world must be the model size times a number of
-node blocks. Replication over such ranks is not ported yet (ROADMAP.md
-A4(d2b2)), so the variant must be ``none`` or ``writethrough``::
+node blocks. Every variant runs: a replicating one replicates the
+rank's blocks at its ``model`` position, and a failed node is recovered
+into every rank's blocks::
 
     PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
         -m repro_torch.launch.train --arch qwen3-0.6b --reduced \
-        --steps 20 --mesh 2x2 --split-model --variant none --device cpu
+        --steps 20 --mesh 2x2 --split-model --fail-node 1 --fail-step 10 \
+        --device cpu
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def main(argv=None) -> None:
                     help="print the loss every this many steps")
     ap.add_argument("--split-model", action="store_true",
                     help="under torchrun, each rank one model position of "
-                    "a block of nodes (variant none or writethrough)")
+                    "a block of nodes")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card; 'cpu' runs the "
                     "plain versions)")

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.config import TrainConfig
 from repro_torch.core.replication import tree_flatten, tree_unflatten
+from repro_torch.distributed import collectives
 from repro_torch.distributed.context import get_mesh_context
 
 OptState = Dict[str, Any]
@@ -88,8 +89,7 @@ def global_norm(tree: Any, holders: Optional[List[int]] = None,
                               for x in leaves))
     ss = sum(torch.sum(torch.square(x.float())) / h
              for x, h in zip(leaves, holders))
-    if group is not None:
-        torch.distributed.all_reduce(ss, group=group)
+    collectives.all_reduce(ss, group, "grad_norm")
     return torch.sqrt(ss)
 
 

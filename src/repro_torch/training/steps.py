@@ -41,9 +41,10 @@ whose storage no gather reduced (``sharding.holders``), and the loss.
 The global norm weighs each leaf by one over its holders and sums over
 the world; the optimizer updates the blocks (``sharding.locals_of``).
 This stands for the JAX step that GSPMD partitions on the same mesh
-(``src/repro/training/steps.py:67-72``). Replication over such ranks
-is ROADMAP.md A4(d2b2); ``writethrough``'s staging tier is each rank's
-blocks in bf16.
+(``src/repro/training/steps.py:67-72``). The replicating variants
+replicate the rank's updated ``Shard`` blocks, under ``no_grad``, at its
+``model`` position (``core/replication.py``); ``writethrough``'s staging
+tier is each rank's blocks in bf16.
 """
 
 from __future__ import annotations
@@ -121,9 +122,7 @@ def rank_weight(batch: Dict[str, torch.Tensor], ctx: MeshContext) -> float:
     if "mask" not in batch:
         return 1.0 / n
     n = batch["mask"].float().sum().reshape(1)
-    total = n.clone()
-    if group is not None:
-        torch.distributed.all_reduce(total, group=group)
+    total = collectives.all_reduce(n.clone(), group, "rank_weight")
     return float(n) / float(total)
 
 
@@ -206,11 +205,6 @@ def make_train_step(run: RunConfig, model: Model,
     sums over the batch axes), and, where they split ``model``, inside
     the context with each rank's blocks (module docstring)."""
     split = ctx is not None and ctx.split_model
-    if split and run.replication.is_replicating:
-        raise NotImplementedError(
-            f"replication ({run.replication.variant!r}) across ranks that "
-            f"split the model axis (A4(d2b2) in ROADMAP.md): train with "
-            f"variant 'none' or 'writethrough', or on ranks of whole nodes")
     grad_fn = make_grad_fn(run, model, ctx)
     _, opt_update = make_optimizer(run.train)
     schedule = make_schedule(run.train)

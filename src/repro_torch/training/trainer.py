@@ -42,9 +42,11 @@ of nodes: its parameters are placed by ``named_shardings`` (its
 ``src/repro/training/trainer.py:103-107``), it trains on its node
 block's rows (the ``m`` ranks of a block share them), its optimizer
 state is its blocks', and its MN dump holds its blocks (params and
-optimizer state) in its own directory. Replication over such ranks is
-ROADMAP.md A4(d2b2): a replicating variant raises, and a fail-stop
-under ``none`` raises the WB data-loss error on every rank.
+optimizer state) in its own directory. A replicating variant
+replicates its blocks at its ``model`` position into its part of the
+ring, and a fail-stop is recovered by every rank and installed in place
+into its blocks (``distributed/elastic.py``); under ``none`` a fail-stop
+raises the WB data-loss error on every rank.
 """
 
 from __future__ import annotations
@@ -65,7 +67,8 @@ from repro_torch.core.replication import ReplicationEngine
 from repro_torch.data import SyntheticTokenPipeline
 from repro_torch.distributed.context import MeshContext, mesh_context
 from repro_torch.distributed.elastic import install_recovered_shard
-from repro_torch.distributed.sharding import named_shardings, param_specs
+from repro_torch.distributed.sharding import (locals_of, named_shardings,
+                                              param_specs)
 from repro_torch.models.model_zoo import batch_struct, build_model
 from repro_torch.optim.optimizers import tree_leaves
 from repro_torch.training.steps import (TrainState, init_train_state,
@@ -118,12 +121,6 @@ class Trainer:
                                                 tuple(run.mesh.shape)):
             raise ValueError(f"the context's axes {ctx.shape} are not the "
                              f"run's mesh {run.mesh}")
-        if ctx.split_model and run.replication.is_replicating:
-            raise NotImplementedError(
-                f"replication ({run.replication.variant!r}) across ranks "
-                f"that split the model axis (A4(d2b2) in ROADMAP.md): train "
-                f"with variant 'none' or 'writethrough', or on ranks of "
-                f"whole nodes")
         self.run = run
         self.ctx = ctx
         self.model = model or build_model(run.model)
@@ -244,7 +241,8 @@ class Trainer:
     def _recover(self, failed_node: int, step_no: int) -> None:
         """CM-driven recovery + spare replacement; across ranks every
         rank recovers and installs the same shard
-        (``src/repro/training/trainer.py:184``)."""
+        (``src/repro/training/trainer.py:184``), and across ranks that
+        split ``model`` its position's part, into its blocks in place."""
         if self.engine is None:
             raise RuntimeError(
                 f"node {failed_node} failed but replication variant is "
@@ -261,7 +259,7 @@ class Trainer:
             params = install_recovered_shard(
                 self.state.params, self.specs, self.engine, result,
                 target_coord=coord)
-        for p in tree_leaves(params):
+        for p in tree_leaves(locals_of(params)):
             p.requires_grad_(True)
         self.state = self.state._replace(params=params)
         # spare replacement: the rank is re-admitted with recovered state
@@ -279,4 +277,4 @@ class Trainer:
         })
         if self.ctx.group is not None:
             self.events[-1]["cm_rank"] = self.engine.owner_rank(
-                self.engine.node_coord(cm))
+                self.engine.node_coord(cm), 0)

@@ -42,9 +42,10 @@ parameters placed by its ``named_shardings`` and the batch sharded
   state at its step, the optimizer state the blocks' bytes;
 * ``fsdp_gather``'s backward where two blocks hold each part of a
   dimension: the group's sum on both, not a share;
-* a replicating variant and Adafactor raise, naming their ROADMAP items,
-  and a fail-stop under variant ``none`` raises the WB data-loss error
-  on every rank;
+* Adafactor raises, naming its ROADMAP item, a fail-stop under variant
+  ``none`` raises the WB data-loss error on every rank, and a ``proactive``
+  ``Trainer`` builds and steps (replication over split ranks:
+  ``test_torch_split_replication.py``);
 * ``launch/train.py --split-model --mesh 2x2`` under
   ``torch.distributed.run`` on 4 ranks: the losses within 1e-5 of a
   one-process run's.
@@ -385,14 +386,14 @@ def test_dump_restores_a_ranks_blocks(runs, world, name):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_refusals_name_their_roadmap_items(runs, world):
-    """On every rank: a replicating variant (A4(d2b2)) and Adafactor
-    (A4(d2b3)) raise ``NotImplementedError``; a fail-stop under variant
-    ``none`` raises the WB data-loss ``RuntimeError``."""
+    """On every rank: Adafactor (A4(d2b3)) raises
+    ``NotImplementedError``; a fail-stop under variant ``none`` raises
+    the WB data-loss ``RuntimeError``; a ``proactive`` ``Trainer`` on the
+    (2 x 2) mesh builds and steps (its replication is A4(d2b2), done)."""
     _, _, got = runs
     for r in got[world]:
         ref = r["refusals"]
-        assert ref["replicating"].startswith("NotImplementedError")
-        assert "A4(d2b2)" in ref["replicating"]
+        assert ref["replicating"] == "none"
         assert ref["adafactor"].startswith("NotImplementedError")
         assert "A4(d2b3)" in ref["adafactor"]
         assert ref["fail_stop"].startswith("RuntimeError")

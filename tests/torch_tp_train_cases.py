@@ -360,9 +360,10 @@ def trainer_case(group, name: str, tree, workdir: str) -> Dict[str, Any]:
 
 def refusal_cases(ctx, workdir: str) -> Dict[str, str]:
     """Each refusal's exception type and message (``"none"`` if it
-    passed): a replicating variant and Adafactor across split ranks, and
-    a fail-stop under variant ``none`` (the WB data-loss error) on the
-    ``Trainer``'s mesh."""
+    passed): Adafactor across split ranks, and a fail-stop under variant
+    ``none`` (the WB data-loss error) on the ``Trainer``'s mesh; and a
+    replicating variant (proactive) on that mesh, which builds and takes
+    a step."""
     from repro_torch import config as TC
     from repro_torch.core.failures import FailureEvent, FailureInjector
     from repro_torch.distributed.context import make_context
@@ -377,15 +378,18 @@ def refusal_cases(ctx, workdir: str) -> Dict[str, str]:
 
     run = dataclasses.replace(train_run("qwen3"), mesh=TC.MeshConfig(
         MESHES[ctx.world], ("data", "model")))
-    rep = dataclasses.replace(run, replication=TC.ReplicationConfig(
-        variant="proactive", n_replicas=1, n_buckets=2, log_capacity=2))
+    rep = dataclasses.replace(train_run("qwen3"),
+                              replication=TC.ReplicationConfig(
+                                  variant="proactive", n_replicas=1,
+                                  n_buckets=2, log_capacity=2))
     ada = dataclasses.replace(run, train=dataclasses.replace(
         run.train, optimizer="adafactor"))
     tctx = make_context(TRAIN_MESH, ("data", "model"), device="cpu",
                         group=ctx.group, split_model=True,
                         timeout_s=TIMEOUT_S)
     fail = FailureInjector([FailureEvent(step=1, node=1)])
-    return {"replicating": name_of(lambda: Trainer(rep, ctx, workdir)),
+    return {"replicating": name_of(lambda: Trainer(rep, tctx,
+                                                   workdir).train(1)),
             "adafactor": name_of(lambda: Trainer(ada, ctx, workdir)),
             "fail_stop": name_of(lambda: Trainer(
                 train_run("qwen3"), tctx, workdir, injector=fail).train(2))}
