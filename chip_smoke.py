@@ -341,7 +341,34 @@ each hand-written CUDA kernel against its plain PyTorch version:
     ``==`` after the install, its losses within 2^-8 of card 0's, and per
     card the ring's bytes against its reckoning, the replicate ms against
     card 0 alone, the recovery wall and a step's link bytes by
-    collective (not run on one card: printed as such).
+    collective (not run on one card: printed as such);
+28. Adafactor across ranks that split the ``model`` axis, run right after
+    phase 27(a): (a) deepseek-67b at its published width cut to 2 of 95
+    layers, batch 2 x 4 096, Adafactor (the dry run's choice above 60B
+    parameters), 4 steps through the split ``Trainer`` at mesh 2 x 1 on
+    phase 23's one-rank group and through the one-card ``Trainer`` at
+    the same mesh: the losses and the final blocks ``==`` (else the
+    losses within 1e-6 relative, the distance printed), the ``vs`` bytes
+    the reckoning of the blocks' rows and columns, each update's ms
+    beside the one-card update's, one MN dump restoring the ``vs``
+    blocks ``==``, 16 forward and 8 backward ``flash_attn`` launches a
+    run at 64 / 8 heads; (b) in phase 22, the split cells of
+    deepseek-67b and grok-1-314b at train_4k on 16 x 16 (status ok,
+    Adafactor, the bytes per rank of the parameters and the optimizer
+    state, the three Adafactor sums' bytes a step); (c) with four cards,
+    in ``--multi-card-only train``: deepseek-67b at 2 layers at data 2 x
+    model 2, Adafactor, proactive N_r 1, node 1 failed at step 3: every
+    rank's blocks ``==`` after the install, its losses within 1e-3 of
+    card 0's run alone, each card's parameter and ``vs`` bytes its
+    blocks', the step ms beside card 0's (not run on one card);
+29. the reference's ``seq_model`` activation policy: (b) in phase 22,
+    qwen3-0.6b's split train_4k cell on 16 x 16 under ``"seq_model"``
+    beside 27(b)'s ``"batch"`` one (per-kind link bytes, calls, bytes
+    per rank), the reduce-scatters in ``model_sum``'s place; (c) with
+    four cards, in ``--multi-card-only train``: 26(c)'s qwen3-0.6b run
+    at 2 x 2 under ``"seq_model"`` beside the batch policy's: the losses
+    within 1e-3, the collective calls and ms a step, the step median and
+    each card's peak memory (not run on one card).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It prints
 the card, the build, each phase's checks and times, a ``{"kernels":
@@ -5145,7 +5172,16 @@ def start_dryrun(train_times: dict) -> dict:
     # 16 over 256 ranks that split model, in a fake group
     split = pool.submit(dryrun.run_cell, TRAIN_ARCH, "train_4k", False,
                         save=False, split_model=True)
+    # phase 28(b): the split cells of the Adafactor configs; phase 29(b):
+    # qwen3-0.6b's under the seq_model policy, beside 27(b)'s batch one
+    ada = {arch: pool.submit(dryrun.run_cell, arch, "train_4k", False,
+                             save=False, split_model=True)
+           for arch in ADA_SPLIT_ARCHS}
+    seq_cell = pool.submit(dryrun.run_cell, TRAIN_ARCH, "train_4k", False,
+                           save=False, split_model=True,
+                           act_policy="seq_model")
     return {"proc": proc, "pool": pool, "futures": futures, "split": split,
+            "ada": ada, "seq": seq_cell,
             "out_dir": out_dir, "t0": time.perf_counter(),
             "train_times": train_times}
 
@@ -5165,6 +5201,8 @@ def finish_dryrun(started: dict) -> dict:
         costs = {a: f.result(timeout=600)
                  for a, f in started["futures"].items()}
         split = started["split"].result(timeout=600)
+        ada = {a: f.result(timeout=600) for a, f in started["ada"].items()}
+        seq_cell = started["seq"].result(timeout=600)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -5234,6 +5272,40 @@ def finish_dryrun(started: dict) -> dict:
           f"rank's step {split['cost']['flops_global']:.6g} FLOP, "
           f"{split['cost']['bytes_global']:.6g} bytes; memory "
           f"{json.dumps(split['memory'])}; {split['wall_s']} s")
+    print(f"phase 28(b): the split cells of the Adafactor configs at "
+          f"train_4k on 16x16, rank 0 of 256 ranks that split the model "
+          f"axis")
+    for arch, r in ada.items():
+        check(r["status"] == "ok" and r.get("optimizer") == "adafactor"
+              and all(r["collectives"]["per_kind_bytes"].get(k) for k in
+                      ADA_COLLECTIVES),
+              f"{arch}'s split cell costs with Adafactor: {r.get('status')} "
+              f"{r.get('error')}")
+        print(f"  {arch}: params {r['memory']['params_bytes_per_rank']} B "
+              f"a rank, optimizer state "
+              f"{r['memory']['opt_state_bytes_per_rank']} B a rank; "
+              f"Adafactor's sums a step " + ", ".join(
+                  f"{k} {r['collectives']['per_kind_bytes'][k]:.6g} B "
+                  f"({r['collectives']['n_ops'][k]} calls)"
+                  for k in ADA_COLLECTIVES)
+              + f" of {r['collectives']['total_bytes']:.6g} B; "
+              f"{r['wall_s']} s")
+    print(f"phase 29(b): {TRAIN_ARCH} train_4k's split cell on 16x16 under "
+          f"the seq_model policy beside the batch one (27(b))")
+    check(seq_cell["status"] == "ok"
+          and seq_cell["act_policy"] == "seq_model"
+          and seq_cell["collectives"]["per_kind_bytes"].get("seq_scatter")
+          and not seq_cell["collectives"]["per_kind_bytes"].get(
+              "model_sum"),
+          f"the seq_model cell: {seq_cell.get('status')} "
+          f"{seq_cell.get('error')}; the reduce-scatters in model_sum's "
+          f"place")
+    for name, r in (("batch", split), ("seq_model", seq_cell)):
+        print(f"  {name}: per_kind_bytes "
+              f"{json.dumps(r['collectives']['per_kind_bytes'])}; n_ops "
+              f"{json.dumps(r['collectives']['n_ops'])}; total "
+              f"{r['collectives']['total_bytes']:.6g} B; memory "
+              f"{json.dumps(r['memory'])}")
     return {"wall_s": wall, "status": status,
             "records": [{k: r.get(k) for k in ("arch", "shape", "mesh",
                                                "status", "cost", "memory",
@@ -5242,7 +5314,13 @@ def finish_dryrun(started: dict) -> dict:
             "train_flop_share": share,
             "split_cell": {k: split.get(k) for k in (
                 "arch", "shape", "mesh", "status", "scope", "cost",
-                "memory", "collectives", "wall_s")}}
+                "memory", "collectives", "wall_s")},
+            "adafactor_cells": {a: {k: r.get(k) for k in (
+                "status", "optimizer", "memory", "collectives", "wall_s")}
+                for a, r in ada.items()},
+            "seq_model_cell": {k: seq_cell.get(k) for k in (
+                "status", "act_policy", "cost", "memory", "collectives",
+                "wall_s")}}
 
 
 def torch_version() -> str:
@@ -6400,9 +6478,11 @@ class CollectiveClock:
     """CUDA events around every call of the split collectives that moves
     data, by name: the forward's ``model_sum`` / ``fsdp_gather`` /
     ``model_gather`` (remat's recompute among them), the backward's
-    ``model_copy_bwd`` / ``model_sum_shared_bwd`` / ``fsdp_gather_bwd``
-    and the FSDP group's ``all_reduce_sum`` of the leaves no gather
-    reduced. ``take()`` gives each name's calls and ms since the last
+    ``model_copy_bwd`` / ``model_sum_shared_bwd`` / ``fsdp_gather_bwd``,
+    the sequence collectives of the ``seq_model`` policy and their
+    backwards (``seq_gather``, ``seq_scatter``, ``_bwd``), the FSDP
+    group's ``all_reduce_sum`` of the leaves no gather reduced and
+    Adafactor's sums across blocks (``adafactor_*``). ``take()`` gives each name's calls and ms since the last
     take (after a synchronize)."""
 
     def __init__(self, torch, collectives):
@@ -6420,19 +6500,22 @@ class CollectiveClock:
             s_.record()
             out = fn(*a, **kw)
             e_.record()
-            self.events.append((name_of(a), s_, e_))
+            self.events.append((name_of(a, kw), s_, e_))
             return out
         self.saved.append((obj, attr, real))
         setattr(obj, attr, staticmethod(timed) if static else timed)
 
     def __enter__(self):
         c = self.c
-        self._wrap(c, "_all_reduce", lambda a: a[2])
-        self._wrap(c, "_gather", lambda a: "fsdp_gather")
-        self._wrap(c, "_model_gather", lambda a: "model_gather")
-        self._wrap(c, "all_reduce_sum", lambda a: "all_reduce_sum")
-        self._wrap(c._FsdpGather, "backward", lambda a: "fsdp_gather_bwd",
-                   static=True)
+        self._wrap(c, "_all_reduce", lambda a, kw: a[2])
+        self._wrap(c, "_gather", lambda a, kw: "fsdp_gather")
+        self._wrap(c, "_model_gather", lambda a, kw: "model_gather")
+        self._wrap(c, "_seq_gather", lambda a, kw: a[2])
+        self._wrap(c, "_seq_scatter", lambda a, kw: a[2])
+        self._wrap(c, "all_reduce_sum",
+                   lambda a, kw: kw.get("name", "all_reduce_sum"))
+        self._wrap(c._FsdpGather, "backward",
+                   lambda a, kw: "fsdp_gather_bwd", static=True)
         return self
 
     def __exit__(self, *exc):
@@ -6704,6 +6787,24 @@ def tp_train_reference(torch, fa, ssd) -> dict:
           f"replicate {r['replicate_ms']:.3f} ms (inside a step "
           f"{r['replicate_ms_median']:.3f}); ring {r['ring_bytes']} B; "
           f"{card_line()}")
+    # phase 28(c)'s reference: deepseek-67b's Adafactor run with the same
+    # replication on card 0 alone, no failure
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_ada_ref_")
+    try:
+        r, _ = split_rep_train(torch, fa, make_context(
+            ADA_MESH4, ("data", "model"), device=DEVICE), workdir,
+            run=ada_run(ADA_MESH4, replicating=True), steps=ADA_STEPS)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    out["ada"] = r
+    print(f"  card 0 alone: {ADA_ARCH} at {ADA_LAYERS} layers, "
+          f"{ADA_MESH4[0]}x{ADA_MESH4[1]}, Adafactor, proactive N_r 1: "
+          f"losses {r['losses']}; step median {r['step_ms_median']:.1f} "
+          f"ms; parameters {r['param_bytes']} B, vs {r['opt_bytes']} B; "
+          f"peak {r['peak_bytes']} B; {card_line()}")
     return out
 
 
@@ -6885,6 +6986,65 @@ def train_rank(rank: int, world: int, rendezvous: str, refs: dict,
           f"rank {rank}: the proactive run's bf16 losses within "
           f"{r['rel_to_card0']:.3g} (rel) of card 0's, limit "
           f"{TP_TRAIN_LOSS_RTOL:.4g}")
+    # phase 28(c): deepseek-67b with Adafactor over the split ranks,
+    # proactive, a fail-stop recovered and installed
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = make_context(ADA_MESH4, ("data", "model"), device=dev,
+                       group=group, split_model=True)
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_ada_r{rank}_")
+    try:
+        r, _ = split_rep_train(torch, fa, ctx, workdir, ADA_FAIL,
+                               run=ada_run(ADA_MESH4, replicating=True),
+                               steps=ADA_STEPS)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    want = refs["ada"]
+    r["rel_to_card0"] = max(abs(a - b) / abs(b) for a, b in
+                            zip(r["losses"], want["losses"]))
+    res["ada"] = r
+    rec = r["recovery"]
+    check(rec is not None and rec["stats"]["unrecoverable"] == 0
+          and r["installed_equal"] is True,
+          f"rank {rank}: {ADA_ARCH} with Adafactor: node {ADA_FAIL[1]} "
+          f"recovered at step {ADA_FAIL[0]} ({rec and rec['stats']}), the "
+          f"rank's blocks == those before the failure after the install")
+    check(r["rel_to_card0"] <= ADA_LOSS_RTOL,
+          f"rank {rank}: {ADA_ARCH}'s bf16 losses with Adafactor within "
+          f"{r['rel_to_card0']:.3g} (rel) of card 0's, limit "
+          f"{ADA_LOSS_RTOL:g}")
+    check(r["param_bytes"] == r["block_bytes"]
+          and r["opt_bytes"] == r["vs_reckoning_bytes"],
+          f"rank {rank}: {ADA_ARCH} holds {r['param_bytes']} B of "
+          f"parameters (its blocks' {r['block_bytes']} B) and "
+          f"{r['opt_bytes']} B of vs (the reckoning of its blocks' rows "
+          f"and columns, {r['vs_reckoning_bytes']} B)")
+    # phase 29(c): 26(c)'s qwen3 run at 2 x 2 under the seq_model policy
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.distributed import sharding as sharding_mod
+    entry = dataclasses.replace(TP_TRAINS[0], dump_interval=0)
+    ctx = make_context(entry.mesh, ("data", "model"), device=dev,
+                       group=group, split_model=True)
+    workdir = tempfile.mkdtemp(prefix=f"chip_smoke_seq_r{rank}_")
+    try:
+        sharding_mod.set_activation_policy("seq_model")
+        r = train_split(torch, fa, ssd, entry, ctx, workdir)
+    finally:
+        sharding_mod.set_activation_policy("batch")
+        shutil.rmtree(workdir, ignore_errors=True)
+    batch_run = res["train"][entry.key]
+    r["rel_to_batch"] = max(abs(a - b) / abs(b) for a, b in
+                            zip(r["losses"], batch_run["losses"]))
+    res["seq_model"] = r
+    check(r["rel_to_batch"] <= ADA_LOSS_RTOL
+          and "seq_scatter" in r["collectives"]
+          and "model_sum" not in r["collectives"],
+          f"rank {rank}: {entry.key} under seq_model: the bf16 losses within "
+          f"{r['rel_to_batch']:.3g} (rel) of the batch policy's, limit "
+          f"{ADA_LOSS_RTOL:g}; the reduce-scatters in model_sum's place")
     with open(out_paths[rank], "w", encoding="utf-8") as fh:
         json.dump(res, fh, default=str)
     torch.distributed.destroy_process_group()
@@ -6899,7 +7059,8 @@ def phase_train_multi(torch, fa, ssd, moe) -> dict:
     if n < 4:
         print(json.dumps({"train_multi_card": f"not run: {n} card"
                           + ("" if n == 1 else "s")}))
-        print(f"phase 27(c): not run: {n} card" + ("" if n == 1 else "s"))
+        for ph in ("27(c)", "28(c)", "29(c)"):
+            print(f"phase {ph}: not run: {n} card" + ("" if n == 1 else "s"))
         return {"train_multi_card": f"not run: {n} card(s)"}
     world = 4
     build = os.path.join(ROOT, "build", "repro_torch")
@@ -6981,6 +7142,45 @@ def phase_train_multi(torch, fa, ssd, moe) -> dict:
               f"{json.dumps(t['calls_per_step'])}; step median "
               f"{t['step_ms_median']:.1f} ms; losses {t['losses']} (rel "
               f"{t['rel_to_card0']:.3g}); {card_line()}")
+    alone = refs["ada"]
+    print(f"phase 28(c): {ADA_ARCH} at {ADA_LAYERS} layers, "
+          f"{ADA_MESH4[0]}x{ADA_MESH4[1]} over {world} ranks that split the "
+          f"model axis, Adafactor, proactive N_r 1, node {ADA_FAIL[1]} "
+          f"failed at step {ADA_FAIL[0]}; card 0 alone: losses "
+          f"{alone['losses']}, step median {alone['step_ms_median']:.1f} ms")
+    for r in res:
+        t = r["ada"]
+        ada_calls = {k: v for k, v in t["calls_per_step"].items()
+                     if k.startswith("adafactor")}
+        ada_bytes = {k: v for k, v in t["bytes_per_step"].items()
+                     if k.startswith("adafactor")}
+        print(f"  card {r['rank']} (block {t['block']}, model "
+              f"{t['model_rank']}): losses {t['losses']} (rel "
+              f"{t['rel_to_card0']:.3g}); parameters {t['param_bytes']} B "
+              f"(blocks {t['block_bytes']} B), vs {t['opt_bytes']} B "
+              f"(reckoning {t['vs_reckoning_bytes']} B); Adafactor's sums a "
+              f"step {json.dumps(ada_bytes)} B in {json.dumps(ada_calls)} "
+              f"calls; recovery {t['recovery']['wall_s']:.3f} s; step "
+              f"median {t['step_ms_median']:.1f} ms (card 0 "
+              f"{alone['step_ms_median']:.1f}); peak {t['peak_bytes']} B; "
+              f"{card_line()}")
+    print(f"phase 29(c): {TP_TRAINS[0].key} ({TRAIN_ARCH}) under the "
+          f"seq_model policy beside 26(c)'s batch run, {world} ranks")
+    for r in res:
+        t, b = r["seq_model"], r["train"][TP_TRAINS[0].key]
+        for name, run_ in (("seq_model", t), ("batch", b)):
+            coll = run_["collectives"]
+            print(f"  rank {r['rank']} {name}: losses {run_['losses']}"
+                  + (f" (rel to batch {t['rel_to_batch']:.3g})"
+                     if name == "seq_model" else "")
+                  + f"; step median {run_['step_ms_median']:.1f} ms; peak "
+                  f"{run_['peak_bytes']} B; collectives a step: "
+                  f"{sum(v['calls_per_step'] for v in coll.values()):.0f} "
+                  f"calls, "
+                  f"{sum(v['ms_per_step'] for v in coll.values()):.3f} ms ("
+                  + ", ".join(f"{k} {v['calls_per_step']:.0f} / "
+                              f"{v['ms_per_step']:.3f} ms"
+                              for k, v in coll.items()) + f"); {card_line()}")
     return {"train_multi_card": {
         "world": world, "reference": refs, "ranks": res,
         "reference_s": ref_s, "wall_s": time.perf_counter() - t1}}
@@ -7028,25 +7228,28 @@ def ring_reckoning(torch, engine) -> int:
     return entries * (lay.bucket_len * word + 4 + 1)
 
 
-def split_rep_train(torch, fa, ctx, workdir, fail=None) -> tuple:
-    """``split_rep_run`` through the ``Trainer`` on ``ctx`` (ranks that
-    split ``model``, or card 0 alone without a group) for
-    ``SPLIT_REP_STEPS`` steps; with ``fail`` a fail-stop whose install is
+def split_rep_train(torch, fa, ctx, workdir, fail=None, run=None,
+                    steps=SPLIT_REP_STEPS) -> tuple:
+    """``run`` (``split_rep_run`` at the context's mesh by default)
+    through the ``Trainer`` on ``ctx`` (ranks that split ``model``, or
+    card 0 alone without a group) for ``steps`` steps; with ``fail`` a
+    fail-stop whose install is
     handed the rank's blocks NaN where the failed node's parts were (and
     its replicated leaves): the recovered shard must come from the ring
     alone and equal the blocks before the failure. Returns the numbers
     (losses, the replicate's ms a step from CUDA events around the
     engine's call inside the step, the collectives' bytes and calls a
-    step, the ring's bytes against its reckoning, the recovery) and, on
-    the card, the ring's slots of the last two steps before the failure
-    and the blocks just before it."""
+    step, the ring's bytes against its reckoning, the recovery, the
+    parameters' and the optimizer state's bytes beside the blocks') and,
+    on the card, the ring's slots of the last two steps before the
+    failure and the blocks just before it."""
     import numpy as np
 
     from repro_torch.core.failures import FailureEvent, FailureInjector
     from repro_torch.distributed import collectives, sharding
     from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.training import trainer as trainer_mod
-    run = split_rep_run(ctx.axis_sizes)
+    run = run or split_rep_run(ctx.axis_sizes)
     inj = FailureInjector([FailureEvent(step=fail[0], node=fail[1])]
                           if fail else [])
     torch.cuda.reset_peak_memory_stats()
@@ -7095,7 +7298,7 @@ def split_rep_train(torch, fa, ctx, workdir, fail=None) -> tuple:
     fa.ops.reset_counts()
     hist, per_step = [], []
     try:
-        for _ in range(SPLIT_REP_STEPS):
+        for _ in range(steps):
             collectives.reset_counts()
             hist += tr.train(1)
             per_step.append({"bytes": dict(collectives.BYTES),
@@ -7136,7 +7339,13 @@ def split_rep_train(torch, fa, ctx, workdir, fail=None) -> tuple:
            "installed_equal": kept.get("installed_equal"),
            "launches": launches,
            "peak_bytes": torch.cuda.max_memory_allocated(),
-           "block": ctx.block, "model_rank": ctx.model_rank}
+           "block": ctx.block, "model_rank": ctx.model_rank,
+           "param_bytes": sum(t.numel() * t.element_size() for t in
+                              tree_leaves(sharding.locals_of(
+                                  tr.state.params))),
+           "opt_bytes": opt_state_bytes(tr.state.opt_state),
+           "block_bytes": block_reckoning(torch, tr.state.params, ctx)[1],
+           "vs_reckoning_bytes": vs_reckoning(tr.state.params, ctx)}
     del tr, eng
     return out, {"ring": kept.get("ring"), "before": kept.get("before")}
 
@@ -7268,13 +7477,264 @@ def phase_split_replicate(torch, fa, lc, lc_ref, group, ranks23,
     return got
 
 
+# ---------------------------------------------------------------------------
+# Phase 28: Adafactor across ranks that split the model axis
+# ---------------------------------------------------------------------------
+
+#: 28: deepseek-67b at its published width, cut to 2 of its 95 layers,
+#: train_4k cut to batch 2; Adafactor, the optimizer the dry run gives
+#: the configs above 60B parameters (``dryrun.train_config_for``)
+ADA_ARCH = "deepseek-67b"
+ADA_LAYERS = 2
+ADA_BATCH = 2
+ADA_STEPS = 4
+ADA_DUMP_INTERVAL = 3            # one MN dump, after step 2
+#: 28(a)'s losses against the one-card Trainer's where not bit for bit
+ADA_RTOL = 1e-6
+#: 28(c): data 2 x model 2 over four cards, proactive N_r 1, node 1 (the
+#: second node block) failed at the last step
+ADA_MESH4 = (2, 2)
+ADA_FAIL = (ADA_STEPS - 1, 1)
+#: 28(c)'s bf16 losses against card 0's: the row-parallel partials are
+#: rounded to bf16 before their sum (as 26(c))
+ADA_LOSS_RTOL = 1e-3
+#: 28(b): the configs the dry run gives Adafactor (> 60B parameters), and
+#: the sums across blocks each split cell must report
+ADA_SPLIT_ARCHS = ("deepseek-67b", "grok-1-314b")
+ADA_COLLECTIVES = ("adafactor_factors", "adafactor_denom", "adafactor_rms")
+
+
+def ada_run(mesh, replicating: bool = False, dump: bool = False):
+    """Phase 28's ``RunConfig`` at ``mesh`` (data, model): deepseek-67b
+    cut to ``ADA_LAYERS`` layers, batch ``ADA_BATCH`` x 4 096, the dry
+    run's train config for it (Adafactor) with remat full and
+    ``ADA_STEPS`` steps; variant none (with ``dump``, an MN dump every
+    ``ADA_DUMP_INTERVAL`` steps) or proactive with N_r 1, 4 buckets and
+    phase 20's 2 log slots."""
+    from repro_torch import config
+    from repro_torch.launch import dryrun
+    rep = (config.ReplicationConfig(
+               variant="proactive", n_replicas=1, n_buckets=4,
+               log_capacity=TRAIN_LOG_CAPACITY, dump_interval=10 ** 9)
+           if replicating else config.ReplicationConfig(
+               variant="none", n_replicas=1,
+               dump_interval=ADA_DUMP_INTERVAL if dump else 10 ** 9))
+    return config.RunConfig(
+        model=dataclasses.replace(config.get_model_config(ADA_ARCH),
+                                  n_layers=ADA_LAYERS),
+        shape=config.ShapeConfig("train_4k, batch cut to 2", TRAIN_SEQ,
+                                 ADA_BATCH, "train"),
+        mesh=config.MeshConfig(mesh, ("data", "model")),
+        replication=rep,
+        train=dataclasses.replace(dryrun.train_config_for(ADA_ARCH),
+                                  total_steps=ADA_STEPS, warmup_steps=2,
+                                  remat="full"))
+
+
+def opt_state_bytes(opt) -> int:
+    """The bytes of every tensor of an optimizer state."""
+    from repro_torch.optim.optimizers import tree_leaves
+    return sum(t.numel() * t.element_size()
+               for t in tree_leaves({k: v for k, v in opt.items()
+                                     if k != "count"}))
+
+
+def vs_reckoning(params, ctx) -> int:
+    """Adafactor's f32 ``vs`` bytes for the blocks a rank holds of
+    ``params``: per stacked leaf of block shape ``(L, ..., r, c)`` its
+    ``vr`` ``(L, ..., r)`` and ``vc`` ``(L, ..., c)``, an unfactored
+    leaf's ``v`` of its own shape (the blocks from their slices of the
+    global leaves, every leaf whole without a group)."""
+    import numpy as np
+
+    from repro_torch.distributed import sharding
+    from repro_torch.optim.optimizers import _stack_leaves, _stacked
+
+    def block_shape(leaf):
+        if isinstance(leaf, sharding.Shard) and ctx.group is not None:
+            return tuple(len(range(*s.indices(d))) for s, d in zip(
+                sharding.block_slices(leaf.spec, leaf.shape, ctx),
+                leaf.shape))
+        return tuple(getattr(leaf, "local", leaf).shape)
+
+    total = 0
+    for x in _stack_leaves(_stacked(params)):
+        shape = ((len(x),) + block_shape(x[0]) if isinstance(x, list)
+                 else block_shape(x))
+        total += 4 * (int(np.prod(shape[:-1]))
+                      + int(np.prod(shape[:-2] + shape[-1:]))
+                      if len(shape) >= 2 else int(np.prod(shape)))
+    return total
+
+
+def ada_train(torch, fa, ctx, workdir, run) -> dict:
+    """``run`` (:func:`ada_run`) through the ``Trainer`` on ``ctx``: the
+    losses, the step walls, each Adafactor update's ms (CUDA events
+    around ``adafactor_update``), the kernels' launches, the parameter
+    and ``vs`` bytes beside the blocks' reckoning, the final blocks (on
+    the card), and with a dump the ``vs`` blocks restored from it against
+    those at its step."""
+    import numpy as np
+
+    from repro_torch.distributed import sharding
+    from repro_torch.optim import optimizers
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.training import trainer as trainer_mod
+    torch.cuda.reset_peak_memory_stats()
+    tr = trainer_mod.Trainer(run, ctx, workdir)
+    real = optimizers.adafactor_update
+    events = []
+
+    def timed(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real(*a, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    dump_every = run.replication.dump_interval
+    snap = None
+    optimizers.adafactor_update = timed
+    fa.ops.reset_counts()
+    hist = []
+    try:
+        for i in range(run.train.total_steps):
+            hist += tr.train(1)
+            if (i + 1) % dump_every == 0 and snap is None:
+                snap = [t.clone() for t in
+                        tree_leaves(tr.state.opt_state["vs"])]
+    finally:
+        optimizers.adafactor_update = real
+    torch.cuda.synchronize()
+    launches = {"flash_attn": fa.ops.flash_attention.launches,
+                "flash_attn_bwd": fa.ops.flash_attention.bwd_launches,
+                "flash_attn_bwd_by_kernel":
+                    dict(fa.ops.flash_attention.bwd_launches_by_kernel)}
+    tr.ckpt.wait()
+    restored_equal = None
+    if snap is not None:
+        restored, _ = tr.ckpt.restore({"params": tr.state.params,
+                                       "opt": tr.state.opt_state},
+                                      step=dump_every - 1)
+        back = tree_leaves(restored["opt"]["vs"])
+        restored_equal = len(back) == len(snap) and all(
+            torch.equal(a, b) for a, b in zip(back, snap))
+        del restored, back, snap
+    update_ms = [a.elapsed_time(b) for a, b in events]
+    held = sharding.locals_of(tr.state.params)
+    out = {"losses": [h["loss"] for h in hist],
+           "step_walls_s": [h["wall_s"] for h in hist],
+           "step_ms_median": float(np.median([h["wall_s"] for h in hist][
+               1:])) * 1e3,
+           "update_ms": update_ms,
+           "update_ms_median": float(np.median(update_ms[1:])),
+           "launches": launches,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for t in tree_leaves(held)),
+           "block_bytes": block_reckoning(torch, tr.state.params, ctx)[1],
+           "vs_bytes": opt_state_bytes(tr.state.opt_state),
+           "vs_reckoning_bytes": vs_reckoning(tr.state.params, ctx),
+           "vs_leaves": len(tree_leaves(tr.state.opt_state["vs"])),
+           "restored_equal": restored_equal,
+           "dump_write_s": tr.ckpt.last_write_s,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "final": [t.detach() for t in tree_leaves(held)]}
+    del tr, held
+    return out
+
+
+def phase_split_adafactor(torch, fa, group) -> dict:
+    """Phase 28(a): deepseek-67b at its published width cut to
+    ``ADA_LAYERS`` layers, Adafactor, through the split ``Trainer`` at
+    phase 26(a)'s mesh (data 2 x model 1) on phase 23's one-rank group,
+    and through the one-card ``Trainer`` (no group) at the same mesh:
+    the losses and the final blocks held against each other (``==``
+    where the sums run in the same order), the ``vs`` bytes against
+    their reckoning, each update's ms, and the ``vs`` blocks dumped and
+    restored ``==``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.distributed.context import make_context
+    run = ada_run(SPLIT_ONE_MESH, dump=True)
+    cfg = run.model
+    print(f"phase 28(a): {ADA_ARCH} at its published width (d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}) cut to {ADA_LAYERS} of 95 "
+          f"layers, batch {ADA_BATCH} x {TRAIN_SEQ}, {run.train.optimizer}, "
+          f"{ADA_STEPS} steps: the split Trainer at mesh "
+          f"{SPLIT_ONE_MESH[0]}x{SPLIT_ONE_MESH[1]} on phase 23's one-rank "
+          f"group against the one-card Trainer")
+    check(run.train.optimizer == "adafactor",
+          f"the dry run's train config for {ADA_ARCH} is Adafactor")
+    out = {}
+    for key, ctx in (("one_card", make_context(
+            SPLIT_ONE_MESH, ("data", "model"), device=DEVICE)),
+            ("split", make_context(SPLIT_ONE_MESH, ("data", "model"),
+                                   device=DEVICE, group=group,
+                                   split_model=True))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        workdir = tempfile.mkdtemp(prefix=f"chip_smoke_ada_{key}_")
+        try:
+            out[key] = ada_train(torch, fa, ctx, workdir, run)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    one, got = out["one_card"], out["split"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                  one["losses"]))
+    block_diff = max(float((a.float() - b.float()).abs().max())
+                     for a, b in zip(got.pop("final"), one.pop("final")))
+    got["rel_to_one_card"] = rel
+    got["final_blocks_max_abs_diff"] = block_diff
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = ADA_LAYERS * ADA_STEPS
+    print(f"  losses {got['losses']} (one card {one['losses']}): max rel "
+          f"{rel:.3g}; the final blocks' largest difference {block_diff}; "
+          f"Adafactor's update {got['update_ms_median']:.3f} ms a step "
+          f"(median of steps 1-{ADA_STEPS - 1}; one card "
+          f"{one['update_ms_median']:.3f} ms); step median "
+          f"{got['step_ms_median']:.1f} ms (one card "
+          f"{one['step_ms_median']:.1f}); parameters {got['param_bytes']} B "
+          f"(blocks {got['block_bytes']} B), vs {got['vs_bytes']} B over "
+          f"{got['vs_leaves']} tensors (reckoning "
+          f"{got['vs_reckoning_bytes']} B); the dump written in "
+          f"{got['dump_write_s']:.2f} s; peak {got['peak_bytes']} B; "
+          f"{card_line()}")
+    if got["losses"] == one["losses"] and block_diff == 0.0:
+        print(f"  ok  the {ADA_STEPS} losses and the final blocks == the "
+              f"one-card Trainer's, bit for bit")
+    else:
+        check(rel <= ADA_RTOL, f"the losses within {rel:.3g} (rel) of the "
+              f"one-card Trainer's, limit {ADA_RTOL}")
+    check(got["vs_bytes"] == got["vs_reckoning_bytes"]
+          and got["param_bytes"] == got["block_bytes"],
+          f"the rank holds {got['vs_bytes']} B of Adafactor state, the "
+          f"reckoning of its blocks' rows and columns, and its blocks' "
+          f"{got['block_bytes']} B of parameters")
+    check(got["restored_equal"] is True and one["restored_equal"] is True,
+          f"the MN dump after step {ADA_DUMP_INTERVAL - 1} restores the vs "
+          f"blocks == those of its step")
+    la = got["launches"]
+    check(la["flash_attn"] == 2 * n and la["flash_attn_bwd"] == n,
+          f"flash_attn launched {la['flash_attn']} times forward and "
+          f"{la['flash_attn_bwd']} backward over {ADA_STEPS} steps at "
+          f"{ADA_ARCH}'s {cfg.n_heads} / {cfg.n_kv_heads} heads ({2 * n} "
+          f"and {n} expected)")
+    got["one_card"] = one
+    return got
+
+
 def multi_card_only(torch, fa, ssd, which: str, sim) -> int:
     """``--multi-card-only``: for ``"ranks"``, phase 20's training on
     card 0 without a group (the reference losses), then phase 23(c)
     alone; for ``"cells"``, phases 4 and 13 on card 0 (the reference),
     then phase 24(e) alone; for ``"serve"``, phase 25(c) alone (its
-    one-card reference on card 0 first); for ``"train"``, phases 26(c)
-    and 27(c) alone (card 0's runs first); ``"all"`` runs the four."""
+    one-card reference on card 0 first); for ``"train"``, phases 26(c),
+    27(c), 28(c) and 29(c) alone (card 0's runs first); ``"all"`` runs
+    the four."""
     check(torch.cuda.device_count() > 1,
           f"--multi-card-only: {torch.cuda.device_count()} cards, needs 2+")
     if which in ("all", "serve"):
@@ -7368,8 +7828,9 @@ def main(argv=None) -> int:
                     "run phases 4 and 13 on card 0 for the reference and "
                     "phase 24(e) alone; 'serve': phase 25(c) alone (four "
                     "cards), its one-card reference on card 0 first; "
-                    "'train': phases 26(c) and 27(c) alone (four cards), "
-                    "card 0's runs first; 'all' (the default): the four")
+                    "'train': phases 26(c), 27(c), 28(c) and 29(c) alone "
+                    "(four cards), card 0's runs first; 'all' (the "
+                    "default): the four")
     args = ap.parse_args(argv)
 
     import torch
@@ -7529,6 +7990,8 @@ def main(argv=None) -> int:
     split["replicate"] = phase_split_replicate(torch, fa, lc, lc_ref, group,
                                                ranks["train"], installed23)
     del installed23
+    gc.collect()
+    split["adafactor"] = phase_split_adafactor(torch, fa, group)
     gc.collect()
     fam = phase_train_families(torch, fa, attn, ssd, ssm_mod)
     launch = phase_launch_paths(torch, fa, ssd, train, fam)
@@ -7705,7 +8168,12 @@ def main(argv=None) -> int:
         {"path": f"{TRAIN_ARCH} train through the split path, proactive, "
                  f"a fail-stop recovered, {SPLIT_REP_STEPS} steps (phase "
                  f"27(a))",
-         "launches": split["replicate"]["launches"]["flash_attn"]}] + [
+         "launches": split["replicate"]["launches"]["flash_attn"]},
+        {"path": f"{ADA_ARCH} at {ADA_LAYERS} layers, Adafactor, through "
+                 f"the one-card and the split Trainer, {ADA_STEPS} steps "
+                 f"each (phase 28(a))",
+         "launches": split["adafactor"]["launches"]["flash_attn"]
+         + split["adafactor"]["one_card"]["launches"]["flash_attn"]}] + [
         {"path": f"{arch} train, {len(t['losses'])} steps (forward and "
                  f"remat's recompute)",
          "launches": t["launches"]["flash_attn"]}
@@ -7723,6 +8191,15 @@ def main(argv=None) -> int:
         "bound_ms": tp_attn["bound_ms"], "bound_by": tp_attn["bound_by"],
         **tp_attn["forward"]}
     bwd_main = train["bwd"][0]
+    ada_runs = {
+        "flash_attn_bwd": sum(
+            r["launches"]["flash_attn_bwd"]
+            for r in (split["adafactor"], split["adafactor"]["one_card"])),
+        "flash_attn_bwd_by_kernel": {
+            k: sum(r["launches"]["flash_attn_bwd_by_kernel"].get(k, 0)
+                   for r in (split["adafactor"],
+                             split["adafactor"]["one_card"]))
+            for k in ("mma", "simt")}}
     bwd_entry = {
         "name": "flash_attn_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn_bwd.cu",
@@ -7734,7 +8211,8 @@ def main(argv=None) -> int:
         + ex100m["launches"]["backward"]
         + ranks["train"]["launches"]["backward"]
         + split["one"]["launches"]["flash_attn_bwd"]
-        + split["replicate"]["launches"]["flash_attn_bwd"],
+        + split["replicate"]["launches"]["flash_attn_bwd"]
+        + ada_runs["flash_attn_bwd"],
         "launches_by_kernel": {
             k: v + sum(t["launches"]["flash_attn_bwd_by_kernel"][k]
                        for t in fam["train"].values())
@@ -7742,6 +8220,7 @@ def main(argv=None) -> int:
             + ranks["train"]["launches"]["backward_by_kernel"][k]
             + split["one"]["launches"]["flash_attn_bwd_by_kernel"][k]
             + split["replicate"]["launches"]["flash_attn_bwd_by_kernel"][k]
+            + ada_runs["flash_attn_bwd_by_kernel"][k]
             for k, v in train["train"]["launches"][
                 "backward_by_kernel"].items()},
         "paths": [{"path": f"{TRAIN_ARCH} train, {TRAIN_STEPS} steps",
@@ -7761,7 +8240,11 @@ def main(argv=None) -> int:
              "launches": split["one"]["launches"]["flash_attn_bwd"]},
             {"path": f"{TRAIN_ARCH} train through the split path, "
                      f"proactive, {SPLIT_REP_STEPS} steps (phase 27(a))",
-             "launches": split["replicate"]["launches"]["flash_attn_bwd"]}],
+             "launches": split["replicate"]["launches"]["flash_attn_bwd"]},
+            {"path": f"{ADA_ARCH} at {ADA_LAYERS} layers, Adafactor, the "
+                     f"one-card and the split Trainer, {ADA_STEPS} steps "
+                     f"each (phase 28(a))",
+             "launches": ada_runs["flash_attn_bwd"]}],
         "kernel": bwd_main["kernel"],
         "kernels": {"mma": "bf16: flash_attn_bwd_dkdv_mma_kernel + "
                            "flash_attn_bwd_dq_mma_kernel, tensor cores "

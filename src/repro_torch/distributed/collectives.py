@@ -26,7 +26,13 @@ uses for its own part (the gated norm's sum of squares);
 :func:`fsdp_gather`, the FSDP all-gather of a storage-sharded parameter
 dimension just in time (``_gather``, ``src/repro/models/moe.py:177-186``);
 and :func:`model_gather`, the ``model``-group all-gather of the
-vocab-split logits. Each is a ``torch.autograd.Function`` under grad
+vocab-split logits; and under the ``seq_model`` activation policy
+(``sharding.seq_split``) Megatron sequence parallelism's pair,
+:func:`seq_gather` (a region's entry: the sequence spans all-gathered,
+the gradient reduce-scattered back) and :func:`seq_scatter` (its exit:
+the partials reduce-scattered to the spans, the gradient all-gathered),
+which take ``model_copy``'s and ``model_sum``'s place where the
+residual stream lives as spans. Each is a ``torch.autograd.Function`` under grad
 mode, its backward the rule GSPMD derives from the forward (each
 docstring states it); under ``torch.no_grad()`` each runs exactly the
 forward-only call serving has always made. Where a serving cache's
@@ -51,7 +57,9 @@ broadcast (recovery's :func:`share`) its payload. Beside the
 collectives above they count the train step's other sums:
 :func:`all_reduce_sum` (the gradient buckets), ``rank_weight`` (the
 loss tokens, ``training/steps.py``), ``grad_norm`` (the global norm's
-sum of squares, ``optim/optimizers.py``), the parity shard's
+sum of squares, ``optim/optimizers.py``), Adafactor's three sums across
+blocks (``adafactor_factors``, ``adafactor_denom``, ``adafactor_rms``,
+``optim/optimizers.py``), the parity shard's
 cross-rank sum (``group_sum``) and recovery's tables
 (``gather_rows``, ``model_rows``).
 
@@ -90,6 +98,10 @@ COUNTS: Dict[str, int] = {"model_sum": 0, "fsdp_gather": 0,
                           "model_copy_bwd": 0, "model_sum_shared_bwd": 0,
                           "fsdp_gather_bwd": 0, "all_reduce_sum": 0,
                           "rank_weight": 0, "grad_norm": 0,
+                          "adafactor_factors": 0, "adafactor_denom": 0,
+                          "adafactor_rms": 0, "seq_gather": 0,
+                          "seq_gather_bwd": 0, "seq_scatter": 0,
+                          "seq_scatter_bwd": 0,
                           "ppermute": 0, "group_sum": 0, "gather_rows": 0,
                           "model_rows": 0, "share": 0}
 
@@ -327,7 +339,8 @@ def share(x: Optional[torch.Tensor], src: int, shape: Tuple[int, ...],
 
 
 def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
-                   ctx: MeshContext, group: Any = None) -> None:
+                   ctx: MeshContext, group: Any = None,
+                   name: str = "all_reduce_sum") -> None:
     """Every tensor <- the sum over ranks of ``scale`` x the tensor, in
     place, through flat f32 buckets of ``GRAD_BUCKET_BYTES`` (one
     ``dist.all_reduce`` a bucket, not one a leaf). Stands for the sum
@@ -335,7 +348,8 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
     ``P(batch_axes, ...)`` (``src/repro/training/trainer.py:109-116``).
     A bf16 leaf goes through f32 and back: exact at ``scale`` 1 on one
     rank. ``group`` (default ``ctx.group``): the ranks to sum over, the
-    FSDP group when the ranks split ``model``."""
+    FSDP group when the ranks split ``model``. Counted under ``name``
+    (Adafactor's sums across blocks have their own)."""
     group = ctx.group if group is None else group
     bucket: List[torch.Tensor] = []
     size = 0
@@ -344,7 +358,7 @@ def all_reduce_sum(tensors: Sequence[torch.Tensor], scale: float,
         flat = torch.cat([t.reshape(-1).float() for t in bucket])
         if scale != 1.0:
             flat.mul_(scale)
-        _account("all_reduce_sum", _reduced(flat, group))
+        _account(name, _reduced(flat, group))
         dist.all_reduce(flat, group=group)
         off = 0
         for t in bucket:
@@ -543,6 +557,90 @@ def model_gather(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     if _tracked(x):
         return _ModelGather.apply(x, ctx)
     return _model_gather(x, ctx)
+
+
+def _seq_gather(x: torch.Tensor, ctx: MeshContext, name: str
+                ) -> torch.Tensor:
+    """Dimension 1 of ``x`` gathered over the ``model`` group, in model
+    order, counted under ``name``."""
+    m = ctx.model_size
+    _account(name, _gathered(_nbytes(x) * m, ctx.model_group))
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(m)]
+    dist.all_gather(parts, x, group=ctx.model_group)
+    return torch.cat(parts, dim=1)
+
+
+def _seq_scatter(x: torch.Tensor, ctx: MeshContext, name: str
+                 ) -> torch.Tensor:
+    """The sum of ``x`` over the ``model`` group, each rank keeping its
+    span of dimension 1 (a reduce-scatter), counted under ``name``."""
+    m = ctx.model_size
+    parts = [p.contiguous() for p in x.chunk(m, dim=1)]
+    out = torch.empty_like(parts[0])
+    _account(name, _nbytes(out) * (_size(ctx.model_group) - 1))
+    dist.reduce_scatter(out, parts, group=ctx.model_group)
+    return out
+
+
+def _span(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    n = x.shape[1] // ctx.model_size
+    return x.narrow(1, ctx.model_rank * n, n)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, summed):
+        fctx.ctx, fctx.summed = ctx, summed
+        return _seq_gather(x, ctx, "seq_gather")
+
+    @staticmethod
+    def backward(fctx, g):
+        if fctx.summed:
+            return _seq_scatter(g, fctx.ctx, "seq_gather_bwd"), None, None
+        return _span(g, fctx.ctx), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx):
+        fctx.ctx = ctx
+        return _seq_scatter(x, ctx, "seq_scatter")
+
+    @staticmethod
+    def backward(fctx, g):
+        return _seq_gather(g, fctx.ctx, "seq_scatter_bwd"), None
+
+
+def seq_gather(x: torch.Tensor, ctx: MeshContext,
+               summed: bool = True) -> torch.Tensor:
+    """Megatron sequence parallelism's entry: ``x`` ``(B, S / m, ...)``,
+    this rank's span of the sequence, gathered over the ``model`` group
+    to the whole ``(B, S, ...)``. With ``summed`` (a region whose ranks
+    each compute a part: its heads, channels, experts or vocabulary, or
+    its span of the output) each rank's gradient of the whole is its
+    part, so the backward reduce-scatters it: the sum, this rank's span
+    (the fused ``model_copy``). Without, every rank's gradient of the
+    whole is the same (a replicated computation: the MoE's router, an
+    unsplit unembedding), and the backward is this rank's span of it."""
+    if ctx is None or ctx.model_group is None:
+        return x
+    if _tracked(x):
+        return _SeqGather.apply(x, ctx, summed)
+    return _seq_gather(x, ctx, "seq_gather")
+
+
+def seq_scatter(x: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """Megatron sequence parallelism's exit: a row-parallel product's
+    partials ``(B, S, ...)`` summed over the ``model`` group, each rank
+    keeping its span ``(B, S / m, ...)`` (the reduce-scatter that takes
+    ``model_sum``'s place). Each rank's span is then the whole of its
+    positions, so the backward all-gathers the spans' gradients."""
+    if ctx is None or ctx.model_group is None:
+        return x
+    if _tracked(x):
+        return _SeqScatter.apply(x, ctx)
+    return _seq_scatter(x, ctx, "seq_scatter")
 
 
 def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor

@@ -31,8 +31,27 @@ backward then reduce-scatters the gradient over the FSDP group
 mark where a layer enters a region the ``model`` axis partitions.
 :func:`holders` is the one place that says how many ranks hold each
 element of a leaf, which the gradient reduction and the global norm of
-``training/steps.py`` read; :func:`locals_of` is the tree of blocks the
-optimizer updates.
+``training/steps.py`` read; :func:`sharers` says which ranks hold the
+same block (or rows) of a leaf, which Adafactor's sums across blocks
+read; :func:`locals_of` is the tree of blocks the optimizer updates.
+
+The activation rules follow the reference's policy
+(:func:`set_activation_policy` / :func:`get_activation_policy`, its
+names, values and ``ValueError``). Under ``"batch"`` (the default) the
+residual stream is replicated over a node block's ``model`` positions:
+a region the axis partitions is entered by ``collectives.model_copy``
+and left by ``collectives.model_sum`` (:func:`enter` / :func:`leave`).
+Under ``"seq_model"`` (Megatron sequence parallelism), in the split
+train step, a 3-D residual activation whose sequence the ``model`` size
+divides (:func:`seq_split`) lives between the regions as this rank's
+span of the positions: every region is entered by a sequence
+all-gather and left by a reduce-scatter (``collectives.seq_gather`` /
+``seq_scatter``); a region every rank computes whole (hymba's
+attention, an unsplit MLP or vocabulary) keeps the span of its output
+(:func:`to_span`), its leaves then read through :func:`part_weight`
+(their gradient the span's part, summed over ``model``), and so are the
+norms' scales on a span. Serving keeps the batch layout under either
+policy (ROADMAP.md, "Contracts").
 
 The serving half of the JAX module's activation rules is here too:
 :func:`batch_blocks` (its ``batch_specs`` split of a batch), and the
@@ -355,11 +374,34 @@ def weight(leaf: Any) -> torch.Tensor:
     return t
 
 
-def enter(x: torch.Tensor) -> torch.Tensor:
-    """A replicated activation entering a region the ``model`` axis
-    partitions (``collectives.model_copy``: its gradient summed over the
-    ``model`` group on the way back); the identity without a split."""
-    return collectives.model_copy(x, get_mesh_context())
+def enter(x: torch.Tensor, seq: bool = False,
+          partial: bool = True) -> torch.Tensor:
+    """An activation entering a region whose ranks each compute a part
+    (``partial``: the heads, channels, experts or vocabulary the
+    ``model`` axis partitions, or this rank's span of a whole-computed
+    region's output): a replicated one through
+    ``collectives.model_copy`` (its gradient summed over the ``model``
+    group on the way back), this rank's span of the sequence (``seq``,
+    :func:`seq_split`) gathered whole by ``collectives.seq_gather`` (its
+    gradient reduce-scattered back). A span entering a region every rank
+    computes whole is gathered with the span of the gradient as its
+    backward; a replicated one enters such a region as it is. The
+    identity without a split."""
+    ctx = get_mesh_context()
+    if seq:
+        return collectives.seq_gather(x, ctx, summed=partial)
+    return collectives.model_copy(x, ctx) if partial else x
+
+
+def leave(out: torch.Tensor, seq: bool = False) -> torch.Tensor:
+    """A row-parallel region's partials made whole: summed over the
+    ``model`` group (``collectives.model_sum``), or, where the residual
+    stream lives as spans (``seq``), reduce-scattered to this rank's
+    span (``collectives.seq_scatter``)."""
+    ctx = get_mesh_context()
+    if seq:
+        return collectives.seq_scatter(out, ctx)
+    return collectives.model_sum(out, ctx)
 
 
 def part_weight(leaf: Any) -> torch.Tensor:
@@ -405,6 +447,36 @@ def holders(leaf: Any, ctx: MeshContext) -> Holders:
         return Holders(model, ctx.n_blocks, False)
     parts = len(set(leaf.gathers[0][1]))
     return Holders(model, ctx.n_blocks // parts, True)
+
+
+def _block_at(leaf: "Shard", ctx: MeshContext, block: int,
+              model_pos: int) -> Tuple[Tuple[int, int], ...]:
+    """(start, length) of each dimension of ``leaf``'s block on the rank
+    of node block ``block`` at ``model`` position ``model_pos``."""
+    out = []
+    for d, size in enumerate(leaf.shape):
+        axes = entry_axes(leaf.spec, d)
+        out.append(_dim_block(axes, size, ctx, block, model_pos) if axes
+                   else (0, size))
+    return tuple(out)
+
+
+def sharers(leaf: Any, ctx: MeshContext, dims: Sequence[int]) -> int:
+    """The ranks of ``ctx``'s world (whose ranks split ``model``) whose
+    block of ``leaf`` spans this rank's along each dimension of ``dims``
+    (every dimension: the ranks holding the same block). Where several
+    ranks add a part of a sum over the dimensions not in ``dims``, each
+    weighs its part by one over this count, and the sum over the world
+    counts every distinct part once: the one rule Adafactor's factored
+    sums across blocks read (``optim/optimizers.py``). A plain leaf is
+    whole on every rank."""
+    if not isinstance(leaf, Shard):
+        return ctx.world
+    mine = _block_at(leaf, ctx, ctx.block, ctx.model_rank)
+    return sum(all(other[d] == mine[d] for d in dims)
+               for other in (_block_at(leaf, ctx, b, p)
+                             for b in range(ctx.n_blocks)
+                             for p in range(ctx.model_size)))
 
 
 def locals_of(tree: Any) -> Any:
@@ -515,6 +587,56 @@ def cache_span(length: int, ctx: Optional[MeshContext] = None
         return 0, length
     n = length // ctx.n_blocks
     return ctx.block * n, n
+
+
+# ---------------------------------------------------------------------------
+# The activation policy
+# ---------------------------------------------------------------------------
+
+#: the reference's activation policy
+#: (``src/repro/distributed/sharding.py:35-58``): ``"batch"``, the
+#: residual stream's rows over (pod, data) only; ``"seq_model"``,
+#: Megatron sequence parallelism -- between the regions a 3-D residual
+#: activation whose sequence the ``model`` size divides is also split
+#: on the sequence over ``model`` (:func:`seq_split`)
+_ACTIVATION_POLICY = "batch"
+
+
+def set_activation_policy(policy: str) -> None:
+    """Set the activation policy; ``ValueError`` for another name."""
+    global _ACTIVATION_POLICY
+    if policy not in ("batch", "seq_model"):
+        raise ValueError(policy)
+    _ACTIVATION_POLICY = policy
+
+
+def get_activation_policy() -> str:
+    return _ACTIVATION_POLICY
+
+
+def seq_split(length: int, ctx: Optional[MeshContext] = None) -> bool:
+    """Whether a 3-D residual activation of ``length`` global positions
+    lives between the regions as this rank's span of the sequence: the
+    ``seq_model`` policy, ranks that split ``model`` over more than one
+    position, and a ``length`` the ``model`` size divides -- the
+    reference's ``P(batch_axes, model, None)``
+    (``src/repro/distributed/sharding.py:57-71``). Any other activation
+    keeps the batch layout, as there."""
+    ctx = ctx or get_mesh_context()
+    return (_ACTIVATION_POLICY == "seq_model" and ctx is not None
+            and ctx.split_model and ctx.model_group is not None
+            and length % ctx.model_size == 0)
+
+
+def to_span(x: torch.Tensor, seq: bool = True) -> torch.Tensor:
+    """``x`` ``(B, S, ...)`` -> this rank's span of dimension 1 under
+    ``seq`` (a slice: a whole-computed region's output, an input with no
+    gradient); ``x`` otherwise."""
+    if not seq:
+        return x
+    ctx = get_mesh_context()
+    n = x.shape[1] // ctx.model_size
+    return x.narrow(1, ctx.model_rank * n, n)
 
 
 # ---------------------------------------------------------------------------

@@ -74,7 +74,7 @@ from repro_torch.config import (
 )
 from repro_torch.configs import ASSIGNED_ARCHS
 from repro_torch.core.replication import ReplicationEngine, tree_flatten
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, sharding
 from repro_torch.distributed.context import MeshContext, make_context
 from repro_torch.distributed.sharding import locals_of, param_specs
 from repro_torch.launch.costing import step_cost
@@ -178,14 +178,17 @@ def _cell_context(multi_pod: bool, mesh, group=None) -> MeshContext:
 def build_cell(arch: str, shape_name, multi_pod: bool,
                variant: str = "proactive",
                model_cfg=None, mesh=None, replication=None,
-               group=None) -> Dict[str, Any]:
+               group=None, train_overrides=None) -> Dict[str, Any]:
     """Build one cell on ``meta``: the context, the model and its
     parameters, and the step with its arguments (``fn``, ``args``), plus
     the train state and engine for a train cell. ``shape_name`` names a
     cell of ``SHAPES`` or is a :class:`ShapeConfig`; ``model_cfg``
     replaces the registered config (a reduced one, in tests); ``mesh``
     (``(shape, axes)``) the production mesh and ``replication`` the
-    cell's ``ReplicationConfig``. With ``group`` (:func:`fake_world`)
+    cell's ``ReplicationConfig``; ``train_overrides`` change fields of
+    the cell's ``TrainConfig`` (the reference's argument,
+    ``src/repro/launch/dryrun.py:112-113``: a reduced config costed with
+    Adafactor). With ``group`` (:func:`fake_world`)
     the cell is rank 0's of the layout over ranks that split ``model``:
     its blocks, its rows of the batch, and a train step without the
     replicate (module docstring; ``engine`` still gives the layout)."""
@@ -196,6 +199,8 @@ def build_cell(arch: str, shape_name, multi_pod: bool,
         raise ValueError(f"cell skipped by design: {why}")
     rep = replication or ReplicationConfig(variant=variant, log_capacity=2)
     tc = train_config_for(arch) if model_cfg.name == arch else TrainConfig()
+    if train_overrides:
+        tc = dataclasses.replace(tc, **train_overrides)
     run = RunConfig(model=model_cfg, shape=shape, replication=rep, train=tc)
     ctx = _cell_context(multi_pod, mesh, group)
     model = build_model(model_cfg)
@@ -275,15 +280,21 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
              variant: str = "proactive", save: bool = True,
              out_dir: str = ARTIFACT_DIR,
              model_cfg=None, split_model: bool = False, mesh=None,
-             replication=None) -> Dict[str, Any]:
+             replication=None, train_overrides=None,
+             act_policy: str = "batch") -> Dict[str, Any]:
     """Build and cost one cell; returns (and saves) its record.
 
     Attention and the SSD scan are counted by the kernels' formula
     (``launch/costing.py``'s flash accounting): on the card every
     prefill and training attention and SSD scan runs in the kernels.
     ``split_model``: rank 0 of the layout over ranks that split
-    ``model``, in a :func:`fake_world` (module docstring); ``mesh`` and
-    ``replication`` as for :func:`build_cell`."""
+    ``model``, in a :func:`fake_world` (module docstring); ``mesh``,
+    ``replication`` and ``train_overrides`` as for :func:`build_cell`.
+    ``act_policy`` (``"batch"`` / ``"seq_model"``,
+    ``sharding.set_activation_policy``) is set for the cell and reset to
+    ``"batch"`` after it, as the reference does
+    (``src/repro/launch/dryrun.py:256-263``); it moves only the split
+    train step (serving keeps the batch layout)."""
     t0 = time.time()
     model_cfg = model_cfg or get_model_config(arch)
     shape = _shape(shape_name)
@@ -293,7 +304,7 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
     record: Dict[str, Any] = {
         "arch": arch, "shape": shape.name,
         "mesh": name + ("-split" if split_model else ""),
-        "variant": variant, "device": "meta",
+        "variant": variant, "device": "meta", "act_policy": act_policy,
     }
     ok, why = shape_applicable(model_cfg, shape)
     if ok and split_model and shape.kind != "train":
@@ -304,6 +315,7 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
             _save(record, out_dir)
         return record
     try:
+        sharding.set_activation_policy(act_policy)
         with contextlib.ExitStack() as stack:
             group = None
             if split_model:
@@ -313,11 +325,14 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
                 group = stack.enter_context(
                     fake_world(int(np.prod(sizes))))
             _cost_cell(record, t0, arch, shape_name, multi_pod, variant,
-                       model_cfg, mesh, replication, group)
+                       model_cfg, mesh, replication, group,
+                       train_overrides)
     except Exception as e:  # noqa: BLE001 -- a failed cell IS the finding
         record["status"] = "error"
         record["error"] = f"{type(e).__name__}: {e}"
         record["traceback"] = traceback.format_exc()[-2000:]
+    finally:
+        sharding.set_activation_policy("batch")
     record["wall_s"] = round(time.time() - t0, 2)
     if save:
         _save(record, out_dir)
@@ -326,11 +341,11 @@ def run_cell(arch: str, shape_name, multi_pod: bool,
 
 def _cost_cell(record: Dict[str, Any], t0: float, arch: str, shape_name,
                multi_pod: bool, variant: str, model_cfg, mesh, replication,
-               group) -> None:
+               group, train_overrides) -> None:
     """:func:`run_cell`'s body: build, cost and fill ``record``."""
     shape = _shape(shape_name)
     cell = build_cell(arch, shape_name, multi_pod, variant, model_cfg,
-                      mesh, replication, group)
+                      mesh, replication, group, train_overrides)
     ctx, engine = cell["ctx"], cell["engine"]
     n_nodes = int(np.prod(ctx.axis_sizes))
     t_build = time.time() - t0
@@ -392,6 +407,7 @@ def _cost_cell(record: Dict[str, Any], t0: float, arch: str, shape_name,
         "status": "ok",
         "step": cell["step"],
         "mesh_shape": list(ctx.axis_sizes),
+        "optimizer": cell["run"].train.optimizer,
         "n_nodes": n_nodes,
         "build_s": round(t_build, 2),
         "memory": memory,
@@ -419,8 +435,10 @@ def _cost_cell(record: Dict[str, Any], t0: float, arch: str, shape_name,
 
 def _save(record: Dict[str, Any], out_dir: str) -> None:
     os.makedirs(out_dir, exist_ok=True)
+    policy = record.get("act_policy", "batch")
     name = (f"dryrun_{record['arch']}_{record['shape']}_"
-            f"{record['mesh'].replace('x', '-')}.json")
+            f"{record['mesh'].replace('x', '-')}"
+            f"{'' if policy == 'batch' else '_' + policy}.json")
     with open(os.path.join(out_dir, name), "w") as f:
         json.dump(record, f, indent=1)
 

@@ -54,6 +54,15 @@ Where the query heads are split, the attention is a region the
   (sliced or expanded to the group's heads by :func:`_local_kv`);
 * ``wo``'s partial leaves it through ``collectives.model_sum``, whose
   backward is the identity.
+
+Under the ``seq_model`` policy (``seq=True``, ``sharding.seq_split``)
+the training inputs are this rank's span of the sequence (the
+cross-attention's context its span of the frames, decided apart): each
+entry is a sequence all-gather and ``wo``'s partial leaves by a
+reduce-scatter (``sharding.enter`` / ``leave``); where the heads are not
+split the attention computes whole on the gathered input and keeps the
+span of its output, every leaf read through ``sharding.part_weight``.
+Serving keeps the batch layout.
 """
 
 from __future__ import annotations
@@ -113,18 +122,21 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig,
 
 def _project_qkv(params: Params, xq: torch.Tensor, xkv: torch.Tensor,
                  cfg: ModelConfig, q_positions: Optional[torch.Tensor],
-                 kv_positions: Optional[torch.Tensor], use_rope: bool
+                 kv_positions: Optional[torch.Tensor], use_rope: bool,
+                 seq: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Project to (B, S, H, hd) / (B, Skv, K, hd) and apply qk-norm + RoPE."""
+    """Project to (B, S, H, hd) / (B, Skv, K, hd) and apply qk-norm + RoPE;
+    ``seq``: the inputs are this rank's span of the sequence, gathered
+    on entry (``sharding.enter``)."""
     hd = cfg.resolved_head_dim
-    b, sq, _ = xq.shape
-    skv = xkv.shape[1]
     w = sharding.weight
-    if _partitioned(params):
+    if _partitioned(params) or seq:
         w = sharding.part_weight
         same = xkv is xq
-        xq = sharding.enter(xq)
-        xkv = xq if same else sharding.enter(xkv)
+        xq = sharding.enter(xq, seq)
+        xkv = xq if same else sharding.enter(xkv, seq)
+    b, sq, _ = xq.shape
+    skv = xkv.shape[1]
     q = (xq @ w(params["wq"])).reshape(b, sq, -1, hd)
     k = (xkv @ w(params["wk"])).reshape(b, skv, -1, hd)
     v = (xkv @ w(params["wv"])).reshape(b, skv, -1, hd)
@@ -163,14 +175,20 @@ def _local_kv(params: Params, k: torch.Tensor, v: torch.Tensor,
             sharding.constrain_heads(_expand_kv(v, cfg.n_heads)))
 
 
-def _out_proj(params: Params, o: torch.Tensor) -> torch.Tensor:
+def _out_proj(params: Params, o: torch.Tensor, seq: bool = False
+              ) -> torch.Tensor:
     """``o (B, S, heads, hd) @ wo``; ``wo``'s partial summed over the
-    ``model`` group where it splits the heads."""
+    ``model`` group where it splits the heads. ``seq``: the residual
+    stream lives as spans, so the partials are reduce-scattered to this
+    rank's span, or, where the heads are not split, the span of the
+    whole output is kept (``wo`` read through ``sharding.part_weight``:
+    its gradient is the span's part)."""
     b, s = o.shape[:2]
-    out = o.reshape(b, s, -1) @ sharding.weight(params["wo"])
+    w = sharding.part_weight if seq else sharding.weight
+    out = o.reshape(b, s, -1) @ w(params["wo"])
     if sharding.model_split(params["wo"], 0):
-        out = collectives.model_sum(out, get_mesh_context())
-    return out
+        return sharding.leave(out, seq)
+    return sharding.to_span(out, seq)
 
 
 def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -387,58 +405,80 @@ def self_attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    causal: bool = True,
                    positions: Optional[torch.Tensor] = None,
                    use_rope: bool = True,
-                   force_blockwise: Optional[bool] = None) -> torch.Tensor:
+                   force_blockwise: Optional[bool] = None,
+                   seq: bool = False) -> torch.Tensor:
     """Training / prefill self-attention over (B, S, d_model).
-    ``force_blockwise`` pins the CPU route's path."""
-    b, s, _ = x.shape
+    ``force_blockwise`` pins the CPU route's path. ``seq``: ``x`` is this
+    rank's span of the S positions, and so is the output."""
+    b = x.shape[0]
+    s = x.shape[1] * (get_mesh_context().model_size if seq else 1)
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
-    q, k, v = _project_qkv(params, x, x, cfg, positions, positions, use_rope)
+    q, k, v = _project_qkv(params, x, x, cfg, positions, positions, use_rope,
+                           seq)
     use_blockwise = (s > BLOCKWISE_THRESHOLD if force_blockwise is None
                      else force_blockwise)
     o = _attend(q, k, v, causal, use_blockwise)
-    return _out_proj(params, o)
+    return _out_proj(params, o, seq=True) if seq else _out_proj(params, o)
 
 
-def cross_kv(params: Params, ctx: torch.Tensor, cfg: ModelConfig
+def cross_kv(params: Params, ctx: torch.Tensor, cfg: ModelConfig,
+             seq: bool = False, partial: Optional[bool] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K / V ``(B, F, K, hd)`` of the context (the
     encoder output): its projections, with no norm and no RoPE, at the
-    KV heads this rank's query heads read (:func:`_local_kv`)."""
-    b, f, _ = ctx.shape
+    KV heads this rank's query heads read (:func:`_local_kv`). ``seq``:
+    the context is this rank's span of the frames, gathered whole;
+    ``partial``: the attention's ranks each compute a part of its output
+    (their heads, or their span of the queries; by default whether the
+    heads are split), so the K / V leaves' and the context's gradients
+    are parts, summed over ``model``."""
     hd = cfg.resolved_head_dim
+    partial = _partitioned(params) if partial is None else partial
     w = sharding.weight
-    if _partitioned(params):
-        w, ctx = sharding.part_weight, sharding.enter(ctx)
+    if partial or seq:
+        ctx = sharding.enter(ctx, seq, partial)
+    if partial:
+        w = sharding.part_weight
+    b, f, _ = ctx.shape
     k = (ctx @ w(params["wk"])).reshape(b, f, -1, hd)
     v = (ctx @ w(params["wv"])).reshape(b, f, -1, hd)
     return _local_kv(params, k, v, cfg)
 
 
-def _cross_q(params: Params, x: torch.Tensor, cfg: ModelConfig
-             ) -> torch.Tensor:
+def _cross_q(params: Params, x: torch.Tensor, cfg: ModelConfig,
+             seq: bool = False) -> torch.Tensor:
+    w = sharding.weight
+    if _partitioned(params) or seq:
+        x = sharding.enter(x, seq)
+        w = sharding.part_weight if seq else w
     b, s, _ = x.shape
-    if _partitioned(params):
-        x = sharding.enter(x)
-    return (x @ sharding.weight(params["wq"])).reshape(
-        b, s, -1, cfg.resolved_head_dim)
+    return (x @ w(params["wq"])).reshape(b, s, -1, cfg.resolved_head_dim)
 
 
 def cross_attend(params: Params, x: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+                 v: torch.Tensor, cfg: ModelConfig, seq: bool = False
+                 ) -> torch.Tensor:
     """Cross-attention of ``x`` (B, S, d_model) to projected K / V (from
     :func:`cross_kv`): no mask, no RoPE; on the CPU the JAX package's
     full path at every length. ``wo``'s partial is summed over
-    ``model`` (:func:`_out_proj`)."""
-    o = _attend(_cross_q(params, x, cfg), k, v, causal=False,
+    ``model`` (:func:`_out_proj`). ``seq``: ``x`` is this rank's span of
+    the decoder's positions, and so is the output."""
+    o = _attend(_cross_q(params, x, cfg, seq), k, v, causal=False,
                 use_blockwise=False)
-    return _out_proj(params, o)
+    return _out_proj(params, o, seq=True) if seq else _out_proj(params, o)
 
 
 def cross_attention(params: Params, x: torch.Tensor, ctx: torch.Tensor,
-                    cfg: ModelConfig) -> torch.Tensor:
-    """Decoder -> encoder cross-attention (no mask, no RoPE)."""
-    k, v = cross_kv(params, ctx, cfg)
+                    cfg: ModelConfig, seq: bool = False,
+                    seq_ctx: bool = False) -> torch.Tensor:
+    """Decoder -> encoder cross-attention (no mask, no RoPE); ``seq`` /
+    ``seq_ctx``: ``x`` / ``ctx`` are this rank's spans of their
+    sequences (``sharding.seq_split``, each its own length)."""
+    k, v = cross_kv(params, ctx, cfg, seq_ctx,
+                    partial=_partitioned(params) or seq)
+    if seq:
+        return cross_attend(params, x, k, v, cfg, seq=True)
     return cross_attend(params, x, k, v, cfg)
 
 

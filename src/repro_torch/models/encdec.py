@@ -19,7 +19,10 @@ heads and sum ``wo``'s partial over ``model``. The reference's
 ``training/steps.py`` cut the rank's rows of ``frames`` and ``tokens``
 (``sharding.constrain_batch``), and its ``constrain_logits`` is the
 gather of ``sharding.constrain_logits`` there; on one card both are
-identities.
+identities. Under the ``seq_model`` policy the train forward keeps the
+encoder's and the decoder's streams each as this rank's span of its
+own length where ``sharding.seq_split`` says so; the cross-attention
+gathers the encoder's span for its K / V.
 
 On a CUDA tensor every attention of ``encode``, ``forward`` and
 ``prefill`` -- the encoder's, the decoder's causal one and the
@@ -125,28 +128,34 @@ def _remat(remat: str) -> str:
     return "full" if remat == "full" else "none"
 
 
-def _enc_layer(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn.self_attention(p["attn"], h, cfg, causal=False)
-    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+def _enc_layer(p: Params, x: torch.Tensor, cfg: ModelConfig,
+               seq: bool = False) -> torch.Tensor:
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps, seq)
+    x = x + attn.self_attention(p["attn"], h, cfg, causal=False, seq=seq)
+    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps, seq),
+                         cfg, seq=seq)
 
 
 def _dec_layer(p: Params, x: torch.Tensor, enc_out: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn.self_attention(p["attn"], h, cfg, causal=True)
-    hc = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-    x = x + attn.cross_attention(p["cross"], hc, enc_out, cfg)
-    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+               cfg: ModelConfig, seq: bool = False,
+               seq_enc: bool = False) -> torch.Tensor:
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps, seq)
+    x = x + attn.self_attention(p["attn"], h, cfg, causal=True, seq=seq)
+    hc = rmsnorm(p["ln_cross"], x, cfg.norm_eps, seq)
+    x = x + attn.cross_attention(p["cross"], hc, enc_out, cfg, seq, seq_enc)
+    return x + mlp_apply(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps, seq),
+                         cfg, seq=seq)
 
 
 def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
-           remat: str = "full") -> torch.Tensor:
-    """frames: (B, F, d_model) stub embeddings -> encoder output."""
-    x = frames.to(dtype_of(cfg))
+           remat: str = "full", seq: bool = False) -> torch.Tensor:
+    """frames: (B, F, d_model) stub embeddings -> encoder output;
+    ``seq``: the encoder's stream, and its output, this rank's span of
+    the F frames (``sharding.seq_split``)."""
+    x = sharding.to_span(frames.to(dtype_of(cfg)), seq)
     for p in params["enc_layers"]:
-        x = remat_apply(_enc_layer, _remat(remat), p, x, cfg)
-    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+        x = remat_apply(_enc_layer, _remat(remat), p, x, cfg, seq)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps, seq)
 
 
 # ---------------------------------------------------------------------------
@@ -156,13 +165,19 @@ def encode(params: Params, frames: torch.Tensor, cfg: ModelConfig,
 def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
     """batch: {frames (B,F,d), tokens (B,S), labels (B,S)} -> (logits,
-    aux), aux 0."""
-    enc_out = encode(params, batch["frames"], cfg, remat)
-    x = embed_tokens(params["embed"], batch["tokens"])
+    aux), aux 0. Under the ``seq_model`` policy the encoder's and the
+    decoder's streams each live as this rank's span where
+    ``sharding.seq_split`` says so for their own length."""
+    seq_enc = sharding.seq_split(batch["frames"].shape[1])
+    seq = sharding.seq_split(batch["tokens"].shape[1])
+    enc_out = encode(params, batch["frames"], cfg, remat, seq_enc)
+    x = (embed_tokens(params["embed"], batch["tokens"], seq=True) if seq
+         else embed_tokens(params["embed"], batch["tokens"]))
     for p in params["layers"]:
-        x = remat_apply(_dec_layer, _remat(remat), p, x, enc_out, cfg)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return (unembed(params["embed"], x, cfg),
+        x = remat_apply(_dec_layer, _remat(remat), p, x, enc_out, cfg, seq,
+                        seq_enc)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps, seq)
+    return (unembed(params["embed"], x, cfg, seq),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

@@ -22,7 +22,10 @@ the embedding's and ``w_down``'s sums (``collectives.model_sum``) give
 every rank the whole gradient, their backward the identity; and
 :func:`cross_entropy_loss` takes the logits gathered by
 ``collectives.model_gather``, whose backward is the rank's vocabulary
-slice.
+slice. Under the ``seq_model`` policy (``seq=True``) the norms, the MLP,
+the embedding and the unembedding take and give this rank's span of
+the sequence (``sharding.enter`` / ``leave`` / ``to_span``; a norm's
+scale on a span through ``sharding.part_weight``).
 """
 
 from __future__ import annotations
@@ -40,9 +43,7 @@ from torch.utils.checkpoint import (
 )
 
 from repro_torch.config import ModelConfig
-from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding
-from repro_torch.distributed.context import get_mesh_context
 
 Params = Dict[str, Any]
 
@@ -85,12 +86,16 @@ def rmsnorm_init(dim: int, dtype: torch.dtype,
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5
-            ) -> torch.Tensor:
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5,
+            seq: bool = False) -> torch.Tensor:
+    """RMS norm over the last dim; ``seq``: ``x`` is this rank's span of
+    the sequence, so the scale's gradient is the span's part, summed
+    over the ``model`` group (``sharding.part_weight``)."""
+    scale = sharding.part_weight(params["scale"]) if seq else params["scale"]
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    return (y * scale.float()).to(x.dtype)
 
 
 def head_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-5
@@ -149,17 +154,22 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
-              reduce: bool = True, w: Callable = sharding.weight
-              ) -> torch.Tensor:
+              reduce: bool = True, w: Callable = sharding.weight,
+              seq: bool = False) -> torch.Tensor:
     """The MLP; across ranks ``w_gate`` / ``w_up`` column-parallel over
     ``ff`` and ``w_down``'s partial summed over ``model``, its input
     entering the partitioned region (``sharding.enter``). With
     ``reduce`` False the caller (the MoE's shared experts) has entered
     ``x``, reads the leaves through ``w`` (``sharding.part_weight``) and
-    sums."""
+    sums. ``seq``: ``x`` is this rank's span of the sequence, gathered
+    on entry; the partials are reduce-scattered back to the span, or an
+    MLP ``ff`` is not split over computes whole and keeps the span of
+    its output, its leaves read through ``sharding.part_weight``."""
     split = sharding.model_split(params["w_down"], 0)
-    if reduce and split:
-        x = sharding.enter(x)
+    if reduce and (split or seq):
+        x = sharding.enter(x, seq)
+        if seq:
+            w = sharding.part_weight
     if cfg.mlp == "swiglu":
         g = F.silu(x @ w(params["w_gate"]))
         out = (g * (x @ w(params["w_up"]))) @ w(params["w_down"])
@@ -168,7 +178,9 @@ def mlp_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
         out = (F.gelu(x @ w(params["w_up"]), approximate="tanh")
                @ w(params["w_down"]))
     if reduce and split:
-        out = collectives.model_sum(out, get_mesh_context())
+        out = sharding.leave(out, seq)
+    elif reduce:
+        out = sharding.to_span(out, seq)
     return out
 
 
@@ -184,29 +196,42 @@ def embedding_init(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, tokens: torch.Tensor,
+                 seq: bool = False) -> torch.Tensor:
     """Token embeddings; across ranks vocab-parallel: each rank looks up
     the tokens of its vocabulary block, zeros the others, and the
-    ``model`` group sums (one rank holds each token's row)."""
+    ``model`` group sums (one rank holds each token's row). ``seq``: the
+    embeddings of this rank's span of the sequence -- the sum
+    reduce-scattered to the span, or, where the vocabulary is not split,
+    the span's tokens looked up, the table's gradient then the span's
+    part (``sharding.part_weight``)."""
     leaf = params["tok"]
-    tok = sharding.weight(leaf)
     if not sharding.model_split(leaf, 0):
-        return tok[tokens]
+        if seq:
+            return sharding.part_weight(leaf)[sharding.to_span(tokens)]
+        return sharding.weight(leaf)[tokens]
+    tok = sharding.weight(leaf)
     v0, nv = sharding.model_block(leaf, 0, leaf.shape[0])
     mine = (tokens >= v0) & (tokens < v0 + nv)
     rows = tok[torch.where(mine, tokens - v0, 0)]
     x = torch.where(mine[..., None], rows, torch.zeros_like(rows))
-    return collectives.model_sum(x, get_mesh_context())
+    return sharding.leave(x, seq)
 
 
-def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig
-            ) -> torch.Tensor:
+def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
+            seq: bool = False) -> torch.Tensor:
     """Logits; across ranks this rank's vocabulary block where the leaf
     splits the vocab over ``model`` (``sharding.constrain_logits``
-    gathers them), else every column."""
+    gathers them), else every column. ``seq``: ``x`` is this rank's span
+    of the sequence, gathered whole first (the loss reads every
+    position); where the vocabulary is not split every rank then
+    computes the same logits, and the gather's backward is the span of
+    the gradient."""
     leaf = params["tok"] if cfg.tie_embeddings else params["out"]
     if sharding.model_split(leaf, 0 if cfg.tie_embeddings else 1):
-        x = sharding.enter(x)
+        x = sharding.enter(x, seq)
+    elif seq:
+        x = sharding.enter(x, seq, partial=False)
     if cfg.tie_embeddings:
         return x @ sharding.weight(leaf).T
     return x @ sharding.weight(leaf)

@@ -42,6 +42,13 @@ group (what GSPMD derives from the reference's ``shard_map``):
   ``1 / m`` of the whole);
 * the partial output leaves through ``collectives.model_sum``.
 
+Under the ``seq_model`` policy (``seq=True``) the tokens come as this
+rank's span of the sequence: the router runs on the span and its
+probabilities are gathered whole (every rank routes every token, as
+under ``"batch"``), the tokens are gathered once for the routed and the
+shared experts, and the partial output is reduce-scattered back to the
+span (:func:`moe_apply`).
+
 The port gives the JAX function's answer where torch's primitives
 promise less than JAX's:
 
@@ -179,23 +186,33 @@ def combine(out_buf: torch.Tensor, slot: torch.Tensor, valid: torch.Tensor,
     return out
 
 
+def _router_probs(x: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """The router's softmax over the experts, in f32, of ``x`` (..., d)."""
+    return torch.softmax((x @ router.to(x.dtype)).float(), dim=-1)
+
+
 def _dispatch_and_compute(x_flat: torch.Tensor, params: Params,
                           cfg: ModelConfig, e_start: int, e_count: int,
                           w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
-                          w_down: torch.Tensor
+                          w_down: torch.Tensor,
+                          probs: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based dispatch of (T, d) tokens to experts [e_start,
     e_start + e_count). Returns (partial_out (T, d), aux_loss ()).
-    ``w_*`` are the expert stacks ``(e_count, d|ff, ff|d)``."""
+    ``w_*`` are the expert stacks ``(e_count, d|ff, ff|d)``. ``probs``,
+    given, are the tokens' router probabilities and ``x_flat`` has
+    entered the experts' region already (the ``seq_model`` policy)."""
     T, d = x_flat.shape
     E, K = cfg.n_experts, cfg.top_k
-    logits = (x_flat @ params["router"].to(x_flat.dtype)).float()
-    probs = torch.softmax(logits, dim=-1)                     # (T, E)
+    entered = probs is not None
+    if probs is None:
+        probs = _router_probs(x_flat, params["router"])       # (T, E)
     gate, idx = top_k_gates(probs, K)                         # (T, K)
     # the experts' region: its tokens and gates summed over ``model`` on
     # the way back (the identity without a split ``model`` axis)
     gate = sharding.enter(gate)
-    x_flat = sharding.enter(x_flat)
+    if not entered:
+        x_flat = sharding.enter(x_flat)
 
     # Load-balancing aux loss (Switch): E * sum_e f_e * p_e.
     me = probs.mean(dim=0)
@@ -215,16 +232,33 @@ def _dispatch_and_compute(x_flat: torch.Tensor, params: Params,
     return combine(out_buf, slot, valid, order, gate), aux
 
 
-def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss ()): the routed experts,
     then the shared ones added after them; per data block under a
     context with a ``model`` axis (module docstring). The aux loss needs
     no ``model`` collective: it comes from the replicated router and the
-    block's tokens, so every rank of the group holds the same value."""
+    block's tokens, so every rank of the group holds the same value.
+
+    ``seq`` (the ``seq_model`` policy): ``x`` is this rank's span of the
+    S positions, and so is ``out``. The router runs on the span (its
+    weight's gradient the span's part, summed over ``model``) and its
+    probabilities are gathered whole, every rank routing every token as
+    before (the gather's backward the span: every rank's gradient of
+    them is whole); the tokens are gathered once for the routed and the
+    shared experts (the backward reduce-scatters), and the partials are
+    reduce-scattered to the span."""
     b, s, d = x.shape
     E = cfg.n_experts
     ctx = get_mesh_context()
+    probs = None
+    if seq:
+        probs = collectives.seq_gather(
+            _router_probs(x.reshape(-1, d), sharding.part_weight(
+                params["router"])).reshape(b, s, E),
+            ctx, summed=False).reshape(-1, E)
+        x = sharding.enter(x, seq)
+        s = x.shape[1]
     xf = x.reshape(-1, d)
     if ctx is None or ctx.model_axis is None:
         out, aux = _dispatch_and_compute(
@@ -244,9 +278,11 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
     wg = params.get("w_gate")
     wg, wu, wd = (None if wg is None else w(wg)), w(up), w(params["w_down"])
     outs, auxs = [], []
-    for blk in xf.chunk(n_blocks):
+    pblocks = ([None] * n_blocks if probs is None
+               else probs.chunk(n_blocks))
+    for blk, pb in zip(xf.chunk(n_blocks), pblocks):
         o, a = _dispatch_and_compute(blk, params, cfg, e_start, e_count,
-                                     wg, wu, wd)
+                                     wg, wu, wd, pb)
         outs.append(o)
         auxs.append(a)
     out = outs[0] if n_blocks == 1 else torch.cat(outs)
@@ -254,14 +290,15 @@ def moe_apply(params: Params, x: torch.Tensor, cfg: ModelConfig
     if summed and not sharding.model_split(up, 0 if ep else 2):
         out = out / m                      # every rank computed it whole
     if "shared" in params:
-        sh = mlp_apply(params["shared"], sharding.enter(xf), cfg,
-                       reduce=False, w=w)
+        sh = mlp_apply(params["shared"], xf if seq else sharding.enter(xf),
+                       cfg, reduce=False, w=w)
         if summed and not sharding.model_split(params["shared"]["w_up"], 1):
             sh = sh / m
         out = out + sh
+    out = out.reshape(b, s, d)
     if summed:
-        out = collectives.model_sum(out, ctx)
-    return out.reshape(b, s, d), aux
+        out = sharding.leave(out, seq)
+    return out, aux
 
 
 def _data_blocks(rows: int, ctx) -> int:

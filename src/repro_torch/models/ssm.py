@@ -34,7 +34,11 @@ it is its heads' part -- ``w_B`` / ``w_C`` / ``conv_wB`` / ``conv_bB``
 ``norm_scale`` / ``A_log`` / ``D`` / ``dt_bias`` (sliced to the rank's
 channels or heads); the gated norm's sum of squares is summed in both
 directions (``collectives.model_sum_shared``); ``out_proj``'s partial
-leaves through ``collectives.model_sum``.
+leaves through ``collectives.model_sum``. Under the ``seq_model``
+policy (``seq=True``) ``u`` is this rank's span of the sequence,
+gathered on entry, and the partials are reduce-scattered to the span
+(an unsplit mixer computes whole and keeps its span, every leaf then
+through ``sharding.part_weight``).
 """
 
 from __future__ import annotations
@@ -138,9 +142,14 @@ class _Local:
     splits the heads (``partitioned``), every leaf it does not split read
     through ``sharding.part_weight``."""
 
-    def __init__(self, params: Params, cfg: ModelConfig):
+    def __init__(self, params: Params, cfg: ModelConfig, seq: bool = False):
         self.partitioned = sharding.model_split(params["w_x"], 1)
-        w = sharding.part_weight if self.partitioned else sharding.weight
+        # seq: the input is a span, gathered; an unsplit mixer computes
+        # whole and keeps the span of its output, so every leaf's
+        # gradient is then a part, summed over ``model``
+        self.seq = seq
+        self.partial = self.partitioned or seq
+        w = sharding.part_weight if self.partial else sharding.weight
         di, p = cfg.d_inner, cfg.ssm_head_dim
         c0, nc = sharding.model_block(params["w_x"], 1, di)
         if nc % p:
@@ -166,8 +175,8 @@ class _Local:
     def out(self, y: torch.Tensor) -> torch.Tensor:
         out = y @ self.out_proj
         if self.reduce:
-            out = collectives.model_sum(out, get_mesh_context())
-        return out
+            return sharding.leave(out, self.seq)
+        return sharding.to_span(out, self.seq)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -241,14 +250,16 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 def ssm_apply(params: Params, u: torch.Tensor, cfg: ModelConfig,
               init_state: Optional[torch.Tensor] = None,
-              return_cache: bool = False):
+              return_cache: bool = False, seq: bool = False):
     """u: (B, L, d_model) -> (out, final_state) or, with ``return_cache``,
-    (out, (conv_cache (B, K-1, di+2n), ssd_state (B, nh, p, n)))."""
-    bsz, l, _ = u.shape
-    lp = _Local(params, cfg)
+    (out, (conv_cache (B, K-1, di+2n), ssd_state (B, nh, p, n))).
+    ``seq``: ``u`` is this rank's span of the L positions, gathered on
+    entry (the scan runs over every position), and ``out`` its span."""
+    lp = _Local(params, cfg, seq)
     di, n, nh, p = lp.d_inner, cfg.ssm_state, lp.n_heads, cfg.ssm_head_dim
-    if lp.partitioned:
-        u = sharding.enter(u)
+    if lp.partial:
+        u = sharding.enter(u, seq)
+    bsz, l, _ = u.shape
     z = u @ lp.w_z
     xr_raw = u @ lp.w_x
     Br_raw = u @ lp.w_B

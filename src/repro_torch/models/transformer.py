@@ -15,9 +15,11 @@ them), and keep a cache of its heads (``init_cache(..., layer=)``); the
 layers below sum and gather where the JAX package's ``constrain_*``
 hints make GSPMD do so. Where the node blocks do not divide the batch
 every rank serves the whole batch, and its ``k`` / ``v`` hold its
-block's span of the positions (``sharding.cache_span``). Enc-dec
-configs run in ``models/encdec.py``; ``model_zoo.build_model`` picks
-the module.
+block's span of the positions (``sharding.cache_span``). Under the
+``seq_model`` policy the train forward keeps the residual stream as
+this rank's span of the positions where ``sharding.seq_split`` says so
+(each layer's ``seq``). Enc-dec configs run in ``models/encdec.py``;
+``model_zoo.build_model`` picks the module.
 
 Caches are dicts of tensors with the JAX package's keys (``k``, ``v``
 ``(L, B, max_len, K, hd)``, or the rank's span of ``max_len``; ``conv``,
@@ -94,36 +96,39 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig) -> Params:
     return p
 
 
-def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig
+def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, seq: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer's FFN: (out, aux_loss), the aux loss 0 for a dense one."""
     if cfg.is_moe:
-        return moe_mod.moe_apply(p["moe"], x, cfg)
-    return mlp_apply(p["mlp"], x, cfg), torch.zeros((), device=x.device)
+        return moe_mod.moe_apply(p["moe"], x, cfg, seq)
+    return (mlp_apply(p["mlp"], x, cfg, seq=seq),
+            torch.zeros((), device=x.device))
 
 
-def _mix(p: Params, a: torch.Tensor, s: torch.Tensor, cfg: ModelConfig
-         ) -> torch.Tensor:
+def _mix(p: Params, a: torch.Tensor, s: torch.Tensor, cfg: ModelConfig,
+         seq: bool = False) -> torch.Tensor:
     """Hybrid fusion: the mean of the per-branch-normalized outputs."""
-    return 0.5 * (rmsnorm(p["norm_attn"], a, cfg.norm_eps)
-                  + rmsnorm(p["norm_ssm"], s, cfg.norm_eps))
+    return 0.5 * (rmsnorm(p["norm_attn"], a, cfg.norm_eps, seq)
+                  + rmsnorm(p["norm_ssm"], s, cfg.norm_eps, seq))
 
 
-def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence (train) layer. Returns (x, aux_loss)."""
+def layer_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                seq: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence (train) layer. Returns (x, aux_loss). ``seq``: ``x``
+    is this rank's span of the sequence (``sharding.seq_split``), and so
+    is the output."""
     if cfg.family == "ssm":
-        h = rmsnorm(p["norm"], x, cfg.norm_eps)
-        h, _ = ssm_mod.ssm_apply(p["ssm"], h, cfg)
+        h = rmsnorm(p["norm"], x, cfg.norm_eps, seq)
+        h, _ = ssm_mod.ssm_apply(p["ssm"], h, cfg, seq=seq)
         return x + h, torch.zeros((), device=x.device)
-    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps, seq)
     if cfg.family == "hybrid":
-        a = attn.self_attention(p["attn"], h, cfg)
-        s, _ = ssm_mod.ssm_apply(p["ssm"], h, cfg)
-        x = x + _mix(p, a, s, cfg)
+        a = attn.self_attention(p["attn"], h, cfg, seq=seq)
+        s, _ = ssm_mod.ssm_apply(p["ssm"], h, cfg, seq=seq)
+        x = x + _mix(p, a, s, cfg, seq)
     else:
-        x = x + attn.self_attention(p["attn"], h, cfg)
-    f, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        x = x + attn.self_attention(p["attn"], h, cfg, seq=seq)
+    f, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps, seq), cfg, seq)
     return x + f, aux
 
 
@@ -154,11 +159,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def _embed_inputs(params: Params, batch: Dict[str, torch.Tensor],
-                  cfg: ModelConfig) -> torch.Tensor:
+                  cfg: ModelConfig, seq: bool = False) -> torch.Tensor:
     """Token embeddings; for vlm, ``patch_embeds`` (B, P, d) in their
     place at the leading P positions, cast to the activation type. As in
-    the JAX package, P > S gives P positions."""
-    x = embed_tokens(params["embed"], batch["tokens"])
+    the JAX package, P > S gives P positions. ``seq``: this rank's span
+    of the positions (never for a vlm batch)."""
+    x = (embed_tokens(params["embed"], batch["tokens"], seq=True) if seq
+         else embed_tokens(params["embed"], batch["tokens"]))
     if cfg.family == "vlm" and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
         x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
@@ -169,14 +176,20 @@ def forward(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             remat: str = "full") -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits (B, S, V), aux_loss). ``remat`` ("full",
     "selective", "none") is applied to each layer, as the JAX package
-    applies it to its scan body (``layers.remat_apply``)."""
-    x = _embed_inputs(params, batch, cfg)
+    applies it to its scan body (``layers.remat_apply``). Under the
+    ``seq_model`` policy the residual stream lives as this rank's span
+    of the positions where ``sharding.seq_split`` says so; a vlm batch
+    with patch embeddings keeps the batch layout (a layout, not a
+    result, apart from the reference)."""
+    seq = sharding.seq_split(batch["tokens"].shape[1]) and not (
+        cfg.family == "vlm" and "patch_embeds" in batch)
+    x = _embed_inputs(params, batch, cfg, seq)
     aux = torch.zeros((), device=x.device)
     for layer_params in params["layers"]:
-        x, a = remat_apply(layer_apply, remat, layer_params, x, cfg)
+        x, a = remat_apply(layer_apply, remat, layer_params, x, cfg, seq)
         aux = aux + a
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return unembed(params["embed"], x, cfg), aux
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps, seq)
+    return unembed(params["embed"], x, cfg, seq), aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,

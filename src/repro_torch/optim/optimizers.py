@@ -29,21 +29,38 @@ optimizer the tree of this rank's blocks (``sharding.locals_of``: each
 the blocks' shapes and a rank holds only its blocks' state. The global
 norm then counts each element of the global gradient once: each
 leaf's sum of squares weighed by one over the ranks that hold it
-(``sharding.holders``), summed over the world. Adafactor factors and
-clips over whole stacked leaves, which across split ranks needs sums
-across blocks; it raises there (ROADMAP.md A4(d2b3)).
+(``sharding.holders``), summed over the world.
+
+Adafactor there computes the reference's update of each *global*
+stacked leaf, a rank updating its blocks: its ``vs`` holds the ``vr``
+rows and ``vc`` columns of its block, so its bytes follow its blocks.
+The step also hands it the ``Shard``s (``shards``), whose specs say
+where each block sits in the global leaf. The sums that span blocks --
+the row and column means of ``g^2 + eps`` over the global last and
+second-to-last axes, the mean of ``vr`` over its global last axis, and
+the RMS of the step over the whole global leaf -- are each a rank's
+partial sum placed at its global offset in a zero buffer, weighed by
+one over the ranks that hold the same block (or rows:
+``sharding.sharers``, the one rule), and summed over the world, so that
+every distinct block counts once however many FSDP blocks or ``model``
+positions repeat it. Each of the three is one bucketed ``all_reduce``
+a step over every leaf (``collectives.all_reduce_sum``, counted as
+``adafactor_factors``, ``adafactor_denom`` and ``adafactor_rms``). A
+leaf whose block is the whole leaf -- every leaf on a rank that holds
+all of a node block's storage alone, a replicated leaf -- takes the
+one-card arithmetic unchanged and no collective.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.config import TrainConfig
 from repro_torch.core.replication import tree_flatten, tree_unflatten
-from repro_torch.distributed import collectives
-from repro_torch.distributed.context import get_mesh_context
+from repro_torch.distributed import collectives, sharding
+from repro_torch.distributed.context import MeshContext, get_mesh_context
 
 OptState = Dict[str, Any]
 
@@ -102,16 +119,6 @@ def clip_by_global_norm(grads: Any, max_norm: float,
     norm = global_norm(grads, holders, group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
-
-
-def _refuse_split(what: str) -> None:
-    """Raise under a mesh context whose ranks split ``model``."""
-    ctx = get_mesh_context()
-    if ctx is not None and ctx.split_model:
-        raise NotImplementedError(
-            f"{what} across ranks that split the model axis (A4(d2b3) in "
-            f"ROADMAP.md): Adafactor factors and clips over whole stacked "
-            f"leaves; use adamw or sgd")
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +199,9 @@ def _stack_leaves(tree: Any) -> List[Any]:
 
 
 def adafactor_init(params: Any, cfg: TrainConfig) -> OptState:
-    _refuse_split("adafactor")
+    """Zero factored moments of each stacked leaf of ``params`` (a
+    rank's blocks across ranks that split ``model``: its rows and
+    columns)."""
     def factored(x: Any) -> Dict[str, torch.Tensor]:
         lead = (len(x),) if _is_stack(x) else ()
         t = x[0] if _is_stack(x) else x
@@ -210,10 +219,50 @@ def adafactor_init(params: Any, cfg: TrainConfig) -> OptState:
     return {"vs": walk(_stacked(params)), "count": 0}
 
 
+class _Part(NamedTuple):
+    """Where a rank's block of a stacked leaf sits in the global one:
+    the global stacked shape, the block's slices, and one over the ranks
+    holding the same block (``whole``) and the same rows, every
+    dimension but the last (``rows``)."""
+    shape: Tuple[int, ...]
+    at: Tuple[slice, ...]
+    whole: float
+    rows: float
+
+
+def _part(shard: Any, ctx: MeshContext) -> Optional[_Part]:
+    """The :class:`_Part` of a stacked leaf of ``Shard``s (a list, or
+    one), or ``None`` where this rank's block is the whole leaf."""
+    lead = (len(shard),) if isinstance(shard, list) else ()
+    leaf = shard[0] if lead else shard
+    if not isinstance(leaf, sharding.Shard) or \
+            tuple(leaf.local.shape) == tuple(leaf.shape):
+        return None
+    nd = len(leaf.shape)
+    return _Part(
+        shape=lead + tuple(leaf.shape),
+        at=(slice(None),) * len(lead) + sharding.block_slices(
+            leaf.spec, leaf.shape, ctx),
+        whole=1.0 / sharding.sharers(leaf, ctx, range(nd)),
+        rows=1.0 / sharding.sharers(leaf, ctx, range(nd - 1)))
+
+
+def _placed(shape: Tuple[int, ...], at: Tuple[slice, ...],
+            part: torch.Tensor, w: float) -> torch.Tensor:
+    """A zero f32 tensor of the global ``shape`` holding ``w * part``
+    at ``at``."""
+    buf = torch.zeros(shape, dtype=torch.float32, device=part.device)
+    buf[at] = part * w
+    return buf
+
+
 @torch.no_grad()
 def adafactor_update(grads: Any, state: OptState, params: Any, lr: float,
-                     cfg: TrainConfig) -> Tuple[Any, OptState]:
-    _refuse_split("adafactor")
+                     cfg: TrainConfig, shards: Any = None
+                     ) -> Tuple[Any, OptState]:
+    """The reference's Adafactor step, in place. ``shards``, given
+    across ranks that split ``model``, is the ``Shard`` tree whose
+    blocks ``params`` holds (module docstring)."""
     eps = 1e-30
     count = state["count"] + 1
     beta2t = float(1.0 - (torch.tensor(float(count), dtype=torch.float32)
@@ -241,17 +290,104 @@ def adafactor_update(grads: Any, state: OptState, params: Any, lr: float,
         p32 = p.float()
         return p32 - lr * (step + wd * p32)
 
-    for g, v, p in zip(_stack_leaves(_stacked(grads)),
-                       _stack_leaves_v(state["vs"]),
-                       _stack_leaves(_stacked(params))):
+    def stacked(x: Any) -> torch.Tensor:
+        return torch.stack(x) if _is_stack(x) else x
+
+    def write(p: Any, new: torch.Tensor) -> None:
         if _is_stack(p):
-            new = upd(torch.stack(g), v, torch.stack(p))
             for dst, src in zip(p, new.unbind(0)):
                 dst.copy_(src)
         else:
-            p.copy_(upd(g, v, p))
+            p.copy_(new)
+
+    ctx = get_mesh_context()
+    parts = [None] * len(_stack_leaves(_stacked(params)))
+    if shards is not None and ctx is not None and ctx.split_model and \
+            ctx.group is not None:
+        parts = [_part(x, ctx) for x in _stack_leaves(_stacked(shards))]
+    split = []
+    for g, v, p, part in zip(_stack_leaves(_stacked(grads)),
+                             _stack_leaves_v(state["vs"]),
+                             _stack_leaves(_stacked(params)), parts):
+        if part is None:
+            write(p, upd(stacked(g), v, stacked(p)))
+        else:
+            split.append((g, v, p, part))
+    if split:
+        _split_update(split, stacked, write, beta2t, lr, wd, eps, ctx)
     state["count"] = count
     return params, state
+
+
+def _factor_sums(g2: torch.Tensor, q: _Part
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A block's partial row and column sums of ``g2``, each placed in
+    a zero buffer of the global ``vr`` / ``vc`` shape at the block's
+    offset, weighed by one over the ranks holding the same block."""
+    return (_placed(q.shape[:-1], q.at[:-1], g2.sum(dim=-1), q.whole),
+            _placed(q.shape[:-2] + q.shape[-1:], q.at[:-2] + q.at[-1:],
+                    g2.sum(dim=-2), q.whole))
+
+
+def _square_sum(step: torch.Tensor, q: _Part) -> torch.Tensor:
+    """A block's partial sum of squares of the step, weighed by one over
+    the ranks holding the same block."""
+    return torch.sum(torch.square(step)) * q.whole
+
+
+def _split_update(leaves: List[tuple], stacked: Callable, write: Callable,
+                  beta2t: float, lr: float, wd: float, eps: float,
+                  ctx: MeshContext) -> None:
+    """Adafactor's update of the blocks of leaves split across ranks,
+    ``(grad, vs, param, _Part)`` each: the reference's ``upd`` on the
+    global leaf, its three sums across blocks each one bucketed
+    ``all_reduce`` over the world (module docstring)."""
+    def reduce(bufs: List[torch.Tensor], name: str) -> None:
+        collectives.all_reduce_sum(bufs, 1.0, ctx, group=ctx.group,
+                                   name=name)
+
+    def sq(g: Any) -> torch.Tensor:
+        return torch.square(stacked(g).float()) + eps
+
+    factored = [x for x in leaves if len(x[3].shape) >= 2]
+    # the row and column sums of g^2 + eps over the global leaf
+    sums = [_factor_sums(sq(g), q) for g, _, _, q in factored]
+    reduce([t for pair in sums for t in pair], "adafactor_factors")
+    for (_, v, _, q), (rows, cols) in zip(factored, sums):
+        v["vr"].mul_(beta2t).add_(rows[q.at[:-1]] / q.shape[-1],
+                                  alpha=1 - beta2t)
+        v["vc"].mul_(beta2t).add_(cols[q.at[:-2] + q.at[-1:]]
+                                  / q.shape[-2], alpha=1 - beta2t)
+    for g, v, _, q in leaves:
+        if len(q.shape) < 2:
+            v["v"].mul_(beta2t).add_(sq(g), alpha=1 - beta2t)
+    # the mean of vr over its global last axis
+    vr_sums = [_placed(q.shape[:-2], q.at[:-2], v["vr"].sum(dim=-1),
+                       q.rows) for _, v, _, q in factored]
+    reduce(vr_sums, "adafactor_denom")
+    means = {id(v): s[q.at[:-2]] / q.shape[-2]
+             for (_, v, _, q), s in zip(factored, vr_sums)}
+
+    def step_of(g: Any, v: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if "vr" in v:
+            denom = torch.sqrt(
+                v["vr"][..., :, None] * v["vc"][..., None, :]
+                / torch.clamp(means[id(v)][..., None, None], min=eps))
+        else:
+            denom = torch.sqrt(v["v"])
+        return stacked(g).float() / torch.clamp(denom, min=1e-12)
+
+    # the RMS of the step over the whole global leaf
+    ss = torch.stack([_square_sum(step_of(g, v), q) for g, v, _, q in leaves])
+    reduce([ss], "adafactor_rms")
+    for (g, v, p, q), total in zip(leaves, ss):
+        n = 1
+        for size in q.shape:
+            n *= size
+        rms = torch.sqrt(total / n + 1e-12)
+        step = step_of(g, v) / torch.clamp(rms, min=1.0)
+        p32 = stacked(p).float()
+        write(p, p32 - lr * (step + wd * p32))
 
 
 def _stack_leaves_v(tree: Any) -> List[Dict[str, torch.Tensor]]:
@@ -288,15 +424,21 @@ def sgd_update(grads: Any, state: OptState, params: Any, lr: float,
 # ---------------------------------------------------------------------------
 
 def make_optimizer(cfg: TrainConfig) -> Tuple[Callable, Callable]:
-    """``(init(params), update(grads, state, params, lr))``; ``update``
-    writes ``state`` and ``params`` in place and returns them."""
+    """``(init(params), update(grads, state, params, lr, shards=None))``;
+    ``update`` writes ``state`` and ``params`` in place and returns
+    them. Across ranks that split ``model`` ``params`` are a rank's
+    blocks and ``shards`` the ``Shard`` tree that holds them, which
+    Adafactor reads (module docstring) and the others ignore."""
     if cfg.optimizer == "adamw":
         return (lambda p: adamw_init(p, cfg),
-                lambda g, s, p, lr: adamw_update(g, s, p, lr, cfg))
+                lambda g, s, p, lr, shards=None:
+                adamw_update(g, s, p, lr, cfg))
     if cfg.optimizer == "adafactor":
         return (lambda p: adafactor_init(p, cfg),
-                lambda g, s, p, lr: adafactor_update(g, s, p, lr, cfg))
+                lambda g, s, p, lr, shards=None:
+                adafactor_update(g, s, p, lr, cfg, shards))
     if cfg.optimizer == "sgd":
         return (lambda p: sgd_init(p, cfg),
-                lambda g, s, p, lr: sgd_update(g, s, p, lr, cfg))
+                lambda g, s, p, lr, shards=None:
+                sgd_update(g, s, p, lr, cfg))
     raise ValueError(f"unknown optimizer {cfg.optimizer}")

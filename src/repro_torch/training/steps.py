@@ -39,7 +39,9 @@ gradients over ``model`` and reduce-scatters the gathered leaves over
 the FSDP group. What is left is summed over the FSDP group: the leaves
 whose storage no gather reduced (``sharding.holders``), and the loss.
 The global norm weighs each leaf by one over its holders and sums over
-the world; the optimizer updates the blocks (``sharding.locals_of``).
+the world; the optimizer updates the blocks (``sharding.locals_of``),
+and reads the ``Shard``s where its sums span blocks (Adafactor's
+factored moments and RMS clip, ``optim/optimizers.py``).
 This stands for the JAX step that GSPMD partitions on the same mesh
 (``src/repro/training/steps.py:67-72``). The replicating variants
 replicate the rank's updated ``Shard`` blocks, under ``no_grad``, at its
@@ -217,8 +219,9 @@ def make_train_step(run: RunConfig, model: Model,
             lr = schedule(state.step)
             held = sharding.locals_of(state.params) if split \
                 else state.params
-            new_params, new_opt = opt_update(grads, state.opt_state, held,
-                                             lr)
+            new_params, new_opt = opt_update(
+                grads, state.opt_state, held, lr,
+                state.params if split else None)
         if split:
             new_params = state.params     # its blocks updated in place
         del grads

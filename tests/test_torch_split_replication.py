@@ -166,15 +166,19 @@ def _layer_named(tree, cfg):
     return out
 
 
-def _dry_run_cell():
-    """The dry run's split cell of :func:`cases.step_run`'s step, costed
-    on ``meta`` through a fake group of the mesh's world."""
+def _dry_run_cell(cell="adamw"):
+    """The dry run's split cell of :func:`cases.step_run`'s step (``cell``
+    of ``cases.STEP_CELLS``: its train overrides and activation policy),
+    costed on ``meta`` through a fake group of the mesh's world."""
     from repro_torch.launch import dryrun
     run = cases.step_run()
+    overrides, policy = cases.STEP_CELLS[cell]
     return dryrun.run_cell("qwen3-0.6b", run.shape, False, save=False,
                            model_cfg=run.model, split_model=True,
                            mesh=cases.STEP_MESH,
-                           replication=run.replication)
+                           replication=run.replication,
+                           train_overrides=overrides or None,
+                           act_policy=policy)
 
 
 @pytest.fixture(scope="module")
@@ -211,6 +215,8 @@ def runs(mesh8, pod_mesh8):
         ref["one_card"] = _one_card()
         ref["trainer"] = _jax_trainer(tree, os.path.join(root, "jax"))
         ref["dry_run"] = _dry_run_cell()
+        ref["dry_cells"] = {cell: _dry_run_cell(cell)
+                            for cell in cases.STEP_CELLS if cell != "adamw"}
         got = {w: cases.finish(h, w, os.path.join(root, f"w{w}"))
                for w, h in handles.items()}
     finally:
@@ -458,6 +464,38 @@ def test_dry_run_split_cell_counts_the_step(runs):
     assert coll["total_bytes"] == sum(counted.values())
     assert all(out["step_bytes"]["bytes"]["ppermute"] == counted["ppermute"]
                for out in got[4])
+
+
+@pytest.mark.parametrize("cell", ["adafactor", "seq_model"])
+def test_dry_run_split_cells_count_their_step(runs, cell):
+    """The dry run's split cell with Adafactor (``train_overrides``) and
+    under the ``seq_model`` policy (``act_policy``), reduced qwen3 at
+    (2 x 2) on ``meta``: ``per_kind_bytes`` and ``n_ops`` are rank 0's
+    of the same step on the ``gloo`` world of 4, Adafactor's three sums
+    and the sequence collectives among them; ``opt_state_bytes_per_rank``
+    is the counted step's optimizer state (Adafactor's ``vs`` blocks);
+    the record keeps its policy and optimizer."""
+    ref, got = runs
+    rec = ref["dry_cells"][cell]
+    assert rec["status"] == "ok", rec.get("error")
+    assert rec["act_policy"] == cases.STEP_CELLS[cell][1]
+    step = got[4][0]["step_cells"][cell]
+    counted = {k: v for k, v in step["bytes"].items() if v}
+    coll = rec["collectives"]
+    assert coll["per_kind_bytes"] == counted
+    assert coll["n_ops"] == {k: v for k, v in step["counts"].items() if v}
+    assert rec["memory"]["opt_state_bytes_per_rank"] == step["opt_bytes"]
+    if cell == "adafactor":
+        assert rec["optimizer"] == "adafactor"
+        assert all(counted[k] > 0 for k in (
+            "adafactor_factors", "adafactor_denom", "adafactor_rms"))
+        adamw = ref["dry_run"]["memory"]["opt_state_bytes_per_rank"]
+        assert step["opt_bytes"] < adamw / 10
+    else:
+        assert counted["seq_gather"] > 0 and counted["seq_scatter"] > 0
+        assert "model_sum" not in counted
+        batch = ref["dry_run"]["collectives"]["per_kind_bytes"]
+        assert counted["seq_scatter"] < batch["model_sum"]
 
 
 @pytest.mark.parametrize("world,fault", [

@@ -42,10 +42,17 @@ parameters placed by its ``named_shardings`` and the batch sharded
   state at its step, the optimizer state the blocks' bytes;
 * ``fsdp_gather``'s backward where two blocks hold each part of a
   dimension: the group's sum on both, not a share;
-* Adafactor raises, naming its ROADMAP item, a fail-stop under variant
-  ``none`` raises the WB data-loss error on every rank, and a ``proactive``
-  ``Trainer`` builds and steps (replication over split ranks:
+* a fail-stop under variant ``none`` raises the WB data-loss error on
+  every rank, and a ``proactive`` and an Adafactor ``Trainer`` build and
+  step (replication over split ranks:
   ``test_torch_split_replication.py``);
+* Adafactor across split ranks: five updates of the reduced qwen3,
+  hymba and moonshot blocks (and a layout of 4 node blocks where two
+  hold each FSDP part) from seeded global gradients, the blocks and
+  their ``vr`` / ``vc`` within 1e-6 of the JAX ``adafactor_update`` on
+  the global stacked leaves, three planted faults failing that check;
+  the ``Trainer`` with Adafactor within 1e-5 of the JAX ``Trainer``'s
+  losses, its dump restoring the ``vs`` blocks;
 * ``launch/train.py --split-model --mesh 2x2`` under
   ``torch.distributed.run`` on 4 ranks: the losses within 1e-5 of a
   one-process run's.
@@ -70,8 +77,11 @@ from repro import config as JC
 from repro.distributed.context import make_context as jax_make_context
 from repro.distributed.context import make_mesh, mesh_context
 from repro.distributed.sharding import named_shardings as jax_shardings
+from repro.distributed.sharding import \
+    set_activation_policy as jax_set_policy
 from repro.models import build_model as jax_build_model
 from repro.models import transformer as jtransformer
+from repro.optim import make_optimizer as jax_make_optimizer
 from repro.optim.optimizers import clip_by_global_norm as jax_clip
 from repro.training import steps as jsteps
 from repro.training.trainer import Trainer as JTrainer
@@ -80,6 +90,8 @@ WORLDS = (2, 4)
 GRAD_TOL = 1e-4
 NORM_RTOL = 1e-5
 LOSS_RTOL = 1e-5
+#: ``test_torch_optim.py``'s tolerance of the one-card Adafactor
+ADA_RTOL = 1e-6
 MIN_MARGIN = 1e-5
 #: ROADMAP C8: on a mesh that splits both data and model the reference's
 #: gradient of the SSD's B / C conv weights is twice its gradient on every
@@ -114,10 +126,19 @@ def _jax_named(tree, cfg):
     return out
 
 
-def _jax_grads(name, tree, world):
+def _jax_grads(name, tree, world, seq=cases.SEQ, policy="batch"):
     """The JAX ``loss_fn``'s gradient (of ``cases.objective``) jitted on a
-    mesh of the world's shape, and its clip: {path: grad}, {path:
-    clipped}, the global norm, the loss."""
+    mesh of the world's shape under the activation ``policy``, at ``seq``
+    positions, and its clip: {path: grad}, {path: clipped}, the global
+    norm, the loss."""
+    try:
+        jax_set_policy(policy)
+        return _jax_grads_at(name, tree, world, seq)
+    finally:
+        jax_set_policy("batch")
+
+
+def _jax_grads_at(name, tree, world, seq):
     mesh = _mesh(world)
     jcfg = cases.config(name, JC)
     model = jax_build_model(jcfg)
@@ -129,7 +150,7 @@ def _jax_grads(name, tree, world):
                               jax_shardings(params, jcfg, ctx))
         batch = {k: jax.device_put(jnp.asarray(v), NamedSharding(
             mesh, JP(ctx.batch_axes, *([None] * (v.ndim - 1)))))
-            for k, v in cases.batch_data(name).items()}
+            for k, v in cases.batch_data(name, seq).items()}
 
         def f(p):
             total, metrics = model.loss_fn(p, batch, remat="none")
@@ -146,11 +167,11 @@ def _jax_grads(name, tree, world):
             float(obj))
 
 
-def _jax_trainer(name, tree, workdir):
+def _jax_trainer(name, tree, workdir, optimizer="adamw"):
     """The JAX ``Trainer``'s history on ``cases.TRAIN_MESH`` from
     ``tree``, jitted without donation (``test_torch_trainer.py``); the
     MoE's aux coefficient 0 (``cases.AUX_OFF``, ROADMAP C7)."""
-    jrun = cases.train_run(name, JC)
+    jrun = cases.train_run(name, JC, optimizer)
     mesh = make_mesh(cases.TRAIN_MESH, ("data", "model"),
                      devices=jax.devices()[:4])
     jtr = JTrainer(jrun, mesh, workdir)
@@ -172,6 +193,22 @@ def _jax_trainer(name, tree, workdir):
     return out
 
 
+def _jax_adafactor(tree):
+    """``cases.ADA_STEPS`` JAX Adafactor updates of the global stacked
+    ``tree`` from ``cases.ada_grads``: the parameters and the per-leaf
+    ``vs`` dicts, in leaf order, as numpy."""
+    init, update = jax_make_optimizer(JC.TrainConfig(optimizer="adafactor"))
+    p = jax.tree.map(jnp.asarray, tree)
+    s = init(p)
+    for step in range(cases.ADA_STEPS):
+        p, s = update(jax.tree.map(jnp.asarray, cases.ada_grads(tree, step)),
+                      s, p, cases.ADA_LR)
+    is_v = lambda x: isinstance(x, dict) and ("vr" in x or "v" in x)  # noqa
+    return ([np.asarray(x) for x in jax.tree.leaves(p)],
+            [{k: np.asarray(a) for k, a in v.items()}
+             for v in jax.tree.leaves(s["vs"], is_leaf=is_v)])
+
+
 @pytest.fixture(scope="module")
 def runs():
     """Both worlds, spawned together; the JAX references are computed
@@ -183,6 +220,11 @@ def runs():
         jax_build_model(cases.config(name, JC)).init(
             jax.random.PRNGKey(cases.SEED)))
         for name in cases.CONFIGS}
+    for case in cases.ADAFACTOR:
+        trees[f"ada_{case}"] = jax.tree.map(
+            lambda x: np.asarray(x, np.float32),
+            jax_build_model(cases.ada_config(case, JC)).init(
+                jax.random.PRNGKey(cases.SEED)))
     root = tempfile.mkdtemp()
     try:
         handles = {}
@@ -191,9 +233,20 @@ def runs():
             handles[w] = cases.start(w, os.path.join(root, f"w{w}"), trees)
         ref = {(name, w): _jax_grads(name, trees[name], w)
                for name in cases.CONFIGS for w in WORLDS}
+        ref.update({(case, w): _jax_grads(
+            name, trees[name], w, seq, "seq_model")
+            for case, (name, _, seq) in cases.SEQ_GRADS.items()
+            if not case.endswith("_remat") for w in WORLDS})
         train = {name: _jax_trainer(name, trees[name],
                                     os.path.join(root, f"j{name}"))
                  for name in cases.TRAIN}
+        train.update({
+            f"{name}_adafactor": _jax_trainer(
+                name, trees[name], os.path.join(root, f"ja{name}"),
+                "adafactor") for name in cases.TRAIN_ADAFACTOR})
+        train["adafactor_updates"] = {
+            case: _jax_adafactor(trees[f"ada_{case}"])
+            for case in cases.ADAFACTOR}
         got = {w: cases.finish(h, w, os.path.join(root, f"w{w}"))
                for w, h in handles.items()}
     finally:
@@ -224,16 +277,17 @@ def _worst(ranks, kind, case, want):
                for r in ranks)
 
 
-def _reference(ref, name, world):
+def _reference(ref, name, world, key=None):
     """The JAX gradients, clipped gradients, norm and loss the port is
     held to: the mesh of the world's shape; for the leaves of ROADMAP C8
     on the (2 x 2) mesh, the (1 x 2) mesh's, which every mesh but one
     that splits both data and model gives (hymba routes no experts, so
     its gradient does not depend on the data blocks; the norm moves by
     ~4e-7)."""
-    grads, clipped, norm, obj = ref[(name, world)]
+    key = key or name
+    grads, clipped, norm, obj = ref[(key, world)]
     if name == "hymba" and world == 4:
-        other = ref["hymba", 2]
+        other = ref[key, 2]
         grads, clipped = dict(grads), dict(clipped)
         for path in grads:
             if path.endswith(C8_LEAVES):
@@ -259,6 +313,89 @@ def test_gradients_match_jax_on_a_mesh(runs, world, case):
     if name == "moonshot":
         margin = min(r["grads"][case]["margin"] for r in got[world])
         assert margin >= MIN_MARGIN, margin
+
+
+def _seq_reference(ref, case, world):
+    """The JAX reference of a ``seq_model`` case (its ``_remat`` twin
+    reads the case's own: remat changes no value)."""
+    name = cases.SEQ_GRADS[case][0]
+    key = case[:-len("_remat")] if case.endswith("_remat") else case
+    return _reference(ref, name, world, key)
+
+
+@pytest.mark.parametrize("case", list(cases.SEQ_GRADS))
+@pytest.mark.parametrize("world", WORLDS)
+def test_seq_model_gradients_match_jax_on_a_mesh(runs, world, case):
+    """Under ``set_activation_policy("seq_model")`` in both packages: every
+    leaf's block on every rank within 1e-4 of the JAX gradient's max
+    |value| on the same mesh (hymba's C8 leaves at world 4 against the
+    (1 x 2) mesh, as under the batch policy), the loss within 1e-5, and
+    every leaf ``model`` does not split ``==`` across the ``model``
+    group."""
+    ref, _, got = runs
+    name = cases.SEQ_GRADS[case][0]
+    grads, clipped, norm, obj = _seq_reference(ref, case, world)
+    for r in got[world]:
+        rec = r["seq_grads"][case]
+        errs = _leaf_errors(rec, grads)
+        assert max(errs.values()) <= GRAD_TOL, sorted(
+            errs.items(), key=lambda kv: -kv[1])[:5]
+        errs = _leaf_errors(rec, clipped, key="clipped")
+        assert max(errs.values()) <= GRAD_TOL
+        assert len(rec["leaves"]) == len(grads)
+        assert rec["loss"] == pytest.approx(obj, rel=LOSS_RTOL)
+        assert rec["grad_norm"] == pytest.approx(norm, rel=NORM_RTOL)
+    blocks = {}
+    for r in got[world]:
+        blocks.setdefault(r["block"], []).append(r["seq_grads"][case])
+    for group in blocks.values():
+        for other in group[1:]:
+            for a, b in zip(group[0]["leaves"], other["leaves"]):
+                if not a["split"]:
+                    assert np.array_equal(a["clipped"], b["clipped"]), \
+                        a["path"]
+    if name == "moonshot":
+        margin = min(r["seq_grads"][case]["margin"] for r in got[world])
+        assert margin >= MIN_MARGIN, margin
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_seq_model_swaps_the_tp_collectives(runs, world):
+    """qwen3 under ``seq_model``: no ``model_sum`` is left, each layer's
+    two regions enter by a sequence all-gather and leave by a
+    reduce-scatter (with the embedding's and the unembedding's), each
+    backward run once; under ``remat="full"`` the forward's run again and
+    the backward's do not. whisper at 39 decoder positions (not divided
+    by ``m``) keeps its decoder's ``model_sum``s while its encoder's
+    frames are spans."""
+    _, _, got = runs
+    layers = cases.config("qwen3").n_layers
+    for r in got[world]:
+        c = r["seq_grads"]["qwen3_seq"]["counts"]
+        full = r["seq_grads"]["qwen3_seq_remat"]["counts"]
+        assert c["model_sum"] == 0 and c["seq_scatter"] == 2 * layers + 1
+        assert c["seq_gather"] == 2 * layers + 1
+        assert c["seq_gather_bwd"] == c["seq_gather"]
+        assert c["seq_scatter_bwd"] == c["seq_scatter"]
+        for k in c:
+            if k.endswith("_bwd"):
+                assert full[k] == c[k], k
+        assert full["seq_gather"] > c["seq_gather"]
+        odd = r["seq_grads"]["whisper_odd"]["counts"]
+        assert odd["model_sum"] > 0 and odd["seq_gather"] > 0
+
+
+@pytest.mark.parametrize("world,fault", [
+    (w, f) for w in WORLDS for f in cases.SEQ_FAULTS])
+def test_seq_model_planted_fault_fails_the_check(runs, world, fault):
+    """The sequence reduce-scatter's backward as the identity on the
+    rank's span, a norm's scale read on the span without the ``model``
+    sum, and the next position's span taken for this rank's: each fails
+    the gradient check."""
+    ref, _, got = runs
+    case = cases.SEQ_FAULTS[fault]
+    grads = _seq_reference(ref, case, world)[0]
+    assert _worst(got[world], "seq_faults", fault, grads) > GRAD_TOL
 
 
 def test_reference_conv_bc_gradient_doubled_on_2x2_contract(runs):
@@ -386,19 +523,133 @@ def test_dump_restores_a_ranks_blocks(runs, world, name):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_refusals_name_their_roadmap_items(runs, world):
-    """On every rank: Adafactor (A4(d2b3)) raises
-    ``NotImplementedError``; a fail-stop under variant ``none`` raises
-    the WB data-loss ``RuntimeError``; a ``proactive`` ``Trainer`` on the
-    (2 x 2) mesh builds and steps (its replication is A4(d2b2), done)."""
+    """On every rank: a fail-stop under variant ``none`` raises the WB
+    data-loss ``RuntimeError``; a ``proactive`` ``Trainer`` on the (2 x
+    2) mesh builds and steps (its replication is A4(d2b2), done), and so
+    does an Adafactor one (A4(d2b3), done)."""
     _, _, got = runs
     for r in got[world]:
         ref = r["refusals"]
         assert ref["replicating"] == "none"
-        assert ref["adafactor"].startswith("NotImplementedError")
-        assert "A4(d2b3)" in ref["adafactor"]
+        assert ref["adafactor"] == "none"
         assert ref["fail_stop"].startswith("RuntimeError")
         assert "WB data-loss" in ref["fail_stop"]
         assert not r["jax_imported"]
+
+
+def _ada_errors(rec, want):
+    """Each stacked leaf's block, ``vr`` and ``vc`` (or ``v``) against
+    the JAX update's global leaf at the block's rows and columns, over
+    the global leaf's max |value|: the worst of each leaf."""
+    params, vs = want
+    assert len(rec["leaves"]) == len(params) == len(vs)
+    errs = {}
+    for leaf, p, v in zip(rec["leaves"], params, vs):
+        at = (tuple(slice(None) if x is None else slice(*x)
+                    for x in leaf["slices"]) if leaf["slices"] is not None
+              else (slice(None),) * p.ndim)
+        pairs = [(leaf["param"], p, at)]
+        if "vr" in v:
+            pairs += [(leaf["vs"]["vr"], v["vr"], at[:-1]),
+                      (leaf["vs"]["vc"], v["vc"], at[:-2] + at[-1:])]
+        else:
+            pairs += [(leaf["vs"]["v"], v["v"], at)]
+        worst = 0.0
+        for got, glob, sl in pairs:
+            w = glob[sl]
+            if got.shape != w.shape:
+                worst = np.inf
+                break
+            worst = max(worst, float(np.abs(got - w).max())
+                        / max(float(np.abs(glob).max()), 1e-30))
+        errs[leaf["path"]] = worst
+    return errs
+
+
+@pytest.mark.parametrize("world,case", [
+    (w, c) for w in WORLDS for c in cases.ADAFACTOR
+    if w in cases.ADAFACTOR[c][2]])
+def test_adafactor_updates_match_jax_on_the_global_leaves(runs, world,
+                                                          case):
+    """Five Adafactor updates of each rank's blocks from seeded global
+    gradients: every block, and the ``vr`` / ``vc`` at its rows and
+    columns, within ``test_torch_optim.py``'s RTOL (1e-6 of the leaf's
+    max |value|) of the JAX ``adafactor_update`` on the global stacked
+    leaves; ``parts`` has two node blocks holding each FSDP part. The
+    three sums across blocks are one ``all_reduce`` each a step, and the
+    ``vs`` bytes follow the blocks (fewer than the global leaves')."""
+    _, train, got = runs
+    want = train["adafactor_updates"][case]
+    for r in got[world]:
+        rec = r["adafactor"][case]
+        errs = _ada_errors(rec, want)
+        assert max(errs.values()) <= ADA_RTOL, sorted(
+            errs.items(), key=lambda kv: -kv[1])[:5]
+        assert rec["count"] == cases.ADA_STEPS
+        for k in ("adafactor_factors", "adafactor_denom", "adafactor_rms"):
+            assert rec["counts"][k] == cases.ADA_STEPS, k
+        assert any(leaf["slices"] is not None for leaf in rec["leaves"])
+    glob = sum(a.nbytes for v in want[1] for a in v.values())
+    assert all(r["adafactor"][case]["vs_bytes"] < glob for r in got[world])
+
+
+@pytest.mark.parametrize("world,fault", [
+    (w, f) for w in WORLDS for f in cases.ADA_FAULTS
+    if w in cases.ADAFACTOR[cases.ADA_FAULTS[f]][2]])
+def test_adafactor_planted_fault_fails_the_check(runs, world, fault):
+    """Each planted fault of the split Adafactor breaks the check above:
+    ``vr`` not summed over the column blocks, the RMS's sum without the
+    holders' weight, a repeated FSDP part counted twice."""
+    _, train, got = runs
+    case = cases.ADA_FAULTS[fault]
+    want = train["adafactor_updates"][case]
+    worst = max(max(_ada_errors(r["adafactor_faults"][fault],
+                                want).values()) for r in got[world])
+    assert worst > ADA_RTOL, worst
+
+
+@pytest.mark.parametrize("world", WORLDS)
+@pytest.mark.parametrize("name", list(cases.TRAIN_ADAFACTOR))
+def test_adafactor_trainer_matches_the_jax_trainer(runs, world, name):
+    """The split ``Trainer`` with Adafactor on the (2 x 2) mesh: every
+    loss, ``ce_loss`` and global norm of every rank within 1e-5 of the
+    JAX ``Trainer``'s; the dump restores the rank's blocks and ``vs``
+    ``==``, and the ``vs`` bytes are the reckoning of its blocks' rows
+    and columns."""
+    _, train, got = runs
+    want = train[f"{name}_adafactor"]
+    for r in got[world]:
+        t = r["train_adafactor"][name]
+        hist = t["history"]
+        assert len(hist) == len(want) == cases.TRAIN_ADAFACTOR[name]
+        for a, b in zip(hist, want):
+            for key in ("loss", "ce_loss", "grad_norm"):
+                assert a[key] == pytest.approx(b[key], rel=LOSS_RTOL), \
+                    (key, a, b)
+        assert t["restored_equal"]
+        assert t["dump_dir"] == f"rank{r['rank']:05d}"
+        assert t["opt_trees"] == 0
+        assert t["opt_bytes"] == t["vs_reckoned"] > 0
+
+
+def test_activation_policy_names_values_and_refusal():
+    """The port's policy takes the reference's names and values, and
+    both refuse another with ``ValueError``; ``"batch"`` is the
+    default."""
+    from repro.distributed import sharding as jshard
+    from repro_torch.distributed import sharding as tshard
+    assert tshard.get_activation_policy() == "batch"
+    try:
+        for mod in (jshard, tshard):
+            for policy in ("seq_model", "batch"):
+                mod.set_activation_policy(policy)
+                assert mod.get_activation_policy() == policy
+            with pytest.raises(ValueError):
+                mod.set_activation_policy("seq")
+            assert mod.get_activation_policy() == "batch"
+    finally:
+        jshard.set_activation_policy("batch")
+        tshard.set_activation_policy("batch")
 
 
 def test_fsdp_gather_backward_sums_repeated_parts(runs):

@@ -62,10 +62,17 @@ def train_run(configs=None):
                                replication=train_rep(configs))
 
 
-def step_run():
+#: the dry run's split cells held to a counted step: name -> (the
+#: ``TrainConfig`` fields the cell overrides, the activation policy)
+STEP_CELLS = {"adamw": ({}, "batch"),
+              "adafactor": ({"optimizer": "adafactor"}, "batch"),
+              "seq_model": ({}, "seq_model")}
+
+
+def step_run(cell: str = "adamw"):
     """The run config of the dry run's split cell (``launch/dryrun.py``
-    builds the same): the model's default train config, the cell's
-    replication."""
+    builds the same): the model's default train config with the cell's
+    overrides (:data:`STEP_CELLS`), the cell's replication."""
     from repro_torch import config as C
     return C.RunConfig(
         model=C.get_reduced_config("qwen3-0.6b"),
@@ -73,7 +80,7 @@ def step_run():
         mesh=C.MeshConfig(*STEP_MESH),
         replication=C.ReplicationConfig(variant="proactive", n_replicas=1,
                                         log_capacity=2),
-        train=C.TrainConfig())
+        train=C.TrainConfig(**STEP_CELLS[cell][0]))
 
 
 # ---------------------------------------------------------------------------
@@ -388,18 +395,21 @@ def trainer_case(group, tree, workdir: str, fail=None) -> Dict[str, Any]:
             "ctx": (ctx.local_starts, ctx.local_sizes)}
 
 
-def step_bytes_case(group) -> Dict[str, Any]:
-    """One train step of :func:`step_run` on this rank, its collectives'
-    counts and bytes (the dry run's split cell costs the same step)."""
+def step_bytes_case(group, cell: str = "adamw") -> Dict[str, Any]:
+    """One train step of :func:`step_run` (``cell``'s) on this rank under
+    its activation policy, its collectives' counts and bytes and its
+    optimizer state's bytes (the dry run's split cell costs the same
+    step)."""
     from repro_torch.core.replication import ReplicationEngine
-    from repro_torch.distributed import collectives
+    from repro_torch.distributed import collectives, sharding
     from repro_torch.distributed.context import make_context
     from repro_torch.distributed.sharding import param_specs
     from repro_torch.models import build_model
     from repro_torch.models.model_zoo import make_batch
     from repro_torch.training import trainer as trainer_mod
+    from repro_torch.optim.optimizers import tree_leaves
     from repro_torch.training.steps import init_train_state, make_train_step
-    run = step_run()
+    run = step_run(cell)
     ctx = make_context(*STEP_MESH, device="cpu", group=group,
                        split_model=True, timeout_s=TIMEOUT_S)
     model = build_model(run.model)
@@ -412,9 +422,16 @@ def step_bytes_case(group) -> Dict[str, Any]:
     batch = {k: v[rows] for k, v in
              make_batch(run.model, run.shape, seed=0, device="cpu").items()}
     collectives.reset_counts()
-    step(state, batch)
+    try:
+        sharding.set_activation_policy(STEP_CELLS[cell][1])
+        step(state, batch)
+    finally:
+        sharding.set_activation_policy("batch")
+    opt = {k: v for k, v in state.opt_state.items() if k != "count"}
     return {"counts": dict(collectives.COUNTS),
-            "bytes": dict(collectives.BYTES), "rank": ctx.rank}
+            "bytes": dict(collectives.BYTES), "rank": ctx.rank,
+            "opt_bytes": sum(t.numel() * t.element_size()
+                             for t in tree_leaves(opt))}
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +451,8 @@ def _main(rank: int, world: int, tmpdir: str) -> None:
     if world == 4:
         out.update(pod_cases(group))
         out["step_bytes"] = step_bytes_case(group)
+        out["step_cells"] = {cell: step_bytes_case(group, cell)
+                             for cell in STEP_CELLS if cell != "adamw"}
     out["planted"] = planted_cases(group)
     root = tempfile.mkdtemp()
     try:
